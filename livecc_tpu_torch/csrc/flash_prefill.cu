@@ -2,8 +2,8 @@
 // attends causally over the static KV cache.
 //
 // Replaces: livecc_tpu/ops/pallas/attention.py:flash_prefill (_prefill_kernel),
-// the Pallas TPU kernel of the streaming prefill (bf16/fp32 cache; the int8
-// branch is not ported yet).
+// the Pallas TPU kernel of the streaming prefill, for a bf16/fp32 cache (the
+// int8 branch is flash_prefill_int8.cu; both share tile_attention.cuh).
 //
 // Contract: q [B, Hq, Sq, D] (strided view), one layer of the cache
 // k/v [B, Hk, Smax, D] (the wrapper passes the layer's base pointer of the
@@ -30,23 +30,8 @@ extern "C" int livecc_flash_prefill(int dtype, const void* q, const void* k, con
                                     int batch, int hq, int hk, int sq, int skv, int d,
                                     const long long* strides, float scale, void* stream) {
   livecc::TileParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.offset = offset;
-  p.kv_limit = kv_limit;
-  p.hq = hq;
-  p.hk = hk;
-  p.sq = sq;
-  p.skv = skv;
-  p.d = d;
-  p.q_sb = strides[0];  p.q_sh = strides[1];  p.q_ss = strides[2];
-  p.k_sb = strides[3];  p.k_sh = strides[4];  p.k_ss = strides[5];
-  p.v_sb = strides[6];  p.v_sh = strides[7];  p.v_ss = strides[8];
-  p.o_sb = strides[9];  p.o_sh = strides[10]; p.o_ss = strides[11];
-  p.scale = scale;
-  if (d <= 0 || d > livecc::kMaxHeadDim || d % 8 != 0 || hk <= 0 || hq % hk != 0 || sq <= 0)
+  if (!livecc::prefill_params(p, q, k, v, nullptr, nullptr, o, offset, kv_limit, hq, hk, sq,
+                              skv, d, strides, scale, false))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == livecc::kFloat32) return livecc::launch_tile_attention<float, true>(p, batch, s);

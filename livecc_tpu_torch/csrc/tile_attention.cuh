@@ -1,6 +1,7 @@
 // One online-softmax attention kernel over 64-query tiles, shared by
-// K1 (flash_prefill.cu: causal, per-row offset and kv_limit, GQA) and
-// K3 (vit_attention.cu: bidirectional within one temporal group).
+// K1 (flash_prefill.cu: causal, per-row offset and kv_limit, GQA), its int8
+// variant (flash_prefill_int8.cu: QUANT, int8 K/V with per-key bf16 scales)
+// and K3 (vit_attention.cu: bidirectional within one temporal group).
 //
 // Block = (64-query tile, q head, batch row or group); 128 threads.
 // The block walks key tiles of 64 in order: this loop takes the place of the
@@ -15,6 +16,13 @@
 //
 // Strides are in elements and the head dim must be unit-stride, so q in
 // [B, S, H, D] memory is read through its [B, H, S, D] view without a copy.
+//
+// QUANT (the TPU kernel's `quantized` branch, attention.py:78-99): K/V tiles
+// are read from device memory as int8 (half the bytes of bf16) and widened
+// exactly to fp32 in shared memory; each key tile's lane-major scales
+// (positions unit-stride) sit beside it. Scores are (q.k * scale) * k_scale,
+// the running sum l takes p before the value scale, and p * v_scale stays
+// fp32 for the p.v product (V is fp32 in that branch, so p is not rounded).
 
 #pragma once
 
@@ -29,11 +37,14 @@ struct TileParams {
   void* o;
   const int* offset;     // [B] device int32, or nullptr (bidirectional)
   const int* kv_limit;   // [B] device int32, or nullptr (= Skv)
+  const __nv_bfloat16* k_scale;   // QUANT: [B, Hk, 1, Skv] lane-major scales
+  const __nv_bfloat16* v_scale;
   int hq, hk, sq, skv, d;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
+  long long ks_sb, ks_sh, vs_sb, vs_sh;
   float scale;
 };
 
@@ -43,13 +54,15 @@ constexpr int kTileThreads = 128;
 
 inline size_t tile_smem_bytes(int d) {
   const int ld = d + 1;
-  return sizeof(float) * (size_t)((kTileQ + 2 * kTileK) * ld + kTileQ * (kTileK + 1) + 3 * kTileQ);
+  return sizeof(float) *
+         (size_t)((kTileQ + 2 * kTileK) * ld + kTileQ * (kTileK + 1) + 3 * kTileQ + 2 * kTileK);
 }
 
 namespace {
 
-template <typename T, bool CAUSAL>
+template <typename T, bool CAUSAL, bool QUANT>
 __global__ void __launch_bounds__(kTileThreads) tile_attention_kernel(TileParams p) {
+  using KV = typename std::conditional<QUANT, int8_t, T>::type;
   extern __shared__ float smem[];
   const int d = p.d;
   const int ld = d + 1;
@@ -60,6 +73,8 @@ __global__ void __launch_bounds__(kTileThreads) tile_attention_kernel(TileParams
   float* sM = sS + kTileQ * (kTileK + 1);   // [64] running max
   float* sL = sM + kTileQ;                  // [64] running sum
   float* sAlpha = sL + kTileQ;              // [64] rescale of this step
+  float* sKs = sAlpha + kTileQ;             // [64] QUANT: this tile's key scales
+  float* sVs = sKs + kTileK;                // [64] QUANT: this tile's value scales
 
   const int tid = threadIdx.x;
   const int tx = tid % 8;                   // column group: cols/dims tx + 8j
@@ -77,8 +92,10 @@ __global__ void __launch_bounds__(kTileThreads) tile_attention_kernel(TileParams
   if (CAUSAL) kv_end = min(kv_end, offset + q0 + kTileQ);
 
   const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const KV* kb = static_cast<const KV*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const KV* vb = static_cast<const KV*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const __nv_bfloat16* ksb = QUANT ? p.k_scale + b * p.ks_sb + kvh * p.ks_sh : nullptr;
+  const __nv_bfloat16* vsb = QUANT ? p.v_scale + b * p.vs_sb + kvh * p.vs_sh : nullptr;
   T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
 
   load_tile(sQ, ld, qb + (long long)q0 * p.q_ss, p.q_ss, 0, kTileQ, p.sq - q0, d);
@@ -96,6 +113,10 @@ __global__ void __launch_bounds__(kTileThreads) tile_attention_kernel(TileParams
     __syncthreads();   // the previous step is done with sK, sV, sS
     load_tile(sK, ld, kb + (long long)k0 * p.k_ss, p.k_ss, 0, kTileK, limit - k0, d);
     load_tile(sV, ld, vb + (long long)k0 * p.v_ss, p.v_ss, 0, kTileK, limit - k0, d);
+    if (QUANT) {
+      load_scales(sKs, ksb + k0, kTileK, limit - k0);
+      load_scales(sVs, vsb + k0, kTileK, limit - k0);
+    }
     __syncthreads();
 
     // S = scale * Q K^T on this thread's 4x8 tile, masked
@@ -124,7 +145,8 @@ __global__ void __launch_bounds__(kTileThreads) tile_attention_kernel(TileParams
         const int col = tx + 8 * j;
         const int kpos = k0 + col;
         const bool ok = kpos < limit && (!CAUSAL || kpos <= qpos);
-        sS[r * (kTileK + 1) + col] = ok ? s[i][j] * p.scale : kNegInf;
+        const float sc = QUANT ? (s[i][j] * p.scale) * sKs[col] : s[i][j] * p.scale;
+        sS[r * (kTileK + 1) + col] = ok ? sc : kNegInf;
       }
     }
     __syncthreads();
@@ -144,7 +166,7 @@ __global__ void __launch_bounds__(kTileThreads) tile_attention_kernel(TileParams
         const float sv = row[c];
         const float pv = sv == kNegInf ? 0.f : expf(sv - m_new);
         sum += pv;
-        row[c] = round_to<T>(pv);
+        row[c] = QUANT ? pv * sVs[half * (kTileK / 2) + c] : round_to<T>(pv);
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       __syncwarp();
@@ -195,16 +217,46 @@ __global__ void __launch_bounds__(kTileThreads) tile_attention_kernel(TileParams
 
 // Launch over grid (ceil(Sq / 64), Hq, n_batch) on `stream`; returns
 // cudaGetLastError() so a refused launch is reported, not lost.
-template <typename T, bool CAUSAL>
+template <typename T, bool CAUSAL, bool QUANT = false>
 int launch_tile_attention(const TileParams& p, int n_batch, cudaStream_t stream) {
   const size_t smem = tile_smem_bytes(p.d);
-  auto kernel = tile_attention_kernel<T, CAUSAL>;
+  auto kernel = tile_attention_kernel<T, CAUSAL, QUANT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((p.sq + kTileQ - 1) / kTileQ, p.hq, n_batch);
   kernel<<<grid, kTileThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Fill TileParams for the prefill entry points (K1 and K1-int8); `strides`
+// holds q, k, v, o as (b, h, s) and, for QUANT, the scales' (b, h) of k then
+// v. Returns false for shapes the kernel does not take.
+inline bool prefill_params(TileParams& p, const void* q, const void* k, const void* v,
+                           const void* k_scale, const void* v_scale, void* o,
+                           const int* offset, const int* kv_limit, int hq, int hk, int sq,
+                           int skv, int d, const long long* strides, float scale, bool quant) {
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.offset = offset;
+  p.kv_limit = kv_limit;
+  p.k_scale = static_cast<const __nv_bfloat16*>(k_scale);
+  p.v_scale = static_cast<const __nv_bfloat16*>(v_scale);
+  p.hq = hq;
+  p.hk = hk;
+  p.sq = sq;
+  p.skv = skv;
+  p.d = d;
+  p.q_sb = strides[0];  p.q_sh = strides[1];  p.q_ss = strides[2];
+  p.k_sb = strides[3];  p.k_sh = strides[4];  p.k_ss = strides[5];
+  p.v_sb = strides[6];  p.v_sh = strides[7];  p.v_ss = strides[8];
+  p.o_sb = strides[9];  p.o_sh = strides[10]; p.o_ss = strides[11];
+  p.ks_sb = quant ? strides[12] : 0;  p.ks_sh = quant ? strides[13] : 0;
+  p.vs_sb = quant ? strides[14] : 0;  p.vs_sh = quant ? strides[15] : 0;
+  p.scale = scale;
+  return d > 0 && d <= kMaxHeadDim && d % 8 == 0 && hk > 0 && hq % hk == 0 && sq > 0;
 }
 
 }  // namespace

@@ -35,11 +35,16 @@ def _evict_index_map(off: torch.Tensor, sink: int, keep: int, n: int) -> torch.T
 def compact_cache_row(cache: KVCache, row: int, sink: int, keep: int) -> KVCache:
     """Evict the middle of row ``row`` in place: keep ``[0, sink)`` and the
     last ``keep`` positions before its offset; the row's offset becomes
-    ``min(offset, sink + keep)``. Other rows are untouched."""
+    ``min(offset, sink + keep)``. Other rows are untouched. An int8 cache's
+    lane-major scales ``[L, B, Hk, 1, Smax]`` are gathered along their last
+    axis."""
     off = cache.offset[row].long()
     idx = _evict_index_map(off, sink, keep, cache.max_len)
     for buf in (cache.k, cache.v):
         buf[:, row] = buf[:, row].index_select(-2, idx)
+    if cache.quantized:
+        for buf in (cache.k_scale, cache.v_scale):
+            buf[:, row] = buf[:, row].index_select(-1, idx)
     offset = cache.offset.clone()
     offset[row] = torch.clamp(off, max=sink + keep).to(torch.int32)
     cache.offset = offset

@@ -160,7 +160,7 @@ def decode_chunk(
     counts: torch.Tensor,         # [B, V] int32 — token counts seen so far
     rope_delta: torch.Tensor,     # int32 [B, 1]
     generator: Optional[torch.Generator] = None,
-    active: Optional[bool] = None,   # False = no-op slot
+    active: Optional[torch.Tensor] = None,   # bool [B] (or scalar); False = no-op row
 ) -> tuple[torch.Tensor, torch.Tensor, KVCache, torch.Tensor]:
     """Decode up to max_new_tokens.
 
@@ -183,8 +183,10 @@ def decode_chunk(
         return token, token_out, counts
 
     stopped = torch.zeros(b, dtype=torch.bool, device=dev)
-    if active is not None and not active:
-        stopped = ~stopped
+    if active is not None:
+        # an inactive row (an idle pool slot) starts stopped: it emits only
+        # pad, its counts stay as they are and its offset never advances
+        stopped = ~torch.as_tensor(active, dtype=torch.bool, device=dev).expand(b)
     n_steps = gen.max_new_tokens - 1
     tokens_buf = torch.full((b, gen.max_new_tokens), gen.pad_token_id, dtype=torch.int32, device=dev)
     emitted_buf = torch.zeros((b, gen.max_new_tokens), dtype=torch.bool, device=dev)

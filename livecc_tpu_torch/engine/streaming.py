@@ -1,7 +1,8 @@
 """LiveCC streaming engine: interleaved frame-chunk prefill + word decode.
 
 Port of ``livecc_tpu/engine/streaming.py:LiveCCEngine`` (without speculative
-decoding). The per-chunk loop of the reference's ``LiveCCDemoInfer``: build
+decoding); the multi-stream pool built on it is ``serve/scheduler.py``. The
+per-chunk loop of the reference's ``LiveCCDemoInfer``: build
 the ``Time=a-b s`` turn, tokenize, prefill the chunk into one growing KV
 cache, decode up to ``max_new_tokens`` words. Kept exactly as in JAX, so the
 two engines emit the same tokens on the same weights:
@@ -32,6 +33,7 @@ from livecc_tpu_torch.engine.generation import GenerationParams, decode_chunk, p
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, VisionInputs, get_rope_index
 from livecc_tpu_torch.models.qwen2_vl.text import KVCache
 from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
+from livecc_tpu_torch.utils.metrics import LatencyTracker
 from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
 
 TOKEN_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
@@ -97,7 +99,8 @@ class LiveCCEngine:
         self.device = next(model.parameters()).device
         self.cache_len = cache_len
         # bf16 KV on the GPU (half the fp32 bytes); fp32 elsewhere (the CPU
-        # parity path)
+        # parity path). torch.int8 stores a quantized cache (half of bf16's
+        # bytes again) and runs the int8 attention kernels.
         if cache_dtype is None:
             cache_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         self.cache_dtype = cache_dtype
@@ -112,13 +115,18 @@ class LiveCCEngine:
         self._vision_aux_cache: dict = {}
         self.chunk_log: list[ChunkRecord] = []
         self._dropped = 0
+        self.metrics = LatencyTracker()
 
     # ------------------------------------------------------------------
     # state management
     # ------------------------------------------------------------------
 
-    def new_stream(self) -> StreamState:
-        cache = KVCache.zeros(self.cfg.text, 1, self.cache_len, self.cache_dtype, self.device)
+    def new_stream(self, cache_len: int | None = None) -> StreamState:
+        """``cache_len`` overrides the engine's for this stream's initial
+        cache (it doubles on demand); the serving pool starts joining streams
+        small so that N of them never hold N full-length caches beside it."""
+        n = cache_len or self.cache_len
+        cache = KVCache.zeros(self.cfg.text, 1, n, self.cache_dtype, self.device)
         counts = torch.zeros((1, self.cfg.text.vocab_size), dtype=torch.int32, device=self.device)
         return StreamState(cache=cache, counts=counts, past_ids=[])
 
@@ -137,20 +145,26 @@ class LiveCCEngine:
                 state.rope_delta += old_off - new_off
                 state.length = new_off
                 self._dropped += old_off - new_off
+                self.metrics.record("cache_compaction_dropped_tokens", float(old_off - new_off))
                 return
         new_cap = cap
         while off + needed > new_cap:
             new_cap *= 2
 
-        def grow(buf: torch.Tensor) -> torch.Tensor:
+        def grow(buf: torch.Tensor | None, dim: int) -> torch.Tensor | None:
+            # dim 3: positions of K/V [L, B, Hk, Smax, D]; dim 4: lane-major
+            # scales [L, B, Hk, 1, Smax]
+            if buf is None:
+                return None
             shape = list(buf.shape)
-            shape[3] = new_cap
+            shape[dim] = new_cap
             out = buf.new_zeros(shape)
-            out[:, :, :, :cap] = buf
+            out.narrow(dim, 0, cap).copy_(buf)
             return out
 
         c = state.cache
-        state.cache = KVCache(grow(c.k), grow(c.v), c.offset)
+        state.cache = KVCache(grow(c.k, 3), grow(c.v, 3), c.offset,
+                              grow(c.k_scale, 4), grow(c.v_scale, 4))
 
     # ------------------------------------------------------------------
     # one chunk: text+frames -> generated words
@@ -172,7 +186,8 @@ class LiveCCEngine:
             content.append({"type": "video", "video": None})
         if query is not None:
             content.append({"type": "text", "text": query})
-        return self._user_turn(state, content, frames, gen)
+        with self.metrics.measure("chunk_step"):
+            return self._user_turn(state, content, frames, gen)
 
     @torch.no_grad()
     def qa_turn(
@@ -215,6 +230,12 @@ class LiveCCEngine:
         t, h, w, _ = frames.shape
         grid = grid_for_frames(t, h, w, self.cfg.vision)
         patches = device_patchify(torch.from_numpy(np.ascontiguousarray(frames)).to(self.device))
+        return grid, self.vision_aux(grid, patches)
+
+    def vision_aux(self, grid, patches: torch.Tensor | None = None) -> VisionInputs:
+        """ViT inputs for ``grid`` around ``patches``: the rotary tables and
+        segment ids are built once per grid and kept on the device (the
+        serving pool shares them across every stream of a resolution class)."""
         aux = self._vision_aux_cache.get(grid)
         if aux is None:
             cos, sin = vision_rotary_cos_sin(
@@ -225,8 +246,8 @@ class LiveCCEngine:
             aux = tuple(torch.from_numpy(a).to(self.device) for a in (cos, sin, seg))
             self._vision_aux_cache[grid] = aux
         cos, sin, seg = aux
-        return grid, VisionInputs(patches=patches, cos=cos, sin=sin, seg_ids=seg,
-                                  group=grid[1] * grid[2])
+        return VisionInputs(patches=patches, cos=cos, sin=sin, seg_ids=seg,
+                            group=grid[1] * grid[2])
 
     def _run_chunk(
         self,

@@ -9,7 +9,9 @@ modeling_qwen2_vl.py semantics):
   * ``scatter_video_embeds`` — placeholder slots take the visual embeddings
     in order (a mask-gather, no host sync);
   * ``forward`` — embeddings, the vision tower, the cached text tower, and
-    optionally the fp32 LM head;
+    optionally the fp32 LM head; batched serving clips (``patches`` [B, Np,
+    pd], one clip per row with shared tables) run through ONE vision-tower
+    call over all rows' groups, as JAX's ``vmap`` (``model.py:220-232``);
   * ``init_params`` — a model with random weights drawn from a seeded
     ``torch.Generator`` on the target device (no download, no host copy).
 """
@@ -65,8 +67,8 @@ class VisionInputs:
     """ViT inputs for one forward. ``group`` is the per-temporal-group patch
     count (grid h*w) when uniform: the path through K3."""
 
-    patches: torch.Tensor    # [N, patch_dim]
-    cos: torch.Tensor        # [N, head_dim]
+    patches: torch.Tensor    # [N, patch_dim], or [B, N, patch_dim] (one clip per row)
+    cos: torch.Tensor        # [N, head_dim] (shared by every row)
     sin: torch.Tensor        # [N, head_dim]
     seg_ids: torch.Tensor    # [N] int32 (pad patches < 0)
     group: int | None = None
@@ -153,17 +155,43 @@ def scatter_video_embeds(
     cfg: ModelConfig,
     token_embeds: torch.Tensor,   # [B, S, H]
     input_ids: torch.Tensor,      # [B, S]
-    video_embeds: torch.Tensor,   # [Nv, H] (all videos concatenated, in order)
+    video_embeds: torch.Tensor,   # [Nv, H] (all videos concatenated, in order) or [B, Nv, H]
     token_id: int | None = None,  # defaults to video_token_id
 ) -> torch.Tensor:
-    """Place visual embeddings at placeholder slots (order-preserving)."""
+    """Place visual embeddings at placeholder slots (order-preserving). With
+    per-row embeddings [B, Nv, H] each row's slots take its own clip, and a
+    row without placeholders (an idle pool slot) is left as it is."""
     b, s, h = token_embeds.shape
     token_id = cfg.video_token_id if token_id is None else token_id
+    video_embeds = video_embeds.to(token_embeds.dtype)
+    if video_embeds.ndim == 3:
+        mask = input_ids == token_id                                       # [B, S]
+        idx = (torch.cumsum(mask.long(), dim=1) - 1).clamp(0, video_embeds.shape[1] - 1)
+        gathered = torch.gather(video_embeds, 1, idx[..., None].expand(b, s, h))
+        return torch.where(mask[..., None], gathered, token_embeds)
     mask = (input_ids == token_id).reshape(-1)
     idx = torch.cumsum(mask.long(), dim=0) - 1
-    gathered = video_embeds.to(token_embeds.dtype)[idx.clamp(0, video_embeds.shape[0] - 1)]
+    gathered = video_embeds[idx.clamp(0, video_embeds.shape[0] - 1)]
     flat = torch.where(mask[:, None], gathered, token_embeds.reshape(-1, h))
     return flat.reshape(b, s, h)
+
+
+def batched_video_embeds(model: Qwen2VL, vision: VisionInputs) -> torch.Tensor:
+    """Per-row clips [B, Np, pd] with shared tables -> [B, Np / merge**2, H].
+
+    One vision-tower call over the flattened [B * Np, pd] patches with the
+    rotary tables repeated B times: every row's uniform groups go to K3 in
+    ONE launch (B * T / 2 groups for T-frame clips). The merger folds
+    consecutive patches, which never cross a row, so each row's embeddings
+    equal a separate call's (JAX runs ``vmap``). Serving clips have a
+    uniform grid; without one, rows would share segment ids, so it raises."""
+    b, n_p, pd = vision.patches.shape
+    if vision.group is None or n_p % vision.group:
+        raise ValueError(f"batched clips need a uniform group, got group {vision.group} "
+                         f"for {n_p} patches per row")
+    out = model.visual(vision.patches.reshape(b * n_p, pd), vision.cos.repeat(b, 1),
+                       vision.sin.repeat(b, 1), vision.seg_ids.repeat(b), vision.group)
+    return out.reshape(b, -1, out.shape[-1])
 
 
 def forward(
@@ -172,7 +200,7 @@ def forward(
     input_ids: torch.Tensor,                   # [B, S]
     position_ids: torch.Tensor,                # [3, B, S]
     cache: KVCache,
-    vision: Optional[VisionInputs] = None,     # one clip's patches [N, patch_dim]
+    vision: Optional[VisionInputs] = None,     # patches [N, pd] or per-row [B, Np, pd]
     kv_limit: Optional[torch.Tensor] = None,
     compute_logits: bool = True,
 ) -> tuple[torch.Tensor, KVCache]:
@@ -180,8 +208,11 @@ def forward(
     final hidden states when ``compute_logits`` is False, and the cache)."""
     embeds = model.text.embed(input_ids.long())
     if vision is not None:
-        video_embeds = model.visual(vision.patches, vision.cos, vision.sin, vision.seg_ids,
-                                    vision.group)
+        if vision.patches.ndim == 3:
+            video_embeds = batched_video_embeds(model, vision)
+        else:
+            video_embeds = model.visual(vision.patches, vision.cos, vision.sin, vision.seg_ids,
+                                        vision.group)
         embeds = scatter_video_embeds(cfg, embeds, input_ids, video_embeds)
     hidden, cache = text_forward(model.text, cfg.text, embeds, position_ids, cache,
                                  kv_limit=kv_limit)

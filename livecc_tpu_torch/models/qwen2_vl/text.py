@@ -6,12 +6,15 @@ Port of the cached path of ``livecc_tpu/models/qwen2_vl/text.py``
 in place**: each layer writes the chunk's K/V at every row's offset *before*
 attention (as ``text.py:286-302``), then attends through K1
 ``flash_prefill`` (s > 1) or K2 ``flash_decode`` (s == 1) on the stacked
-cache and the layer index — no per-layer slice is copied.
+cache and the layer index — no per-layer slice is copied. An int8 cache
+(``KVCache.zeros(dtype=torch.int8)``) quantizes each chunk's K/V before the
+write (``quantize_kv``, as ``text.py:288-313``) and runs the int8 kernels.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,30 +30,60 @@ from livecc_tpu_torch.ops.rope import apply_mrope, mrope_cos_sin
 class KVCache:
     """Static-size KV cache in attention layout with PER-ROW offsets.
 
-    ``k``/``v`` are written in place by ``text_forward``; ``offset`` is
-    replaced (never mutated) by the callers that advance it."""
+    ``k``/``v`` (and the scales) are written in place by ``text_forward``;
+    ``offset`` is replaced (never mutated) by the callers that advance it.
+
+    ``zeros(dtype=torch.int8)`` makes a QUANTIZED cache: symmetric int8 per
+    (position, head) with bf16 scales, half the KV bytes of bf16. The scales
+    are lane-major ``[L, B, Hk, 1, Smax]`` as in JAX (positions on the last
+    axis), so the int8 kernels read one contiguous scale row per key tile."""
 
     k: torch.Tensor         # [L, B, Hk, Smax, D]
     v: torch.Tensor         # [L, B, Hk, Smax, D]
     offset: torch.Tensor    # int32 [B]
+    k_scale: Optional[torch.Tensor] = None    # [L, B, Hk, 1, Smax] bf16 (int8 cache)
+    v_scale: Optional[torch.Tensor] = None
 
     @property
     def max_len(self) -> int:
         return self.k.shape[-2]
 
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
     @staticmethod
     def zeros(cfg: TextConfig, batch: int, max_len: int, dtype=torch.float32,
               device=None) -> "KVCache":
         shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
-        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros(shape, dtype=dtype, device=device),
-                       torch.zeros((batch,), dtype=torch.int32, device=device))
+        offset = torch.zeros((batch,), dtype=torch.int32, device=device)
+        kv = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(2)]
+        if dtype == torch.int8:
+            sshape = shape[:-2] + (1, max_len)
+            scales = [torch.zeros(sshape, dtype=torch.bfloat16, device=device) for _ in range(2)]
+            return KVCache(*kv, offset, *scales)
+        return KVCache(*kv, offset)
+
+
+def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[..., D] -> (int8 [..., D], bf16 scale [..., 1]); symmetric per row.
+
+    As JAX ``quantize_kv``: amax, scale and ``x / scale`` are computed in
+    the INPUT dtype (bf16 arithmetic for a bf16 model), rounded half to
+    even, clipped to +-127; the scale is stored as bf16 after the codes were
+    taken with it."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
 
 
 def write_rows(cache_layer: torch.Tensor, rows: torch.Tensor, start: torch.Tensor) -> None:
     """In place: ``cache_layer[b, :, start[b] + i] = rows[b, :, i]`` for a
     one-layer view [B, Hk, Smax, D] and rows [B, Hk, s, D]; every row at its
-    own depth, with no host sync."""
+    own depth, with no host sync. A lane-major scale layer [B, Hk, 1, Smax]
+    is written through its transposed view [B, Hk, Smax, 1] (JAX
+    ``_write_scale``)."""
     b, hk, s, _ = rows.shape
     dev = rows.device
     pos = start.long()[:, None] + torch.arange(s, device=dev)[None, :]            # [B, s]
@@ -132,13 +165,21 @@ def text_forward(
     x = inputs_embeds
     for li, layer in enumerate(model.layers):
         def attend(q, k, v, li=li):
-            write_rows(cache.k[li], k.transpose(1, 2), start)
-            write_rows(cache.v[li], v.transpose(1, 2), start)
+            kt, vt = k.transpose(1, 2), v.transpose(1, 2)            # [B, Hk, s, D]
+            if cache.quantized:
+                kt, ks = quantize_kv(kt)                             # scales [B, Hk, s, 1]
+                vt, vs = quantize_kv(vt)
+                write_rows(cache.k_scale[li].transpose(-1, -2), ks, start)
+                write_rows(cache.v_scale[li].transpose(-1, -2), vs, start)
+            write_rows(cache.k[li], kt, start)
+            write_rows(cache.v[li], vt, start)
             qt = q.transpose(1, 2)                                   # [B, Hq, s, D]
+            scales = dict(k_scale=cache.k_scale, v_scale=cache.v_scale)
             if s == 1:
-                out = flash_decode(qt, cache.k, cache.v, kv_limit, layer_index=li)
+                out = flash_decode(qt, cache.k, cache.v, kv_limit, layer_index=li, **scales)
             else:
-                out = flash_prefill(qt, cache.k, cache.v, cache.offset, kv_limit, layer_index=li)
+                out = flash_prefill(qt, cache.k, cache.v, cache.offset, kv_limit,
+                                    layer_index=li, **scales)
             return out.transpose(1, 2)                               # [B, s, Hq, D]
 
         x = layer(x, cos, sin, attend)
@@ -147,7 +188,14 @@ def text_forward(
 
 
 def lm_logits(model: TextModel, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """[B, S, H] -> [B, S, V] in float32 (the product runs in the model
-    dtype with fp32 accumulation, then widens)."""
+    """[B, S, H] -> [B, S, V] in float32, never rounded to the model dtype
+    (JAX's ``preferred_element_type=float32``): on CUDA one cuBLAS product of
+    the model-dtype operands with an fp32 output; on the CPU (the test path,
+    which has no such kernel) an fp32 product of the widened operands."""
     weight = model.embed.weight if cfg.tie_word_embeddings else model.lm_head.weight
-    return F.linear(hidden, weight).float()
+    flat = hidden.reshape(-1, hidden.shape[-1])
+    if flat.device.type == "cuda" and flat.dtype != torch.float32:
+        out = torch.mm(flat, weight.t(), out_dtype=torch.float32)
+    else:
+        out = torch.mm(flat.float(), weight.float().t())
+    return out.reshape(*hidden.shape[:-1], weight.shape[0])

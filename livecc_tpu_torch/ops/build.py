@@ -2,7 +2,9 @@
 
 The kernels have a plain C interface and are compiled by ``nvcc`` for
 ``sm_90a`` into one shared library, loaded with ``ctypes`` (no PyTorch
-headers, so a cold build takes seconds, not minutes). The library is built
+headers, so a cold build takes seconds, not minutes). Every ``.cu`` source
+is compiled by its own ``nvcc`` process, all started together, and the
+objects are then linked into the library. The library is built
 at first use into ``build/kernels/<hash>/`` at the repository root (listed
 in ``.gitignore``), keyed by a hash of the sources and flags, so an edited
 source is rebuilt and an unchanged one is loaded as it is. A failed build
@@ -30,7 +32,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 LIB_NAME = "liblivecc_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
 # dtype codes of csrc/attn_common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -63,23 +65,44 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build the CUDA kernels")
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+    """Run the commands concurrently; (command, return code, output) each."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    outs = [(cmd, proc.communicate()[0], proc) for cmd, proc in procs]
+    return [(cmd, proc.returncode, out) for cmd, out, proc in outs]
+
+
 def build_library() -> Path:
-    """Compile ``csrc/*.cu`` into the hashed build directory; return the .so
-    path. Compiler output (including ``-Xptxas -v`` register and shared
-    memory counts) is kept in ``build.log`` beside the library."""
+    """Compile ``csrc/*.cu`` into the hashed build directory (one ``nvcc``
+    per source, in parallel, then one link); return the .so path. Compiler
+    output (including ``-Xptxas -v`` register and shared memory counts) is
+    kept in ``build.log`` beside the library."""
     out_dir = BUILD_ROOT / _digest()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    nvcc, tag = find_nvcc(), os.getpid()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    compiles = [[nvcc, *NVCC_FLAGS, f"-I{CSRC}", "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)]
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    log = []
+    results = _run_all(compiles)
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for cmd, rc, out in results:
+        log.append(f"{' '.join(cmd)}\n[exit {rc}]\n{out}")
+    (out_dir / "build.log").write_text("\n".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [(cmd, rc, out) for cmd, rc, out in results if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        cmd, rc, out = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}) on {cmd[-1]}:\n{out[-8000:]}")
     os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
     return lib
 
@@ -94,9 +117,14 @@ def load_library() -> ctypes.CDLL:
                                          i32, i32, i32, i32, i32, i32, strides, f32, ptr]
     lib.livecc_flash_decode.argtypes = [i32, ptr, ptr, ptr, ptr, ptr,
                                         i32, i32, i32, i32, i32, strides, f32, ptr]
+    lib.livecc_flash_prefill_int8.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                              i32, i32, i32, i32, i32, i32, strides, f32, ptr]
+    lib.livecc_flash_decode_int8.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                             i32, i32, i32, i32, i32, strides, f32, ptr]
     lib.livecc_vit_group_attention.argtypes = [i32, ptr, ptr, ptr, ptr,
                                                i32, i32, i32, i32, strides, f32, ptr]
-    for fn in (lib.livecc_flash_prefill, lib.livecc_flash_decode, lib.livecc_vit_group_attention):
+    for fn in (lib.livecc_flash_prefill, lib.livecc_flash_decode, lib.livecc_flash_prefill_int8,
+               lib.livecc_flash_decode_int8, lib.livecc_vit_group_attention):
         fn.restype = i32
     return lib
 

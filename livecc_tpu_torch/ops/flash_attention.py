@@ -1,7 +1,7 @@
 """Cached attention for the streaming path: K1 ``flash_prefill``, K2 ``flash_decode``.
 
-Port of ``livecc_tpu/ops/pallas/attention.py`` (bf16/fp32 cache; the int8
-branch is not ported yet). Same layouts as the JAX kernels:
+Port of ``livecc_tpu/ops/pallas/attention.py``, both branches. Same layouts
+as the JAX kernels:
 
   * q ``[B, Hq, Sq, D]`` — any strides with a unit-stride head dim, so the
     text tower passes its ``[B, S, Hq, D]`` activations through a transposed
@@ -9,14 +9,23 @@ branch is not ported yet). Same layouts as the JAX kernels:
   * cache ``[B, Hk, Smax, D]``, or the stacked ``[L, B, Hk, Smax, D]`` cache
     plus a ``layer_index`` (the layer's view is passed, nothing is copied);
   * ``offset`` / ``kv_limit`` — int or int32 ``[B]``: every row sits at its
-    own depth. On the GPU they are read inside the kernel (no host sync).
+    own depth. On the GPU they are read inside the kernel (no host sync);
+  * ``k_scale`` / ``v_scale`` — an int8 cache's bf16 scales, lane-major
+    ``[B, Hk, 1, Smax]`` (or ``[L, B, Hk, 1, Smax]`` with the layer index).
 
-Each wrapper runs its CUDA kernel (``csrc/flash_prefill.cu``,
-``csrc/flash_decode.cu``) for CUDA tensors and its plain PyTorch version for
-CPU tensors; any other device raises. The plain versions below reproduce the
+Each wrapper runs its CUDA kernel for CUDA tensors (``csrc/flash_prefill.cu``,
+``csrc/flash_decode.cu``; with scales ``csrc/flash_prefill_int8.cu``,
+``csrc/flash_decode_int8.cu``) and its plain PyTorch version for CPU
+tensors; any other device raises. The plain versions below reproduce the
 kernels' semantics, including a zero output for a row with no valid key.
 The output is ``[B, Hq, Sq, D]``; on the GPU it is a transposed view of a
 ``[B, Sq, Hq, D]`` buffer, so the caller's swap back is free.
+
+The int8 branch keeps the TPU kernel's order (``attention.py:78-99``,
+``:220-238``): K widened to the query dtype, ``s = (q·k) * d**-0.5 *
+k_scale[key]`` in fp32, the running sum ``l`` taken BEFORE the value scale,
+then ``p * v_scale[key]`` stays fp32 against V widened to fp32 (no rounding
+of ``p``), normalisation after p·v.
 """
 
 from __future__ import annotations
@@ -28,44 +37,94 @@ from livecc_tpu_torch.ops.attention import NEG_INF
 
 
 def _layer(k: torch.Tensor, v: torch.Tensor, layer_index):
+    """One layer of a stacked cache (K/V ``[L, B, Hk, Smax, D]`` or scales
+    ``[L, B, Hk, 1, Smax]``): a view, never a copy."""
     if k.ndim == 5:
         if layer_index is None:
-            raise ValueError("a stacked [L, B, Hk, Smax, D] cache needs a layer_index")
+            raise ValueError("a stacked [L, B, Hk, ...] cache needs a layer_index")
         return k[int(layer_index)], v[int(layer_index)]
     return k, v
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, k_scale) -> torch.Tensor:
+    """fp32 ``q·k * d**-0.5`` over the whole cache, q heads grouped per KV
+    head; an int8 cache multiplies each key column by its scale after."""
+    g = q.shape[1] // k.shape[1]
+    s = torch.matmul(q.float(), k.repeat_interleave(g, dim=1).float().transpose(-1, -2))
+    s = s * q.shape[-1] ** -0.5                                          # [B, Hq, Sq, Smax]
+    if k_scale is not None:
+        s = s * k_scale.repeat_interleave(g, dim=1).float()              # [B, Hq, 1, Smax]
+    return s
+
+
 def _masked_softmax_pv(s: torch.Tensor, allowed: torch.Tensor, v: torch.Tensor,
-                       out_dtype) -> torch.Tensor:
-    """Kernel numerics: fp32 scores, probabilities rounded to v's dtype for
-    the p·v product, normalisation after it, 0 for a row with no valid key."""
+                       out_dtype, v_scale=None) -> torch.Tensor:
+    """Kernel numerics: fp32 scores, ``l`` summed before any value scale,
+    probabilities rounded to v's dtype for the p·v product (an int8 cache:
+    scaled per key and kept fp32), normalisation after it, 0 for a row with
+    no valid key."""
+    g = s.shape[1] // v.shape[1]
+    vv = v.repeat_interleave(g, dim=1)
     s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(allowed, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p.to(v.dtype).float(), v.float())
+    if v_scale is not None:
+        p = p * v_scale.repeat_interleave(g, dim=1).float()
+    else:
+        p = p.to(v.dtype).float()
+    o = torch.matmul(p, vv.float())
     return (o / torch.where(l > 0, l, torch.ones_like(l))).to(out_dtype)
+
+
+def _check_scales(name: str, k, v, k_scale, v_scale) -> None:
+    """Raise on what the int8 kernels do not take."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: pass both k_scale and v_scale, or neither")
+    if k_scale is None:
+        return
+    b, hk, smax, _ = k.shape
+    for t, what in ((k, "k"), (v, "v")):
+        if t.dtype != torch.int8:
+            raise TypeError(f"{name}: a scaled cache must be int8, got {what} {t.dtype}")
+    for t in (k_scale, v_scale):
+        if t.shape != (b, hk, 1, smax) or t.dtype != torch.bfloat16 or t.stride(-1) != 1:
+            raise ValueError(f"{name}: scales must be bf16 [B, Hk, 1, Smax] = "
+                             f"{(b, hk, 1, smax)} with unit-stride positions, got "
+                             f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
+
+
+def _check_cuda_operands(name: str, q, k, v, k_scale, v_scale) -> None:
+    if k_scale is None:
+        build.check_operands(name, q, k, v)
+        return
+    build.check_operands(name, q)
+    for t in (k, v, k_scale, v_scale):
+        if t.device != q.device:
+            raise ValueError(f"{name}: operands on {t.device} and {q.device}")
+    for t in (k, v):
+        if t.shape[-1] != q.shape[-1] or t.stride(-1) != 1:
+            raise ValueError(f"{name}: K/V head dim must match q's and be unit-stride, "
+                             f"got {tuple(t.shape)} strides {t.stride()}")
 
 
 # ---------------------------------------------------------------------------
 # K1: prefill
 # ---------------------------------------------------------------------------
 
-def flash_prefill_plain(q, k, v, offset, kv_limit) -> torch.Tensor:
-    """Plain version of K1 on a one-layer cache ``[B, Hk, Smax, D]``."""
-    b, hq, sq, d = q.shape
-    hk, smax = k.shape[1], k.shape[2]
-    g = hq // hk
+def flash_prefill_plain(q, k, v, offset, kv_limit, k_scale=None, v_scale=None) -> torch.Tensor:
+    """Plain version of K1 (int8 with scales) on a one-layer cache ``[B, Hk, Smax, D]``."""
+    b, _, sq, _ = q.shape
+    smax = k.shape[2]
+    _check_scales("flash_prefill", k, v, k_scale, v_scale)
     offset = build.row_scalars(offset, b, q.device)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
-    kk = k.repeat_interleave(g, dim=1)
-    vv = v.repeat_interleave(g, dim=1)
-    s = torch.matmul(q.float(), kk.float().transpose(-1, -2)) * d ** -0.5   # [B, Hq, Sq, Smax]
+    s = _scores(q, k, k_scale)
     qpos = offset[:, None] + torch.arange(sq, device=q.device)[None, :]     # [B, Sq]
     kpos = torch.arange(smax, device=q.device)
     allowed = (kpos[None, None, :] <= qpos[:, :, None]) & (
         kpos[None, None, :] < kv_limit[:, None, None])                      # [B, Sq, Smax]
-    return _masked_softmax_pv(s, allowed[:, None], vv, q.dtype)
+    return _masked_softmax_pv(s, allowed[:, None], v, q.dtype, v_scale)
 
 
 def flash_prefill(
@@ -75,34 +134,48 @@ def flash_prefill(
     offset,                     # int or int32 [B] — queries start here (per row)
     kv_limit,                   # int or int32 [B] — keys < kv_limit valid (per row)
     layer_index: int | None = None,
+    k_scale: torch.Tensor | None = None,   # int8 cache: [..., Hk, 1, Smax] bf16
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Chunk queries appended at ``offset`` attend causally over the cache."""
     k, v = _layer(k, v, layer_index)
+    if k_scale is not None:
+        k_scale, v_scale = _layer(k_scale, v_scale, layer_index)
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, offset, kv_limit)
+        return flash_prefill_plain(q, k, v, offset, kv_limit, k_scale, v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_prefill: no kernel for device {q.device}")
     b, hq, sq, d = q.shape
     hk, smax = k.shape[1], k.shape[2]
-    build.check_operands("flash_prefill", q, k, v)
     if k.shape != (b, hk, smax, d) or v.shape != k.shape or hq % hk:
         raise ValueError(f"flash_prefill: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
+    _check_scales("flash_prefill", k, v, k_scale, v_scale)
+    _check_cuda_operands("flash_prefill", q, k, v, k_scale, v_scale)
     offset = build.row_scalars(offset, b, q.device)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = build.load_library()
+    strides = [(q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)), (out, (0, 1, 2))]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.launch(
-            "flash_prefill", lib.livecc_flash_prefill,
-            build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), offset.data_ptr(), kv_limit.data_ptr(),
-            b, hq, hk, sq, smax, d,
-            build.stride_array((q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
-                               (out, (0, 1, 2))),
-            d ** -0.5, stream,
-        )
+        if k_scale is None:
+            build.launch(
+                "flash_prefill", lib.livecc_flash_prefill,
+                build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), offset.data_ptr(), kv_limit.data_ptr(),
+                b, hq, hk, sq, smax, d, build.stride_array(*strides), d ** -0.5, stream,
+            )
+        else:
+            build.launch(
+                "flash_prefill_int8", lib.livecc_flash_prefill_int8,
+                build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(),
+                out.data_ptr(), offset.data_ptr(), kv_limit.data_ptr(),
+                b, hq, hk, sq, smax, d,
+                build.stride_array(*strides, (k_scale, (0, 1)), (v_scale, (0, 1))),
+                d ** -0.5, stream,
+            )
     return out
 
 
@@ -110,17 +183,15 @@ def flash_prefill(
 # K2: decode
 # ---------------------------------------------------------------------------
 
-def flash_decode_plain(q, k, v, kv_limit) -> torch.Tensor:
-    """Plain version of K2 on a one-layer cache ``[B, Hk, Smax, D]``."""
-    b, hq, _, d = q.shape
-    hk, smax = k.shape[1], k.shape[2]
-    g = hq // hk
+def flash_decode_plain(q, k, v, kv_limit, k_scale=None, v_scale=None) -> torch.Tensor:
+    """Plain version of K2 (int8 with scales) on a one-layer cache ``[B, Hk, Smax, D]``."""
+    b = q.shape[0]
+    smax = k.shape[2]
+    _check_scales("flash_decode", k, v, k_scale, v_scale)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
-    kk = k.repeat_interleave(g, dim=1)
-    vv = v.repeat_interleave(g, dim=1)
-    s = torch.matmul(q.float(), kk.float().transpose(-1, -2)) * d ** -0.5   # [B, Hq, 1, Smax]
+    s = _scores(q, k, k_scale)                                               # [B, Hq, 1, Smax]
     allowed = torch.arange(smax, device=q.device)[None, :] < kv_limit[:, None]   # [B, Smax]
-    return _masked_softmax_pv(s, allowed[:, None, None, :], vv, q.dtype)
+    return _masked_softmax_pv(s, allowed[:, None, None, :], v, q.dtype, v_scale)
 
 
 def flash_decode(
@@ -129,31 +200,46 @@ def flash_decode(
     v: torch.Tensor,
     kv_limit,                   # int or int32 [B] — keys < kv_limit valid (per row)
     layer_index: int | None = None,
+    k_scale: torch.Tensor | None = None,   # int8 cache: [..., Hk, 1, Smax] bf16
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One query token per row over the cache; q heads grouped per KV head."""
     k, v = _layer(k, v, layer_index)
+    if k_scale is not None:
+        k_scale, v_scale = _layer(k_scale, v_scale, layer_index)
     if q.shape[2] != 1:
         raise ValueError(f"flash_decode: one query token per row, got q {tuple(q.shape)}")
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, kv_limit)
+        return flash_decode_plain(q, k, v, kv_limit, k_scale, v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_decode: no kernel for device {q.device}")
     b, hq, _, d = q.shape
     hk, smax = k.shape[1], k.shape[2]
-    build.check_operands("flash_decode", q, k, v)
     if k.shape != (b, hk, smax, d) or v.shape != k.shape or hq % hk or (hq // hk) * d > 2048:
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} (needs G * D <= 2048)")
+    _check_scales("flash_decode", k, v, k_scale, v_scale)
+    _check_cuda_operands("flash_decode", q, k, v, k_scale, v_scale)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
     out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = build.load_library()
+    strides = [(q, (0, 1)), (k, (0, 1, 2)), (v, (0, 1, 2)), (out, (0, 1))]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        build.launch(
-            "flash_decode", lib.livecc_flash_decode,
-            build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), kv_limit.data_ptr(), b, hq, hk, smax, d,
-            build.stride_array((q, (0, 1)), (k, (0, 1, 2)), (v, (0, 1, 2)), (out, (0, 1))),
-            d ** -0.5, stream,
-        )
+        if k_scale is None:
+            build.launch(
+                "flash_decode", lib.livecc_flash_decode,
+                build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), kv_limit.data_ptr(), b, hq, hk, smax, d,
+                build.stride_array(*strides), d ** -0.5, stream,
+            )
+        else:
+            build.launch(
+                "flash_decode_int8", lib.livecc_flash_decode_int8,
+                build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                k_scale.data_ptr(), v_scale.data_ptr(),
+                out.data_ptr(), kv_limit.data_ptr(), b, hq, hk, smax, d,
+                build.stride_array(*strides, (k_scale, (0, 1)), (v_scale, (0, 1))),
+                d ** -0.5, stream,
+            )
     return out

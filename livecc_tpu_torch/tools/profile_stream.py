@@ -1,34 +1,46 @@
-"""Where the time of one streaming session goes, on one GPU.
+"""Where the time goes on one GPU: a streaming session, or a serving-pool tick.
 
-    python3 -m livecc_tpu_torch.tools.profile_stream
+    python3 -m livecc_tpu_torch.tools.profile_stream          # single stream
+    python3 -m livecc_tpu_torch.tools.profile_stream --pool   # one pool tick
 
-Runs the chip smoke test's 7B session (``livecc_tpu_torch.tools.session``)
-once to warm up, then once more under ``torch.profiler`` (CPU + CUDA) and
-prints:
+Both use the 7B definitions of ``livecc_tpu_torch.tools.session`` (the ones
+``chip_smoke.py`` drives).
 
-  * each chunk's wall time and token counts;
-  * the device's busy time (union of kernel intervals) against the wall
-    time of the session, i.e. the device's idle share;
-  * device time by group — the port's three kernels (K3 ViT attention, K1
-    prefill attention, K2 decode attention), matrix products, everything
-    else — and the top kernels by name.
+  * single stream: runs the session once to warm up, then once more under
+    ``torch.profiler`` (CPU + CUDA);
+  * ``--pool``: 8 streams join the int8 serving pool and run their init
+    chunks and all but the last steady tick unprofiled; the last steady tick
+    (one batched prefill + decode at B = 8) runs under the profiler.
+
+It prints each chunk's or tick's wall time; the device's busy time (union of
+kernel intervals) against the wall time, i.e. the device's idle share; and
+device time by group — the port's kernels (K3 ViT attention, K1 prefill and
+K2 decode attention, and their int8 variants), matrix products, everything
+else — and the top kernels by name.
 
 Needs a CUDA GPU; it does not run on the CPU.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
+import re
 import time
 
 import torch
 
 
 def _group(name: str) -> str:
-    if "tile_attention_kernel" in name:
-        return "K1 flash_prefill" if "true" in name else "K3 vit_group_attention"
-    if "decode_kernel" in name:
-        return "K2 flash_decode"
+    m = re.search(r"(tile_attention_kernel|decode_kernel)<[^,>]+, *(true|false)(?:, *(true|false))?>",
+                  name)
+    if m:
+        kernel, flag, quant = m.groups()
+        if kernel == "decode_kernel":
+            return "K2-int8 flash_decode_int8" if flag == "true" else "K2 flash_decode"
+        if flag == "false":
+            return "K3 vit_group_attention"
+        return "K1-int8 flash_prefill_int8" if quant == "true" else "K1 flash_prefill"
     low = name.lower()
     if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet", "gemv", "splitk")):
         return "matmul"
@@ -47,32 +59,8 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return busy
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_stream: needs a CUDA GPU")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from livecc_tpu_torch.tools import session as sess
-
-    cfg, model = sess.main_model()
-    frames = sess.main_frames()
-
-    def session(eng):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sess.run_session(eng, frames)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    print(f"warm-up session: {session(sess.new_engine(cfg, model)):.3f} s")
-    eng = sess.new_engine(cfg, model)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall = session(eng)
-    for rec in eng.chunk_log:
-        print(f"chunk wall {rec.seconds * 1e3:9.2f} ms  prompt {rec.prompt_tokens:4d}  "
-              f"generated {rec.generated_tokens:2d}")
-
+def report(prof, wall: float) -> None:
+    """Device busy time, idle share and device time by group of a profile."""
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6
     by_group: dict[str, float] = collections.defaultdict(float)
@@ -83,13 +71,82 @@ def main() -> int:
         by_name[e.name][0] += dur
         by_name[e.name][1] += 1
     total = sum(by_group.values())
-    print(f"session wall {wall:.3f} s  device busy {busy:.3f} s  idle share "
+    print(f"wall {wall:.3f} s  device busy {busy:.3f} s  idle share "
           f"{1 - busy / wall:.3f}  kernels launched {len(kernels)}")
     for g, t in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"  {g:24s} {t * 1e3:10.2f} ms  {t / total:6.1%} of device time")
+        print(f"  {g:28s} {t * 1e3:10.2f} ms  {t / total:6.1%} of device time")
     print("top kernels by device time:")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]:
         print(f"  {t * 1e3:10.2f} ms  x{n:5d}  {name[:110]}")
+
+
+def profile_session(cfg, model) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from livecc_tpu_torch.tools import session as sess
+
+    frames = sess.main_frames()
+
+    def run(eng):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess.run_session(eng, frames)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    print(f"warm-up session: {run(sess.new_engine(cfg, model)):.3f} s")
+    eng = sess.new_engine(cfg, model)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall = run(eng)
+    for rec in eng.chunk_log:
+        print(f"chunk wall {rec.seconds * 1e3:9.2f} ms  prompt {rec.prompt_tokens:4d}  "
+              f"generated {rec.generated_tokens:2d}")
+    report(prof, wall)
+
+
+def profile_pool_tick(cfg, model) -> None:
+    from torch.profiler import ProfilerActivity, profile
+
+    from livecc_tpu_torch.tools import session as sess
+
+    server = sess.pool_server(cfg, model)
+    server.warmup([(sess.HEIGHT, sess.WIDTH)])
+    # init chunks and all steady ticks but the last, unprofiled
+    _, walls = sess.run_pool(server, steady_ticks=sess.POOL_STEADY_TICKS - 1)
+    for i, w in enumerate(walls):
+        print(f"tick {i} wall {w * 1e3:9.2f} ms (unprofiled)")
+    sids = sorted(server._streams)
+    hi = sess.INIT_FRAMES + sess.STEADY_FRAMES * sess.POOL_STEADY_TICKS
+    lo = hi - sess.STEADY_FRAMES
+    fps = server.engine.fps
+    for i, sid in enumerate(sids):
+        clip = sess.synth_frames(hi, sess.HEIGHT, sess.WIDTH, sess.SEED + i)[lo:hi]
+        server.submit_chunk(sid, clip, lo / fps, hi / fps)
+    depth = server.pool_caches.offset.tolist()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.tick()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = {sid: server.drain(sid) for sid in sids}
+    print(f"profiled tick: B={len(sids)} steady chunks, cache depths before it {depth}, "
+          f"{sum(len(r) for r in rows.values())} chunks of text")
+    report(prof, wall)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pool", action="store_true",
+                    help="profile one steady tick of the 8-stream int8 pool")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_stream: needs a CUDA GPU")
+
+    from livecc_tpu_torch.tools import session as sess
+
+    cfg, model = sess.main_model()
+    (profile_pool_tick if args.pool else profile_session)(cfg, model)
     return 0
 
 

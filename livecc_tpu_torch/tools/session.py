@@ -1,24 +1,37 @@
-"""The 7B streaming session that ``chip_smoke.py`` drives and ``profile_stream`` profiles.
+"""The 7B sessions that ``chip_smoke.py`` drives and ``profile_stream`` profiles.
 
 Qwen2-VL-7B at full width and depth, bf16, random weights drawn on the card
-from a seeded generator; 14 uint8 frames of 308x560 from a numpy seed (a
-6-frame first chunk and four 2-frame chunks at 2 fps); 16 new tokens per
-chunk, greedy, repetition penalty 1.05.
+from a seeded generator; uint8 frames of 308x560 from a numpy seed; 16 new
+tokens per chunk, greedy, repetition penalty 1.05.
+
+  * single stream: ``live_cc_once_for_evaluation`` over 14 frames (a 6-frame
+    first chunk and four 2-frame chunks at 2 fps), bf16 KV cache of 8192;
+  * serving pool: ``StreamServer`` with 8 slots, an int8 KV cache of 8192
+    per slot, 8 streams that each send a 6-frame init chunk and then one
+    2-frame chunk per steady tick (``run_pool``, shared with the tiny pool
+    that chip_smoke runs on the CPU and on the GPU).
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
 
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.data.tokenizer import ByteTokenizer
-from livecc_tpu_torch.engine import LiveCCEngine
+from livecc_tpu_torch.engine import GenerationParams, LiveCCEngine
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, init_params
+from livecc_tpu_torch.serve import StreamServer
 
 SEED = 0
 N_FRAMES, HEIGHT, WIDTH = 14, 308, 560   # the 720p serving budget's grid: 22 x 40 patches
 QUERY = "What is happening?"
+NEW_TOKENS, REPETITION_PENALTY = 16, 1.05
+# the serving pool: 8 concurrent streams per replica, int8 KV
+POOL_CAPACITY, POOL_STREAMS, POOL_CACHE_LEN, POOL_STEADY_TICKS = 8, 8, 8192, 3
+INIT_FRAMES, STEADY_FRAMES = 6, 2
 
 
 def synth_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
@@ -43,5 +56,45 @@ def new_engine(cfg: ModelConfig, model: Qwen2VL) -> LiveCCEngine:
 
 def run_session(engine: LiveCCEngine, frames: np.ndarray, state=None) -> list:
     """One ``live_cc_once_for_evaluation`` call over ``frames``: ``[t0, t1, text]`` per chunk."""
-    return engine.live_cc_once_for_evaluation(QUERY, frames, max_new_tokens=16,
-                                              repetition_penalty=1.05, state=state)
+    return engine.live_cc_once_for_evaluation(QUERY, frames, max_new_tokens=NEW_TOKENS,
+                                              repetition_penalty=REPETITION_PENALTY, state=state)
+
+
+def pool_server(cfg: ModelConfig, model: Qwen2VL, tokenizer=None, capacity: int = POOL_CAPACITY,
+                cache_len: int = POOL_CACHE_LEN) -> StreamServer:
+    """A serving pool on ``model`` with an int8 KV cache."""
+    tokenizer = ByteTokenizer.for_config(cfg) if tokenizer is None else tokenizer
+    engine = LiveCCEngine(model, cfg, tokenizer, cache_len=cache_len, cache_dtype=torch.int8)
+    gen = GenerationParams(max_new_tokens=NEW_TOKENS, eos_token_id=cfg.eos_token_id,
+                           pad_token_id=cfg.pad_token_id, repetition_penalty=REPETITION_PENALTY)
+    return StreamServer(engine, gen, capacity=capacity)
+
+
+def run_pool(server: StreamServer, n_streams: int = POOL_STREAMS,
+             steady_ticks: int = POOL_STEADY_TICKS, height: int = HEIGHT, width: int = WIDTH,
+             seed: int = SEED) -> tuple[dict[int, list], list[float]]:
+    """``n_streams`` streams join at once: tick 0 runs every init chunk
+    (solo, then adoption into the pool), each later tick one 2-frame chunk
+    of every stream through the pool. Frames of stream i come from numpy
+    seed ``seed + i``. Returns ({sid: [(span, text), ...]}, the synchronized
+    wall seconds of every tick)."""
+    n_frames = INIT_FRAMES + STEADY_FRAMES * steady_ticks
+    sids = [server.add_stream((height, width), query=QUERY) for _ in range(n_streams)]
+    clips = {sid: synth_frames(n_frames, height, width, seed + i) for i, sid in enumerate(sids)}
+    fps = server.engine.fps
+    outputs: dict[int, list] = {sid: [] for sid in sids}
+    walls = []
+    for tick in range(1 + steady_ticks):
+        lo = 0 if tick == 0 else INIT_FRAMES + STEADY_FRAMES * (tick - 1)
+        hi = INIT_FRAMES + STEADY_FRAMES * tick
+        for sid in sids:
+            server.submit_chunk(sid, clips[sid][lo:hi], lo / fps, hi / fps)
+        sync = torch.cuda.synchronize if server.engine.device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        server.tick()
+        sync()
+        walls.append(time.perf_counter() - t0)
+        for sid in sids:
+            outputs[sid].extend(server.drain(sid))
+    return outputs, walls

@@ -93,3 +93,60 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 4, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         flash_prefill(q, q, q, 0, 4)
+
+
+def quantized_cache(gen, shape, dev):
+    """int8 K or V [..., Smax, D] and its lane-major bf16 scales [..., 1, Smax]."""
+    from livecc_tpu_torch.models.qwen2_vl.text import quantize_kv
+
+    codes, scale = quantize_kv(torch.randn(shape, generator=gen, device=dev))
+    return codes, scale.transpose(-1, -2).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hk,d,sq,offsets,limits", [
+    (8, 28, 4, 128, 256, [0, 300, 1500, 7, 64, 900, 1200, 40], [256, 556, 1756, 263, 100, 1156, 1456, 0]),
+    (2, 4, 2, 16, 50, [100, 7], [140, 40]),
+    (1, 28, 4, 128, 1024, [0], [690]),
+])
+def test_flash_prefill_int8(cuda, dtype, b, hq, hk, d, sq, offsets, limits):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    L, smax = 3, 2048
+    (k5, ks), (v5, vs) = (quantized_cache(gen, (L, b, hk, smax, d), cuda) for _ in range(2))
+    q = randn(gen, (b, sq, hq, d), dtype, cuda).transpose(1, 2)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    lim = torch.tensor(limits, dtype=torch.int32, device=cuda)
+    before = build.launch_counts["flash_prefill_int8"]
+    out = flash_prefill(q, k5, v5, off, lim, layer_index=2, k_scale=ks, v_scale=vs)
+    assert build.launch_counts["flash_prefill_int8"] == before + 1
+    ref = flash_prefill_plain(q.float(), k5[2], v5[2], off, lim, ks[2], vs[2])
+    assert_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hk,d,limits", [
+    (8, 28, 4, 128, [1, 777, 8192, 4000, 0, 63, 64, 65]), (2, 4, 2, 16, [0, 33]),
+])
+def test_flash_decode_int8(cuda, dtype, b, hq, hk, d, limits):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    L, smax = 2, 8192
+    (k5, ks), (v5, vs) = (quantized_cache(gen, (L, b, hk, smax, d), cuda) for _ in range(2))
+    q = randn(gen, (b, 1, hq, d), dtype, cuda).transpose(1, 2)
+    lim = torch.tensor(limits, dtype=torch.int32, device=cuda)
+    before = build.launch_counts["flash_decode_int8"]
+    out = flash_decode(q, k5, v5, lim, layer_index=1, k_scale=ks, v_scale=vs)
+    assert build.launch_counts["flash_decode_int8"] == before + 1
+    ref = flash_decode_plain(q.float(), k5[1], v5[1], lim, ks[1], vs[1])
+    assert_close(out, ref, dtype)
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 4, 1, 16, device=cuda)
+    k = torch.zeros(1, 2, 64, 16, device=cuda, dtype=torch.int8)
+    s = torch.zeros(1, 2, 1, 64, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                         # one scale without the other
+        flash_decode(q, k, k, 4, k_scale=s)
+    with pytest.raises(ValueError):                         # fp32 scales
+        flash_decode(q, k, k, 4, k_scale=s.float(), v_scale=s.float())
+    with pytest.raises(TypeError):                          # a bf16 cache with scales
+        flash_decode(q, k.bfloat16(), k.bfloat16(), 4, k_scale=s, v_scale=s)

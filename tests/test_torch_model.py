@@ -173,3 +173,24 @@ def test_tied_embeddings_forward():
     plogits, _ = pm.forward(model, cfg, T(ids), T(pos), pm.KVCache.zeros(cfg.text, 1, smax))
     close(plogits, jlogits, 1e-4)
     np.testing.assert_allclose(plogits.numpy(), g["text_logits"], atol=2e-4, rtol=1e-3)
+
+
+def test_lm_logits_bf16_is_never_rounded_to_bf16():
+    """bf16 hidden states and weights: JAX's ``lm_logits`` returns the fp32
+    product (``preferred_element_type=float32``) without rounding it to bf16;
+    the port must too (a bf16 product widened afterwards is off by ~1e-2)."""
+    import dataclasses
+
+    rng = np.random.RandomState(7)
+    h, v = 256, 1000
+    hidden = rng.randn(1, 1, h).astype(np.float32)
+    weight = (rng.randn(v, h) / np.sqrt(h)).astype(np.float32)
+    jcfg = dataclasses.replace(jax_tiny_config().text, hidden_size=h, vocab_size=v)
+    cfg = dataclasses.replace(tiny_config().text, hidden_size=h, vocab_size=v)
+    ref = jm.lm_logits({"lm_head": {"kernel": jnp.asarray(weight.T, jnp.bfloat16)}}, jcfg,
+                       jnp.asarray(hidden, jnp.bfloat16))
+    model = pm.Qwen2VL(dataclasses.replace(tiny_config(), text=cfg), dtype=torch.bfloat16).text
+    model.lm_head.weight.copy_(T(weight).bfloat16())
+    out = pm.lm_logits(model, cfg, T(hidden).bfloat16())
+    assert out.dtype == torch.float32 and ref.dtype == jnp.float32
+    close(out, ref, 1e-4)
