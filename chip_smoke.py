@@ -12,12 +12,21 @@ Phases (any failure raises and the script exits non-zero):
   2. build     — builds the kernels from ``livecc_tpu_torch/csrc`` (nvcc,
                  sm_90a, one process per source, in parallel).
   3. kernels   — each kernel (K1 flash_prefill, K2 flash_decode, their int8
-                 variants, K3 vit_group_attention) against its plain PyTorch
-                 version on the card at the paths' shapes: bf16 inputs
-                 against the plain version in fp32 on the same inputs (max
-                 abs <= 2e-2), and an fp32 case (<= 1e-4); median times of
-                 both (CUDA events). The int8 kernels run on the pool's cache
-                 [28, 8, 4, 8192, 128] int8 with bf16 scales.
+                 variants, K3 vit_group_attention, K4 train_attention_fwd and
+                 train_attention_bwd) against its plain PyTorch version on
+                 the card at the paths' shapes: bf16 inputs against the plain
+                 version in fp32 on the same inputs (max abs <= 2e-2), and
+                 an fp32 case (<= 1e-4); median times of both (CUDA
+                 events), the least time the card could take for the same
+                 work (bound), and the time of the one PyTorch call that
+                 computes the same function (library; none for the int8
+                 kernels). The int8 kernels run on the pool's cache
+                 [28, 8, 4, 8192, 128] int8 with bf16 scales; K4 at the
+                 training shape (Hq 28, Hk 4, D 128) on packed rows of 4096
+                 and 1000 (checked) and 8192 (checked and timed), each
+                 output also held elementwise to the plain version in its
+                 own dtype by a limit that must fail one dropped tile pair
+                 (``phase_k4``).
   4. tiny      — tiny config, fp32, seeded random weights: the engine on the
                  CPU (plain versions) and on the GPU (kernels) give identical
                  greedy text over 3 chunks.
@@ -35,9 +44,19 @@ Phases (any failure raises and the script exits non-zero):
                  streams of 308x560 frames (a 6-frame init chunk, then 3
                  steady ticks of 2-frame chunks). Every stream must get text
                  for all 4 chunks.
+  8. tiny_train — tiny config, fp32: 3 training steps (packed rows, accum 2)
+                 on the CPU (plain versions) and on the GPU (kernels, fused
+                 CE with fp32 logit rows); the losses agree to 1e-4.
+  9. train     — ``livecc_tpu_torch/tools/train_session.py``: Qwen2-VL-7B at
+                 full width with the LLM cut to 4 layers and the 32-block ViT
+                 frozen, bf16, 3 Trainer steps of 2 packed 8192-token rows;
+                 checks finite losses, trainable params moved after step 2
+                 (all but the bf16 norm scales, whose update is below half a
+                 bf16 step at 1.0), the ViT bit-unchanged, and K4 fwd/bwd
+                 and K3 launched.
 
-Launch counts are reset just before each of main and pool and read just
-after; every kernel of that path must have launched. Every phase always
+Launch counts are reset just before each of main, pool and train and read
+just after; every kernel of that path must have launched. Every phase always
 runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
 and, as its last line, ``{"ok": true, "device": {...}}``. It imports nothing
 of JAX.
@@ -45,6 +64,7 @@ of JAX.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -66,12 +86,32 @@ KERNELS = {
                            "livecc_tpu/ops/pallas/attention.py:78"),
     "flash_decode_int8": ("livecc_tpu_torch/csrc/flash_decode_int8.cu",
                           "livecc_tpu/ops/pallas/attention.py:220"),
+    "train_attention_fwd": ("livecc_tpu_torch/csrc/train_attention_fwd.cu",
+                            "livecc_tpu/ops/attention.py:126"),
+    "train_attention_bwd": ("livecc_tpu_torch/csrc/train_attention_bwd.cu",
+                            "livecc_tpu/ops/attention.py:126"),
 }
 # the kernels each path must launch
 MAIN_KERNELS = ("vit_group_attention", "flash_prefill", "flash_decode")
 POOL_KERNELS = ("vit_group_attention", "flash_prefill_int8", "flash_decode_int8")
+TRAIN_KERNELS = ("vit_group_attention", "train_attention_fwd", "train_attention_bwd")
 BF16_TOL = 2e-2     # the JAX package's own bf16 bound (tests/test_vit_attention.py:22)
 FP32_TOL = 1e-4
+# H100 SXM: dense bf16 tensor-core peak and HBM3 bandwidth (NVIDIA's data sheet)
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# K4 at the 7B's training heads (Hq, Hk, D) on packed rows: (S, segment
+# lengths, then pad as segment 0); the last case is timed, and the one-segment
+# yardstick runs at its S
+K4_HEADS = (28, 4, 128)
+K4_CASES = ((4096, (1500, 1400, 1000), "bf16", True),     # strided q
+            (1000, (400, 350, 200), "fp32", False),
+            (8192, (2900, 2700, 2300), "bf16", False))
+# K4 against the plain version on the same inputs and dtype (same roundings):
+# |out - ref| <= rtol |ref| + atol rms(ref) elementwise. bf16's rtol is just
+# above one bf16 step (2^-7 relative), which is all a rounding flip moves
+# an output; lse is fp32 in both dtypes
+K4_TOL = {"bf16": (1e-2, 2e-2), "fp32": (1e-4, 1e-4), "lse": (1e-4, 1e-4)}
+K4_GRAD_NORM_TOL = 2e-2    # bf16 gradients against the fp32 plain version: ||g - r|| / ||r||
 
 
 def log(msg: str) -> None:
@@ -126,9 +166,36 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take for work of
+    ``flops`` operations that must move ``nbytes``."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def segment_ids(s: int, lengths, dev):
+    """int32 [1, s]: segments 1..n of ``lengths``, the rest 0 (pad)."""
+    import torch
+
+    seg = torch.zeros((1, s), dtype=torch.int32)
+    at = 0
+    for i, n in enumerate(lengths):
+        seg[0, at:at + n] = i + 1
+        at += n
+    return seg.to(dev)
+
+
+def causal_pairs(lengths, s: int) -> int:
+    """Query-key pairs that causal attention within each segment (pad
+    included) needs."""
+    pad = s - sum(lengths)
+    return sum(n * (n + 1) // 2 for n in (*lengths, pad))
+
+
 def phase_kernels() -> dict:
     """Kernel vs plain version on the card; returns per-kernel results."""
     import torch
+    import torch.nn.functional as F
 
     from livecc_tpu_torch.ops.flash_attention import (
         flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
@@ -155,10 +222,23 @@ def phase_kernels() -> dict:
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if timed is not None:
-            kernel_fn, plain_fn = timed
-            r["ms"] = cuda_ms(kernel_fn)
-            r["plain_ms"] = cuda_ms(plain_fn)
-            log(f"  {name:20s} {label:48s} kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms")
+            times(name, label, *timed)
+
+    def times(name, label, kernel_fn, plain_fn):
+        """The timed case's kernel and plain-version times."""
+        r = results[name]
+        r["ms"] = cuda_ms(kernel_fn)
+        r["plain_ms"] = cuda_ms(plain_fn)
+        log(f"  {name:20s} {label:48s} kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms")
+
+    def yardsticks(name, flops, nbytes, library_fn):
+        """The timed case's bound and library time."""
+        r = results[name]
+        r["bound_ms"], r["bound_by"] = bound(flops, nbytes)
+        r["library_ms"] = None if library_fn is None else cuda_ms(library_fn)
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+        log(f"  {name:20s} bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.3f} MB)  library {lib}")
 
     # K3: the ViT at the 720p serving budget (g = 880 = 22 x 40) and g = 308
     for ng, g, dtype, tol, timed in ((3, 880, bf16, BF16_TOL, True), (3, 308, bf16, BF16_TOL, False),
@@ -170,6 +250,10 @@ def phase_kernels() -> dict:
         check("vit_group_attention", f"NG={ng} g={g} H=16 D=80 {str(dtype)[6:]}", out, ref, tol,
               (lambda: vit_group_attention(q, k, v),
                lambda: vit_group_attention_plain(q, k, v)) if timed else None)
+        if timed:
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))          # [NG, H, g, D]
+            yardsticks("vit_group_attention", 4 * ng * 16 * g * g * 80, 4 * q.numel() * 2,
+                       lambda: F.scaled_dot_product_attention(qt, kt, vt))
         del q, k, v, qf, kf, vf, out, ref
 
     # K1 / K2: the 7B's cache [L=28, B, Hk=4, Smax=8192, D=128], layer 27
@@ -191,6 +275,16 @@ def phase_kernels() -> dict:
                   BF16_TOL,
                   (lambda: flash_prefill(q, k5, v5, off_t, lim_t, layer_index=li),
                    lambda: flash_prefill_plain(q, k5[li], v5[li], off_t, lim_t)) if timed else None)
+            if timed:      # B = 1: keys < kv_limit and <= offset + i
+                kv = lim[0]
+                pairs = sum(min(off[0] + i + 1, kv) for i in range(sq))
+                kq, vq = k5[li][:, :, :kv], v5[li][:, :, :kv]
+                qpos = off[0] + torch.arange(sq, device=dev)[:, None]
+                mask = torch.arange(kv, device=dev)[None, :] <= qpos
+                yardsticks("flash_prefill", 4 * pairs * d * hq,
+                           2 * q.numel() * 2 + 2 * b * hk * kv * d * 2,
+                           lambda: F.scaled_dot_product_attention(q, kq, vq, attn_mask=mask,
+                                                                  enable_gqa=True))
         limits = [[1], [777], [8192]] if b == 1 else [[1, 8192], [777, 3]]
         for lim in limits:
             q = randn((b, hq, 1, d), bf16)
@@ -201,6 +295,13 @@ def phase_kernels() -> dict:
             check("flash_decode", f"B={b} kv_limit={lim} bf16", out, ref, BF16_TOL,
                   (lambda: flash_decode(q, k5, v5, lim_t, layer_index=li),
                    lambda: flash_decode_plain(q, k5[li], v5[li], lim_t)) if timed else None)
+            if timed:
+                valid = (torch.arange(smax, device=dev)[None, :] < lim_t[:, None])[:, None, None]
+                yardsticks("flash_decode", 4 * sum(lim) * d * hq,
+                           2 * q.numel() * 2 + 2 * hk * sum(lim) * d * 2,
+                           lambda: F.scaled_dot_product_attention(q, k5[li], v5[li],
+                                                                  attn_mask=valid,
+                                                                  enable_gqa=True))
         del k5, v5, kl, vl
     # fp32 cases (the tiny end-to-end run's dtype), strided q as the text tower passes it
     k4, v4 = (randn((2, 2, 512, 16), f32) for _ in range(2))
@@ -234,6 +335,10 @@ def phase_kernels() -> dict:
           (lambda: flash_prefill(q, k8, v8, off_t, lim_t, layer_index=li, k_scale=ks8,
                                  v_scale=vs8),
            lambda: flash_prefill_plain(q, *layer[:2], off_t, lim_t, *layer[2:])))
+    offs, keys = off_t.tolist(), lim_t.tolist()
+    pairs = sum(256 * o + 256 * 257 // 2 for o in offs)
+    yardsticks("flash_prefill_int8", 4 * pairs * d * hq,
+               2 * q.numel() * 2 + 2 * hk * sum(keys) * (d + 2), None)
     lim_d = torch.tensor([1, 777, 8192, 4000, 1, 777, 8192, 2500], dtype=torch.int32, device=dev)
     q = randn((b, 1, hq, d), bf16).transpose(1, 2)
     check("flash_decode_int8", f"B=8 kv_limit={lim_d.tolist()} bf16",
@@ -241,6 +346,9 @@ def phase_kernels() -> dict:
           flash_decode_plain(q.float(), *layer[:2], lim_d, *layer[2:]), BF16_TOL,
           (lambda: flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8),
            lambda: flash_decode_plain(q, *layer[:2], lim_d, *layer[2:])))
+    keys = sum(lim_d.tolist())
+    yardsticks("flash_decode_int8", 4 * keys * d * hq, 2 * q.numel() * 2 + 2 * hk * keys * (d + 2),
+               None)
     del k8, v8, ks8, vs8, layer
     # bf16 K2 at the pool's B = 8 and the same limits, beside K2-int8
     k5, v5 = (randn((L, b, hk, smax, d), bf16) for _ in range(2))
@@ -249,8 +357,14 @@ def phase_kernels() -> dict:
           flash_decode_plain(q.float(), k5[li].float(), v5[li].float(), lim_d), BF16_TOL)
     b8 = (cuda_ms(lambda: flash_decode(q, k5, v5, lim_d, layer_index=li)),
           cuda_ms(lambda: flash_decode_plain(q, k5[li], v5[li], lim_d)))
+    keys = sum(lim_d.tolist())
+    valid = (torch.arange(smax, device=dev)[None, :] < lim_d[:, None])[:, None, None]
+    b8_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k5[li], v5[li], attn_mask=valid,
+                                                            enable_gqa=True))
+    b8_bound = bound(4 * keys * d * hq, 2 * q.numel() * 2 + 2 * hk * keys * d * 2)
     log(f"  {'flash_decode':20s} {'B=8 (pool shape) bf16 cache':48s} kernel {b8[0]:.3f} ms  "
-        f"plain {b8[1]:.3f} ms")
+        f"plain {b8[1]:.3f} ms  bound {b8_bound[0]:.4f} ms ({b8_bound[1]})  library "
+        f"{b8_lib:.3f} ms")
     del k5, v5
     # fp32 queries on an int8 cache (the tiny pool's dtypes)
     (k4, ks4), (v4, vs4) = (int8_cache((2, 2, 512, 16)) for _ in range(2))
@@ -264,8 +378,182 @@ def phase_kernels() -> dict:
     check("flash_decode_int8", "B=2 D=16 fp32", flash_decode(q1, k4, v4, lim_t, k_scale=ks4,
                                                               v_scale=vs4),
           flash_decode_plain(q1, k4, v4, lim_t, ks4, vs4), FP32_TOL)
+    del k4, v4, ks4, vs4, qs, q1
+    torch.cuda.empty_cache()
+    phase_k4(results, check, times, yardsticks, randn)
     torch.cuda.empty_cache()
     return results
+
+
+def phase_k4(results, check, times, yardsticks, randn):
+    """K4 forward and backward against the plain version at the training
+    shape: packed rows of 4096 (bf16, strided q), 1000 (fp32) and 8192
+    (bf16, timed, with the bound and the library call on the same inputs);
+    then the one-segment yardstick against SDPA's causal kernel.
+
+    Each output (o, lse, dq, dk, dv) is held to the plain version on the
+    same inputs in the same dtype, which rounds p and ds as the kernels do,
+    elementwise within ``rtol * |ref| + atol * rms(ref)`` (``K4_TOL``); the
+    backward's reference starts from the plain forward's o and lse. The
+    same check must fail a planted fault, the reference with one 64 x 64
+    tile pair dropped (``dropped_tile``), or the script fails: a limit that
+    passes it could not see a skipped tile. bf16 cases are also held to the
+    plain version in fp32: o within ``BF16_TOL``, each gradient within
+    ``K4_GRAD_NORM_TOL`` norm-relative."""
+    import torch
+    import torch.nn.functional as F
+
+    from livecc_tpu_torch.ops.attention import prescaled
+    from livecc_tpu_torch.ops.train_attention import (
+        train_attention_bwd, train_attention_bwd_plain, train_attention_fwd,
+        train_attention_fwd_plain)
+
+    dev = torch.device("cuda")
+    hq, hk, d = K4_HEADS
+
+    def inputs(s, dtype, strided):
+        q = randn((1, hq, s, d), dtype).transpose(1, 2) if strided else randn((1, s, hq, d), dtype)
+        return (prescaled(q), randn((1, s, hk, d), dtype), randn((1, s, hk, d), dtype),
+                randn((1, s, hq, d), dtype))
+
+    def worst(out, ref, rtol, atol):
+        """max |out - ref| / (rtol |ref| + atol rms(ref)): 1 is the limit."""
+        out, ref = out.float(), ref.float()
+        if out.shape != ref.shape or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"K4: shape {tuple(out.shape)} vs {tuple(ref.shape)} or "
+                                 f"non-finite output")
+        lim = rtol * ref.abs() + atol * ref.square().mean().sqrt()
+        return ((out - ref).abs() / lim).max().item()
+
+    for i, (s, lengths, kind, strided) in enumerate(K4_CASES):
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        qs, k, v, do = inputs(s, dtype, strided)
+        seg = segment_ids(s, lengths, dev)
+        label = f"S={s} segments {list(lengths)} {kind}{' strided q' if strided else ''}"
+        o, lse = train_attention_fwd(qs, k, v, seg)
+        grads = train_attention_bwd(qs, k, v, seg, o, lse, do)
+        ro, rlse = train_attention_fwd_plain(qs, k, v, seg)
+        rgrads = train_attention_bwd_plain(qs, k, v, seg, ro, rlse, do)
+        qt = lengths[0] // 64 - 1                    # a query tile at the end of segment 1
+        fault = dropped_tile(qs, k, v, seg, do, ro, rlse, rgrads, qt, qt // 2, 3)
+        torch.cuda.synchronize()
+        outs = zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads), (ro, rlse, *rgrads), fault)
+        for part, out, ref, bad in outs:
+            name = "train_attention_fwd" if part in ("o", "lse") else "train_attention_bwd"
+            rtol, atol = K4_TOL["lse" if part == "lse" else kind]
+            w, w_bad = worst(out, ref, rtol, atol), worst(out, bad, rtol, atol)
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"  {name:20s} {label} {part}: max_abs_err {err:.3e}, worst {w:.3f} of the limit "
+                f"(rtol {rtol:g}, atol {atol:g} x rms); a dropped tile pair: {w_bad:.1f}x")
+            if not w <= 1.0:
+                raise AssertionError(f"{name} {label} {part}: {w:.3f}x the limit")
+            if not w_bad > 1.0:
+                raise AssertionError(f"{name} {label} {part}: the check passes a dropped tile")
+            if part != "lse":
+                r = results.setdefault(name, {"max_abs_err": 0.0})
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+        del rgrads, fault
+        if kind == "bf16":      # the plain version in fp32 on the same inputs
+            f32 = [x.float() for x in (qs, k, v)]
+            ro32, rlse32 = train_attention_fwd_plain(*f32, seg)
+            check("train_attention_fwd", f"{label} o vs fp32 plain", o, ro32, BF16_TOL)
+            rgrads = train_attention_bwd_plain(*f32, seg, ro32, rlse32, do.float())
+            for part, g, r in zip(("dq", "dk", "dv"), grads, rgrads):
+                rel = (torch.linalg.vector_norm(g.float() - r) / torch.linalg.vector_norm(r)).item()
+                log(f"  {'train_attention_bwd':20s} {label} {part} vs fp32 plain: norm-relative "
+                    f"{rel:.3e} (tol {K4_GRAD_NORM_TOL:g})")
+                if not rel <= K4_GRAD_NORM_TOL:
+                    raise AssertionError(f"train_attention_bwd {label} {part}: {rel} vs fp32")
+            del f32, ro32, rlse32, rgrads
+        del ro, rlse
+        torch.cuda.empty_cache()
+        if i == len(K4_CASES) - 1:          # timed
+            times("train_attention_fwd", label, lambda: train_attention_fwd(qs, k, v, seg),
+                  lambda: train_attention_fwd_plain(qs, k, v, seg))
+            times("train_attention_bwd", label,
+                  lambda: train_attention_bwd(qs, k, v, seg, o, lse, do),
+                  lambda: train_attention_bwd_plain(qs, k, v, seg, o, lse, do))
+            pairs = causal_pairs(lengths, s)
+            io = 2 * (2 * s * hq * d + 2 * s * hk * d)          # q, o, k, v in bf16
+            yardsticks("train_attention_fwd", 4 * pairs * d * hq, io + 4 * s * hq + 4 * s,
+                       sdpa_packed(qs, k, v, seg, None))
+            yardsticks("train_attention_bwd", 10 * pairs * d * hq,
+                       io + 2 * s * hq * d + 3 * (2 * s * hk * d) + 4 * s * hq + 4 * s,
+                       sdpa_packed(qs, k, v, seg, do))
+        del qs, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+
+    # the one-segment yardstick: K4 and SDPA's causal kernel, fwd and fwd+bwd
+    s = K4_CASES[-1][0]
+    qs, k, v, do = inputs(s, torch.bfloat16, False)
+    seg = segment_ids(s, (s,), dev)
+    fwd = cuda_ms(lambda: train_attention_fwd(qs, k, v, seg))
+    o, lse = train_attention_fwd(qs, k, v, seg)
+    both = fwd + cuda_ms(lambda: train_attention_bwd(qs, k, v, seg, o, lse, do))
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (qs, k, v, do))
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0,
+                                                             enable_gqa=True))
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+
+    def lib_both():
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=1.0, enable_gqa=True)
+        torch.autograd.grad(out, leaves, dot)
+
+    lib = cuda_ms(lib_both)
+    flops = 4 * (s * (s + 1) // 2) * d * hq
+    log(f"  {'train_attention':20s} one segment S={s}: K4 fwd {fwd:.3f} ms, fwd+bwd {both:.3f} ms; "
+        f"SDPA causal fwd {lib_fwd:.3f} ms, fwd+bwd {lib:.3f} ms; bound fwd "
+        f"{flops / PEAK_FLOPS * 1e3:.4f} ms, fwd+bwd {3.5 * flops / PEAK_FLOPS * 1e3:.4f} ms")
+    results["train_attention_fwd"]["one_segment"] = {"ms": fwd, "library_ms": lib_fwd}
+    results["train_attention_bwd"]["one_segment"] = {"fwd_bwd_ms": both, "library_fwd_bwd_ms": lib}
+
+
+def dropped_tile(qs, k, v, seg, do, o, lse, grads, qt: int, kt: int, h: int):
+    """The plain outputs (o, lse, dq, dk, dv of row 0) as a kernel would
+    give them had it dropped one tile pair: key tile ``kt`` for query tile
+    ``qt`` of q head ``h`` (64 x 64, the unit the kernels skip). The
+    forward loses that tile's share of the softmax; each gradient loses the
+    pair's terms, rounded as the kernels round p and ds."""
+    import torch
+
+    t = 64
+    kvh = h // (qs.shape[2] // k.shape[2])
+    rows, cols = slice(qt * t, qt * t + t), slice(kt * t, kt * t + t)
+    q_, do_, o_ = (x[0, rows, h].float() for x in (qs, do, o))
+    k_, v_ = k[0, cols, kvh].float(), v[0, cols, kvh].float()
+    pos = torch.arange(qs.shape[1], device=qs.device)
+    ok = (seg[0, rows, None] == seg[0, None, cols]) & (pos[None, cols] <= pos[rows, None])
+    p = torch.where(ok, torch.exp(q_ @ k_.T - lse[0, h, rows, None]),
+                    torch.zeros((), device=qs.device))
+    ds = p * (do_ @ v_.T - (o_ * do_).sum(-1, keepdim=True))
+    mass = p.sum(-1)
+    o2, lse2, dq, dk, dv = (x.clone() for x in (o, lse, *grads))
+    o2[0, rows, h] = ((o_ - p @ v_) / (1 - mass)[:, None]).to(o.dtype)
+    lse2[0, h, rows] += torch.log1p(-mass)
+    dq[0, rows, h] = (dq[0, rows, h].float() - ds.to(k.dtype).float() @ k_).to(dq.dtype)
+    dk[0, cols, kvh] = (dk[0, cols, kvh].float() - ds.to(do.dtype).float().T @ q_).to(dk.dtype)
+    dv[0, cols, kvh] = (dv[0, cols, kvh].float() - p.to(do.dtype).float().T @ do_).to(dv.dtype)
+    return o2, lse2, dq, dk, dv
+
+
+def sdpa_packed(qs, k, v, seg, do):
+    """The one PyTorch call that computes K4's function on these inputs:
+    SDPA with the packed rows' block-causal mask and GQA (forward, or with
+    ``do`` the backward of a forward made outside the timing)."""
+    import torch
+    import torch.nn.functional as F
+
+    s = qs.shape[1]
+    pos = torch.arange(s, device=qs.device)
+    mask = ((seg[0][:, None] == seg[0][None, :]) & (pos[None, :] <= pos[:, None]))[None, None]
+    qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
+    if do is None:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=1.0,
+                                                      enable_gqa=True)
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=1.0, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True)
 
 
 def phase_tiny():
@@ -400,6 +688,76 @@ def phase_pool(cfg, model) -> dict:
     return counts
 
 
+def phase_tiny_train():
+    """Three fp32 training steps of the tiny model on the CPU (plain
+    versions) and on the GPU (K3, K4, fused CE with fp32 logit rows)."""
+    from livecc_tpu_torch.tools.train_session import tiny_train_losses
+
+    losses = []
+    for dev in ("cpu", "cuda"):
+        losses.append(tiny_train_losses(dev))
+        log(f"  tiny train {dev}: losses {losses[-1]}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0]))
+    if not rel <= 1e-4:
+        raise AssertionError(f"tiny train: CPU and GPU losses differ by {rel:.2e} relative")
+
+
+def phase_train() -> dict:
+    """The 7B-width training session of tools/train_session.py: 3 steps."""
+    import tempfile
+
+    import torch
+
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import train_session as ts
+
+    cfg = ts.train_model_config()
+    t0 = time.perf_counter()
+    samples = ts.synth_samples(cfg, ts.N_SAMPLES, ts.N_FRAMES, ts.HEIGHT, ts.WIDTH,
+                               ts.TEXT_TOKENS)
+    model = ts.train_model(cfg)
+    torch.cuda.synchronize()
+    lens = [x["input_ids"].shape[1] for x in samples]
+    log(f"  {len(samples)} samples of {lens} tokens, grid {samples[0]['video_grid_thw'][0].tolist()}"
+        f"; model {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params "
+        f"(LLM depth {cfg.text.num_hidden_layers}) in {time.perf_counter() - t0:.1f} s")
+    visual = {n: p.clone() for n, p in model.visual.named_parameters()}
+    with tempfile.TemporaryDirectory() as out:
+        trainer = ts.new_trainer(cfg, model, samples, out)
+        # the first update has learning rate 0: what moves, moves in steps 2-3
+        before = {n: p.detach().clone() for n, p in model.text.named_parameters()
+                  if n.startswith("layers.0.") or n in ("final_ln.weight", "lm_head.weight")}
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        records = ts.run_steps(trainer)
+        counts = dict(build.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    for rec in records:
+        log(f"  step {rec['step']}: wall {rec['wall_s'] * 1e3:9.2f} ms  loss {rec['loss']:.4f}  "
+            f"tokens {rec['tokens']} ({rec['supervised']} supervised)  "
+            f"{rec['tokens_per_s']:.0f} tokens/s  model {rec['model_tflops']:.1f} TFLOP/s")
+    log(f"  peak memory {peak:.2f} GiB; launches {counts}")
+    if len(records) != 3 or not all(torch.isfinite(torch.tensor(r["loss"])) for r in records):
+        raise AssertionError(f"train: expected 3 finite losses, got {records}")
+    # bf16 norm scales sit at 1.0, where an update of ~lr (2e-5) is below half
+    # a bf16 step (2^-8): they cannot move, in JAX's bf16 training either
+    stay = [n for n in before if n.endswith("ln.weight")]
+    moved = [n for n, p in model.text.named_parameters() if n in before
+             and not torch.equal(p, before[n])]
+    if set(moved) != set(before) - set(stay):
+        raise AssertionError(f"train: params that did not move: "
+                             f"{sorted(set(before) - set(stay) - set(moved))}")
+    log(f"  moved after step 2: {len(moved)} of the {len(before)} checked tensors (layer 0, "
+        f"final_ln, lm_head); bf16 norm scales at 1.0 unchanged: {sorted(set(stay) - set(moved))}")
+    if not all(torch.equal(p, visual[n]) for n, p in model.visual.named_parameters()):
+        raise AssertionError("train: the frozen ViT changed")
+    missing = [name for name in TRAIN_KERNELS if counts.get(name, 0) <= 0]
+    if missing:
+        raise AssertionError(f"the training path never launched {missing}")
+    del model, trainer, samples
+    return counts
+
+
 def run_phase(name: str, fn):
     log(f"== phase {name}")
     t0 = time.perf_counter()
@@ -427,12 +785,20 @@ def main() -> int:
     log(f"7B init: {n_params / 1e9:.3f} B params bf16 in {time.perf_counter() - t0:.1f} s")
     main_counts = run_phase("main", lambda: phase_main(cfg, model))
     pool_counts = run_phase("pool", lambda: phase_pool(cfg, model))
+    del model                      # free the serving 7B before the training model
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_phase("tiny_train", phase_tiny_train)
+    train_counts = run_phase("train", phase_train)
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": main_counts.get(name, 0) + pool_counts.get(name, 0),
+        "launches": sum(c.get(name, 0) for c in (main_counts, pool_counts, train_counts)),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"],
         "plain_ms": results[name]["plain_ms"],
+        "bound_ms": results[name]["bound_ms"],
+        "bound_by": results[name]["bound_by"],
+        "library_ms": results[name]["library_ms"],
     } for name, (src, replaces) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)

@@ -1,0 +1,62 @@
+// K4 train_attention_bwd: the splash training attention's backward, dq, dk
+// and dv from the forward's log-sum-exp.
+//
+// Replaces: the backward of livecc_tpu/ops/attention.py:_train_splash (JAX's
+// Pallas splash kernels with use_fused_bwd_kernel=True: dq and dk/dv in one
+// kernel) and of _train_flash_stock (:65).
+//
+// Two launches on one stream, counted as one call by the wrapper:
+//   * dK/dV — one block per (64-key tile, KV head, row) walks the G = 7 q
+//     heads of its group and the query tiles from its diagonal on, so every
+//     dK/dV row is summed inside one block: no atomics, and K/V are never
+//     repeated per q head;
+//   * dQ — one block per (64-query tile, q head, row) walks its key tiles.
+// The TPU fuses dq into the dK/dV kernel, where the grid runs in order and
+// a dq scratch carries across it; blocks on the H100 run in parallel, so a
+// fused dq would need atomics or a second pass. Splitting recomputes the
+// scores once more instead.
+//
+// What bounds it on the H100: ~2.5x the forward's FLOPs (s, dp, dv, dk, dq),
+// compute-bound at the training shape; the products run on the fp32 FMA
+// pipes in this first version.
+
+#include "train_attention.cuh"
+
+extern "C" int livecc_train_attention_bwd(int dtype, const void* q, const void* k, const void* v,
+                                          const int* seg, const void* dout, const float* lse,
+                                          const float* di, void* dq, void* dk, void* dv, int batch,
+                                          int hq, int hk, int s, int d, const long long* strides,
+                                          void* stream) {
+  livecc::TrainAttnParams p = {};
+  if (!livecc::train_params(p, hq, hk, s, d, strides, true) || batch <= 0)
+    return (int)cudaErrorInvalidValue;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.seg = seg;
+  p.dout = dout;
+  p.lse = const_cast<float*>(lse);
+  p.di = di;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int tiles = (s + livecc::kTrainTile - 1) / livecc::kTrainTile;
+  const size_t smem = livecc::train_bwd_smem_bytes(d);
+  int err;
+  if (dtype == livecc::kFloat32) {
+    err = livecc::launch_train_kernel(livecc::train_dkv_kernel<float>, dim3(tiles, hk, batch),
+                                      livecc::kBwdThreads, smem, p, st);
+    if (err) return err;
+    return livecc::launch_train_kernel(livecc::train_dq_kernel<float>, dim3(tiles, hq, batch),
+                                       livecc::kBwdThreads, smem, p, st);
+  }
+  if (dtype == livecc::kBFloat16) {
+    err = livecc::launch_train_kernel(livecc::train_dkv_kernel<__nv_bfloat16>,
+                                      dim3(tiles, hk, batch), livecc::kBwdThreads, smem, p, st);
+    if (err) return err;
+    return livecc::launch_train_kernel(livecc::train_dq_kernel<__nv_bfloat16>,
+                                       dim3(tiles, hq, batch), livecc::kBwdThreads, smem, p, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}

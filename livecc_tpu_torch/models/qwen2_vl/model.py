@@ -8,10 +8,11 @@ modeling_qwen2_vl.py semantics):
     imports jax) and pinned to it by ``tests/test_torch_package.py``;
   * ``scatter_video_embeds`` — placeholder slots take the visual embeddings
     in order (a mask-gather, no host sync);
-  * ``forward`` — embeddings, the vision tower, the cached text tower, and
-    optionally the fp32 LM head; batched serving clips (``patches`` [B, Np,
-    pd], one clip per row with shared tables) run through ONE vision-tower
-    call over all rows' groups, as JAX's ``vmap`` (``model.py:220-232``);
+  * ``forward`` — embeddings, the vision tower, the cached text tower (or,
+    without a cache, the training one), and optionally the fp32 LM head;
+    batched serving clips (``patches`` [B, Np, pd], one clip per row with
+    shared tables) run through ONE vision-tower call over all rows'
+    groups, as JAX's ``vmap`` (``model.py:220-232``);
   * ``init_params`` — a model with random weights drawn from a seeded
     ``torch.Generator`` on the target device (no download, no host copy).
 """
@@ -31,7 +32,9 @@ from livecc_tpu_torch.models.qwen2_vl.vision import VisionTower
 
 
 class Qwen2VL(nn.Module):
-    """``visual`` (ViT tower) + ``text`` (LLM tower); inference only."""
+    """``visual`` (ViT tower) + ``text`` (LLM tower). Built with every
+    parameter frozen; training unfreezes its trainable modules
+    (``train/step.py:split_frozen``)."""
 
     def __init__(self, cfg: ModelConfig, device=None, dtype=None):
         super().__init__()
@@ -194,28 +197,42 @@ def batched_video_embeds(model: Qwen2VL, vision: VisionInputs) -> torch.Tensor:
     return out.reshape(b, -1, out.shape[-1])
 
 
+def _visual(model: Qwen2VL, vision: VisionInputs) -> torch.Tensor:
+    """The vision tower on one set of clips. A frozen tower (no parameter
+    requires grad) runs under ``no_grad``: its activations are not kept and
+    K3 runs forward only."""
+    frozen = not any(p.requires_grad for p in model.visual.parameters())
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+        if vision.patches.ndim == 3:
+            return batched_video_embeds(model, vision)
+        return model.visual(vision.patches, vision.cos, vision.sin, vision.seg_ids, vision.group)
+
+
 def forward(
     model: Qwen2VL,
     cfg: ModelConfig,
     input_ids: torch.Tensor,                   # [B, S]
     position_ids: torch.Tensor,                # [3, B, S]
-    cache: KVCache,
+    cache: Optional[KVCache] = None,
     vision: Optional[VisionInputs] = None,     # patches [N, pd] or per-row [B, Np, pd]
     kv_limit: Optional[torch.Tensor] = None,
     compute_logits: bool = True,
-) -> tuple[torch.Tensor, KVCache]:
-    """Cached multimodal forward. Returns (fp32 logits [B, S, V], or the
-    final hidden states when ``compute_logits`` is False, and the cache)."""
+    attention_mask: Optional[torch.Tensor] = None,   # uncached: bool [B, S] or int32 segments
+    vision_images: Optional[VisionInputs] = None,    # image clips -> image_token_id slots
+    remat: bool = False,
+) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """Multimodal forward. Returns (fp32 logits [B, S, V], or the final
+    hidden states when ``compute_logits`` is False, and the cache). Without
+    a cache it is the training forward (JAX ``model.py:197-255``): the text
+    tower runs uncached through K4 with ``attention_mask`` and ``remat``."""
     embeds = model.text.embed(input_ids.long())
     if vision is not None:
-        if vision.patches.ndim == 3:
-            video_embeds = batched_video_embeds(model, vision)
-        else:
-            video_embeds = model.visual(vision.patches, vision.cos, vision.sin, vision.seg_ids,
-                                        vision.group)
-        embeds = scatter_video_embeds(cfg, embeds, input_ids, video_embeds)
+        embeds = scatter_video_embeds(cfg, embeds, input_ids, _visual(model, vision))
+    if vision_images is not None:
+        embeds = scatter_video_embeds(cfg, embeds, input_ids, _visual(model, vision_images),
+                                      token_id=cfg.image_token_id)
     hidden, cache = text_forward(model.text, cfg.text, embeds, position_ids, cache,
-                                 kv_limit=kv_limit)
+                                 kv_limit=kv_limit, attention_mask=attention_mask, remat=remat)
     if not compute_logits:
         return hidden, cache
     return lm_logits(model.text, cfg.text, hidden), cache

@@ -9,6 +9,8 @@ attention (as ``text.py:286-302``), then attends through K1
 cache and the layer index — no per-layer slice is copied. An int8 cache
 (``KVCache.zeros(dtype=torch.int8)``) quantizes each chunk's K/V before the
 write (``quantize_kv``, as ``text.py:288-313``) and runs the int8 kernels.
+Without a cache ``text_forward`` is the training forward: every layer
+attends through K4 ``train_flash_attention`` over the whole sequence.
 """
 
 from __future__ import annotations
@@ -19,9 +21,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from livecc_tpu_torch.core.config import TextConfig
 from livecc_tpu_torch.models.qwen2_vl.layers import RMSNorm
+from livecc_tpu_torch.ops.attention import train_flash_attention
 from livecc_tpu_torch.ops.flash_attention import flash_decode, flash_prefill
 from livecc_tpu_torch.ops.rope import apply_mrope, mrope_cos_sin
 
@@ -144,18 +148,28 @@ def text_forward(
     cfg: TextConfig,
     inputs_embeds: torch.Tensor,     # [B, S, H]
     position_ids: torch.Tensor,      # [3, B, S] int
-    cache: KVCache,
+    cache: KVCache | None = None,
     kv_limit: torch.Tensor | None = None,   # int32 [B]: keys < kv_limit valid
-) -> tuple[torch.Tensor, KVCache]:
+    attention_mask: torch.Tensor | None = None,   # uncached: bool [B, S] or int32 segment ids
+    remat: bool = False,
+) -> tuple[torch.Tensor, KVCache | None]:
     """Returns (final hidden states [B, S, H], the cache with offset + S).
 
     The cache's K/V buffers are written in place (every layer writes its
     chunk at each row's offset, then attends); ``kv_limit`` defaults to
-    offset + S. Decode (S == 1) runs K2, everything else K1."""
+    offset + S. Decode (S == 1) runs K2, everything else K1.
+
+    Without a cache (training, JAX ``text.py:342-367``) every layer attends
+    through ``train_flash_attention`` (K4, splash semantics) and the cache
+    returned is None. ``remat=True`` checkpoints each layer
+    (``torch.utils.checkpoint``, JAX's ``nothing_saveable``): the backward
+    re-runs the layer, K4's forward included."""
     b, s, _ = inputs_embeds.shape
     cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
     cos = cos.to(inputs_embeds.dtype)
     sin = sin.to(inputs_embeds.dtype)
+    if cache is None:
+        return _uncached_forward(model, inputs_embeds, cos, sin, attention_mask, remat), None
     if kv_limit is None:
         kv_limit = cache.offset + s
     # a slab that would run past the end lands at Smax - s, as JAX's
@@ -185,6 +199,24 @@ def text_forward(
         x = layer(x, cos, sin, attend)
     cache.offset = cache.offset + s
     return model.final_ln(x), cache
+
+
+def _uncached_forward(model: TextModel, x, cos, sin, attention_mask, remat) -> torch.Tensor:
+    """Every layer over the whole sequence, attention through K4."""
+    if remat not in (False, True):
+        raise NotImplementedError(
+            f"remat={remat!r}: the named remat policies ('names', 'names_mlp', 'dots') are "
+            "not ported (ROADMAP Queue 1); use remat=True or False")
+
+    def attend(q, k, v):
+        return train_flash_attention(q, k, v, attention_mask)
+
+    for layer in model.layers:
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(layer, x, cos, sin, attend, use_reentrant=False)
+        else:
+            x = layer(x, cos, sin, attend)
+    return model.final_ln(x)
 
 
 def lm_logits(model: TextModel, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:

@@ -10,14 +10,58 @@ against and the CPU path of the vision tower's mixed-size segment mask:
   * ``causal_mask``, ``kv_cache_mask`` (per-row offsets), ``segment_mask``.
 
 The serving kernels live in ``ops/flash_attention.py`` (K1, K2) and
-``ops/vit_attention.py`` (K3).
+``ops/vit_attention.py`` (K3). ``train_flash_attention`` is the training
+attention's contract (JAX ``ops/attention.py:39``): both impls, "splash" and
+"flash", go to the K4 kernels of ``ops/train_attention.py``;
+``train_attention_plain`` is its plain version with splash's semantics,
+differentiated by autograd.
 """
 
 from __future__ import annotations
 
 import torch
 
+from livecc_tpu_torch.ops.train_attention import TrainAttention, train_attention_fwd_plain
+
 NEG_INF = torch.finfo(torch.float32).min
+
+
+def segment_ids(q: torch.Tensor, attention_mask: torch.Tensor | None) -> torch.Tensor:
+    """int32 [B, S] segment ids: a bool validity mask becomes 0/1 (JAX
+    ``astype(int32)``), int ids pass as they are, no mask is one segment."""
+    if attention_mask is None:
+        return torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
+    return attention_mask.to(device=q.device, dtype=torch.int32)
+
+
+def prescaled(q: torch.Tensor) -> torch.Tensor:
+    """Splash takes pre-scaled q, rounded to q's dtype (JAX ``attention.py:140``)."""
+    return (q * q.shape[-1] ** -0.5).to(q.dtype)
+
+
+def train_flash_attention(
+    q: torch.Tensor,                 # [B, S, Hq, D]
+    k: torch.Tensor,                 # [B, S, Hk, D]
+    v: torch.Tensor,                 # [B, S, Hk, D]
+    attention_mask: torch.Tensor | None = None,   # bool [B, S] valid, or int32 segment ids
+    causal: bool = True,
+    impl: str | None = None,
+) -> torch.Tensor:
+    """TRAINING attention with a backward: K4 on CUDA, its plain version on
+    the CPU. Query i attends key j iff their segment ids match and j <= i;
+    pads (id 0) attend among themselves. No [S, S] array on CUDA. Only
+    ``causal=True`` is served: no training caller asks for anything else."""
+    if impl not in (None, "splash", "flash"):
+        raise ValueError(f"train_flash_attention: unknown impl {impl!r}")
+    if not causal:
+        raise NotImplementedError("train_flash_attention: only causal=True is ported")
+    return TrainAttention.apply(prescaled(q), k, v, segment_ids(q, attention_mask))
+
+
+def train_attention_plain(q, k, v, attention_mask=None) -> torch.Tensor:
+    """Plain version of ``train_flash_attention`` (splash semantics) in plain
+    torch ops, for autograd to differentiate."""
+    return train_attention_fwd_plain(prescaled(q), k, v, segment_ids(q, attention_mask))[0]
 
 
 def mha(

@@ -123,8 +123,13 @@ def load_library() -> ctypes.CDLL:
                                              i32, i32, i32, i32, i32, strides, f32, ptr]
     lib.livecc_vit_group_attention.argtypes = [i32, ptr, ptr, ptr, ptr,
                                                i32, i32, i32, i32, strides, f32, ptr]
+    lib.livecc_train_attention_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
+                                               i32, i32, i32, i32, i32, strides, ptr]
+    lib.livecc_train_attention_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+                                               ptr, i32, i32, i32, i32, i32, strides, ptr]
     for fn in (lib.livecc_flash_prefill, lib.livecc_flash_decode, lib.livecc_flash_prefill_int8,
-               lib.livecc_flash_decode_int8, lib.livecc_vit_group_attention):
+               lib.livecc_flash_decode_int8, lib.livecc_vit_group_attention,
+               lib.livecc_train_attention_fwd, lib.livecc_train_attention_bwd):
         fn.restype = i32
     return lib
 

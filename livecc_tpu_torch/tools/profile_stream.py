@@ -15,8 +15,9 @@ Both use the 7B definitions of ``livecc_tpu_torch.tools.session`` (the ones
 It prints each chunk's or tick's wall time; the device's busy time (union of
 kernel intervals) against the wall time, i.e. the device's idle share; and
 device time by group — the port's kernels (K3 ViT attention, K1 prefill and
-K2 decode attention, and their int8 variants), matrix products, everything
-else — and the top kernels by name.
+K2 decode attention, and their int8 variants; K4 training attention for
+``tools/train_session.py --profile``, which reuses ``report``), matrix
+products, everything else — and the top kernels by name.
 
 Needs a CUDA GPU; it does not run on the CPU.
 """
@@ -32,6 +33,10 @@ import torch
 
 
 def _group(name: str) -> str:
+    if "train_fwd_kernel" in name:
+        return "K4 train_attention_fwd"
+    if "train_dkv_kernel" in name or "train_dq_kernel" in name:
+        return "K4 train_attention_bwd"
     m = re.search(r"(tile_attention_kernel|decode_kernel)<[^,>]+, *(true|false)(?:, *(true|false))?>",
                   name)
     if m:

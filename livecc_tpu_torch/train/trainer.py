@@ -1,0 +1,183 @@
+"""Training loop on one GPU: dataset -> step -> checkpoints -> resume.
+
+Port of ``livecc_tpu/train/trainer.py`` without a mesh:
+
+  * each window draws ``accum_steps`` sample indices from a seeded
+    ``random.Random``; with ``pack_seq`` the samples are packed into rows of
+    that many tokens (segment-id attention), fetching more until the window
+    is full and carrying the unpacked leftovers to the next step;
+  * a background thread loads and collates batch N+1 while the device runs
+    step N;
+  * metrics are appended to ``<output_dir>/log.jsonl``;
+  * ``save`` writes ``<output_dir>/ckpt/<step>/state.pt`` with ``torch.save``
+    (params, optimizer state, step: orbax is not on the GPU machine) every
+    ``save_steps`` and at the last step; ``try_restore`` loads the latest.
+
+The dataset is any sequence of processed samples (``input_ids [1, S]``,
+``labels``, ``position_ids [3, 1, S]``, ``pixel_patches``,
+``video_grid_thw``), as ``LMMDataset.__getitem__`` returns them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import random
+import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Sequence
+
+import torch
+
+from livecc_tpu_torch.core.config import ModelConfig
+from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL
+from livecc_tpu_torch.train.data import collate, collate_packed_rows, pack_samples
+from livecc_tpu_torch.train.step import TrainConfig, make_optimizer, make_train_step, split_frozen
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    output_dir: str = "output"
+    total_steps: int = 1000
+    accum_steps: int = 8
+    # checkpoint every save_steps and at the last step; None saves nothing
+    save_steps: int | None = 1000
+    log_steps: int = 10
+    seed: int = 0
+    resume: bool = True
+    loader_workers: int = 4           # per-sample fetch threads
+    pack_seq: int | None = None       # pack samples into rows of this many tokens
+
+
+class Trainer:
+    """Single-device training loop (batch rows = 1); ``model``'s trainable
+    parameters are updated in place."""
+
+    def __init__(self, model: Qwen2VL, cfg: ModelConfig, tcfg: TrainConfig, run: TrainerConfig,
+                 dataset: Sequence[dict[str, Any]]):
+        self.model = model
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.run = run
+        self.dataset = dataset
+        self.device = next(model.parameters()).device
+        self.batch_rows = 1
+        self.optimizer = make_optimizer(tcfg)
+        self.opt_state = self.optimizer.init(split_frozen(model, tcfg.freeze_modules)[0])
+        self.step_fn = make_train_step(cfg, tcfg, self.optimizer)
+        self.step = 0
+        self._pack_buf: list = []
+        os.makedirs(run.output_dir, exist_ok=True)
+        self._ckpt_dir = os.path.abspath(os.path.join(run.output_dir, "ckpt"))
+        self._log_path = os.path.join(run.output_dir, "log.jsonl")
+        if run.resume:
+            self.try_restore()
+
+    # -- checkpointing -----------------------------------------------------
+
+    def save(self) -> None:
+        path = os.path.join(self._ckpt_dir, str(self.step))
+        os.makedirs(path, exist_ok=True)
+        state = {"params": self.model.state_dict(), "opt_state": self.opt_state,
+                 "step": self.step}
+        tmp = os.path.join(path, "state.pt.tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, os.path.join(path, "state.pt"))
+
+    def latest_step(self) -> int | None:
+        if not os.path.isdir(self._ckpt_dir):
+            return None
+        steps = [int(d) for d in os.listdir(self._ckpt_dir)
+                 if d.isdigit() and os.path.exists(os.path.join(self._ckpt_dir, d, "state.pt"))]
+        return max(steps) if steps else None
+
+    def try_restore(self) -> bool:
+        latest = self.latest_step()
+        if latest is None:
+            return False
+        state = torch.load(os.path.join(self._ckpt_dir, str(latest), "state.pt"),
+                           map_location=self.device)
+        self.model.load_state_dict(state["params"])
+        mu, nu = self.opt_state["mu"], self.opt_state["nu"]
+        for name in mu:
+            mu[name].copy_(state["opt_state"]["mu"][name])
+            nu[name].copy_(state["opt_state"]["nu"][name])
+        self.opt_state["count"] = state["opt_state"]["count"]
+        self.step = state["step"]
+        return True
+
+    # -- loop --------------------------------------------------------------
+
+    def _log(self, record: dict) -> None:
+        with open(self._log_path, "a") as f:
+            f.write(json.dumps(record) + "\n")
+
+    def sample_indices(self, rng: random.Random) -> list[int]:
+        """One window of accum_steps x batch_rows indices."""
+        n = len(self.dataset)
+        return [rng.randrange(n) for _ in range(self.run.accum_steps * self.batch_rows)]
+
+    def _fetch(self, indices: list[int]):
+        if self.run.loader_workers > 1:
+            with ThreadPoolExecutor(max_workers=self.run.loader_workers) as pool:
+                return list(pool.map(self.dataset.__getitem__, indices))
+        return [self.dataset[i] for i in indices]
+
+    def _load_batch(self, rng: random.Random):
+        samples = self._fetch(self.sample_indices(rng))
+        if self.run.pack_seq is None:
+            return collate(samples, self.cfg, rows=self.batch_rows, device=self.device)
+        # one window needs more samples than rows: fetch until full (bounded)
+        # and carry the unpacked leftovers to the next step
+        target = self.run.accum_steps * self.batch_rows
+        self._pack_buf.extend(samples)
+        for _ in range(8):
+            packed, left = pack_samples(self._pack_buf, self.run.pack_seq, max_rows=target)
+            if len(packed) >= target:
+                break
+            self._pack_buf.extend(self._fetch(self.sample_indices(rng)))
+        else:
+            packed, left = pack_samples(self._pack_buf, self.run.pack_seq, max_rows=target)
+        if not packed:
+            raise RuntimeError(
+                f"pack_seq={self.run.pack_seq} produced no packed rows from "
+                f"{len(self._pack_buf)} fetched samples; the samples are longer than "
+                "pack_seq, raise it")
+        self._pack_buf = left
+        return collate_packed_rows(packed, self.cfg, rows=self.batch_rows,
+                                   accum=self.run.accum_steps, device=self.device)
+
+    def train(self, on_step=None) -> dict:
+        """Run to total_steps with one-batch lookahead prefetch; returns the
+        last logged record. ``on_step(step, batch, metrics)``, if given, is
+        called after every step (the metrics are device tensors)."""
+        rng = random.Random(self.run.seed + self.step)
+        t0 = time.time()
+        last = {}
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            future = pool.submit(self._load_batch, rng)
+            while self.step < self.run.total_steps:
+                batch = future.result()
+                if self.step + 1 < self.run.total_steps:
+                    future = pool.submit(self._load_batch, rng)
+                self.model, self.opt_state, metrics = self.step_fn(self.model, self.opt_state,
+                                                                   batch)
+                self.step += 1
+                if on_step is not None:
+                    on_step(self.step, batch, metrics)
+                if self.step % self.run.log_steps == 0 or self.step == self.run.total_steps:
+                    last = {"step": self.step, "loss": float(metrics["loss"]),
+                            "tokens": int(metrics["tokens"]),
+                            "elapsed_s": round(time.time() - t0, 2)}
+                    dropped = int(metrics["ce_dropped"])
+                    if dropped:
+                        last["ce_dropped"] = dropped
+                        warnings.warn(f"ce_sup_bucket dropped {dropped} supervised tokens "
+                                      "this step; raise TrainConfig.ce_sup_bucket")
+                    self._log(last)
+                save = self.run.save_steps
+                if save and (self.step % save == 0 or self.step == self.run.total_steps):
+                    self.save()
+        return last

@@ -1,1 +1,1 @@
-"""Serving metrics (``metrics.LatencyTracker``)."""
+"""Serving metrics (``metrics.LatencyTracker``) and FLOP counts (``flops``)."""

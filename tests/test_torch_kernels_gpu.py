@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``gpu``: each test skips (inside the ``cuda`` fixture) where
-``torch.cuda.is_available()`` is false. On a machine with the card:
+``torch.cuda.is_available()`` is false. On a machine with the card (which
+has no jax, so ``tests/conftest.py`` stays out):
 
-    python -m pytest -m gpu tests/test_torch_kernels_gpu.py -q
+    python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
 bf16 kernels are held to the plain version computed in fp32 on the same
 bf16 inputs (max abs 2e-2, the JAX package's bf16 bound); fp32 to 1e-4.
@@ -150,3 +151,112 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
         flash_decode(q, k, k, 4, k_scale=s.float(), v_scale=s.float())
     with pytest.raises(TypeError):                          # a bf16 cache with scales
         flash_decode(q, k.bfloat16(), k.bfloat16(), 4, k_scale=s, v_scale=s)
+
+
+# ---------------------------------------------------------------------------
+# K4: the splash training attention, forward and backward
+# ---------------------------------------------------------------------------
+
+def train_inputs(gen, b, s, hq, hk, d, dtype, dev, strided_q):
+    from livecc_tpu_torch.ops.attention import prescaled
+
+    if strided_q:        # q as the model hands it over: a head-major buffer seen as [B, S, Hq, D]
+        q = randn(gen, (b, hq, s, d), dtype, dev).transpose(1, 2)
+    else:
+        q = randn(gen, (b, s, hq, d), dtype, dev)
+    k, v, do = (randn(gen, shape, dtype, dev) for shape in
+                ((b, s, hk, d), (b, s, hk, d), (b, s, hq, d)))
+    return prescaled(q), k, v, do
+
+
+def packed_segments(b, s, lengths, dev):
+    """int32 [b, s]: segments 1..n of ``lengths`` (one list for every row,
+    or one list per row), the rest 0 (pad)."""
+    per_row = lengths if isinstance(lengths[0], (list, tuple)) else [lengths] * b
+    seg = torch.zeros((b, s), dtype=torch.int32)
+    for row, row_lengths in enumerate(per_row):
+        at = 0
+        for i, n in enumerate(row_lengths):
+            seg[row, at:at + n] = i + 1
+            at += n
+    return seg.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,hq,hk,d,lengths,strided_q", [
+    (1, 1000, 28, 4, 128, [400, 350, 200], True),     # S % 64 != 0, 3 segments + pad
+    (2, 256, 4, 2, 32, [256], False),
+    (1, 130, 6, 1, 16, [70, 40], True),
+    (1, 200, 4, 4, 64, [120, 80], False),
+    (1, 17, 4, 2, 16, [10], False),                    # less than one tile
+    (2, 300, 8, 2, 128, [[300], [90, 110, 40]], True),  # rows packed differently
+])
+def test_train_attention(cuda, dtype, b, s, hq, hk, d, lengths, strided_q):
+    from livecc_tpu_torch.ops.train_attention import (
+        train_attention_bwd, train_attention_bwd_plain, train_attention_fwd,
+        train_attention_fwd_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    qs, k, v, do = train_inputs(gen, b, s, hq, hk, d, dtype, cuda, strided_q)
+    seg = packed_segments(b, s, lengths, cuda)
+    before = (build.launch_counts["train_attention_fwd"], build.launch_counts["train_attention_bwd"])
+    o, lse = train_attention_fwd(qs, k, v, seg)
+    grads = train_attention_bwd(qs, k, v, seg, o, lse, do)
+    assert (build.launch_counts["train_attention_fwd"],
+            build.launch_counts["train_attention_bwd"]) == (before[0] + 1, before[1] + 1)
+    f32 = [x.float() for x in (qs, k, v)]
+    ro, rlse = train_attention_fwd_plain(*f32, seg)
+    rgrads = train_attention_bwd_plain(*f32, seg, ro, rlse, do.float())
+    assert_close(o, ro, dtype)
+    torch.testing.assert_close(lse, rlse, atol=TOL[dtype], rtol=0)
+    for g, r in zip(grads, rgrads):     # gradients: max abs error against their own scale
+        torch.cuda.synchronize()
+        assert (g.float() - r).abs().max().item() <= TOL[dtype] * max(1.0, r.abs().max().item())
+    if dtype == torch.bfloat16:
+        # and elementwise against the plain version in bf16, which rounds as
+        # the kernels do: |out - ref| <= 1e-2 |ref| + 2e-2 rms(ref)
+        so, slse = train_attention_fwd_plain(qs, k, v, seg)
+        sgrads = train_attention_bwd_plain(qs, k, v, seg, so, slse, do)
+        for out, ref in zip((o, *grads), (so, *sgrads)):
+            out, ref = out.float(), ref.float()
+            lim = 1e-2 * ref.abs() + 2e-2 * ref.square().mean().sqrt()
+            assert bool(((out - ref).abs() <= lim).all())
+
+
+def test_train_flash_attention_autograd(cuda):
+    """The model's entry: autograd through the pre-scale and K4, bf16."""
+    from livecc_tpu_torch.ops.attention import train_attention_plain, train_flash_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (randn(gen, (1, 300, h, 128), torch.bfloat16, cuda).requires_grad_()
+               for h in (28, 4, 4))
+    mask = torch.arange(300, device=cuda)[None, :] < 260
+    w = randn(gen, (1, 300, 28, 128), torch.float32, cuda) * mask[..., None, None]
+    (train_flash_attention(q, k, v, mask).float() * w).sum().backward()
+    ref = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    (train_attention_plain(*ref, mask) * w).sum().backward()
+    for x, r in zip((q, k, v), ref):
+        assert (x.grad.float() - r.grad).abs().max().item() <= 2e-2 * r.grad.abs().max().item()
+
+
+def test_train_attention_rejects_what_the_kernels_do_not_take(cuda):
+    from livecc_tpu_torch.ops.train_attention import train_attention_fwd
+
+    q = torch.zeros(1, 64, 4, 16, device=cuda)
+    seg = torch.ones(1, 64, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                         # segment ids not int32
+        train_attention_fwd(q, q[:, :, :2], q[:, :, :2], seg.long())
+    with pytest.raises(ValueError):                         # Hq not a multiple of Hk
+        train_attention_fwd(q, q[:, :, :3], q[:, :, :3], seg)
+    with pytest.raises(TypeError):
+        train_attention_fwd(q.half(), q[:, :, :2].half(), q[:, :, :2].half(), seg)
+
+
+def test_tiny_train_step_cuda_matches_cpu(cuda):
+    """Three fp32 steps of the tiny model: the CPU (plain versions) and the
+    card (K3, K4, fused CE with fp32 logit rows) give the same losses."""
+    import numpy as np
+
+    from livecc_tpu_torch.tools.train_session import tiny_train_losses
+
+    np.testing.assert_allclose(tiny_train_losses(cuda), tiny_train_losses("cpu"), rtol=1e-4)

@@ -50,23 +50,47 @@ def test_import_leaves_jax_and_the_jax_package_out():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def _sources():
+SMOKE = os.path.join(ROOT, "chip_smoke.py")
+LIBRARY_ATTENTION = r"scaled_dot_product_attention|torch\.compile|flash_attn"
+# chip_smoke.py times one PyTorch call beside each kernel as its yardstick
+# (library_ms), in these functions only; the port itself never calls one
+SMOKE_YARDSTICKS = {"phase_kernels", "phase_k4", "sdpa_packed"}
+
+
+def _sources(smoke: bool = True):
     for dirpath, _, files in os.walk(PKG):
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
-    yield os.path.join(ROOT, "chip_smoke.py")
+    if smoke:
+        yield SMOKE
 
 
 @pytest.mark.parametrize("pattern", [
     r"^\s*(import jax|from jax)",           # the port never imports jax
     r"^\s*(import|from)\s+livecc_tpu\b",    # ... nor the JAX package
-    r"scaled_dot_product_attention|torch\.compile|flash_attn",   # no library attention
+    LIBRARY_ATTENTION,                      # no library attention (chip_smoke: see below)
 ])
 def test_port_sources_free_of(pattern):
     rx = re.compile(pattern, re.M)
-    hits = [p for p in _sources() if rx.search(open(p).read())]
+    hits = [p for p in _sources(smoke=pattern != LIBRARY_ATTENTION) if rx.search(open(p).read())]
     assert not hits, hits
+
+
+def test_smoke_calls_library_attention_only_as_a_yardstick():
+    """In chip_smoke.py a library attention call appears only inside the
+    functions that time yardsticks, never on a path the script drives."""
+    import ast
+
+    tree = ast.parse(open(SMOKE).read())
+    rx = re.compile(LIBRARY_ATTENTION)
+    allowed = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and node.name in SMOKE_YARDSTICKS:
+            allowed.update(range(node.lineno, node.end_lineno + 1))
+    lines = open(SMOKE).read().splitlines()
+    hits = [i + 1 for i, line in enumerate(lines) if rx.search(line)]
+    assert hits and set(hits) <= allowed, sorted(set(hits) - allowed)
 
 
 @pytest.mark.parametrize("preset", ["tiny", "qwen2_vl_2b", "qwen2_vl_7b", "qwen2_vl_72b"])
