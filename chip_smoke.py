@@ -16,11 +16,18 @@ Phases (any failure raises and the script exits non-zero):
                  train_attention_bwd) against its plain PyTorch version on
                  the card at the paths' shapes: bf16 inputs against the plain
                  version in fp32 on the same inputs (max abs <= 2e-2), and
-                 an fp32 case (<= 1e-4); median times of both (CUDA
+                 an fp32 case (<= 1e-4); the kernel's device time (calls
+                 captured in a CUDA graph and replayed between CUDA events)
+                 and the plain version's (calls back to back between
                  events), the least time the card could take for the same
-                 work (bound), and the time of the one PyTorch call that
+                 work (bound), and the device time of the one PyTorch call that
                  computes the same function (library; none for the int8
-                 kernels). The int8 kernels run on the pool's cache
+                 kernels). The decode kernels (K2, K2-int8) are held
+                 instead to the plain version in their own dtype by
+                 ``kernel_check.close``, a limit that must also fail a
+                 planted dropped split; their timed cases check that two
+                 launches are bit-equal and time both split sizes of
+                 ``DECODE_SPLITS``. The int8 kernels run on the pool's cache
                  [28, 8, 4, 8192, 128] int8 with bf16 scales; K4 at the
                  training shape (Hq 28, Hk 4, D 128) on packed rows of 4096
                  and 1000 (checked) and 8192 (checked and timed), each
@@ -67,7 +74,7 @@ from __future__ import annotations
 import gc
 import json
 import os
-import statistics
+import re
 import subprocess
 import sys
 import time
@@ -97,6 +104,9 @@ POOL_KERNELS = ("vit_group_attention", "flash_prefill_int8", "flash_decode_int8"
 TRAIN_KERNELS = ("vit_group_attention", "train_attention_fwd", "train_attention_bwd")
 BF16_TOL = 2e-2     # the JAX package's own bf16 bound (tests/test_vit_attention.py:22)
 FP32_TOL = 1e-4
+# keys per split block at which the decode kernels are timed (flash_decode
+# runs at ops/flash_attention.py:DECODE_SPLIT, the first)
+DECODE_SPLITS = (64, 32)
 # H100 SXM: dense bf16 tensor-core peak and HBM3 bandwidth (NVIDIA's data sheet)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # K4 at the 7B's training heads (Hq, Hk, D) on packed rows: (S, segment
@@ -145,25 +155,66 @@ def phase_build():
     build.load_library()
     log(f"build: {lib} in {time.perf_counter() - t0:.1f} s")
     for line in (lib.parent / "build.log").read_text().splitlines():
-        if "Used" in line or "spill" in line:
+        if "Function properties for" in line:     # the kernel the next two lines describe
+            name = line.split("for ")[-1]
+            m = re.search(r"\d+([a-z_]*kernel)(I\w*?)E+v", name)
+            log(f"  ptxas: {''.join(m.groups()) if m else name}")
+        elif "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``iters`` runs (CUDA events)."""
+    """Milliseconds per call of ``fn``: ``iters`` calls back to back between
+    two CUDA events, after ``warmup`` calls (100 calls when one takes under
+    a millisecond). A call so costs the larger of its host work and its
+    device time, as it does in a loop of them."""
     import torch
 
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(iters):
+    while True:
+        torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(iters):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        ms = start.elapsed_time(end) / iters
+        if ms >= 1.0 or iters >= 100:
+            return ms
+        iters = 100
+
+
+def graph_ms(fn, iters: int = 10, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``iters`` calls captured in one
+    CUDA graph (after a warm-up call on a side stream, as capture asks; their
+    allocations come from the graph's pool), replayed ``replays`` times
+    between two CUDA events. No host work runs between the calls, so this is
+    the device's time for the kernels ``fn`` launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -198,8 +249,10 @@ def phase_kernels() -> dict:
     import torch.nn.functional as F
 
     from livecc_tpu_torch.ops.flash_attention import (
-        flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
+        DECODE_SPLIT, decode_kernels, flash_decode, flash_decode_plain, flash_prefill,
+        flash_prefill_plain)
     from livecc_tpu_torch.ops.vit_attention import vit_group_attention, vit_group_attention_plain
+    from livecc_tpu_torch.tools import kernel_check
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -224,18 +277,54 @@ def phase_kernels() -> dict:
         if timed is not None:
             times(name, label, *timed)
 
+    def check_decode(label, args, out, timed=False):
+        """K2, or K2-int8 when ``args`` = (q, k, v, kv_limit, k_scale, v_scale)
+        (one layer) holds scales, against the plain version on the same
+        inputs in the same dtype by ``kernel_check.close``. Where the longest
+        row has more than one split, the planted fault (the plain version
+        with one split dropped, ``kernel_check.drop_split``) must fail the
+        same limit. A timed case also checks that a second launch gives the
+        same bits and times the kernels at both split sizes of
+        ``DECODE_SPLITS``."""
+        name = "flash_decode" if args[4] is None else "flash_decode_int8"
+        dtype = args[0].dtype
+        ref = flash_decode_plain(*args)
+        worst = kernel_check.close(out, ref, dtype)
+        err = (out.float() - ref.float()).abs().max().item()
+        note = ""
+        if int(args[3].max()) > DECODE_SPLIT:
+            fault = kernel_check.drop_split(*args[:4], DECODE_SPLIT, *args[4:])
+            w_bad = kernel_check.close(fault, ref, dtype)
+            note = f"; a dropped split: {w_bad:.1f}x"
+            if not w_bad > 1.0:
+                raise AssertionError(f"{name} {label}: the check passes a dropped split")
+        log(f"  {name:20s} {label:48s} max_abs_err {err:.3e}, worst {worst:.3f} of the limit "
+            f"{kernel_check.TOL[dtype]}{note}")
+        if not worst <= 1.0:
+            raise AssertionError(f"{name} {label}: {worst:.3f}x the limit")
+        r = results.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if timed:
+            if not torch.equal(out, decode_kernels(*args, DECODE_SPLIT)):
+                raise AssertionError(f"{name} {label}: two launches differ")
+            split_ms = {s: graph_ms(lambda: decode_kernels(*args, s)) for s in DECODE_SPLITS}
+            log(f"  {name:20s} {label:48s} two launches bit-equal; by split size: " + ", ".join(
+                f"{s} keys {t:.4f} ms" for s, t in split_ms.items()))
+
     def times(name, label, kernel_fn, plain_fn):
-        """The timed case's kernel and plain-version times."""
+        """The timed case's kernel time (device, ``graph_ms``) and the plain
+        version's (calls back to back, ``cuda_ms``)."""
         r = results[name]
-        r["ms"] = cuda_ms(kernel_fn)
+        r["ms"] = graph_ms(kernel_fn)
         r["plain_ms"] = cuda_ms(plain_fn)
         log(f"  {name:20s} {label:48s} kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms")
 
-    def yardsticks(name, flops, nbytes, library_fn):
-        """The timed case's bound and library time."""
+    def yardsticks(name, flops, nbytes, library_fn, timer=graph_ms):
+        """The timed case's bound and library time (device, ``graph_ms``,
+        unless the call runs autograd)."""
         r = results[name]
         r["bound_ms"], r["bound_by"] = bound(flops, nbytes)
-        r["library_ms"] = None if library_fn is None else cuda_ms(library_fn)
+        r["library_ms"] = None if library_fn is None else timer(library_fn)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
         log(f"  {name:20s} bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {flops / 1e9:.3f} GFLOP, "
             f"{nbytes / 1e6:.3f} MB)  library {lib}")
@@ -290,12 +379,12 @@ def phase_kernels() -> dict:
             q = randn((b, hq, 1, d), bf16)
             lim_t = torch.tensor(lim, dtype=torch.int32, device=dev)
             out = flash_decode(q, k5, v5, lim_t, layer_index=li)
-            ref = flash_decode_plain(q.float(), kl, vl, lim_t)
             timed = b == 1 and lim == [777]
-            check("flash_decode", f"B={b} kv_limit={lim} bf16", out, ref, BF16_TOL,
-                  (lambda: flash_decode(q, k5, v5, lim_t, layer_index=li),
-                   lambda: flash_decode_plain(q, k5[li], v5[li], lim_t)) if timed else None)
+            label = f"B={b} kv_limit={lim} bf16"
+            check_decode(label, (q, k5[li], v5[li], lim_t, None, None), out, timed)
             if timed:
+                times("flash_decode", label, lambda: flash_decode(q, k5, v5, lim_t, layer_index=li),
+                      lambda: flash_decode_plain(q, k5[li], v5[li], lim_t))
                 valid = (torch.arange(smax, device=dev)[None, :] < lim_t[:, None])[:, None, None]
                 yardsticks("flash_decode", 4 * sum(lim) * d * hq,
                            2 * q.numel() * 2 + 2 * hk * sum(lim) * d * 2,
@@ -311,8 +400,7 @@ def phase_kernels() -> dict:
     check("flash_prefill", "B=2 Sq=100 D=16 strided q fp32", flash_prefill(qs, k4, v4, off_t, lim_t),
           flash_prefill_plain(qs, k4, v4, off_t, lim_t), FP32_TOL)
     q1 = randn((2, 4, 1, 16), f32)
-    check("flash_decode", "B=2 D=16 fp32", flash_decode(q1, k4, v4, lim_t),
-          flash_decode_plain(q1, k4, v4, lim_t), FP32_TOL)
+    check_decode("B=2 D=16 fp32", (q1, k4, v4, lim_t, None, None), flash_decode(q1, k4, v4, lim_t))
     del k4, v4, qs, q1
 
     # K1-int8 / K2-int8 on the pool's cache: [28, 8, 4, 8192, 128] int8 with
@@ -341,25 +429,25 @@ def phase_kernels() -> dict:
                2 * q.numel() * 2 + 2 * hk * sum(keys) * (d + 2), None)
     lim_d = torch.tensor([1, 777, 8192, 4000, 1, 777, 8192, 2500], dtype=torch.int32, device=dev)
     q = randn((b, 1, hq, d), bf16).transpose(1, 2)
-    check("flash_decode_int8", f"B=8 kv_limit={lim_d.tolist()} bf16",
-          flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8),
-          flash_decode_plain(q.float(), *layer[:2], lim_d, *layer[2:]), BF16_TOL,
-          (lambda: flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8),
-           lambda: flash_decode_plain(q, *layer[:2], lim_d, *layer[2:])))
+    label = f"B=8 kv_limit={lim_d.tolist()} bf16"
+    check_decode(label, (q, *layer[:2], lim_d, *layer[2:]),
+                 flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8), True)
+    times("flash_decode_int8", label,
+          lambda: flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8),
+          lambda: flash_decode_plain(q, *layer[:2], lim_d, *layer[2:]))
     keys = sum(lim_d.tolist())
     yardsticks("flash_decode_int8", 4 * keys * d * hq, 2 * q.numel() * 2 + 2 * hk * keys * (d + 2),
                None)
     del k8, v8, ks8, vs8, layer
     # bf16 K2 at the pool's B = 8 and the same limits, beside K2-int8
     k5, v5 = (randn((L, b, hk, smax, d), bf16) for _ in range(2))
-    check("flash_decode", f"B=8 kv_limit={lim_d.tolist()} bf16",
-          flash_decode(q, k5, v5, lim_d, layer_index=li),
-          flash_decode_plain(q.float(), k5[li].float(), v5[li].float(), lim_d), BF16_TOL)
-    b8 = (cuda_ms(lambda: flash_decode(q, k5, v5, lim_d, layer_index=li)),
+    check_decode(f"B=8 kv_limit={lim_d.tolist()} bf16", (q, k5[li], v5[li], lim_d, None, None),
+                 flash_decode(q, k5, v5, lim_d, layer_index=li), True)
+    b8 = (graph_ms(lambda: flash_decode(q, k5, v5, lim_d, layer_index=li)),
           cuda_ms(lambda: flash_decode_plain(q, k5[li], v5[li], lim_d)))
     keys = sum(lim_d.tolist())
     valid = (torch.arange(smax, device=dev)[None, :] < lim_d[:, None])[:, None, None]
-    b8_lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k5[li], v5[li], attn_mask=valid,
+    b8_lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k5[li], v5[li], attn_mask=valid,
                                                             enable_gqa=True))
     b8_bound = bound(4 * keys * d * hq, 2 * q.numel() * 2 + 2 * hk * keys * d * 2)
     log(f"  {'flash_decode':20s} {'B=8 (pool shape) bf16 cache':48s} kernel {b8[0]:.3f} ms  "
@@ -375,9 +463,8 @@ def phase_kernels() -> dict:
           flash_prefill(qs, k4, v4, off_t, lim_t, k_scale=ks4, v_scale=vs4),
           flash_prefill_plain(qs, k4, v4, off_t, lim_t, ks4, vs4), FP32_TOL)
     q1 = randn((2, 4, 1, 16), f32)
-    check("flash_decode_int8", "B=2 D=16 fp32", flash_decode(q1, k4, v4, lim_t, k_scale=ks4,
-                                                              v_scale=vs4),
-          flash_decode_plain(q1, k4, v4, lim_t, ks4, vs4), FP32_TOL)
+    check_decode("B=2 D=16 fp32", (q1, k4, v4, lim_t, ks4, vs4),
+                 flash_decode(q1, k4, v4, lim_t, k_scale=ks4, v_scale=vs4))
     del k4, v4, ks4, vs4, qs, q1
     torch.cuda.empty_cache()
     phase_k4(results, check, times, yardsticks, randn)
@@ -479,7 +566,7 @@ def phase_k4(results, check, times, yardsticks, randn):
                        sdpa_packed(qs, k, v, seg, None))
             yardsticks("train_attention_bwd", 10 * pairs * d * hq,
                        io + 2 * s * hq * d + 3 * (2 * s * hk * d) + 4 * s * hq + 4 * s,
-                       sdpa_packed(qs, k, v, seg, do))
+                       sdpa_packed(qs, k, v, seg, do), timer=cuda_ms)
         del qs, k, v, do, o, lse, grads
         torch.cuda.empty_cache()
 

@@ -18,6 +18,7 @@ through the kernels by reading the counts.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -115,12 +116,13 @@ def load_library() -> ctypes.CDLL:
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.livecc_flash_prefill.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
                                          i32, i32, i32, i32, i32, i32, strides, f32, ptr]
+    # the decode entry points end in (workspace, split, stream)
     lib.livecc_flash_decode.argtypes = [i32, ptr, ptr, ptr, ptr, ptr,
-                                        i32, i32, i32, i32, i32, strides, f32, ptr]
+                                        i32, i32, i32, i32, i32, strides, f32, ptr, i32, ptr]
     lib.livecc_flash_prefill_int8.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                               i32, i32, i32, i32, i32, i32, strides, f32, ptr]
     lib.livecc_flash_decode_int8.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                             i32, i32, i32, i32, i32, strides, f32, ptr]
+                                             i32, i32, i32, i32, i32, strides, f32, ptr, i32, ptr]
     lib.livecc_vit_group_attention.argtypes = [i32, ptr, ptr, ptr, ptr,
                                                i32, i32, i32, i32, strides, f32, ptr]
     lib.livecc_train_attention_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
@@ -135,9 +137,35 @@ def load_library() -> ctypes.CDLL:
 
 
 def stride_array(*tensors_dims) -> ctypes.Array:
-    """Flatten (tensor, dims) pairs into a C int64 array of element strides."""
-    vals = [t.stride(d) for t, dims in tensors_dims for d in dims]
+    """Flatten (tensor, dims) pairs into a C int64 array of element strides
+    (the launchers copy it during the call, so one array per stride tuple is
+    built once and reused)."""
+    vals = []
+    for t, dims in tensors_dims:
+        strides = t.stride()
+        vals += (strides[d] for d in dims)
+    return _stride_array(tuple(vals))
+
+
+@functools.lru_cache(maxsize=1024)
+def _stride_array(vals: tuple) -> ctypes.Array:
     return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def current_stream(device: torch.device) -> int:
+    """Raw handle of ``device``'s current CUDA stream, the launchers' last
+    argument (``torch.cuda.current_stream(device).cuda_stream`` without
+    building a Stream object: a decode step launches K2 once per layer)."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def on_device(device: torch.device):
+    """``torch.cuda.device(device)`` when another device is current (the C
+    launchers launch on the current one), else a context that does nothing."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_operands(name: str, *tensors: torch.Tensor) -> None:
@@ -159,6 +187,9 @@ def check_operands(name: str, *tensors: torch.Tensor) -> None:
 
 def row_scalars(x, batch: int, device: torch.device) -> torch.Tensor:
     """Scalar or [B] -> contiguous int32 [B] on ``device``."""
+    if (isinstance(x, torch.Tensor) and x.dtype == torch.int32 and x.device == device
+            and x.shape == (batch,) and x.is_contiguous()):
+        return x
     return torch.as_tensor(x, dtype=torch.int32, device=device).expand(batch).contiguous()
 
 

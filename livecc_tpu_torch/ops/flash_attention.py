@@ -18,6 +18,9 @@ Each wrapper runs its CUDA kernel for CUDA tensors (``csrc/flash_prefill.cu``,
 ``csrc/flash_decode_int8.cu``) and its plain PyTorch version for CPU
 tensors; any other device raises. The plain versions below reproduce the
 kernels' semantics, including a zero output for a row with no valid key.
+The decode kernels split each row's keys into blocks of ``DECODE_SPLIT``
+and merge the partials in a second kernel; ``flash_decode_split_plain`` and
+``flash_decode_merge_plain`` mirror those two steps for the tests.
 The output is ``[B, Hq, Sq, D]``; on the GPU it is a transposed view of a
 ``[B, Sq, Hq, D]`` buffer, so the caller's swap back is free.
 
@@ -157,8 +160,8 @@ def flash_prefill(
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = build.load_library()
     strides = [(q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)), (out, (0, 1, 2))]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with build.on_device(q.device):
+        stream = build.current_stream(q.device)
         if k_scale is None:
             build.launch(
                 "flash_prefill", lib.livecc_flash_prefill,
@@ -194,6 +197,60 @@ def flash_decode_plain(q, k, v, kv_limit, k_scale=None, v_scale=None) -> torch.T
     return _masked_softmax_pv(s, allowed[:, None, None, :], v, q.dtype, v_scale)
 
 
+def flash_decode_split_plain(q, k, v, kv_limit, split: int, k_scale=None, v_scale=None):
+    """The split kernel's partials in PyTorch, on a one-layer cache: for each
+    split of ``split`` keys, ``m`` (max score) and ``l`` (sum of p) ``[B, Hq,
+    nsplit]`` and ``acc`` (p·v) ``[B, Hq, nsplit, D]``, fp32, with p = exp(s -
+    m) within the split, ``l`` taken before any rounding or value scale, p
+    rounded to v's dtype for p·v (an int8 cache: scaled per key, fp32). A
+    split with no valid key: m = -inf, l = 0, acc = 0. Tests only: the CPU
+    route of ``flash_decode`` is ``flash_decode_plain``."""
+    b, hq = q.shape[:2]
+    hk, smax, d = k.shape[1:]
+    g = hq // hk
+    _check_scales("flash_decode", k, v, k_scale, v_scale)
+    kv_limit = build.row_scalars(kv_limit, b, q.device)
+    nsplit = -(-smax // split)
+    pad = nsplit * split - smax
+    s = torch.matmul(q.float().reshape(b, hk, g, d), k.float().transpose(-1, -2)) * d ** -0.5
+    if k_scale is not None:
+        s = s * k_scale.float()                                            # [B, Hk, G, Smax]
+    allowed = torch.arange(nsplit * split, device=q.device)[None, :] < kv_limit[:, None]
+    allowed = allowed.reshape(b, 1, 1, nsplit, split)
+    s = torch.nn.functional.pad(s, (0, pad)).reshape(b, hk, g, nsplit, split)
+    s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(allowed, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    if v_scale is not None:
+        p = p * torch.nn.functional.pad(v_scale.float(), (0, pad)).reshape(b, hk, 1, nsplit, split)
+    else:
+        p = p.to(v.dtype).float()
+    vs = torch.nn.functional.pad(v.float(), (0, 0, 0, pad)).reshape(b, hk, nsplit, split, d)
+    acc = torch.einsum("bhgns,bhnsd->bhgnd", p, vs)                        # [B, Hk, G, nsplit, D]
+    empty = ~allowed.any(dim=-1)                                           # [B, 1, 1, nsplit]
+    m = torch.where(empty, torch.full_like(l, float("-inf")), m[..., 0])
+    return m.reshape(b, hq, nsplit), l.reshape(b, hq, nsplit), acc.reshape(b, hq, nsplit, d)
+
+
+def flash_decode_merge_plain(m, l, acc, out_dtype) -> torch.Tensor:
+    """The merge kernel in PyTorch: ``sum_i e^(m_i - M) acc_i / sum_i
+    e^(m_i - M) l_i`` over the non-empty splits (l > 0), ``[B, Hq, 1, D]``;
+    0 for a row whose splits are all empty."""
+    valid = l > 0
+    mv = torch.where(valid, m, torch.full_like(m, NEG_INF))
+    big = mv.amax(dim=-1, keepdim=True)
+    w = torch.where(valid, torch.exp(torch.where(valid, m, big) - big), torch.zeros_like(m))
+    den = (w * l).sum(dim=-1, keepdim=True)
+    o = (w[..., None] * acc).sum(dim=-2)
+    o = o / torch.where(den > 0, den, torch.ones_like(den))
+    return o[:, :, None].to(out_dtype)
+
+
+# keys per split block of the K2 / K2-int8 kernels (csrc/decode_attention.cuh)
+DECODE_SPLIT = 64
+
+
 def flash_decode(
     q: torch.Tensor,            # [B, Hq, 1, D]
     k: torch.Tensor,            # [B, Hk, Smax, D] or [L, B, Hk, Smax, D] (layer_index)
@@ -213,6 +270,14 @@ def flash_decode(
         return flash_decode_plain(q, k, v, kv_limit, k_scale, v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_decode: no kernel for device {q.device}")
+    return decode_kernels(q, k, v, kv_limit, k_scale, v_scale, DECODE_SPLIT)
+
+
+def decode_kernels(q, k, v, kv_limit, k_scale, v_scale, split: int) -> torch.Tensor:
+    """Launch K2 (or K2-int8 with scales) on a one-layer CUDA cache with
+    ``split`` keys per split block: the split kernel writes its partials into
+    a workspace allocated here, on the caller's stream, and the merge kernel
+    writes the output. ``flash_decode`` passes ``DECODE_SPLIT``."""
     b, hq, _, d = q.shape
     hk, smax = k.shape[1], k.shape[2]
     if k.shape != (b, hk, smax, d) or v.shape != k.shape or hq % hk or (hq // hk) * d > 2048:
@@ -222,16 +287,18 @@ def flash_decode(
     _check_cuda_operands("flash_decode", q, k, v, k_scale, v_scale)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
     out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    nsplit = -(-smax // split)
+    workspace = torch.empty((2 + d) * b * hq * nsplit, dtype=torch.float32, device=q.device)
     lib = build.load_library()
     strides = [(q, (0, 1)), (k, (0, 1, 2)), (v, (0, 1, 2)), (out, (0, 1))]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with build.on_device(q.device):
+        stream = build.current_stream(q.device)
         if k_scale is None:
             build.launch(
                 "flash_decode", lib.livecc_flash_decode,
                 build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), kv_limit.data_ptr(), b, hq, hk, smax, d,
-                build.stride_array(*strides), d ** -0.5, stream,
+                build.stride_array(*strides), d ** -0.5, workspace.data_ptr(), split, stream,
             )
         else:
             build.launch(
@@ -240,6 +307,6 @@ def flash_decode(
                 k_scale.data_ptr(), v_scale.data_ptr(),
                 out.data_ptr(), kv_limit.data_ptr(), b, hq, hk, smax, d,
                 build.stride_array(*strides, (k_scale, (0, 1)), (v_scale, (0, 1))),
-                d ** -0.5, stream,
+                d ** -0.5, workspace.data_ptr(), split, stream,
             )
     return out

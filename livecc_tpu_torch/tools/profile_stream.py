@@ -37,11 +37,11 @@ def _group(name: str) -> str:
         return "K4 train_attention_fwd"
     if "train_dkv_kernel" in name or "train_dq_kernel" in name:
         return "K4 train_attention_bwd"
-    m = re.search(r"(tile_attention_kernel|decode_kernel)<[^,>]+, *(true|false)(?:, *(true|false))?>",
-                  name)
+    m = re.search(r"(tile_attention_kernel|decode_split_kernel|decode_merge_kernel)"
+                  r"<[^,>]+, *(true|false)(?:, *(true|false|\d+))?", name)
     if m:
         kernel, flag, quant = m.groups()
-        if kernel == "decode_kernel":
+        if kernel != "tile_attention_kernel":       # K2's split and merge kernels
             return "K2-int8 flash_decode_int8" if flag == "true" else "K2 flash_decode"
         if flag == "false":
             return "K3 vit_group_attention"

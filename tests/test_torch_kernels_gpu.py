@@ -8,6 +8,8 @@ has no jax, so ``tests/conftest.py`` stays out):
 
 bf16 kernels are held to the plain version computed in fp32 on the same
 bf16 inputs (max abs 2e-2, the JAX package's bf16 bound); fp32 to 1e-4.
+The decode kernels are also held to the plain version in their own dtype
+by ``kernel_check.close``, a limit that a dropped split of keys fails.
 """
 
 import pytest
@@ -15,7 +17,8 @@ import torch
 
 from livecc_tpu_torch.ops import build
 from livecc_tpu_torch.ops.flash_attention import (
-    flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
+    DECODE_SPLIT, flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
+from livecc_tpu_torch.tools import kernel_check
 from livecc_tpu_torch.ops.vit_attention import vit_group_attention, vit_group_attention_plain
 
 pytestmark = pytest.mark.gpu
@@ -71,10 +74,23 @@ def test_flash_prefill(cuda, dtype, b, hq, hk, d, sq, offsets, limits):
     assert_close(out, ref, dtype)
 
 
+S = DECODE_SPLIT
+# split boundaries, a row of 0 and the cache's end, mixed in one batch
+SPLIT_LIMITS = [S - 1, S, S + 1, 4096, 0, 3 * S + 1]
+
+
+def assert_decode_close(out, ref, dtype):
+    """The decode kernels against the plain version on the same inputs in
+    the same dtype, by ``kernel_check.close`` (a limit a dropped split fails)."""
+    torch.cuda.synchronize()
+    worst = kernel_check.close(out, ref, dtype)
+    assert worst <= 1.0, worst
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hq,hk,d,limits", [
     (1, 28, 4, 128, [777]), (3, 28, 4, 128, [1, 777, 4096]), (2, 4, 2, 16, [0, 33]),
-    (1, 12, 2, 128, [4096]),
+    (1, 12, 2, 128, [4096]), (6, 28, 4, 128, SPLIT_LIMITS), (6, 4, 2, 16, SPLIT_LIMITS),
 ])
 def test_flash_decode(cuda, dtype, b, hq, hk, d, limits):
     gen = torch.Generator(device=cuda).manual_seed(2)
@@ -82,9 +98,47 @@ def test_flash_decode(cuda, dtype, b, hq, hk, d, limits):
     k5, v5 = (randn(gen, (L, b, hk, smax, d), dtype, cuda) for _ in range(2))
     q = randn(gen, (b, 1, hq, d), dtype, cuda).transpose(1, 2)
     lim = torch.tensor(limits, dtype=torch.int32, device=cuda)
+    before = build.launch_counts["flash_decode"]
     out = flash_decode(q, k5, v5, lim, layer_index=1)
-    ref = flash_decode_plain(q.float(), k5[1].float(), v5[1].float(), lim)
-    assert_close(out, ref, dtype)
+    assert build.launch_counts["flash_decode"] == before + 1
+    assert_decode_close(out, flash_decode_plain(q, k5[1], v5[1], lim), dtype)
+    if 0 in limits:
+        assert not out[limits.index(0)].any()
+    if dtype == torch.bfloat16:       # and against the plain version in fp32
+        assert_close(out, flash_decode_plain(q.float(), k5[1].float(), v5[1].float(), lim), dtype)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_launches_are_bit_equal(cuda, quant):
+    """No atomics: two launches on the same inputs give the same bits."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, hq, hk, d, smax = 8, 28, 4, 128, 8192
+    lim = torch.tensor([1, 777, 8192, 4000, 0, 63, 64, 65], dtype=torch.int32, device=cuda)
+    q = randn(gen, (b, 1, hq, d), torch.bfloat16, cuda).transpose(1, 2)
+    if quant:
+        (k, ks), (v, vs) = (quantized_cache(gen, (b, hk, smax, d), cuda) for _ in range(2))
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (randn(gen, (b, hk, smax, d), torch.bfloat16, cuda) for _ in range(2))
+        kw = {}
+    assert torch.equal(flash_decode(q, k, v, lim, **kw), flash_decode(q, k, v, lim, **kw))
+
+
+def test_flash_decode_rejects_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(1, 4, 1, 20, device=cuda)                # head dim not a multiple of 8
+    with pytest.raises(ValueError):
+        flash_decode(q, q[:, :2].expand(1, 2, 64, 20), q[:, :2].expand(1, 2, 64, 20), 4)
+    q = torch.zeros(1, 3, 1, 16, device=cuda)                # Hq not a multiple of Hk
+    k = torch.zeros(1, 2, 64, 16, device=cuda)
+    with pytest.raises(ValueError):
+        flash_decode(q, k, k, 4)
+    q = torch.zeros(1, 32, 1, 128, device=cuda)              # G * D > 2048
+    k = torch.zeros(1, 1, 64, 128, device=cuda)
+    with pytest.raises(ValueError):
+        flash_decode(q, k, k, 4)
+    k = torch.zeros(1, 2, 64, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_decode(q[:, :4, :, :16].half(), k, k, 4)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -127,6 +181,8 @@ def test_flash_prefill_int8(cuda, dtype, b, hq, hk, d, sq, offsets, limits):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hq,hk,d,limits", [
     (8, 28, 4, 128, [1, 777, 8192, 4000, 0, 63, 64, 65]), (2, 4, 2, 16, [0, 33]),
+    (6, 28, 4, 128, SPLIT_LIMITS),
+    (6, 4, 2, 8, SPLIT_LIMITS),         # int8 rows of 8 bytes: the kernel's 8-byte loads
 ])
 def test_flash_decode_int8(cuda, dtype, b, hq, hk, d, limits):
     gen = torch.Generator(device=cuda).manual_seed(4)
@@ -137,8 +193,11 @@ def test_flash_decode_int8(cuda, dtype, b, hq, hk, d, limits):
     before = build.launch_counts["flash_decode_int8"]
     out = flash_decode(q, k5, v5, lim, layer_index=1, k_scale=ks, v_scale=vs)
     assert build.launch_counts["flash_decode_int8"] == before + 1
-    ref = flash_decode_plain(q.float(), k5[1], v5[1], lim, ks[1], vs[1])
-    assert_close(out, ref, dtype)
+    assert_decode_close(out, flash_decode_plain(q, k5[1], v5[1], lim, ks[1], vs[1]), dtype)
+    if 0 in limits:
+        assert not out[limits.index(0)].any()
+    if dtype == torch.bfloat16:       # and against the plain version in fp32
+        assert_close(out, flash_decode_plain(q.float(), k5[1], v5[1], lim, ks[1], vs[1]), dtype)
 
 
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
