@@ -16,18 +16,20 @@ Phases (any failure raises and the script exits non-zero):
                  train_attention_bwd) against its plain PyTorch version on
                  the card at the paths' shapes: bf16 inputs against the plain
                  version in fp32 on the same inputs (max abs <= 2e-2), and
-                 an fp32 case (<= 1e-4); the kernel's device time (calls
-                 captured in a CUDA graph and replayed between CUDA events)
-                 and the plain version's (calls back to back between
-                 events), the least time the card could take for the same
-                 work (bound), and the device time of the one PyTorch call that
-                 computes the same function (library; none for the int8
-                 kernels). The decode kernels (K2, K2-int8) are held
-                 instead to the plain version in their own dtype by
-                 ``kernel_check.close``, a limit that must also fail a
-                 planted dropped split; their timed cases check that two
-                 launches are bit-equal and time both split sizes of
-                 ``DECODE_SPLITS``. The int8 kernels run on the pool's cache
+                 an fp32 case (<= 1e-4); the kernel's time, the plain
+                 version's and that of the one PyTorch call that computes
+                 the same function (library; none for the int8 kernels),
+                 all three the median of single calls between CUDA events
+                 (``kernel_timing.cuda_ms``), and the least time the card
+                 could take for the same work (bound). The decode kernels
+                 (K2, K2-int8) are held instead to the plain version in
+                 their own dtype by ``kernel_check.close``, a limit that
+                 must also fail a planted dropped split; their timed cases
+                 check that two launches are bit-equal and also give the
+                 device time of kernel, plain version and library call
+                 (``kernel_timing.graph_ms``, CUDA graph replay), since one
+                 decode call's host work outlasts its kernels. The int8
+                 kernels run on the pool's cache
                  [28, 8, 4, 8192, 128] int8 with bf16 scales; K4 at the
                  training shape (Hq 28, Hk 4, D 128) on packed rows of 4096
                  and 1000 (checked) and 8192 (checked and timed), each
@@ -104,9 +106,6 @@ POOL_KERNELS = ("vit_group_attention", "flash_prefill_int8", "flash_decode_int8"
 TRAIN_KERNELS = ("vit_group_attention", "train_attention_fwd", "train_attention_bwd")
 BF16_TOL = 2e-2     # the JAX package's own bf16 bound (tests/test_vit_attention.py:22)
 FP32_TOL = 1e-4
-# keys per split block at which the decode kernels are timed (flash_decode
-# runs at ops/flash_attention.py:DECODE_SPLIT, the first)
-DECODE_SPLITS = (64, 32)
 # H100 SXM: dense bf16 tensor-core peak and HBM3 bandwidth (NVIDIA's data sheet)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 # K4 at the 7B's training heads (Hq, Hk, D) on packed rows: (S, segment
@@ -163,60 +162,6 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
 
 
-def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
-    """Milliseconds per call of ``fn``: ``iters`` calls back to back between
-    two CUDA events, after ``warmup`` calls (100 calls when one takes under
-    a millisecond). A call so costs the larger of its host work and its
-    device time, as it does in a loop of them."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    while True:
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / iters
-        if ms >= 1.0 or iters >= 100:
-            return ms
-        iters = 100
-
-
-def graph_ms(fn, iters: int = 10, replays: int = 5) -> float:
-    """Device milliseconds per call of ``fn``: ``iters`` calls captured in one
-    CUDA graph (after a warm-up call on a side stream, as capture asks; their
-    allocations come from the graph's pool), replayed ``replays`` times
-    between two CUDA events. No host work runs between the calls, so this is
-    the device's time for the kernels ``fn`` launches."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / (iters * replays)
-    del graph
-    torch.cuda.empty_cache()
-    return ms
-
-
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
     """(ms, what bounds it): the least time the card could take for work of
     ``flops`` operations that must move ``nbytes``."""
@@ -249,10 +194,10 @@ def phase_kernels() -> dict:
     import torch.nn.functional as F
 
     from livecc_tpu_torch.ops.flash_attention import (
-        DECODE_SPLIT, decode_kernels, flash_decode, flash_decode_plain, flash_prefill,
-        flash_prefill_plain)
+        DECODE_SPLIT, flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
     from livecc_tpu_torch.ops.vit_attention import vit_group_attention, vit_group_attention_plain
     from livecc_tpu_torch.tools import kernel_check
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms, graph_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -284,8 +229,7 @@ def phase_kernels() -> dict:
         row has more than one split, the planted fault (the plain version
         with one split dropped, ``kernel_check.drop_split``) must fail the
         same limit. A timed case also checks that a second launch gives the
-        same bits and times the kernels at both split sizes of
-        ``DECODE_SPLITS``."""
+        same bits."""
         name = "flash_decode" if args[4] is None else "flash_decode_int8"
         dtype = args[0].dtype
         ref = flash_decode_plain(*args)
@@ -305,29 +249,32 @@ def phase_kernels() -> dict:
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if timed:
-            if not torch.equal(out, decode_kernels(*args, DECODE_SPLIT)):
+            if not torch.equal(out, flash_decode(*args[:4], None, *args[4:])):
                 raise AssertionError(f"{name} {label}: two launches differ")
-            split_ms = {s: graph_ms(lambda: decode_kernels(*args, s)) for s in DECODE_SPLITS}
-            log(f"  {name:20s} {label:48s} two launches bit-equal; by split size: " + ", ".join(
-                f"{s} keys {t:.4f} ms" for s, t in split_ms.items()))
+            log(f"  {name:20s} {label:48s} two launches bit-equal")
 
     def times(name, label, kernel_fn, plain_fn):
-        """The timed case's kernel time (device, ``graph_ms``) and the plain
-        version's (calls back to back, ``cuda_ms``)."""
+        """The timed case's kernel and plain-version times (``cuda_ms``)."""
         r = results[name]
-        r["ms"] = graph_ms(kernel_fn)
+        r["ms"] = cuda_ms(kernel_fn)
         r["plain_ms"] = cuda_ms(plain_fn)
         log(f"  {name:20s} {label:48s} kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms")
 
-    def yardsticks(name, flops, nbytes, library_fn, timer=graph_ms):
-        """The timed case's bound and library time (device, ``graph_ms``,
-        unless the call runs autograd)."""
+    def yardsticks(name, flops, nbytes, library_fn):
+        """The timed case's bound and library time (``cuda_ms``)."""
         r = results[name]
         r["bound_ms"], r["bound_by"] = bound(flops, nbytes)
-        r["library_ms"] = None if library_fn is None else timer(library_fn)
+        r["library_ms"] = None if library_fn is None else cuda_ms(library_fn)
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
         log(f"  {name:20s} bound {r['bound_ms']:.4f} ms ({r['bound_by']}; {flops / 1e9:.3f} GFLOP, "
             f"{nbytes / 1e6:.3f} MB)  library {lib}")
+
+    def device_times(name, label, kernel_fn, plain_fn, library_fn):
+        """Device time (``graph_ms``) of a decode case's kernel, plain
+        version and library call, each by the same method."""
+        t = [None if fn is None else graph_ms(fn) for fn in (kernel_fn, plain_fn, library_fn)]
+        log(f"  {name:20s} {label:48s} device time: kernel {t[0]:.4f} ms  plain {t[1]:.4f} ms  "
+            f"library " + ("none" if t[2] is None else f"{t[2]:.4f} ms"))
 
     # K3: the ViT at the 720p serving budget (g = 880 = 22 x 40) and g = 308
     for ng, g, dtype, tol, timed in ((3, 880, bf16, BF16_TOL, True), (3, 308, bf16, BF16_TOL, False),
@@ -383,14 +330,15 @@ def phase_kernels() -> dict:
             label = f"B={b} kv_limit={lim} bf16"
             check_decode(label, (q, k5[li], v5[li], lim_t, None, None), out, timed)
             if timed:
-                times("flash_decode", label, lambda: flash_decode(q, k5, v5, lim_t, layer_index=li),
-                      lambda: flash_decode_plain(q, k5[li], v5[li], lim_t))
                 valid = (torch.arange(smax, device=dev)[None, :] < lim_t[:, None])[:, None, None]
+                fns = (lambda: flash_decode(q, k5, v5, lim_t, layer_index=li),
+                       lambda: flash_decode_plain(q, k5[li], v5[li], lim_t),
+                       lambda: F.scaled_dot_product_attention(q, k5[li], v5[li], attn_mask=valid,
+                                                              enable_gqa=True))
+                times("flash_decode", label, *fns[:2])
                 yardsticks("flash_decode", 4 * sum(lim) * d * hq,
-                           2 * q.numel() * 2 + 2 * hk * sum(lim) * d * 2,
-                           lambda: F.scaled_dot_product_attention(q, k5[li], v5[li],
-                                                                  attn_mask=valid,
-                                                                  enable_gqa=True))
+                           2 * q.numel() * 2 + 2 * hk * sum(lim) * d * 2, fns[2])
+                device_times("flash_decode", label, *fns)
         del k5, v5, kl, vl
     # fp32 cases (the tiny end-to-end run's dtype), strided q as the text tower passes it
     k4, v4 = (randn((2, 2, 512, 16), f32) for _ in range(2))
@@ -432,27 +380,30 @@ def phase_kernels() -> dict:
     label = f"B=8 kv_limit={lim_d.tolist()} bf16"
     check_decode(label, (q, *layer[:2], lim_d, *layer[2:]),
                  flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8), True)
-    times("flash_decode_int8", label,
-          lambda: flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8),
-          lambda: flash_decode_plain(q, *layer[:2], lim_d, *layer[2:]))
+    fns = (lambda: flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8),
+           lambda: flash_decode_plain(q, *layer[:2], lim_d, *layer[2:]))
+    times("flash_decode_int8", label, *fns)
     keys = sum(lim_d.tolist())
     yardsticks("flash_decode_int8", 4 * keys * d * hq, 2 * q.numel() * 2 + 2 * hk * keys * (d + 2),
                None)
+    device_times("flash_decode_int8", label, *fns, None)
     del k8, v8, ks8, vs8, layer
     # bf16 K2 at the pool's B = 8 and the same limits, beside K2-int8
     k5, v5 = (randn((L, b, hk, smax, d), bf16) for _ in range(2))
     check_decode(f"B=8 kv_limit={lim_d.tolist()} bf16", (q, k5[li], v5[li], lim_d, None, None),
                  flash_decode(q, k5, v5, lim_d, layer_index=li), True)
-    b8 = (graph_ms(lambda: flash_decode(q, k5, v5, lim_d, layer_index=li)),
-          cuda_ms(lambda: flash_decode_plain(q, k5[li], v5[li], lim_d)))
-    keys = sum(lim_d.tolist())
     valid = (torch.arange(smax, device=dev)[None, :] < lim_d[:, None])[:, None, None]
-    b8_lib = graph_ms(lambda: F.scaled_dot_product_attention(q, k5[li], v5[li], attn_mask=valid,
-                                                            enable_gqa=True))
+    fns = (lambda: flash_decode(q, k5, v5, lim_d, layer_index=li),
+           lambda: flash_decode_plain(q, k5[li], v5[li], lim_d),
+           lambda: F.scaled_dot_product_attention(q, k5[li], v5[li], attn_mask=valid,
+                                                  enable_gqa=True))
+    b8 = [cuda_ms(fn) for fn in fns]
+    keys = sum(lim_d.tolist())
     b8_bound = bound(4 * keys * d * hq, 2 * q.numel() * 2 + 2 * hk * keys * d * 2)
-    log(f"  {'flash_decode':20s} {'B=8 (pool shape) bf16 cache':48s} kernel {b8[0]:.3f} ms  "
-        f"plain {b8[1]:.3f} ms  bound {b8_bound[0]:.4f} ms ({b8_bound[1]})  library "
-        f"{b8_lib:.3f} ms")
+    label = "B=8 (pool shape) bf16 cache"
+    log(f"  {'flash_decode':20s} {label:48s} kernel {b8[0]:.3f} ms  plain {b8[1]:.3f} ms  "
+        f"bound {b8_bound[0]:.4f} ms ({b8_bound[1]})  library {b8[2]:.3f} ms")
+    device_times("flash_decode", label, *fns)
     del k5, v5
     # fp32 queries on an int8 cache (the tiny pool's dtypes)
     (k4, ks4), (v4, vs4) = (int8_cache((2, 2, 512, 16)) for _ in range(2))
@@ -494,6 +445,7 @@ def phase_k4(results, check, times, yardsticks, randn):
     from livecc_tpu_torch.ops.train_attention import (
         train_attention_bwd, train_attention_bwd_plain, train_attention_fwd,
         train_attention_fwd_plain)
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms
 
     dev = torch.device("cuda")
     hq, hk, d = K4_HEADS
@@ -566,7 +518,7 @@ def phase_k4(results, check, times, yardsticks, randn):
                        sdpa_packed(qs, k, v, seg, None))
             yardsticks("train_attention_bwd", 10 * pairs * d * hq,
                        io + 2 * s * hq * d + 3 * (2 * s * hk * d) + 4 * s * hq + 4 * s,
-                       sdpa_packed(qs, k, v, seg, do), timer=cuda_ms)
+                       sdpa_packed(qs, k, v, seg, do))
         del qs, k, v, do, o, lse, grads
         torch.cuda.empty_cache()
 

@@ -4,8 +4,9 @@
 // Split-KV (flash-decoding): one C entry point launches two kernels back to
 // back on the caller's stream.
 //
-//   decode_split_kernel, grid (Hk, B, nsplit), 128 threads: block (KV head,
-//   row, split) takes the keys [split * SPLIT, +SPLIT) below kv_limit[b]
+//   decode_split_kernel, grid (Hk, B, nsplit = ceil(Smax / kDecSplit)), 128
+//   threads: block (KV head, row, split) takes the keys [split * kDecSplit,
+//   +kDecSplit) below kv_limit[b]
 //   (read on the device: no host sync, and the grid depends on Smax and B
 //   alone) for the G = Hq / Hk query heads of its KV head, so each K/V row
 //   is read once for all G heads. It writes each head's partial softmax
@@ -46,13 +47,14 @@
 namespace livecc {
 namespace {
 
+constexpr int kDecSplit = 64;      // keys per split block (ops/flash_attention.py:DECODE_SPLIT)
 constexpr int kDecThreads = 128;
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecMaxOut = 2048;   // G * D per block: G <= 16 at D = 128
 constexpr int kDecGr = 8;          // query heads per register pass (G = 7 in one)
 constexpr int kDecBatch = 16;      // vector loads in flight per thread while staging
 constexpr int kMergeGroups = 4;    // merge threads per output column
-constexpr int kDecMaxSplits = 3072;   // the merge keeps 3 floats per split in shared memory
+constexpr int kDecMaxSplits = 3072;   // Smax <= 3072 * kDecSplit: the merge keeps 3 floats per split in smem
 constexpr size_t kMaxSmem = 232448;
 
 struct DecodeParams {
@@ -64,7 +66,7 @@ struct DecodeParams {
   const __nv_bfloat16* k_scale;   // QUANT: [B, Hk, 1, Skv] lane-major scales
   const __nv_bfloat16* v_scale;
   float* ws;                      // m [B, Hq, nsplit], l [B, Hq, nsplit], acc [B, Hq, nsplit, D]
-  int batch, hq, hk, skv, d, split, nsplit;
+  int batch, hq, hk, skv, d, nsplit;
   long long q_sb, q_sh;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -75,12 +77,12 @@ struct DecodeParams {
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
-// sK, sV [split][d] (KV), then fp32 sQ [G][d], sS [G][split], sRed
-// [kDecThreads][kDecGr], sKs, sVs [split]
-inline size_t decode_smem_bytes(int groups, int d, int split, size_t kv_bytes) {
-  return align16(2 * (size_t)split * d * kv_bytes) +
-         sizeof(float) * ((size_t)groups * d + (size_t)groups * split +
-                          (size_t)kDecThreads * kDecGr + 2 * (size_t)split);
+// sK, sV [kDecSplit][d] (KV), then fp32 sQ [G][d], sS [G][kDecSplit], sRed
+// [kDecThreads][kDecGr], sKs, sVs [kDecSplit]
+inline size_t decode_smem_bytes(int groups, int d, size_t kv_bytes) {
+  return align16(2 * (size_t)kDecSplit * d * kv_bytes) +
+         sizeof(float) * ((size_t)groups * d + (size_t)groups * kDecSplit +
+                          (size_t)kDecThreads * kDecGr + 2 * (size_t)kDecSplit);
 }
 
 template <int VB> struct VecOf;
@@ -125,7 +127,7 @@ __global__ void __launch_bounds__(kDecThreads) decode_split_kernel(DecodeParams 
   const int d = p.d;
   const int G = p.hq / p.hk;
   const int Gp = (G + kDecGr - 1) / kDecGr * kDecGr;   // heads padded to whole register passes
-  const int split = p.split;
+  constexpr int split = kDecSplit;
   KV* sK = reinterpret_cast<KV*>(smem_raw);                           // [split][d]
   KV* sV = sK + (size_t)split * d;                                    // [split][d]
   float* sQ = reinterpret_cast<float*>(smem_raw + align16(2 * (size_t)split * d * sizeof(KV)));
@@ -331,7 +333,7 @@ __global__ void __launch_bounds__(kDecThreads * kMergeGroups) decode_merge_kerne
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int limit = min(p.kv_limit[b], p.skv);
-  const int nv = limit > 0 ? (limit + p.split - 1) / p.split : 0;   // splits with a valid key
+  const int nv = limit > 0 ? (limit + kDecSplit - 1) / kDecSplit : 0;   // splits with a valid key
   const long long stat = (long long)p.batch * p.hq * p.nsplit;
   const long long row = ((long long)b * p.hq + h) * p.nsplit;
   const float* acc = p.ws + 2 * stat + row * p.d;
@@ -401,7 +403,7 @@ template <typename T, bool QUANT>
 int launch_decode(const DecodeParams& p, cudaStream_t stream) {
   using KV = typename std::conditional<QUANT, int8_t, T>::type;
   const int padded = (p.hq / p.hk + kDecGr - 1) / kDecGr * kDecGr;
-  const size_t smem = decode_smem_bytes(padded, p.d, p.split, sizeof(KV));
+  const size_t smem = decode_smem_bytes(padded, p.d, sizeof(KV));
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   switch (decode_vec_bytes(p, sizeof(KV))) {
     case 16: return launch_split_merge<T, QUANT, 16>(p, smem, stream);
@@ -412,12 +414,13 @@ int launch_decode(const DecodeParams& p, cudaStream_t stream) {
 
 // Fill DecodeParams from the C entry points' arguments; `strides` holds
 // q (b, h), k (b, h, s), v (b, h, s), o (b, h) and, for QUANT, the scales'
-// (b, h) of k then v. `workspace` holds (2 + d) * batch * hq * nsplit fp32,
-// nsplit = ceil(skv / split). Returns false for shapes the kernels do not take.
+// (b, h) of k then v. `workspace` holds (2 + d) * batch * hq * nsplit fp32;
+// the caller sized it for nsplit = ceil(skv / kDecSplit), and any other
+// nsplit is refused. Returns false for shapes the kernels do not take.
 inline bool decode_params(DecodeParams& p, const void* q, const void* k, const void* v,
                           const void* k_scale, const void* v_scale, void* o,
                           const int* kv_limit, int batch, int hq, int hk, int skv, int d,
-                          const long long* strides, float scale, void* workspace, int split,
+                          const long long* strides, float scale, void* workspace, int nsplit,
                           bool quant) {
   p.q = q;
   p.k = k;
@@ -432,8 +435,7 @@ inline bool decode_params(DecodeParams& p, const void* q, const void* k, const v
   p.hk = hk;
   p.skv = skv;
   p.d = d;
-  p.split = split;
-  p.nsplit = split > 0 ? (skv + split - 1) / split : 0;
+  p.nsplit = nsplit;
   p.q_sb = strides[0];  p.q_sh = strides[1];
   p.k_sb = strides[2];  p.k_sh = strides[3];  p.k_ss = strides[4];
   p.v_sb = strides[5];  p.v_sh = strides[6];  p.v_ss = strides[7];
@@ -442,8 +444,9 @@ inline bool decode_params(DecodeParams& p, const void* q, const void* k, const v
   p.vs_sb = quant ? strides[12] : 0;  p.vs_sh = quant ? strides[13] : 0;
   p.scale = scale;
   return d > 0 && d <= kMaxHeadDim && d % 8 == 0 && hk > 0 && hq % hk == 0 &&
-         (hq / hk) * d <= kDecMaxOut && batch > 0 && skv > 0 && split > 0 &&
-         p.nsplit <= kDecMaxSplits && workspace != nullptr;
+         (hq / hk) * d <= kDecMaxOut && batch > 0 && skv > 0 &&
+         nsplit == (skv + kDecSplit - 1) / kDecSplit && nsplit <= kDecMaxSplits &&
+         workspace != nullptr;
 }
 
 }  // namespace

@@ -16,7 +16,7 @@
 // bytes: each K/V element is one int8 byte (16 per vector load, 8 where a
 // row of D = 8 leaves no room for 16) plus two bf16 scales per key. It is
 // the same split-KV template as K2 (decode_attention.cuh); the pool runs it
-// at B = 8, i.e. Hk x sum_b ceil(kv_b / split) blocks.
+// at B = 8, i.e. Hk x sum_b ceil(kv_b / 64) working blocks.
 
 #include "decode_attention.cuh"
 
@@ -24,10 +24,10 @@ extern "C" int livecc_flash_decode_int8(int dtype, const void* q, const void* k,
                                         const void* k_scale, const void* v_scale, void* o,
                                         const int* kv_limit, int batch, int hq, int hk, int skv,
                                         int d, const long long* strides, float scale,
-                                        void* workspace, int split, void* stream) {
+                                        void* workspace, int nsplit, void* stream) {
   livecc::DecodeParams p;
   if (!livecc::decode_params(p, q, k, v, k_scale, v_scale, o, kv_limit, batch, hq, hk, skv, d,
-                             strides, scale, workspace, split, true))
+                             strides, scale, workspace, nsplit, true))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == livecc::kFloat32) return livecc::launch_decode<float, true>(p, s);

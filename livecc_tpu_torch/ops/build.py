@@ -116,7 +116,7 @@ def load_library() -> ctypes.CDLL:
     strides = ctypes.POINTER(ctypes.c_longlong)
     lib.livecc_flash_prefill.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
                                          i32, i32, i32, i32, i32, i32, strides, f32, ptr]
-    # the decode entry points end in (workspace, split, stream)
+    # the decode entry points end in (workspace, nsplit, stream)
     lib.livecc_flash_decode.argtypes = [i32, ptr, ptr, ptr, ptr, ptr,
                                         i32, i32, i32, i32, i32, strides, f32, ptr, i32, ptr]
     lib.livecc_flash_prefill_int8.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
@@ -154,10 +154,14 @@ def _stride_array(vals: tuple) -> ctypes.Array:
 
 def current_stream(device: torch.device) -> int:
     """Raw handle of ``device``'s current CUDA stream, the launchers' last
-    argument (``torch.cuda.current_stream(device).cuda_stream`` without
-    building a Stream object: a decode step launches K2 once per layer)."""
-    index = torch.cuda.current_device() if device.index is None else device.index
-    return torch._C._cuda_getCurrentRawStream(index)
+    argument: ``torch.cuda.current_stream(device).cuda_stream``, read
+    without building a Stream object (the decode step launches K2 once per
+    layer) through ``torch._C._cuda_getCurrentRawStream`` where this torch
+    has it, else through the public call. A GPU test holds the two equal."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is None:
+        return torch.cuda.current_stream(device).cuda_stream
+    return raw(torch.cuda.current_device() if device.index is None else device.index)
 
 
 def on_device(device: torch.device):

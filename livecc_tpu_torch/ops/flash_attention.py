@@ -160,8 +160,8 @@ def flash_prefill(
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = build.load_library()
     strides = [(q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)), (out, (0, 1, 2))]
-    with build.on_device(q.device):
-        stream = build.current_stream(q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         if k_scale is None:
             build.launch(
                 "flash_prefill", lib.livecc_flash_prefill,
@@ -247,7 +247,8 @@ def flash_decode_merge_plain(m, l, acc, out_dtype) -> torch.Tensor:
     return o[:, :, None].to(out_dtype)
 
 
-# keys per split block of the K2 / K2-int8 kernels (csrc/decode_attention.cuh)
+# keys per split block of the K2 / K2-int8 kernels: ``kDecSplit`` of
+# csrc/decode_attention.cuh, which refuses a workspace sized for another split
 DECODE_SPLIT = 64
 
 
@@ -260,7 +261,10 @@ def flash_decode(
     k_scale: torch.Tensor | None = None,   # int8 cache: [..., Hk, 1, Smax] bf16
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """One query token per row over the cache; q heads grouped per KV head."""
+    """One query token per row over the cache; q heads grouped per KV head.
+    On the GPU the split kernel writes its partials into a workspace
+    allocated here, on the caller's stream, and the merge kernel writes the
+    output; both launch from one C call."""
     k, v = _layer(k, v, layer_index)
     if k_scale is not None:
         k_scale, v_scale = _layer(k_scale, v_scale, layer_index)
@@ -270,14 +274,6 @@ def flash_decode(
         return flash_decode_plain(q, k, v, kv_limit, k_scale, v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_decode: no kernel for device {q.device}")
-    return decode_kernels(q, k, v, kv_limit, k_scale, v_scale, DECODE_SPLIT)
-
-
-def decode_kernels(q, k, v, kv_limit, k_scale, v_scale, split: int) -> torch.Tensor:
-    """Launch K2 (or K2-int8 with scales) on a one-layer CUDA cache with
-    ``split`` keys per split block: the split kernel writes its partials into
-    a workspace allocated here, on the caller's stream, and the merge kernel
-    writes the output. ``flash_decode`` passes ``DECODE_SPLIT``."""
     b, hq, _, d = q.shape
     hk, smax = k.shape[1], k.shape[2]
     if k.shape != (b, hk, smax, d) or v.shape != k.shape or hq % hk or (hq // hk) * d > 2048:
@@ -287,7 +283,7 @@ def decode_kernels(q, k, v, kv_limit, k_scale, v_scale, split: int) -> torch.Ten
     _check_cuda_operands("flash_decode", q, k, v, k_scale, v_scale)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
     out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
-    nsplit = -(-smax // split)
+    nsplit = -(-smax // DECODE_SPLIT)
     workspace = torch.empty((2 + d) * b * hq * nsplit, dtype=torch.float32, device=q.device)
     lib = build.load_library()
     strides = [(q, (0, 1)), (k, (0, 1, 2)), (v, (0, 1, 2)), (out, (0, 1))]
@@ -298,7 +294,7 @@ def decode_kernels(q, k, v, kv_limit, k_scale, v_scale, split: int) -> torch.Ten
                 "flash_decode", lib.livecc_flash_decode,
                 build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), kv_limit.data_ptr(), b, hq, hk, smax, d,
-                build.stride_array(*strides), d ** -0.5, workspace.data_ptr(), split, stream,
+                build.stride_array(*strides), d ** -0.5, workspace.data_ptr(), nsplit, stream,
             )
         else:
             build.launch(
@@ -307,6 +303,6 @@ def decode_kernels(q, k, v, kv_limit, k_scale, v_scale, split: int) -> torch.Ten
                 k_scale.data_ptr(), v_scale.data_ptr(),
                 out.data_ptr(), kv_limit.data_ptr(), b, hq, hk, smax, d,
                 build.stride_array(*strides, (k_scale, (0, 1)), (v_scale, (0, 1))),
-                d ** -0.5, workspace.data_ptr(), split, stream,
+                d ** -0.5, workspace.data_ptr(), nsplit, stream,
             )
     return out

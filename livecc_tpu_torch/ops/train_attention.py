@@ -115,8 +115,8 @@ def train_attention_fwd(qs, k, v, seg):
     o = torch.empty((b, s, hq, d), dtype=qs.dtype, device=qs.device)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=qs.device)
     lib = build.load_library()
-    with build.on_device(qs.device):
-        stream = build.current_stream(qs.device)
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream(qs.device).cuda_stream
         build.launch(
             "train_attention_fwd", lib.livecc_train_attention_fwd,
             build.DTYPE_CODES[qs.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -143,8 +143,8 @@ def train_attention_bwd(qs, k, v, seg, o, lse, do):
     dk = torch.empty((b, s, hk, d), dtype=k.dtype, device=qs.device)
     dv = torch.empty((b, s, hk, d), dtype=v.dtype, device=qs.device)
     lib = build.load_library()
-    with build.on_device(qs.device):
-        stream = build.current_stream(qs.device)
+    with torch.cuda.device(qs.device):
+        stream = torch.cuda.current_stream(qs.device).cuda_stream
         build.launch(
             "train_attention_bwd", lib.livecc_train_attention_bwd,
             build.DTYPE_CODES[qs.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(),

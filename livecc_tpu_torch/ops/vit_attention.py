@@ -42,8 +42,8 @@ def vit_group_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lib = build.load_library()
     # [NG, g, H, D] read as [NG, H, g, D]: strides (batch, head, seq)
-    with build.on_device(q.device):
-        stream = build.current_stream(q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         build.launch(
             "vit_group_attention", lib.livecc_vit_group_attention,
             build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -1,0 +1,133 @@
+"""Time the port's kernels on the card, two ways.
+
+  * ``cuda_ms(fn)``: the median over 10 calls, each between two CUDA events
+    after a synchronize. The call's host work (checks, allocations, the
+    ctypes launch) runs after the start event has passed on an idle card,
+    so a kernel whose device time is shorter than that host work reads as
+    the host work: this is what one call costs a caller who waits for it.
+    ``chip_smoke.py``'s ``ms``, ``plain_ms`` and ``library_ms`` use it.
+  * ``graph_ms(fn)``: device time. 10 calls captured in one CUDA graph
+    (their allocations come from the graph's pool), replayed 5 times
+    between two events; no host work runs between the calls.
+
+Run as a script, by path, with the checkout to time first on
+``PYTHONPATH``, it times that checkout's ``flash_decode`` (K2 and K2-int8)
+both ways at ``chip_smoke.py``'s timed decode shapes and prints one JSON
+line, so two versions of the kernels compare on one card in one call:
+
+    PYTHONPATH=. python3 livecc_tpu_torch/tools/kernel_timing.py
+    PYTHONPATH=<another checkout> python3 livecc_tpu_torch/tools/kernel_timing.py
+
+It uses only ``flash_decode``'s public signature and
+``models.qwen2_vl.text.quantize_kv``. Needs a CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+
+import torch
+
+
+def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Median milliseconds of one call of ``fn`` over ``iters`` calls, each
+    between two CUDA events after a synchronize (host work included)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def graph_ms(fn, iters: int = 10, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``iters`` calls captured in one
+    CUDA graph (after a warm-up call on a side stream, as capture asks),
+    replayed ``replays`` times between two CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
+# chip_smoke.py's timed decode shapes: the 7B's cache [L, B, Hk, Smax, D], layer 27
+L, HQ, HK, D, SMAX, LAYER = 28, 28, 4, 128, 8192, 27
+POOL_LIMITS = [1, 777, 8192, 4000, 1, 777, 8192, 2500]
+
+
+def decode_cases():
+    """(label, call) of K2 at B = 1, kv 777; K2 at B = 8 and K2-int8 at B = 8
+    at the pool's limits."""
+    from livecc_tpu_torch.models.qwen2_vl.text import quantize_kv
+    from livecc_tpu_torch.ops.flash_attention import flash_decode
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    k, v = (randn((L, 1, HK, SMAX, D)) for _ in range(2))
+    q = randn((1, HQ, 1, D))
+    lim = torch.tensor([777], dtype=torch.int32, device=dev)
+    yield "K2 B=1 kv_limit=[777] bf16", lambda: flash_decode(q, k, v, lim, layer_index=LAYER)
+    b = len(POOL_LIMITS)
+    lim = torch.tensor(POOL_LIMITS, dtype=torch.int32, device=dev)
+    q = randn((b, 1, HQ, D)).transpose(1, 2)
+    k, v = (randn((L, b, HK, SMAX, D)) for _ in range(2))
+    yield f"K2 B=8 kv_limit={POOL_LIMITS} bf16", lambda: flash_decode(q, k, v, lim,
+                                                                       layer_index=LAYER)
+    (k, ks), (v, vs) = (quantize_kv(randn((L, b, HK, SMAX, D))) for _ in range(2))
+    ks, vs = (s.transpose(-1, -2).contiguous() for s in (ks, vs))
+    yield f"K2-int8 B=8 kv_limit={POOL_LIMITS} int8 cache", lambda: flash_decode(
+        q, k, v, lim, layer_index=LAYER, k_scale=ks, v_scale=vs)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_timing: needs a CUDA GPU")
+    import livecc_tpu_torch
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout
+    rows = []
+    for label, call in decode_cases():
+        out = call()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"{label}: non-finite output")
+        rows.append({"case": label, "cuda_ms": cuda_ms(call), "graph_ms": graph_ms(call)})
+        print(f"  {label:60s} one call {rows[-1]['cuda_ms']:.4f} ms  device "
+              f"{rows[-1]['graph_ms']:.4f} ms", flush=True)
+    print(json.dumps({"package": livecc_tpu_torch.__path__[0], "card": card.strip(),
+                      "torch": torch.__version__, "decode": rows}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -6,7 +6,8 @@
 Both use the 7B definitions of ``livecc_tpu_torch.tools.session`` (the ones
 ``chip_smoke.py`` drives).
 
-  * single stream: runs the session once to warm up, then once more under
+  * single stream: runs the session ``UNPROFILED_SESSIONS`` times (the
+    first warms up) and prints each wall, then once more under
     ``torch.profiler`` (CPU + CUDA);
   * ``--pool``: 8 streams join the int8 serving pool and run their init
     chunks and all but the last steady tick unprofiled; the last steady tick
@@ -19,7 +20,10 @@ K2 decode attention, and their int8 variants; K4 training attention for
 ``tools/train_session.py --profile``, which reuses ``report``), matrix
 products, everything else — and the top kernels by name.
 
-Needs a CUDA GPU; it does not run on the CPU.
+Needs a CUDA GPU; it does not run on the CPU. To profile another checkout
+of the port with this script, run it by path with that checkout first on
+``PYTHONPATH``; it also groups the one-kernel decode (``decode_kernel``)
+that came before the split-KV kernels.
 """
 
 from __future__ import annotations
@@ -31,13 +35,15 @@ import time
 
 import torch
 
+UNPROFILED_SESSIONS = 3
+
 
 def _group(name: str) -> str:
     if "train_fwd_kernel" in name:
         return "K4 train_attention_fwd"
     if "train_dkv_kernel" in name or "train_dq_kernel" in name:
         return "K4 train_attention_bwd"
-    m = re.search(r"(tile_attention_kernel|decode_split_kernel|decode_merge_kernel)"
+    m = re.search(r"(tile_attention_kernel|decode_kernel|decode_split_kernel|decode_merge_kernel)"
                   r"<[^,>]+, *(true|false)(?:, *(true|false|\d+))?", name)
     if m:
         kernel, flag, quant = m.groups()
@@ -99,7 +105,9 @@ def profile_session(cfg, model) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    print(f"warm-up session: {run(sess.new_engine(cfg, model)):.3f} s")
+    for i in range(UNPROFILED_SESSIONS):
+        print(f"session {i} wall {run(sess.new_engine(cfg, model)):.3f} s (unprofiled"
+              f"{', warm-up' if i == 0 else ''})")
     eng = sess.new_engine(cfg, model)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall = run(eng)

@@ -13,6 +13,9 @@ version and fail a dropped split (``kernel_check.drop_split``) at the shapes
 the card is checked at.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -147,6 +150,11 @@ def test_close_and_drop_split_edges():
      "K2-int8 flash_decode_int8"),
     ("void livecc::(anonymous namespace)::tile_attention_kernel<__nv_bfloat16, true, true>(...)",
      "K1-int8 flash_prefill_int8"),
+    # the one-kernel decode of older checkouts, which the script can also profile
+    ("void livecc::(anonymous namespace)::decode_kernel<__nv_bfloat16, false>"
+     "(livecc::(anonymous namespace)::DecodeParams)", "K2 flash_decode"),
+    ("void livecc::(anonymous namespace)::decode_kernel<float, true>(...)",
+     "K2-int8 flash_decode_int8"),
 ])
 def test_profile_groups_the_decode_kernels(name, group):
     from livecc_tpu_torch.tools.profile_stream import _group
@@ -174,3 +182,13 @@ def test_check_fails_a_dropped_split_at_the_card_shapes(kind):
     fault = kernel_check.drop_split(q, *kv, lim, DECODE_SPLIT, *scales)
     assert kernel_check.close(out, ref, torch.bfloat16) <= 1.0
     assert kernel_check.close(fault, ref, torch.bfloat16) >= 2.0
+
+
+def test_decode_split_is_the_kernels_constant():
+    """The wrapper sizes the workspace for ``DECODE_SPLIT`` keys per split,
+    the header's ``kDecSplit`` (whose C entry points refuse any other)."""
+    import livecc_tpu_torch
+
+    header = Path(livecc_tpu_torch.__file__).parent / "csrc" / "decode_attention.cuh"
+    found = re.findall(r"constexpr int kDecSplit = (\d+);", header.read_text())
+    assert found == [str(DECODE_SPLIT)]

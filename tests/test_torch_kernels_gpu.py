@@ -141,6 +141,36 @@ def test_flash_decode_rejects_what_the_kernels_do_not_take(cuda):
         flash_decode(q[:, :4, :, :16].half(), k, k, 4)
 
 
+def test_decode_entry_refuses_a_workspace_for_another_split(cuda):
+    """The C entry point takes nsplit = ceil(Smax / kDecSplit) only, so a
+    wrapper that sized the workspace for another split raises."""
+    lib = build.load_library()
+    q = torch.zeros(1, 4, 1, 16, device=cuda)
+    k = torch.zeros(1, 2, 256, 16, device=cuda)
+    out = torch.empty_like(q)
+    lim = torch.tensor([256], dtype=torch.int32, device=cuda)
+    strides = build.stride_array((q, (0, 1)), (k, (0, 1, 2)), (k, (0, 1, 2)), (out, (0, 1)))
+    for nsplit in (256 // DECODE_SPLIT, 256 // DECODE_SPLIT * 2):
+        ws = torch.empty((2 + 16) * 4 * nsplit, device=cuda)
+        err = lib.livecc_flash_decode(0, q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(),
+                                      lim.data_ptr(), 1, 4, 2, 256, 16, strides, 0.25,
+                                      ws.data_ptr(), nsplit, build.current_stream(cuda))
+        assert (err == 0) == (nsplit == 256 // DECODE_SPLIT), (nsplit, err)
+    torch.cuda.synchronize()
+
+
+def test_current_stream_is_the_public_handle(cuda):
+    """``build.current_stream`` (the decode wrapper's raw read) equals
+    ``torch.cuda.current_stream(...).cuda_stream``, on the default stream
+    and under a side stream, for an indexed and an unindexed device."""
+    for dev in (cuda, torch.device("cuda", torch.cuda.current_device())):
+        assert build.current_stream(dev) == torch.cuda.current_stream(dev).cuda_stream
+        side = torch.cuda.Stream()
+        with torch.cuda.stream(side):
+            assert build.current_stream(dev) == side.cuda_stream
+            assert build.current_stream(dev) == torch.cuda.current_stream(dev).cuda_stream
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 2, 4, 20, device=cuda)              # head dim not a multiple of 8
     with pytest.raises(ValueError):
