@@ -14,21 +14,26 @@ Phases (any failure raises and the script exits non-zero):
   3. kernels   — each kernel (K1 flash_prefill, K2 flash_decode, their int8
                  variants, K3 vit_group_attention, K4 train_attention_fwd and
                  train_attention_bwd) against its plain PyTorch version on
-                 the card at the paths' shapes: bf16 inputs against the plain
-                 version in fp32 on the same inputs (max abs <= 2e-2), and
-                 an fp32 case (<= 1e-4); the kernel's time, the plain
-                 version's and that of the one PyTorch call that computes
-                 the same function (library; none for the int8 kernels),
-                 all three the median of single calls between CUDA events
-                 (``kernel_timing.cuda_ms``), and the least time the card
-                 could take for the same work (bound). The decode kernels
-                 (K2, K2-int8) are held instead to the plain version in
-                 their own dtype by ``kernel_check.close``, a limit that
-                 must also fail a planted dropped split; their timed cases
-                 check that two launches are bit-equal and also give the
-                 device time of kernel, plain version and library call
-                 (``kernel_timing.graph_ms``, CUDA graph replay), since one
-                 decode call's host work outlasts its kernels. The int8
+                 the card at the paths' shapes. bf16 K1, K2 and K3 are held
+                 to the plain version in their own dtype by
+                 ``kernel_check.close``, a limit that must also fail a
+                 planted fault: a dropped split for K2
+                 (``kernel_check.drop_split``), one dropped 64-key tile of
+                 one 64-query tile for K1 and K3 (``drop_key_tile``); their
+                 timed cases also check that two launches are bit-equal.
+                 fp32 cases are held to <= 1e-4 max abs, K1-int8 bf16 to
+                 2e-2 max abs against the fp32 plain version. K3 also runs
+                 mixed segment sizes through its bounds form, and K2 a query
+                 group of G * D = 4096 (two launches). Times: kernel, plain
+                 version and the one PyTorch call that computes the same
+                 function (library; none for the int8 kernels), each the
+                 median of single calls between CUDA events, host work
+                 included (``kernel_timing.cuda_ms``), beside the least time
+                 the card could take for the same work (bound); K1, K2 and
+                 K3 also in device time (``kernel_timing.graph_ms``, CUDA
+                 graph replay). K3 and K1 are timed at
+                 ``kernel_timing.VIT_SHAPES`` and ``PREFILL_SHAPES`` (the
+                 first timed shape gives the JSON line's numbers). The int8
                  kernels run on the pool's cache
                  [28, 8, 4, 8192, 128] int8 with bf16 scales; K4 at the
                  training shape (Hq 28, Hk 4, D 128) on packed rows of 4096
@@ -38,7 +43,9 @@ Phases (any failure raises and the script exits non-zero):
                  (``phase_k4``).
   4. tiny      — tiny config, fp32, seeded random weights: the engine on the
                  CPU (plain versions) and on the GPU (kernels) give identical
-                 greedy text over 3 chunks.
+                 greedy text over 3 chunks; the tiny ViT on two clips of
+                 different grids runs K3's bounds form (fp32 and bf16) and
+                 agrees with the CPU.
   5. tiny_pool — the same model in a StreamServer with an int8 cache,
                  capacity 3 and 2 streams over 4 ticks, on the CPU and on the
                  GPU: identical text for every stream.
@@ -61,8 +68,9 @@ Phases (any failure raises and the script exits non-zero):
                  frozen, bf16, 3 Trainer steps of 2 packed 8192-token rows;
                  checks finite losses, trainable params moved after step 2
                  (all but the bf16 norm scales, whose update is below half a
-                 bf16 step at 1.0), the ViT bit-unchanged, and K4 fwd/bwd
-                 and K3 launched.
+                 bf16 step at 1.0), the ViT bit-unchanged, K4 fwd/bwd and
+                 K3 launched, and that K3 ran at the training shape the
+                 kernels phase timed.
 
 Launch counts are reset just before each of main, pool and train and read
 just after; every kernel of that path must have launched. Every phase always
@@ -195,8 +203,11 @@ def phase_kernels() -> dict:
 
     from livecc_tpu_torch.ops.flash_attention import (
         DECODE_SPLIT, flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
-    from livecc_tpu_torch.ops.vit_attention import vit_group_attention, vit_group_attention_plain
-    from livecc_tpu_torch.tools import kernel_check
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.ops.vit_attention import (
+        vit_group_attention, vit_group_attention_plain, vit_segment_attention,
+        vit_segment_attention_plain)
+    from livecc_tpu_torch.tools import kernel_check, kernel_timing
     from livecc_tpu_torch.tools.kernel_timing import cuda_ms, graph_ms
 
     dev = torch.device("cuda")
@@ -276,51 +287,132 @@ def phase_kernels() -> dict:
         log(f"  {name:20s} {label:48s} device time: kernel {t[0]:.4f} ms  plain {t[1]:.4f} ms  "
             f"library " + ("none" if t[2] is None else f"{t[2]:.4f} ms"))
 
-    # K3: the ViT at the 720p serving budget (g = 880 = 22 x 40) and g = 308
-    for ng, g, dtype, tol, timed in ((3, 880, bf16, BF16_TOL, True), (3, 308, bf16, BF16_TOL, False),
-                                     (1, 308, f32, FP32_TOL, False)):
-        q, k, v = (randn((ng, g, 16, 80), dtype) for _ in range(3))
-        qf, kf, vf = q.float(), k.float(), v.float()
+    def same_dtype(name, label, out, ref, fault, repeat=None):
+        """bf16 K1 / K3 against the plain version on the same inputs in the
+        same dtype by ``kernel_check.close``; the planted fault (one key tile
+        dropped for one query tile, ``kernel_check.drop_key_tile``) must fail
+        the same limit; with ``repeat``, a second launch must give the same
+        bits."""
+        torch.cuda.synchronize()
+        worst, w_bad = kernel_check.close(out, ref, bf16), kernel_check.close(fault, ref, bf16)
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"  {name:20s} {label:48s} max_abs_err {err:.3e}, worst {worst:.3f} of the limit "
+            f"{kernel_check.TOL[bf16]}; a dropped key tile: {w_bad:.1f}x")
+        if not worst <= 1.0:
+            raise AssertionError(f"{name} {label}: {worst:.3f}x the limit")
+        if not w_bad > 1.0:
+            raise AssertionError(f"{name} {label}: the check passes a dropped key tile")
+        if repeat is not None:
+            if not torch.equal(out, repeat()):
+                raise AssertionError(f"{name} {label}: two launches differ")
+            log(f"  {name:20s} {label:48s} two launches bit-equal")
+        r = results.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    def timed_case(name, label, fns, flops, nbytes):
+        """Kernel, plain version and library call (SDPA) at one timed shape,
+        each by both methods (``cuda_ms``: one call, host work included;
+        ``graph_ms``: device time), beside the bound. The first timed shape
+        of a kernel gives its JSON numbers."""
+        one = [cuda_ms(fn) for fn in fns]
+        dev_t = [graph_ms(fn) for fn in fns]
+        b_ms, b_by = bound(flops, nbytes)
+        log(f"  {name:20s} {label:48s} one call: kernel {one[0]:.4f}  plain {one[1]:.4f}  "
+            f"library {one[2]:.4f} ms; device: kernel {dev_t[0]:.4f}  plain {dev_t[1]:.4f}  "
+            f"library {dev_t[2]:.4f} ms; bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e6:.3f} MB)")
+        r = results[name]
+        if "ms" not in r:
+            r.update(ms=one[0], plain_ms=one[1], library_ms=one[2], bound_ms=b_ms, bound_by=b_by)
+
+    # K3: the ViT (H = 16, D = 80) at kernel_timing's timed shapes (the first
+    # and a steady chunk at the 720p budget, g = 880 = 22 x 40; the training
+    # call, whose shape phase_train checks), g = 308 untimed, fp32
+    vh, vd = kernel_timing.VIT_HEADS, kernel_timing.VIT_DIM
+    vit_cases = [(ng, g, bf16, True) for ng, g in kernel_timing.VIT_SHAPES]
+    for ng, g, dtype, timed in vit_cases + [(3, 308, bf16, False), (1, 308, f32, False)]:
+        q, k, v = (randn((ng, g, vh, vd), dtype) for _ in range(3))
+        label = f"NG={ng} g={g} H={vh} D={vd} {str(dtype)[6:]}"
         out = vit_group_attention(q, k, v)
-        ref = vit_group_attention_plain(qf, kf, vf)
-        check("vit_group_attention", f"NG={ng} g={g} H=16 D=80 {str(dtype)[6:]}", out, ref, tol,
-              (lambda: vit_group_attention(q, k, v),
-               lambda: vit_group_attention_plain(q, k, v)) if timed else None)
+        if dtype == f32:
+            check("vit_group_attention", label, out, vit_group_attention_plain(q, k, v), FP32_TOL)
+            continue
+        ref = vit_group_attention_plain(q, k, v)
+        cu = list(range(0, (ng + 1) * g, g))
+        qn, kn, vn, rn = (x.reshape(ng * g, vh, vd) for x in (q, k, v, ref))
+        fault = kernel_check.vit_drop_key_tile(rn, qn, kn, vn, cu, ng - 1, (g - 1) // 64,
+                                               g // 128, head=3)
+        same_dtype("vit_group_attention", label, out, ref, fault.view(ref.shape),
+                   (lambda: vit_group_attention(q, k, v)) if timed else None)
         if timed:
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))          # [NG, H, g, D]
-            yardsticks("vit_group_attention", 4 * ng * 16 * g * g * 80, 4 * q.numel() * 2,
-                       lambda: F.scaled_dot_product_attention(qt, kt, vt))
-        del q, k, v, qf, kf, vf, out, ref
+            timed_case("vit_group_attention", label,
+                       (lambda: vit_group_attention(q, k, v),
+                        lambda: vit_group_attention_plain(q, k, v),
+                        lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                       4 * ng * vh * g * g * vd, 4 * q.numel() * 2)
+        del q, k, v, out, ref, fault
+    # mixed sizes through the bounds form: [N, H, D] with v a strided view of
+    # a qkv buffer as the tower holds it; bf16 and fp32
+    for lengths, dtype in (((880, 308, 544, 100), bf16), ((70, 130, 5), f32)):
+        n = sum(lengths)
+        cu = [0]
+        for length in lengths:
+            cu.append(cu[-1] + length)
+        qkv = randn((n, 3 * vh, vd), dtype)
+        q, k, v = qkv[:, :vh].contiguous(), qkv[:, vh:2 * vh].contiguous(), qkv[:, 2 * vh:]
+        cu_t = torch.tensor(cu, dtype=torch.int32, device=dev)
+        label = f"segments {list(lengths)} H={vh} D={vd} {str(dtype)[6:]}"
+        before = build.launch_counts["vit_group_attention"]
+        out = vit_segment_attention(q, k, v, cu_t, max(lengths))
+        if build.launch_counts["vit_group_attention"] != before + 1:
+            raise AssertionError(f"vit_segment_attention {label}: not one K3 launch")
+        ref = vit_segment_attention_plain(q, k, v, cu)
+        if dtype == f32:
+            check("vit_group_attention", label, out, ref, FP32_TOL)
+        else:
+            same_dtype("vit_group_attention", label, out, ref,
+                       kernel_check.vit_drop_key_tile(ref, q, k, v, cu, 0, 13, 6, head=3),
+                       lambda: vit_segment_attention(q, k, v, cu_t, max(lengths)))
+        del qkv, q, k, v, out, ref
 
     # K1 / K2: the 7B's cache [L=28, B, Hk=4, Smax=8192, D=128], layer 27
     L, hq, hk, d, smax, li = 28, 28, 4, 128, 8192, 27
     for b in (1, 2):
         k5, v5 = (randn((L, b, hk, smax, d), bf16) for _ in range(2))
-        kl, vl = k5[li].float(), v5[li].float()
         if b == 1:
-            prefill_cases = [(1024, [0], [690], True), (256, [1500], [1756], False)]
+            prefill_cases = [(sq, [off], [lim], True)
+                             for sq, off, lim in kernel_timing.PREFILL_SHAPES]
         else:
             prefill_cases = [(256, [0, 1500], [200, 1756], False)]
         for sq, off, lim, timed in prefill_cases:
-            q = randn((b, hq, sq, d), bf16)
+            q = randn((b, sq, hq, d), bf16).transpose(1, 2)      # strided, as the model passes it
             off_t = torch.tensor(off, dtype=torch.int32, device=dev)
             lim_t = torch.tensor(lim, dtype=torch.int32, device=dev)
+            label = f"B={b} Sq={sq} offset={off} kv_limit={lim} bf16"
             out = flash_prefill(q, k5, v5, off_t, lim_t, layer_index=li)
-            ref = flash_prefill_plain(q.float(), kl, vl, off_t, lim_t)
-            check("flash_prefill", f"B={b} Sq={sq} offset={off} kv_limit={lim} bf16", out, ref,
-                  BF16_TOL,
-                  (lambda: flash_prefill(q, k5, v5, off_t, lim_t, layer_index=li),
-                   lambda: flash_prefill_plain(q, k5[li], v5[li], off_t, lim_t)) if timed else None)
+            ref = flash_prefill_plain(q, k5[li], v5[li], off_t, lim_t)
+            row = max(range(b), key=lambda i: lim[i])       # the longest row, its last query tile
+            qt = (sq - 1) // 64
+            kt = min(lim[row], off[row] + 64 * qt + 1) // 64 // 2
+            fault = kernel_check.drop_key_tile(ref, q, k5[li], v5[li], off_t, lim_t, qt, kt,
+                                               head=5, row=row)
+            same_dtype("flash_prefill", label, out, ref, fault,
+                       (lambda: flash_prefill(q, k5, v5, off_t, lim_t, layer_index=li))
+                       if timed else None)
+            del ref, fault
             if timed:      # B = 1: keys < kv_limit and <= offset + i
                 kv = lim[0]
                 pairs = sum(min(off[0] + i + 1, kv) for i in range(sq))
                 kq, vq = k5[li][:, :, :kv], v5[li][:, :, :kv]
                 qpos = off[0] + torch.arange(sq, device=dev)[:, None]
                 mask = torch.arange(kv, device=dev)[None, :] <= qpos
-                yardsticks("flash_prefill", 4 * pairs * d * hq,
-                           2 * q.numel() * 2 + 2 * b * hk * kv * d * 2,
-                           lambda: F.scaled_dot_product_attention(q, kq, vq, attn_mask=mask,
-                                                                  enable_gqa=True))
+                timed_case("flash_prefill", label,
+                           (lambda: flash_prefill(q, k5, v5, off_t, lim_t, layer_index=li),
+                            lambda: flash_prefill_plain(q, k5[li], v5[li], off_t, lim_t),
+                            lambda: F.scaled_dot_product_attention(q, kq, vq, attn_mask=mask,
+                                                                   enable_gqa=True)),
+                           4 * pairs * d * hq, 2 * q.numel() * 2 + 2 * b * hk * kv * d * 2)
         limits = [[1], [777], [8192]] if b == 1 else [[1, 8192], [777, 3]]
         for lim in limits:
             q = randn((b, hq, 1, d), bf16)
@@ -339,7 +431,19 @@ def phase_kernels() -> dict:
                 yardsticks("flash_decode", 4 * sum(lim) * d * hq,
                            2 * q.numel() * 2 + 2 * hk * sum(lim) * d * 2, fns[2])
                 device_times("flash_decode", label, *fns)
-        del k5, v5, kl, vl
+        del k5, v5
+    # a query group wider than one decode block (G * D = 32 x 128 = 4096):
+    # the wrapper runs it as two sub-groups, two launches
+    k5, v5 = (randn((2, 1, 1, 4096, d), bf16) for _ in range(2))
+    q = randn((1, 32, 1, d), bf16)
+    lim_t = torch.tensor([3000], dtype=torch.int32, device=dev)
+    before = build.launch_counts["flash_decode"]
+    out = flash_decode(q, k5, v5, lim_t, layer_index=1)
+    if build.launch_counts["flash_decode"] != before + 2:
+        raise AssertionError("flash_decode Hq=32 Hk=1: not two launches")
+    check_decode("B=1 Hq=32 Hk=1 D=128 kv_limit=[3000] bf16", (q, k5[1], v5[1], lim_t, None, None),
+                 out)
+    del k5, v5
     # fp32 cases (the tiny end-to-end run's dtype), strided q as the text tower passes it
     k4, v4 = (randn((2, 2, 512, 16), f32) for _ in range(2))
     qs = randn((2, 100, 4, 16), f32).transpose(1, 2)
@@ -618,6 +722,44 @@ def phase_tiny():
     log(f"  tiny gpu: {outs[1]}")
     if len(outs[0]) != 3 or outs[0] != outs[1]:
         raise AssertionError("tiny end to end: CPU and GPU engines disagree")
+    mixed_vit(cfg, cpu_model)
+
+
+def mixed_vit(cfg, cpu_model):
+    """A mixed-size ViT call (two clips of different grids, so no uniform
+    group): the tiny tower on the card runs K3's bounds form, one launch per
+    block, fp32 and bf16; the same tower on the CPU runs the plain version.
+    Held norm-relative: fp32 within 1e-5, bf16 within 2e-2."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
+    from livecc_tpu_torch.tools.session import synth_frames
+    from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
+
+    clips = [synth_frames(4, 56, 28, seed=2), synth_frames(2, 28, 84, seed=3)]
+    grids = [grid_for_frames(*f.shape[:3], cfg.vision) for f in clips]
+    patches = torch.cat([device_patchify(torch.from_numpy(f)) for f in clips])
+    seg = np.concatenate([np.repeat(np.arange(t) + 100 * i, h * w)
+                          for i, (t, h, w) in enumerate(grids)]).astype(np.int32)
+    cos, sin = (torch.from_numpy(x) for x in vision_rotary_cos_sin(grids, cfg.vision.head_dim))
+    args = (patches, cos, sin, torch.from_numpy(seg))
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        tower = copy.deepcopy(cpu_model.visual).to(dtype)
+        with torch.no_grad():
+            ref = tower(*args).float()
+            tower = tower.to("cuda")
+            before = build.launch_counts["vit_group_attention"]
+            out = tower(*(x.to("cuda") for x in args)).float().cpu()
+        launches = build.launch_counts["vit_group_attention"] - before
+        rel = (torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref)).item()
+        log(f"  mixed-size ViT grids {grids} {str(dtype)[6:]}: {launches} K3 launches, "
+            f"norm-relative {rel:.2e} against the CPU (tol {tol:g})")
+        if launches != cfg.vision.depth or not rel <= tol:
+            raise AssertionError(f"mixed-size ViT {dtype}: {launches} launches, {rel:.2e}")
 
 
 def phase_tiny_pool():
@@ -748,6 +890,7 @@ def phase_train() -> dict:
     import torch
 
     from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import kernel_timing
     from livecc_tpu_torch.tools import train_session as ts
 
     cfg = ts.train_model_config()
@@ -793,6 +936,12 @@ def phase_train() -> dict:
     missing = [name for name in TRAIN_KERNELS if counts.get(name, 0) <= 0]
     if missing:
         raise AssertionError(f"the training path never launched {missing}")
+    shapes = {rec["vit_shape"] for rec in records}
+    log(f"  K3 calls (NG, g): {sorted(shapes)}; the kernels phase timed "
+        f"{kernel_timing.VIT_SHAPES[-1]}")
+    if shapes != {kernel_timing.VIT_SHAPES[-1]}:
+        raise AssertionError(f"train: K3 ran at {shapes}, not at the timed training shape "
+                             f"{kernel_timing.VIT_SHAPES[-1]} (tools/kernel_timing.py)")
     del model, trainer, samples
     return counts
 

@@ -1,13 +1,14 @@
-// One online-softmax attention kernel over 64-query tiles, shared by
-// K1 (flash_prefill.cu: causal, per-row offset and kv_limit, GQA), its int8
-// variant (flash_prefill_int8.cu: QUANT, int8 K/V with per-key bf16 scales)
-// and K3 (vit_attention.cu: bidirectional within one temporal group).
+// One online-softmax attention kernel over 64-query tiles on the fp32 FMA
+// pipes: the fp32 instances of K1 (flash_prefill.cu) and K3
+// (vit_attention.cu), and K1-int8 (flash_prefill_int8.cu: QUANT, int8 K/V
+// with per-key bf16 scales) in both query dtypes. bf16 K1 and K3 run on the
+// tensor cores instead (mma_attention.cuh).
 //
-// Block = (64-query tile, q head, batch row or group); 128 threads.
+// Block = (64-query tile, q head, batch row or segment); 128 threads.
 // The block walks key tiles of 64 in order: this loop takes the place of the
 // TPU kernels' sequential kv grid axis, and its bound
 //     kv_end = min(kv_limit[b], Skv, offset[b] + q0 + 64)   (causal)
-//     kv_end = min(kv_limit[b], Skv)                        (bidirectional)
+//     kv_end = the segment's length                        (bidirectional)
 // replaces their index-map clamp: tiles past the causal or valid frontier are
 // never read. Each thread owns a 4x8 tile of the [64, 64] score block and a
 // 4 x (D/8) tile of the [64, D] fp32 accumulator; Q, K and V tiles sit in
@@ -16,6 +17,8 @@
 //
 // Strides are in elements and the head dim must be unit-stride, so q in
 // [B, S, H, D] memory is read through its [B, H, S, D] view without a copy.
+// With cu_seqlens (K3), blockIdx.z is a segment whose queries and keys are
+// the rows [cu[z], cu[z + 1]), the batch strides unused.
 //
 // QUANT (the TPU kernel's `quantized` branch, attention.py:78-99): K/V tiles
 // are read from device memory as int8 (half the bytes of bf16) and widened
@@ -39,6 +42,7 @@ struct TileParams {
   const int* kv_limit;   // [B] device int32, or nullptr (= Skv)
   const __nv_bfloat16* k_scale;   // QUANT: [B, Hk, 1, Skv] lane-major scales
   const __nv_bfloat16* v_scale;
+  const int* cu_seqlens;          // [nseg + 1] device int32 segment bounds, or nullptr
   int hq, hk, sq, skv, d;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
@@ -86,19 +90,29 @@ __global__ void __launch_bounds__(kTileThreads) tile_attention_kernel(TileParams
   const int nd = d / 8;
 
   const int offset = CAUSAL ? p.offset[b] : 0;
-  int limit = p.kv_limit ? p.kv_limit[b] : p.skv;
+  int sq = p.sq, limit = p.kv_limit ? p.kv_limit[b] : p.skv;
   limit = min(limit, p.skv);
+  long long bq = b * p.q_sb, bk = b * p.k_sb, bv = b * p.v_sb, bo = b * p.o_sb;
+  if (p.cu_seqlens) {                       // segment b: rows [start, start + sq)
+    const long long start = p.cu_seqlens[b];
+    sq = limit = p.cu_seqlens[b + 1] - (int)start;
+    bq = start * p.q_ss;
+    bk = start * p.k_ss;
+    bv = start * p.v_ss;
+    bo = start * p.o_ss;
+    if (q0 >= sq) return;
+  }
   int kv_end = limit;
   if (CAUSAL) kv_end = min(kv_end, offset + q0 + kTileQ);
 
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const KV* kb = static_cast<const KV*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const KV* vb = static_cast<const KV*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const T* qb = static_cast<const T*>(p.q) + bq + h * p.q_sh;
+  const KV* kb = static_cast<const KV*>(p.k) + bk + kvh * p.k_sh;
+  const KV* vb = static_cast<const KV*>(p.v) + bv + kvh * p.v_sh;
   const __nv_bfloat16* ksb = QUANT ? p.k_scale + b * p.ks_sb + kvh * p.ks_sh : nullptr;
   const __nv_bfloat16* vsb = QUANT ? p.v_scale + b * p.vs_sb + kvh * p.vs_sh : nullptr;
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  T* ob = static_cast<T*>(p.o) + bo + h * p.o_sh;
 
-  load_tile(sQ, ld, qb + (long long)q0 * p.q_ss, p.q_ss, 0, kTileQ, p.sq - q0, d);
+  load_tile(sQ, ld, qb + (long long)q0 * p.q_ss, p.q_ss, 0, kTileQ, sq - q0, d);
   if (tid < kTileQ) {
     sM[tid] = kNegInf;
     sL[tid] = 0.f;
@@ -205,7 +219,7 @@ __global__ void __launch_bounds__(kTileThreads) tile_attention_kernel(TileParams
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = ty * 4 + i;
-    if (q0 + r >= p.sq) continue;
+    if (q0 + r >= sq) continue;
     const float l = sL[r];
     const float safe = l > 0.f ? l : 1.f;
     T* orow = ob + (long long)(q0 + r) * p.o_ss;
@@ -215,7 +229,8 @@ __global__ void __launch_bounds__(kTileThreads) tile_attention_kernel(TileParams
   }
 }
 
-// Launch over grid (ceil(Sq / 64), Hq, n_batch) on `stream`; returns
+// Launch over grid (ceil(Sq / 64), Hq, n_batch) on `stream` (with
+// cu_seqlens: Sq the longest segment, n_batch the segments); returns
 // cudaGetLastError() so a refused launch is reported, not lost.
 template <typename T, bool CAUSAL, bool QUANT = false>
 int launch_tile_attention(const TileParams& p, int n_batch, cudaStream_t stream) {
@@ -244,6 +259,7 @@ inline bool prefill_params(TileParams& p, const void* q, const void* k, const vo
   p.kv_limit = kv_limit;
   p.k_scale = static_cast<const __nv_bfloat16*>(k_scale);
   p.v_scale = static_cast<const __nv_bfloat16*>(v_scale);
+  p.cu_seqlens = nullptr;
   p.hq = hq;
   p.hk = hk;
   p.sq = sq;

@@ -1,32 +1,64 @@
-// K3 vit_group_attention: bidirectional attention within uniform ViT
-// temporal groups.
+// K3 vit_group_attention: bidirectional ViT attention within segments given
+// by their bounds, the uniform temporal groups of one grid or segments of
+// mixed sizes alike.
 //
 // Replaces: livecc_tpu/ops/pallas/vit_attention.py:vit_group_attention
 // (_vit_attention_call, _vit_attn_kernel), forward only (the custom_vjp
-// backward is not ported yet).
+// backward is not ported yet), and the ViT's segment-mask `mha` path for
+// mixed grids (livecc_tpu/models/qwen2_vl/vision.py:121), whose equality
+// mask over runs of equal ids is attention within each run.
 //
-// Contract: q, k, v, o [NG, g, H, D] read through their strides (no
-// head-major transpose: the TPU kernel's swapaxes was a Mosaic layout
-// constraint), D = 80 for the 7B ViT. fp32 scores and softmax, unnormalised
-// probabilities rounded to v's dtype for the p·v product, normalisation
-// after p·v, as the TPU kernel does.
+// Contract: q, k, v, o [N, H, D] token-major as the ViT holds them, read
+// through their (row, head) strides; cu_seqlens int32 [nseg + 1] on the
+// device: segment z holds the rows [cu[z], cu[z + 1]); nseg and the longest
+// segment (max_len) are host ints, so the grid is (ceil(max_len / 64), H,
+// nseg) and a block whose query tile starts past its segment's end exits.
+// D = 80 for the 7B ViT. fp32 scores and softmax, unnormalised
+// probabilities rounded to v's dtype for the p.v product, normalisation
+// after p.v, as the TPU kernel does.
 //
 // What bounds it on the H100: at the 720p serving budget g = 880, H = 16,
-// D = 80 the score work is 4 x g^2 x D x H FLOPs per group and layer against
+// D = 80 the work is 4 x g^2 x D x H FLOPs per group and layer against
 // ~4 x g x H x D x 2 bytes of traffic, so it is compute-bound (plus g^2 x H
 // exps). The TPU kernel held a whole [g, g] score block in VMEM; a Hopper SM
-// has at most 227 KB of shared memory, so this kernel streams key tiles with
-// an online softmax instead (one block per group, head and 64-query tile),
-// which also removes the TPU's MAX_GROUP limit: every uniform grid goes
-// through the kernel. The products run on the fp32 FMA pipes in this first
-// version; head_dim 80 is why it is CUDA and not Triton (non-power-of-two).
+// has at most 227 KB of shared memory, so the kernel streams key tiles with
+// an online softmax instead, which also removes the TPU's MAX_GROUP limit.
+// bf16 (the model's dtype) runs on the tensor cores (mma_attention.cuh;
+// D = 80 is five k16 steps and ten n8 tiles); fp32 (the tiny test model) on
+// the FMA pipes (tile_attention.cuh). The dispatch is by dtype alone.
 
+#include "mma_attention.cuh"
 #include "tile_attention.cuh"
 
-extern "C" int livecc_vit_group_attention(int dtype, const void* q, const void* k,
-                                          const void* v, void* o, int groups, int g, int heads,
-                                          int d, const long long* strides, float scale,
-                                          void* stream) {
+// strides: (row, head) of q, k, v, o in elements
+extern "C" int livecc_vit_attention(int dtype, const void* q, const void* k, const void* v,
+                                    void* o, const int* cu_seqlens, int nseg, int max_len,
+                                    int heads, int d, const long long* strides, float scale,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nseg <= 0 || max_len <= 0 || heads <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == livecc::kBFloat16) {
+    livecc::MmaParams p;
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.k = static_cast<const __nv_bfloat16*>(k);
+    p.v = static_cast<const __nv_bfloat16*>(v);
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.offset = nullptr;
+    p.kv_limit = nullptr;
+    p.cu_seqlens = cu_seqlens;
+    p.hq = heads;
+    p.hk = heads;
+    p.sq = max_len;
+    p.skv = max_len;
+    p.q_sb = 0;  p.q_ss = strides[0];  p.q_sh = strides[1];
+    p.k_sb = 0;  p.k_ss = strides[2];  p.k_sh = strides[3];
+    p.v_sb = 0;  p.v_ss = strides[4];  p.v_sh = strides[5];
+    p.o_sb = 0;  p.o_ss = strides[6];  p.o_sh = strides[7];
+    p.scale = scale;
+    return livecc::launch_mma_attention<false>(p, d, max_len, nseg, s);
+  }
+  if (dtype != livecc::kFloat32 || d <= 0 || d > livecc::kMaxHeadDim || d % 8 != 0)
+    return (int)cudaErrorInvalidValue;
   livecc::TileParams p;
   p.q = q;
   p.k = k;
@@ -34,21 +66,19 @@ extern "C" int livecc_vit_group_attention(int dtype, const void* q, const void* 
   p.o = o;
   p.offset = nullptr;
   p.kv_limit = nullptr;
+  p.k_scale = nullptr;
+  p.v_scale = nullptr;
+  p.cu_seqlens = cu_seqlens;
   p.hq = heads;
   p.hk = heads;
-  p.sq = g;
-  p.skv = g;
+  p.sq = max_len;
+  p.skv = max_len;
   p.d = d;
-  p.q_sb = strides[0];  p.q_sh = strides[1];  p.q_ss = strides[2];
-  p.k_sb = strides[3];  p.k_sh = strides[4];  p.k_ss = strides[5];
-  p.v_sb = strides[6];  p.v_sh = strides[7];  p.v_ss = strides[8];
-  p.o_sb = strides[9];  p.o_sh = strides[10]; p.o_ss = strides[11];
+  p.q_sb = 0;  p.q_ss = strides[0];  p.q_sh = strides[1];
+  p.k_sb = 0;  p.k_ss = strides[2];  p.k_sh = strides[3];
+  p.v_sb = 0;  p.v_ss = strides[4];  p.v_sh = strides[5];
+  p.o_sb = 0;  p.o_ss = strides[6];  p.o_sh = strides[7];
+  p.ks_sb = p.ks_sh = p.vs_sb = p.vs_sh = 0;
   p.scale = scale;
-  if (d <= 0 || d > livecc::kMaxHeadDim || d % 8 != 0 || g <= 0 || heads <= 0)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == livecc::kFloat32) return livecc::launch_tile_attention<float, false>(p, groups, s);
-  if (dtype == livecc::kBFloat16)
-    return livecc::launch_tile_attention<__nv_bfloat16, false>(p, groups, s);
-  return (int)cudaErrorInvalidValue;
+  return livecc::launch_tile_attention<float, false>(p, nseg, s);
 }

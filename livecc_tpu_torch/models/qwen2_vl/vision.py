@@ -8,8 +8,10 @@ the 2x2 PatchMerger projecting to the LLM width.
 
 Attention: when every temporal group has ``group_size`` patches (every
 single-video path, and so the whole streaming path) it runs through K3
-``vit_group_attention``. The mixed-size segment-mask path runs the plain
-reference on the CPU; on CUDA it raises until its varlen kernel is ported.
+``vit_group_attention``. Mixed sizes (the JAX tower's segment-mask ``mha``)
+run through K3's bounds form, ``vit_segment_attention``: the bounds come
+from the runs of equal ``seg_ids``, read on the host once per tower call
+on that path only.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ from torch import nn
 
 from livecc_tpu_torch.core.config import VisionConfig
 from livecc_tpu_torch.models.qwen2_vl.layers import LayerNorm
-from livecc_tpu_torch.ops.attention import mha, segment_mask
 from livecc_tpu_torch.ops.rope import apply_rotary_vision
-from livecc_tpu_torch.ops.vit_attention import vit_group_attention
+from livecc_tpu_torch.ops.vit_attention import (
+    segment_bounds, vit_group_attention, vit_segment_attention)
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -88,6 +90,9 @@ class VisionTower(nn.Module):
         n = patches.shape[0]
         h, hd = self.cfg.num_heads, self.cfg.head_dim
         grouped = group_size is not None and n % group_size == 0
+        if not grouped:
+            cu, max_len = segment_bounds(seg_ids)
+            cu = torch.tensor(cu, dtype=torch.int32).to(patches.device)
 
         def attend(q, k, v):
             if grouped:
@@ -95,12 +100,7 @@ class VisionTower(nn.Module):
                 out = vit_group_attention(q.reshape(n // g, g, h, hd), k.reshape(n // g, g, h, hd),
                                           v.reshape(n // g, g, h, hd))
                 return out.reshape(n, h, hd)
-            if q.device.type != "cpu":
-                raise NotImplementedError(
-                    "mixed-size ViT segments need the varlen form of vit_group_attention, "
-                    "which is not ported yet")
-            mask = segment_mask(seg_ids)[None, None]
-            return mha(q[None], k[None], v[None], mask=mask)[0]
+            return vit_segment_attention(q, k, v, cu, max_len)
 
         x = self.patch_embed(patches.to(self.patch_embed.weight.dtype))
         for blk in self.blocks:

@@ -1,7 +1,7 @@
 """Plain PyTorch reference attention (``livecc_tpu/ops/attention.py`` semantics).
 
-These functions are the numerical reference the port's kernels are tested
-against and the CPU path of the vision tower's mixed-size segment mask:
+These functions mirror the JAX module's reference attention; the tests
+hold them to it (the vision tower's mixed sizes go to K3's bounds form):
 
   * ``mha`` / ``mha_bhsd`` — full attention, fp32 logits and softmax,
     probabilities cast to the model dtype for the pv product, GQA by head

@@ -123,14 +123,14 @@ def load_library() -> ctypes.CDLL:
                                               i32, i32, i32, i32, i32, i32, strides, f32, ptr]
     lib.livecc_flash_decode_int8.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                              i32, i32, i32, i32, i32, strides, f32, ptr, i32, ptr]
-    lib.livecc_vit_group_attention.argtypes = [i32, ptr, ptr, ptr, ptr,
-                                               i32, i32, i32, i32, strides, f32, ptr]
+    lib.livecc_vit_attention.argtypes = [i32, ptr, ptr, ptr, ptr, ptr,
+                                         i32, i32, i32, i32, strides, f32, ptr]
     lib.livecc_train_attention_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
                                                i32, i32, i32, i32, i32, strides, ptr]
     lib.livecc_train_attention_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                                ptr, i32, i32, i32, i32, i32, strides, ptr]
     for fn in (lib.livecc_flash_prefill, lib.livecc_flash_decode, lib.livecc_flash_prefill_int8,
-               lib.livecc_flash_decode_int8, lib.livecc_vit_group_attention,
+               lib.livecc_flash_decode_int8, lib.livecc_vit_attention,
                lib.livecc_train_attention_fwd, lib.livecc_train_attention_bwd):
         fn.restype = i32
     return lib
@@ -187,6 +187,22 @@ def check_operands(name: str, *tensors: torch.Tensor) -> None:
                              f"{[(x.device, x.dtype, tuple(x.shape)) for x in tensors]}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: head dim must be unit-stride, got strides {t.stride()}")
+
+
+def check_bf16_rows(name: str, *tensors: torch.Tensor) -> None:
+    """What the bf16 tensor-core kernels (``csrc/mma_attention.cuh``: K1,
+    K3) take besides ``check_operands``: a head dim that is a multiple of
+    16, and rows whose 16-byte copies are aligned (base and every stride
+    but the head dim's a multiple of 16 bytes). No-op for other dtypes."""
+    if tensors[0].dtype != torch.bfloat16:
+        return
+    d = tensors[0].shape[-1]
+    if d % 16:
+        raise ValueError(f"{name}: bf16 head_dim {d} must be a multiple of 16")
+    for t in tensors:
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
+            raise ValueError(f"{name}: bf16 rows must be 16-byte aligned, got base "
+                             f"{t.data_ptr() % 16} mod 16 and strides {t.stride()}")
 
 
 def row_scalars(x, batch: int, device: torch.device) -> torch.Tensor:

@@ -16,8 +16,11 @@ as the JAX kernels:
 Each wrapper runs its CUDA kernel for CUDA tensors (``csrc/flash_prefill.cu``,
 ``csrc/flash_decode.cu``; with scales ``csrc/flash_prefill_int8.cu``,
 ``csrc/flash_decode_int8.cu``) and its plain PyTorch version for CPU
-tensors; any other device raises. The plain versions below reproduce the
-kernels' semantics, including a zero output for a row with no valid key.
+tensors; any other device raises. bf16 K1 runs on the tensor cores
+(``csrc/mma_attention.cuh``: head dim a multiple of 16, 16-byte aligned
+rows, checked here), fp32 K1 and K1-int8 on the FMA pipes. The plain
+versions below reproduce the kernels' semantics, including a zero output
+for a row with no valid key.
 The decode kernels split each row's keys into blocks of ``DECODE_SPLIT``
 and merge the partials in a second kernel; ``flash_decode_split_plain`` and
 ``flash_decode_merge_plain`` mirror those two steps for the tests.
@@ -155,9 +158,11 @@ def flash_prefill(
                          f"v {tuple(v.shape)}")
     _check_scales("flash_prefill", k, v, k_scale, v_scale)
     _check_cuda_operands("flash_prefill", q, k, v, k_scale, v_scale)
+    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if k_scale is None:
+        build.check_bf16_rows("flash_prefill", q, k, v, out)
     offset = build.row_scalars(offset, b, q.device)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
-    out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     lib = build.load_library()
     strides = [(q, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)), (out, (0, 1, 2))]
     with torch.cuda.device(q.device):
@@ -250,6 +255,32 @@ def flash_decode_merge_plain(m, l, acc, out_dtype) -> torch.Tensor:
 # keys per split block of the K2 / K2-int8 kernels: ``kDecSplit`` of
 # csrc/decode_attention.cuh, which refuses a workspace sized for another split
 DECODE_SPLIT = 64
+# query heads x head dim one decode block takes: ``kDecMaxOut`` of the same header
+DECODE_MAX_GD = 2048
+
+
+def decode_subgroups(g: int, d: int) -> list[tuple[int, int]]:
+    """The query heads ``[lo, hi)`` of each KV head's group of ``g`` that one
+    launch of the decode kernels takes: the whole group while G·D <= 2048,
+    else contiguous runs of at most 2048 // D heads."""
+    per = max(1, DECODE_MAX_GD // d)
+    return [(lo, min(lo + per, g)) for lo in range(0, g, per)]
+
+
+def by_subgroups(q: torch.Tensor, hk: int, groups, attend) -> torch.Tensor:
+    """Decode attention of q ``[B, Hq, 1, D]`` one sub-group at a time:
+    ``attend`` gets each sub-group's heads of every KV head as a contiguous
+    ``[B, Hk * n, 1, D]`` (head j of KV head i at i * n + j, so the KV head
+    of a head is still its index // n) and returns their output, which is
+    written back into place."""
+    b, hq, _, d = q.shape
+    g = hq // hk
+    out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    qg, og = q.unflatten(1, (hk, g)), out.unflatten(1, (hk, g))
+    for lo, hi in groups:
+        part = attend(qg[:, :, lo:hi].reshape(b, hk * (hi - lo), 1, d).contiguous())
+        og[:, :, lo:hi] = part.unflatten(1, (hk, hi - lo))
+    return out
 
 
 def flash_decode(
@@ -264,7 +295,11 @@ def flash_decode(
     """One query token per row over the cache; q heads grouped per KV head.
     On the GPU the split kernel writes its partials into a workspace
     allocated here, on the caller's stream, and the merge kernel writes the
-    output; both launch from one C call."""
+    output; both launch from one C call. A group wider than one decode block
+    (G·D > 2048, e.g. Hq = 32 over one KV head at D = 128) runs as
+    ``decode_subgroups``: one such call per sub-group, each counted as a
+    launch, with the sub-group's q copied to a contiguous buffer and its
+    output copied back into place."""
     k, v = _layer(k, v, layer_index)
     if k_scale is not None:
         k_scale, v_scale = _layer(k_scale, v_scale, layer_index)
@@ -276,12 +311,23 @@ def flash_decode(
         raise RuntimeError(f"flash_decode: no kernel for device {q.device}")
     b, hq, _, d = q.shape
     hk, smax = k.shape[1], k.shape[2]
-    if k.shape != (b, hk, smax, d) or v.shape != k.shape or hq % hk or (hq // hk) * d > 2048:
+    if k.shape != (b, hk, smax, d) or v.shape != k.shape or hq % hk:
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
-                         f"v {tuple(v.shape)} (needs G * D <= 2048)")
+                         f"v {tuple(v.shape)}")
     _check_scales("flash_decode", k, v, k_scale, v_scale)
     _check_cuda_operands("flash_decode", q, k, v, k_scale, v_scale)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
+    groups = decode_subgroups(hq // hk, d)
+    if len(groups) == 1:
+        return _decode_launch(q, k, v, kv_limit, k_scale, v_scale)
+    return by_subgroups(q, hk, groups,
+                        lambda qs: _decode_launch(qs, k, v, kv_limit, k_scale, v_scale))
+
+
+def _decode_launch(q, k, v, kv_limit, k_scale, v_scale) -> torch.Tensor:
+    """One launch of the decode kernels (G·D <= 2048) into a new output."""
+    b, hq, _, d = q.shape
+    hk, smax = k.shape[1], k.shape[2]
     out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     nsplit = -(-smax // DECODE_SPLIT)
     workspace = torch.empty((2 + d) * b * hq * nsplit, dtype=torch.float32, device=q.device)

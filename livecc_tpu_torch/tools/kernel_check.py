@@ -1,24 +1,28 @@
-"""Hold the decode kernels (K2, K2-int8) to their plain version, by a limit
-that a dropped split of keys fails.
+"""Hold the attention kernels (K1, K2, K2-int8, K3) to their plain
+versions, by a limit that a dropped block of keys fails.
 
 ``close(out, ref, dtype)`` compares a kernel's output with the plain version
-on the same inputs in the same dtype (``flash_decode_plain`` on the bf16
-tensors rounds p to bf16 as the kernel does): elementwise
+on the same inputs in the same dtype (the plain versions on bf16 tensors
+round p to bf16 as the kernels do): elementwise
 
     |out - ref| <= rtol * |ref| + atol * rms(ref's row)
 
 with bf16 (1e-2, 2e-2) and fp32 (1e-4, 1e-4), the limits of the K4 check
 in ``chip_smoke.py``. bf16's rtol is just above one bf16 step (2^-7
 relative), all that a rounding flip moves an output. The rms is taken over
-each output row (the last dim, one query head of one batch row), since
+each output row (the last dim, one query head of one query), since
 rows at different cache depths differ in scale by orders of magnitude: a
 row over one key is a V row (~1), one over 8192 keys ~0.05. It returns the
 worst share of the limit used; above 1 fails.
 
-``drop_split(...)`` is the planted fault: the plain version with the keys
-``[split, 2 * split)`` of the longest row removed for one KV head's query
-heads, what a kernel that skipped one split block would give. A check
-that passes it could not see a lost split.
+The planted faults, what a kernel that skipped one block of its loop would
+give; a check that passes them could not see a lost block:
+
+  * ``drop_split(...)`` (K2): the plain version with the keys ``[split,
+    2 * split)`` of the longest row removed for one KV head's query heads;
+  * ``drop_key_tile(...)`` (K1) and ``vit_drop_key_tile(...)`` (K3): the
+    plain output with one 64-query tile of one head recomputed without one
+    64-key tile (``TILE``, the kernels' ``kMmaTileQ`` / ``kMmaTileK``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from livecc_tpu_torch.ops import build
 from livecc_tpu_torch.ops.flash_attention import _masked_softmax_pv, _scores
 
 TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
+TILE = 64       # queries and keys per tile: kMmaTileQ, kMmaTileK of csrc/mma_attention.cuh
 
 
 def close(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype) -> float:
@@ -62,3 +67,46 @@ def drop_split(q, k, v, kv_limit, split: int, k_scale=None, v_scale=None,
     allowed = allowed[:, None, None, :].expand(b, hq, 1, smax).clone()
     allowed[row, kv_head * g:(kv_head + 1) * g, :, split:2 * split] = False
     return _masked_softmax_pv(_scores(q, k, k_scale), allowed, v, q.dtype, v_scale)
+
+
+def drop_key_tile(ref, q, k, v, offset, kv_limit, q_tile: int, k_tile: int, head: int = 0,
+                  row: int = 0) -> torch.Tensor:
+    """``ref`` (``flash_prefill_plain`` on these inputs, ``[B, Hq, Sq, D]``,
+    one-layer cache ``[B, Hk, Smax, D]``) with the queries ``[TILE * q_tile,
+    +TILE)`` of q head ``head`` in batch row ``row`` recomputed without the
+    keys ``[TILE * k_tile, +TILE)``. Raises if those queries attend none of
+    those keys (the fault would change nothing)."""
+    b, hq, sq, _ = q.shape
+    kvh = head // (hq // k.shape[1])
+    off = int(build.row_scalars(offset, b, q.device)[row])
+    lim = int(build.row_scalars(kv_limit, b, q.device)[row])
+    if not 0 <= q_tile * TILE < sq:
+        raise ValueError(f"drop_key_tile: no query tile {q_tile} in {sq} queries")
+    rows = slice(q_tile * TILE, min(sq, (q_tile + 1) * TILE))
+    cols = slice(k_tile * TILE, (k_tile + 1) * TILE)
+    qs = q[row:row + 1, head:head + 1, rows]
+    ks, vs = k[row:row + 1, kvh:kvh + 1], v[row:row + 1, kvh:kvh + 1]
+    qpos = off + torch.arange(rows.start, rows.stop, device=q.device)
+    kpos = torch.arange(k.shape[2], device=q.device)
+    allowed = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < lim)
+    if not bool(allowed[:, cols].any()):
+        raise ValueError(f"drop_key_tile: query tile {q_tile} attends no key of tile {k_tile}")
+    allowed[:, cols] = False
+    out = ref.clone()
+    out[row, head, rows] = _masked_softmax_pv(_scores(qs, ks, None), allowed[None, None], vs,
+                                              ref.dtype)[0, 0]
+    return out
+
+
+def vit_drop_key_tile(ref, q, k, v, cu_seqlens, seg: int, q_tile: int, k_tile: int,
+                      head: int = 0) -> torch.Tensor:
+    """``ref`` (the plain output ``[N, H, D]`` of K3's bounds form) with the
+    query tile ``q_tile`` of head ``head`` in segment ``seg`` recomputed
+    without the segment's key tile ``k_tile``: ``drop_key_tile`` on the
+    segment, seen as one batch row whose queries all sit past its keys."""
+    a, e = (int(x) for x in cu_seqlens[seg:seg + 2])
+    n = e - a
+    bhsd = [x[a:e].transpose(0, 1)[None] for x in (ref, q, k, v)]
+    out = ref.clone()
+    out[a:e] = drop_key_tile(*bhsd, n, n, q_tile, k_tile, head)[0].transpose(0, 1)
+    return out

@@ -11,14 +11,15 @@
     between two events; no host work runs between the calls.
 
 Run as a script, by path, with the checkout to time first on
-``PYTHONPATH``, it times that checkout's ``flash_decode`` (K2 and K2-int8)
-both ways at ``chip_smoke.py``'s timed decode shapes and prints one JSON
-line, so two versions of the kernels compare on one card in one call:
+``PYTHONPATH``, it times that checkout's ``flash_decode`` (K2 and K2-int8),
+``vit_group_attention`` (K3) and ``flash_prefill`` (K1) both ways at
+``chip_smoke.py``'s timed shapes and prints one JSON line, so two versions
+of the kernels compare on one card in one call:
 
     PYTHONPATH=. python3 livecc_tpu_torch/tools/kernel_timing.py
     PYTHONPATH=<another checkout> python3 livecc_tpu_torch/tools/kernel_timing.py
 
-It uses only ``flash_decode``'s public signature and
+It uses only the three wrappers' public signatures and
 ``models.qwen2_vl.text.quantize_kv``. Needs a CUDA GPU.
 """
 
@@ -108,6 +109,47 @@ def decode_cases():
         q, k, v, lim, layer_index=LAYER, k_scale=ks, v_scale=vs)
 
 
+# chip_smoke.py's timed K3 shapes (NG, g) at the 7B ViT's H = 16, D = 80: the
+# first chunk and a steady chunk at 308x560 (22 x 40 patches), and the call of
+# chip_smoke's train phase (2 packed 24-frame clips of 16 x 34 patches per
+# micro-batch: 24 groups plus 7 of pad, a bucket of 16384 patches rounded up
+# to whole groups; chip_smoke checks that its train phase makes this call)
+VIT_SHAPES = ((3, 880), (1, 880), (31, 544))
+VIT_HEADS, VIT_DIM = 16, 80
+# and its timed K1 shapes (Sq, offset, kv_limit) at B = 1 on layer 27 of the
+# 7B's bf16 cache: the 6-frame first chunk's bucket and a steady 2-frame chunk
+PREFILL_SHAPES = ((1024, 0, 690), (256, 1500, 1756))
+
+
+def vit_cases():
+    """(label, call) of K3 at each of ``VIT_SHAPES``, bf16."""
+    from livecc_tpu_torch.ops.vit_attention import vit_group_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for ng, g in VIT_SHAPES:
+        q, k, v = (torch.randn((ng, g, VIT_HEADS, VIT_DIM), generator=gen, device=dev).bfloat16()
+                   for _ in range(3))
+        yield (f"K3 NG={ng} g={g} H={VIT_HEADS} D={VIT_DIM} bf16",
+               lambda q=q, k=k, v=v: vit_group_attention(q, k, v))
+
+
+def prefill_cases():
+    """(label, call) of K1 at each of ``PREFILL_SHAPES``, bf16, q strided as
+    the text tower passes it."""
+    from livecc_tpu_torch.ops.flash_attention import flash_prefill
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    k, v = (torch.randn((L, 1, HK, SMAX, D), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    for sq, off, lim in PREFILL_SHAPES:
+        q = torch.randn((1, sq, HQ, D), generator=gen, device=dev).bfloat16().transpose(1, 2)
+        off_t, lim_t = (torch.tensor([x], dtype=torch.int32, device=dev) for x in (off, lim))
+        yield (f"K1 B=1 Sq={sq} offset={off} kv_limit={lim} bf16",
+               lambda q=q, o=off_t, lm=lim_t: flash_prefill(q, k, v, o, lm, layer_index=LAYER))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: needs a CUDA GPU")
@@ -115,17 +157,21 @@ def main() -> int:
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout
-    rows = []
-    for label, call in decode_cases():
-        out = call()
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(out.float()).all()):
-            raise AssertionError(f"{label}: non-finite output")
-        rows.append({"case": label, "cuda_ms": cuda_ms(call), "graph_ms": graph_ms(call)})
-        print(f"  {label:60s} one call {rows[-1]['cuda_ms']:.4f} ms  device "
-              f"{rows[-1]['graph_ms']:.4f} ms", flush=True)
-    print(json.dumps({"package": livecc_tpu_torch.__path__[0], "card": card.strip(),
-                      "torch": torch.__version__, "decode": rows}))
+    result = {"package": livecc_tpu_torch.__path__[0], "card": card.strip(),
+              "torch": torch.__version__}
+    for kind, cases in (("decode", decode_cases), ("vit", vit_cases), ("prefill", prefill_cases)):
+        rows = result[kind] = []
+        for label, call in cases():
+            out = call()
+            torch.cuda.synchronize()
+            if not bool(torch.isfinite(out.float()).all()):
+                raise AssertionError(f"{label}: non-finite output")
+            rows.append({"case": label, "cuda_ms": cuda_ms(call), "graph_ms": graph_ms(call)})
+            print(f"  {label:60s} one call {rows[-1]['cuda_ms']:.4f} ms  device "
+                  f"{rows[-1]['graph_ms']:.4f} ms", flush=True)
+            del out
+        torch.cuda.empty_cache()
+    print(json.dumps(result))
     return 0
 
 

@@ -43,6 +43,9 @@ def _group(name: str) -> str:
         return "K4 train_attention_fwd"
     if "train_dkv_kernel" in name or "train_dq_kernel" in name:
         return "K4 train_attention_bwd"
+    m = re.search(r"mma_attention_kernel<(true|false)", name)     # bf16 K1 / K3
+    if m:
+        return "K1 flash_prefill" if m.group(1) == "true" else "K3 vit_group_attention"
     m = re.search(r"(tile_attention_kernel|decode_kernel|decode_split_kernel|decode_merge_kernel)"
                   r"<[^,>]+, *(true|false)(?:, *(true|false|\d+))?", name)
     if m:

@@ -157,7 +157,8 @@ def window_flops(cfg: ModelConfig, batch) -> tuple[int, int]:
 
 def run_steps(trainer: Trainer) -> list[dict]:
     """Run the trainer to its end; one record per step: synchronized wall,
-    loss, supervised and real tokens, tokens/s and model TFLOP/s."""
+    loss, supervised and real tokens, tokens/s, model TFLOP/s and the (NG, g)
+    of the step's K3 calls (None without a uniform vision grid)."""
     records = []
     torch.cuda.synchronize()
     last = [time.perf_counter()]
@@ -169,7 +170,10 @@ def run_steps(trainer: Trainer) -> list[dict]:
         wall = now - last[0]
         records.append({"step": step, "wall_s": wall, "loss": float(metrics["loss"]),
                         "supervised": int(metrics["tokens"]), "tokens": tokens,
-                        "tokens_per_s": tokens / wall, "model_tflops": flops / wall / 1e12})
+                        "tokens_per_s": tokens / wall, "model_tflops": flops / wall / 1e12,
+                        "vit_shape": None if batch.vision_group is None else (
+                            batch.vision_patches.shape[-2] // batch.vision_group,
+                            batch.vision_group)})
         last[0] = time.perf_counter()
 
     trainer.train(on_step=on_step)

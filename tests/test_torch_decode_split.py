@@ -27,8 +27,8 @@ from livecc_tpu.ops.pallas.attention import flash_decode as jax_flash_decode
 
 from livecc_tpu_torch.models.qwen2_vl.text import quantize_kv
 from livecc_tpu_torch.ops.flash_attention import (
-    DECODE_SPLIT, flash_decode, flash_decode_merge_plain, flash_decode_plain,
-    flash_decode_split_plain)
+    DECODE_MAX_GD, DECODE_SPLIT, by_subgroups, decode_subgroups, flash_decode,
+    flash_decode_merge_plain, flash_decode_plain, flash_decode_split_plain)
 from livecc_tpu_torch.tools import kernel_check
 
 T = torch.from_numpy
@@ -150,6 +150,15 @@ def test_close_and_drop_split_edges():
      "K2-int8 flash_decode_int8"),
     ("void livecc::(anonymous namespace)::tile_attention_kernel<__nv_bfloat16, true, true>(...)",
      "K1-int8 flash_prefill_int8"),
+    # the tensor-core K1 and K3 (bf16), and the FMA kernel's fp32 instances
+    ("void livecc::(anonymous namespace)::mma_attention_kernel<true, 128>(livecc::MmaParams)",
+     "K1 flash_prefill"),
+    ("void livecc::(anonymous namespace)::mma_attention_kernel<false, 80>(livecc::MmaParams)",
+     "K3 vit_group_attention"),
+    ("void livecc::(anonymous namespace)::tile_attention_kernel<float, false, false>(...)",
+     "K3 vit_group_attention"),
+    ("void livecc::(anonymous namespace)::tile_attention_kernel<float, true, false>(...)",
+     "K1 flash_prefill"),
     # the one-kernel decode of older checkouts, which the script can also profile
     ("void livecc::(anonymous namespace)::decode_kernel<__nv_bfloat16, false>"
      "(livecc::(anonymous namespace)::DecodeParams)", "K2 flash_decode"),
@@ -184,6 +193,41 @@ def test_check_fails_a_dropped_split_at_the_card_shapes(kind):
     assert kernel_check.close(fault, ref, torch.bfloat16) >= 2.0
 
 
+@pytest.mark.parametrize("g,d,groups", [
+    (7, 128, [(0, 7)]), (16, 128, [(0, 16)]), (32, 128, [(0, 16), (16, 32)]),
+    (20, 128, [(0, 16), (16, 20)]), (48, 96, [(0, 21), (21, 42), (42, 48)]),
+    (300, 8, [(0, 256), (256, 300)]),
+])
+def test_decode_subgroups(g, d, groups):
+    """A group wider than one decode block (G·D > 2048) splits into runs of
+    at most 2048 // D heads."""
+    assert decode_subgroups(g, d) == groups
+
+
+@pytest.mark.parametrize("b,hq,hk,d,limits", [
+    (1, 32, 1, 128, [3000]), (2, 40, 2, 128, [700, 65]), (2, 48, 1, 96, [1, 4096]),
+])
+def test_by_subgroups_is_one_pass(b, hq, hk, d, limits):
+    """The sub-group route (contiguous q per sub-group, output written back
+    into place) gives what one pass over all heads gives: here with the
+    plain version as each sub-group's attention."""
+    gen = torch.Generator().manual_seed(hq + d)
+    q = torch.randn((b, 1, hq, d), generator=gen).transpose(1, 2)
+    k, v = (torch.randn((b, hk, 4096, d), generator=gen) for _ in range(2))
+    lim = torch.tensor(limits, dtype=torch.int32)
+    seen = []
+
+    def attend(qs):
+        assert qs.is_contiguous() and qs.shape[1] % hk == 0
+        seen.append(qs.shape[1] // hk)
+        return flash_decode_plain(qs, k, v, lim)
+
+    out = by_subgroups(q, hk, decode_subgroups(hq // hk, d), attend)
+    assert seen == [hi - lo for lo, hi in decode_subgroups(hq // hk, d)]
+    np.testing.assert_allclose(out.numpy(), flash_decode_plain(q, k, v, lim).numpy(),
+                               atol=1e-6, rtol=0)
+
+
 def test_decode_split_is_the_kernels_constant():
     """The wrapper sizes the workspace for ``DECODE_SPLIT`` keys per split,
     the header's ``kDecSplit`` (whose C entry points refuse any other)."""
@@ -192,3 +236,5 @@ def test_decode_split_is_the_kernels_constant():
     header = Path(livecc_tpu_torch.__file__).parent / "csrc" / "decode_attention.cuh"
     found = re.findall(r"constexpr int kDecSplit = (\d+);", header.read_text())
     assert found == [str(DECODE_SPLIT)]
+    found = re.findall(r"constexpr int kDecMaxOut = (\d+);", header.read_text())
+    assert found == [str(DECODE_MAX_GD)]

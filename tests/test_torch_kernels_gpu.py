@@ -6,10 +6,11 @@ has no jax, so ``tests/conftest.py`` stays out):
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
-bf16 kernels are held to the plain version computed in fp32 on the same
-bf16 inputs (max abs 2e-2, the JAX package's bf16 bound); fp32 to 1e-4.
-The decode kernels are also held to the plain version in their own dtype
-by ``kernel_check.close``, a limit that a dropped split of keys fails.
+fp32 kernels are held to the plain version in fp32 (max abs 1e-4). bf16
+K1, K2 and K3 are held to the plain version in their own dtype by
+``kernel_check.close``, a limit that a dropped split of keys (K2) or a
+dropped key tile (K1, K3) fails; K1-int8, K2 and K4 also to the plain
+version computed in fp32 (max abs 2e-2, the JAX package's bf16 bound).
 """
 
 import pytest
@@ -44,6 +45,14 @@ def assert_close(out, ref, dtype):
     assert err <= TOL[dtype], err
 
 
+def assert_tiles_close(out, ref, fault):
+    """bf16 K1 / K3 against the plain version on the same inputs in bf16, by
+    ``kernel_check.close``; the same limit fails the planted dropped tile."""
+    torch.cuda.synchronize()
+    assert kernel_check.close(out, ref, torch.bfloat16) <= 1.0
+    assert kernel_check.close(fault, ref, torch.bfloat16) > 1.0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("ng,g,h,d", [(3, 880, 16, 80), (2, 12, 2, 80), (2, 70, 4, 16)])
 def test_vit_group_attention(cuda, dtype, ng, g, h, d):
@@ -52,7 +61,80 @@ def test_vit_group_attention(cuda, dtype, ng, g, h, d):
     before = build.launch_counts["vit_group_attention"]
     out = vit_group_attention(q, k, v)
     assert build.launch_counts["vit_group_attention"] == before + 1
-    assert_close(out, vit_group_attention_plain(q.float(), k.float(), v.float()), dtype)
+    ref = vit_group_attention_plain(q, k, v)
+    if dtype == torch.float32:
+        assert_close(out, ref, dtype)
+        return
+    cu = list(range(0, (ng + 1) * g, g))
+    qn, kn, vn, rn = (x.reshape(ng * g, h, d) for x in (q, k, v, ref))
+    fault = kernel_check.vit_drop_key_tile(rn, qn, kn, vn, cu, ng - 1, (g - 1) // 64, g // 128)
+    assert_tiles_close(out, ref, fault.view(ref.shape))
+    assert torch.equal(out, vit_group_attention(q, k, v))      # no atomics: the same bits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths,h,d", [
+    ((880, 308, 544, 100), 16, 80),      # the 7B ViT's heads, partial query and key tiles
+    ((1, 64, 65, 200, 7), 4, 16),        # tile edges and a one-row segment
+])
+def test_vit_segment_attention(cuda, dtype, lengths, h, d):
+    """Mixed segment sizes through K3's bounds form (one launch), v a strided
+    view of a qkv buffer as the tower holds it."""
+    from livecc_tpu_torch.ops.vit_attention import (vit_segment_attention,
+                                                    vit_segment_attention_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    n = sum(lengths)
+    cu = [0]
+    for length in lengths:
+        cu.append(cu[-1] + length)
+    qkv = randn(gen, (n, 3 * h, d), dtype, cuda)
+    q, k, v = qkv[:, :h].contiguous(), qkv[:, h:2 * h].contiguous(), qkv[:, 2 * h:]
+    cu_t = torch.tensor(cu, dtype=torch.int32, device=cuda)
+    before = build.launch_counts["vit_group_attention"]
+    out = vit_segment_attention(q, k, v, cu_t, max(lengths))
+    assert build.launch_counts["vit_group_attention"] == before + 1
+    ref = vit_segment_attention_plain(q, k, v, cu)
+    if dtype == torch.float32:
+        assert_close(out, ref, dtype)
+    else:
+        longest = max(range(len(lengths)), key=lambda i: lengths[i])
+        g = lengths[longest]
+        assert_tiles_close(out, ref, kernel_check.vit_drop_key_tile(
+            ref, q, k, v, cu, longest, (g - 1) // 64, g // 128, head=h - 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mixed_size_vision_tower(cuda, dtype):
+    """The tiny tower on two clips of different grids runs K3's bounds form
+    on the card, one launch per block, and agrees with the CPU."""
+    import copy
+
+    import numpy as np
+
+    from livecc_tpu_torch.core.config import tiny_config
+    from livecc_tpu_torch.models.qwen2_vl import init_params
+    from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
+    from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
+
+    cfg = tiny_config()
+    model = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    rng = np.random.RandomState(9)
+    clips = [rng.randint(0, 256, size=s, dtype=np.uint8) for s in ((4, 56, 28, 3), (2, 28, 84, 3))]
+    grids = [grid_for_frames(*f.shape[:3], cfg.vision) for f in clips]
+    seg = np.concatenate([np.repeat(np.arange(t) + 100 * i, hh * ww)
+                          for i, (t, hh, ww) in enumerate(grids)]).astype(np.int32)
+    cos, sin = (torch.from_numpy(x) for x in vision_rotary_cos_sin(grids, cfg.vision.head_dim))
+    args = (torch.cat([device_patchify(torch.from_numpy(f)) for f in clips]), cos, sin,
+            torch.from_numpy(seg))
+    tower = copy.deepcopy(model.visual).to(dtype)
+    with torch.no_grad():
+        ref = tower(*args).float()
+        before = build.launch_counts["vit_group_attention"]
+        out = tower.to(cuda)(*(x.to(cuda) for x in args)).float().cpu()
+    assert build.launch_counts["vit_group_attention"] == before + cfg.vision.depth
+    rel = (torch.linalg.vector_norm(out - ref) / torch.linalg.vector_norm(ref)).item()
+    assert rel <= (1e-5 if dtype == torch.float32 else 2e-2), rel
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -69,9 +151,44 @@ def test_flash_prefill(cuda, dtype, b, hq, hk, d, sq, offsets, limits):
     q = randn(gen, (b, sq, hq, d), dtype, cuda).transpose(1, 2)     # strided, as the model passes it
     off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
     lim = torch.tensor(limits, dtype=torch.int32, device=cuda)
+    before = build.launch_counts["flash_prefill"]
     out = flash_prefill(q, k5, v5, off, lim, layer_index=2)
-    ref = flash_prefill_plain(q.float(), k5[2].float(), v5[2].float(), off, lim)
-    assert_close(out, ref, dtype)
+    assert build.launch_counts["flash_prefill"] == before + 1
+    ref = flash_prefill_plain(q, k5[2], v5[2], off, lim)
+    if 0 in limits:
+        assert not out[limits.index(0)].any()
+    if dtype == torch.float32:
+        assert_close(out, ref, dtype)
+        return
+    row = max(range(b), key=lambda i: limits[i])       # the longest row, its last query tile
+    qt = (sq - 1) // 64
+    kt = min(limits[row], offsets[row] + 64 * qt + 1) // 64 // 2
+    fault = kernel_check.drop_key_tile(ref, q, k5[2], v5[2], off, lim, qt, kt, head=hq - 1, row=row)
+    assert_tiles_close(out, ref, fault)
+    assert torch.equal(out, flash_prefill(q, k5, v5, off, lim, layer_index=2))
+
+
+def test_bf16_tile_kernels_reject_what_they_do_not_take(cuda):
+    """bf16 K1 and K3 run on the tensor cores: a head dim that is not a
+    multiple of 16, or rows that 16-byte copies cannot take, raise."""
+    from livecc_tpu_torch.ops.vit_attention import vit_segment_attention
+
+    bf16 = torch.bfloat16
+    q = torch.zeros(1, 2, 4, 24, device=cuda, dtype=bf16)   # D = 24: a multiple of 8, not 16
+    with pytest.raises(ValueError):
+        flash_prefill(q, q, q, 0, 4)
+    with pytest.raises(ValueError):
+        vit_group_attention(q, q, q)
+    buf = torch.zeros(1, 2, 4, 36, device=cuda, dtype=bf16)
+    q = buf[..., 4:36]                                       # rows 72 bytes apart, base off by 8
+    with pytest.raises(ValueError):
+        flash_prefill(q, q, q, 0, 4)
+    x = torch.zeros(9 * 2 * 32 + 1, device=cuda, dtype=bf16)[1:].view(9, 2, 32)   # base off by 2 bytes
+    cu = torch.tensor([0, 4, 9], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        vit_segment_attention(x, x, x, cu, 5)
+    with pytest.raises(ValueError):                         # bounds not int32 on the device
+        vit_segment_attention(x.clone(), x.clone(), x.clone(), cu.long(), 5)
 
 
 S = DECODE_SPLIT
@@ -132,13 +249,30 @@ def test_flash_decode_rejects_what_the_kernels_do_not_take(cuda):
     k = torch.zeros(1, 2, 64, 16, device=cuda)
     with pytest.raises(ValueError):
         flash_decode(q, k, k, 4)
-    q = torch.zeros(1, 32, 1, 128, device=cuda)              # G * D > 2048
-    k = torch.zeros(1, 1, 64, 128, device=cuda)
-    with pytest.raises(ValueError):
-        flash_decode(q, k, k, 4)
     k = torch.zeros(1, 2, 64, 16, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
-        flash_decode(q[:, :4, :, :16].half(), k, k, 4)
+        flash_decode(torch.zeros(1, 4, 1, 16, device=cuda).half(), k, k, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,hq,hk,d,limits", [
+    (1, 32, 1, 128, [3000]),               # G * D = 4096: two sub-groups of 16
+    (2, 40, 2, 128, [700, 65]),            # G = 20: sub-groups of 16 and 4
+    (2, 48, 1, 96, [1, 4096]),             # G * D = 4608 at D = 96: 21 + 21 + 6 heads
+])
+def test_flash_decode_wide_group(cuda, dtype, b, hq, hk, d, limits):
+    """A query group wider than one decode block runs as sub-groups, one
+    launch each, written back into place."""
+    from livecc_tpu_torch.ops.flash_attention import decode_subgroups
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    k5, v5 = (randn(gen, (2, b, hk, 4096, d), dtype, cuda) for _ in range(2))
+    q = randn(gen, (b, 1, hq, d), dtype, cuda).transpose(1, 2)
+    lim = torch.tensor(limits, dtype=torch.int32, device=cuda)
+    before = build.launch_counts["flash_decode"]
+    out = flash_decode(q, k5, v5, lim, layer_index=1)
+    assert build.launch_counts["flash_decode"] == before + len(decode_subgroups(hq // hk, d))
+    assert_decode_close(out, flash_decode_plain(q, k5[1], v5[1], lim), dtype)
 
 
 def test_decode_entry_refuses_a_workspace_for_another_split(cuda):
