@@ -37,10 +37,11 @@ Phases (any failure raises and the script exits non-zero):
                  kernels run on the pool's cache
                  [28, 8, 4, 8192, 128] int8 with bf16 scales; K4 at the
                  training shape (Hq 28, Hk 4, D 128) on packed rows of 4096
-                 and 1000 (checked) and 8192 (checked and timed), each
-                 output also held elementwise to the plain version in its
-                 own dtype by a limit that must fail one dropped tile pair
-                 (``phase_k4``).
+                 and 1000 (checked) and 8192 (checked and timed, also in
+                 device time), each output also held elementwise to the
+                 plain version in its own dtype by a limit that must fail
+                 one dropped tile pair (``kernel_check.dropped_tile``), and
+                 two bf16 launches bit-equal (``phase_k4``).
   4. tiny      — tiny config, fp32, seeded random weights: the engine on the
                  CPU (plain versions) and on the GPU (kernels) give identical
                  greedy text over 3 chunks; the tiny ViT on two clips of
@@ -164,8 +165,8 @@ def phase_build():
     for line in (lib.parent / "build.log").read_text().splitlines():
         if "Function properties for" in line:     # the kernel the next two lines describe
             name = line.split("for ")[-1]
-            m = re.search(r"\d+([a-z_]*kernel)(I\w*?)E+v", name)
-            log(f"  ptxas: {''.join(m.groups()) if m else name}")
+            m = re.search(r"\d+([a-z_]*kernel)(I\w*?)?E+[vN]", name)   # template or not
+            log(f"  ptxas: {m.group(1) + (m.group(2) or '') if m else name}")
         elif "Used" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
@@ -538,10 +539,13 @@ def phase_k4(results, check, times, yardsticks, randn):
     elementwise within ``rtol * |ref| + atol * rms(ref)`` (``K4_TOL``); the
     backward's reference starts from the plain forward's o and lse. The
     same check must fail a planted fault, the reference with one 64 x 64
-    tile pair dropped (``dropped_tile``), or the script fails: a limit that
-    passes it could not see a skipped tile. bf16 cases are also held to the
-    plain version in fp32: o within ``BF16_TOL``, each gradient within
-    ``K4_GRAD_NORM_TOL`` norm-relative."""
+    tile pair dropped (``kernel_check.dropped_tile``), or the script fails:
+    a limit that passes it could not see a skipped tile. bf16 cases are also
+    held to the plain version in fp32 (o within ``BF16_TOL``, each gradient
+    within ``K4_GRAD_NORM_TOL`` norm-relative) and must give the same bits
+    in a second launch. The timed case gives one-call times (``cuda_ms``)
+    of kernel, plain version and SDPA, and the kernel's device time
+    (``graph_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -549,7 +553,8 @@ def phase_k4(results, check, times, yardsticks, randn):
     from livecc_tpu_torch.ops.train_attention import (
         train_attention_bwd, train_attention_bwd_plain, train_attention_fwd,
         train_attention_fwd_plain)
-    from livecc_tpu_torch.tools.kernel_timing import cuda_ms
+    from livecc_tpu_torch.tools import kernel_check
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms, graph_ms
 
     dev = torch.device("cuda")
     hq, hk, d = K4_HEADS
@@ -578,7 +583,7 @@ def phase_k4(results, check, times, yardsticks, randn):
         ro, rlse = train_attention_fwd_plain(qs, k, v, seg)
         rgrads = train_attention_bwd_plain(qs, k, v, seg, ro, rlse, do)
         qt = lengths[0] // 64 - 1                    # a query tile at the end of segment 1
-        fault = dropped_tile(qs, k, v, seg, do, ro, rlse, rgrads, qt, qt // 2, 3)
+        fault = kernel_check.dropped_tile(qs, k, v, seg, do, ro, rlse, rgrads, qt, qt // 2, 3)
         torch.cuda.synchronize()
         outs = zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads), (ro, rlse, *rgrads), fault)
         for part, out, ref, bad in outs:
@@ -608,21 +613,36 @@ def phase_k4(results, check, times, yardsticks, randn):
                 if not rel <= K4_GRAD_NORM_TOL:
                     raise AssertionError(f"train_attention_bwd {label} {part}: {rel} vs fp32")
             del f32, ro32, rlse32, rgrads
+            again = (*train_attention_fwd(qs, k, v, seg), *train_attention_bwd(qs, k, v, seg, o,
+                                                                               lse, do))
+            if not all(torch.equal(a, b) for a, b in zip((o, lse, *grads), again)):
+                raise AssertionError(f"train_attention {label}: two launches differ")
+            log(f"  {'train_attention':20s} {label}: two launches bit-equal (o, lse, dq, dk, dv)")
+            del again
         del ro, rlse
         torch.cuda.empty_cache()
         if i == len(K4_CASES) - 1:          # timed
-            times("train_attention_fwd", label, lambda: train_attention_fwd(qs, k, v, seg),
-                  lambda: train_attention_fwd_plain(qs, k, v, seg))
-            times("train_attention_bwd", label,
-                  lambda: train_attention_bwd(qs, k, v, seg, o, lse, do),
-                  lambda: train_attention_bwd_plain(qs, k, v, seg, o, lse, do))
+            fwd_fns = (lambda: train_attention_fwd(qs, k, v, seg),
+                       lambda: train_attention_fwd_plain(qs, k, v, seg))
+            bwd_fns = (lambda: train_attention_bwd(qs, k, v, seg, o, lse, do),
+                       lambda: train_attention_bwd_plain(qs, k, v, seg, o, lse, do))
+            times("train_attention_fwd", label, *fwd_fns)
+            times("train_attention_bwd", label, *bwd_fns)
             pairs = causal_pairs(lengths, s)
             io = 2 * (2 * s * hq * d + 2 * s * hk * d)          # q, o, k, v in bf16
+            fwd_lib, bwd_lib = sdpa_packed(qs, k, v, seg, None), sdpa_packed(qs, k, v, seg, do)
             yardsticks("train_attention_fwd", 4 * pairs * d * hq, io + 4 * s * hq + 4 * s,
-                       sdpa_packed(qs, k, v, seg, None))
+                       fwd_lib)
             yardsticks("train_attention_bwd", 10 * pairs * d * hq,
                        io + 2 * s * hq * d + 3 * (2 * s * hk * d) + 4 * s * hq + 4 * s,
-                       sdpa_packed(qs, k, v, seg, do))
+                       bwd_lib)
+            for name, fn in (("train_attention_fwd", fwd_fns[0]),
+                             ("train_attention_bwd", bwd_fns[0])):
+                r = results[name]
+                r["graph_ms"] = graph_ms(fn)
+                log(f"  {name:20s} {label} kernel: one call {r['ms']:.4f} ms, device time "
+                    f"{r['graph_ms']:.4f} ms")
+            del fwd_lib, bwd_lib
         del qs, k, v, do, o, lse, grads
         torch.cuda.empty_cache()
 
@@ -649,34 +669,6 @@ def phase_k4(results, check, times, yardsticks, randn):
         f"{flops / PEAK_FLOPS * 1e3:.4f} ms, fwd+bwd {3.5 * flops / PEAK_FLOPS * 1e3:.4f} ms")
     results["train_attention_fwd"]["one_segment"] = {"ms": fwd, "library_ms": lib_fwd}
     results["train_attention_bwd"]["one_segment"] = {"fwd_bwd_ms": both, "library_fwd_bwd_ms": lib}
-
-
-def dropped_tile(qs, k, v, seg, do, o, lse, grads, qt: int, kt: int, h: int):
-    """The plain outputs (o, lse, dq, dk, dv of row 0) as a kernel would
-    give them had it dropped one tile pair: key tile ``kt`` for query tile
-    ``qt`` of q head ``h`` (64 x 64, the unit the kernels skip). The
-    forward loses that tile's share of the softmax; each gradient loses the
-    pair's terms, rounded as the kernels round p and ds."""
-    import torch
-
-    t = 64
-    kvh = h // (qs.shape[2] // k.shape[2])
-    rows, cols = slice(qt * t, qt * t + t), slice(kt * t, kt * t + t)
-    q_, do_, o_ = (x[0, rows, h].float() for x in (qs, do, o))
-    k_, v_ = k[0, cols, kvh].float(), v[0, cols, kvh].float()
-    pos = torch.arange(qs.shape[1], device=qs.device)
-    ok = (seg[0, rows, None] == seg[0, None, cols]) & (pos[None, cols] <= pos[rows, None])
-    p = torch.where(ok, torch.exp(q_ @ k_.T - lse[0, h, rows, None]),
-                    torch.zeros((), device=qs.device))
-    ds = p * (do_ @ v_.T - (o_ * do_).sum(-1, keepdim=True))
-    mass = p.sum(-1)
-    o2, lse2, dq, dk, dv = (x.clone() for x in (o, lse, *grads))
-    o2[0, rows, h] = ((o_ - p @ v_) / (1 - mass)[:, None]).to(o.dtype)
-    lse2[0, h, rows] += torch.log1p(-mass)
-    dq[0, rows, h] = (dq[0, rows, h].float() - ds.to(k.dtype).float() @ k_).to(dq.dtype)
-    dk[0, cols, kvh] = (dk[0, cols, kvh].float() - ds.to(do.dtype).float().T @ q_).to(dk.dtype)
-    dv[0, cols, kvh] = (dv[0, cols, kvh].float() - p.to(do.dtype).float().T @ do_).to(dv.dtype)
-    return o2, lse2, dq, dk, dv
 
 
 def sdpa_packed(qs, k, v, seg, do):

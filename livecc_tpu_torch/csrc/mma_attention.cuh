@@ -41,21 +41,22 @@
 //     kv_end = min(kv_limit[b], Skv, offset[b] + q0 + 64),
 // a segment's block at its segment's end.
 //
-// mma.sync with cp.async is this version's design; wgmma fed by TMA, with a
-// producer warp and a deeper ring, is the later redesign of this header.
+// The fragment and copy primitives are mma_common.cuh's, shared with K4
+// (train_mma_attention.cuh). mma.sync with cp.async is this version's
+// design; wgmma fed by TMA, with a producer warp and a deeper ring, is the
+// later redesign of this header.
 
 #pragma once
 
 #include <cstdint>
 
-#include "attn_common.cuh"
+#include "mma_common.cuh"
 
 namespace livecc {
 
 constexpr int kMmaTileQ = 64;      // queries per block (16 per warp)
 constexpr int kMmaTileK = 64;      // keys per tile of the ring
 constexpr int kMmaThreads = 128;   // 4 warps
-constexpr int kMmaPad = 8;         // bf16 elements of padding per shared row (16 bytes)
 
 struct MmaParams {
   const __nv_bfloat16* q;
@@ -81,58 +82,6 @@ inline size_t mma_smem_bytes(int d) {
 }
 
 namespace {
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, zero-filled where `valid` is false
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_addr(p)));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy `rows` rows of D bf16 (row stride `stride` elements) into a padded
-// shared tile; rows at or past `valid` are zero-filled and never read.
-template <int D>
-__device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                        long long stride, int rows, int valid) {
-  constexpr int kChunks = D / 8;            // 16-byte chunks per row
-  constexpr int kLd = D + kMmaPad;
-  for (int c = threadIdx.x; c < rows * kChunks; c += kMmaThreads) {
-    const int r = c / kChunks, col = (c % kChunks) * 8;
-    const bool ok = r < valid;
-    cp_async16(dst + r * kLd + col, ok ? src + r * stride + col : src, ok);
-  }
-}
 
 template <bool CAUSAL, int D>
 __global__ void __launch_bounds__(kMmaThreads) mma_attention_kernel(MmaParams p) {
@@ -177,10 +126,10 @@ __global__ void __launch_bounds__(kMmaThreads) mma_attention_kernel(MmaParams p)
   __nv_bfloat16* ob = p.o + (seg ? 0 : z * p.o_sb) + h * p.o_sh + qrow0 * p.o_ss;
 
   const int n_tiles = kv_end > 0 ? (kv_end + kMmaTileK - 1) / kMmaTileK : 0;
-  cp_tile<D>(sQ, qb + (long long)q0 * p.q_ss, p.q_ss, kMmaTileQ, sq - q0);
+  cp_tile<D, kMmaThreads>(sQ, qb + (long long)q0 * p.q_ss, p.q_ss, kMmaTileQ, sq - q0);
   if (n_tiles > 0) {
-    cp_tile<D>(sK, kb, p.k_ss, kMmaTileK, limit);
-    cp_tile<D>(sV, vb, p.v_ss, kMmaTileK, limit);
+    cp_tile<D, kMmaThreads>(sK, kb, p.k_ss, kMmaTileK, limit);
+    cp_tile<D, kMmaThreads>(sV, vb, p.v_ss, kMmaTileK, limit);
   }
   cp_async_commit();
 
@@ -200,10 +149,12 @@ __global__ void __launch_bounds__(kMmaThreads) mma_attention_kernel(MmaParams p)
     const int buf = t & 1;
     if (t + 1 < n_tiles) {                  // the next tile's copy overlaps this tile's work
       const int nb = buf ^ 1;
-      cp_tile<D>(sK + nb * kMmaTileK * kLd, kb + (long long)(k0 + kMmaTileK) * p.k_ss, p.k_ss,
-                 kMmaTileK, limit - k0 - kMmaTileK);
-      cp_tile<D>(sV + nb * kMmaTileK * kLd, vb + (long long)(k0 + kMmaTileK) * p.v_ss, p.v_ss,
-                 kMmaTileK, limit - k0 - kMmaTileK);
+      cp_tile<D, kMmaThreads>(sK + nb * kMmaTileK * kLd,
+                              kb + (long long)(k0 + kMmaTileK) * p.k_ss, p.k_ss, kMmaTileK,
+                              limit - k0 - kMmaTileK);
+      cp_tile<D, kMmaThreads>(sV + nb * kMmaTileK * kLd,
+                              vb + (long long)(k0 + kMmaTileK) * p.v_ss, p.v_ss, kMmaTileK,
+                              limit - k0 - kMmaTileK);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

@@ -29,8 +29,10 @@
 // range, or the reverse) is skipped on a __syncthreads_or vote. Skipping a
 // tile changes no bit of the result (its p would be 0 everywhere).
 //
-// The products run on the fp32 FMA pipes; wgmma tiles, TMA and a fused dQ
-// are later work.
+// These kernels serve fp32 operands (the tiny test model, and the CPU-vs-GPU
+// loss check), on the fp32 FMA pipes; they are instantiated for float only.
+// bf16 operands, the model's, run on the tensor cores in
+// train_mma_attention.cuh, which keeps this contract.
 
 #pragma once
 

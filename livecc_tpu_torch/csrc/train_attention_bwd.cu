@@ -13,14 +13,19 @@
 //   * dQ — one block per (64-query tile, q head, row) walks its key tiles.
 // The TPU fuses dq into the dK/dV kernel, where the grid runs in order and
 // a dq scratch carries across it; blocks on the H100 run in parallel, so a
-// fused dq would need atomics or a second pass. Splitting recomputes the
-// scores once more instead.
+// fused dq would need atomics (two launches would then differ in their
+// bits) or a second pass. Splitting recomputes S and dP once more instead:
+// 7 product passes where the fused form has 5.
 //
 // What bounds it on the H100: ~2.5x the forward's FLOPs (s, dp, dv, dk, dq),
-// compute-bound at the training shape; the products run on the fp32 FMA
-// pipes in this first version.
+// compute-bound at the training shape. The dispatch is by dtype: bf16 (the
+// model's) runs on the tensor cores (train_mma_attention.cuh: transposed
+// dK/dV products with P^T and dS^T kept in registers as bf16 A fragments,
+// a cp.async ring over the live tiles), fp32 (the tiny test model) on the
+// FMA pipes (train_attention.cuh).
 
 #include "train_attention.cuh"
+#include "train_mma_attention.cuh"
 
 extern "C" int livecc_train_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                           const int* seg, const void* dout, const float* lse,
@@ -41,22 +46,17 @@ extern "C" int livecc_train_attention_bwd(int dtype, const void* q, const void* 
   p.dk = dk;
   p.dv = dv;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == livecc::kBFloat16)
+    return livecc::with_head_dim(d, [&](auto dim) {
+      return livecc::launch_train_bwd_mma<decltype(dim)::value>(p, batch, st);
+    });
+  if (dtype != livecc::kFloat32) return (int)cudaErrorInvalidValue;
   const int tiles = (s + livecc::kTrainTile - 1) / livecc::kTrainTile;
   const size_t smem = livecc::train_bwd_smem_bytes(d);
-  int err;
-  if (dtype == livecc::kFloat32) {
-    err = livecc::launch_train_kernel(livecc::train_dkv_kernel<float>, dim3(tiles, hk, batch),
-                                      livecc::kBwdThreads, smem, p, st);
-    if (err) return err;
-    return livecc::launch_train_kernel(livecc::train_dq_kernel<float>, dim3(tiles, hq, batch),
-                                       livecc::kBwdThreads, smem, p, st);
-  }
-  if (dtype == livecc::kBFloat16) {
-    err = livecc::launch_train_kernel(livecc::train_dkv_kernel<__nv_bfloat16>,
-                                      dim3(tiles, hk, batch), livecc::kBwdThreads, smem, p, st);
-    if (err) return err;
-    return livecc::launch_train_kernel(livecc::train_dq_kernel<__nv_bfloat16>,
-                                       dim3(tiles, hq, batch), livecc::kBwdThreads, smem, p, st);
-  }
-  return (int)cudaErrorInvalidValue;
+  const int err = livecc::launch_train_kernel(livecc::train_dkv_kernel<float>,
+                                              dim3(tiles, hk, batch), livecc::kBwdThreads, smem,
+                                              p, st);
+  if (err) return err;
+  return livecc::launch_train_kernel(livecc::train_dq_kernel<float>, dim3(tiles, hq, batch),
+                                     livecc::kBwdThreads, smem, p, st);
 }

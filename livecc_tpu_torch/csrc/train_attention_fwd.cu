@@ -14,13 +14,16 @@
 // What bounds it on the H100: at the training shape (S = 8192, Hq = 28,
 // D = 128) the causal work is 2 x 2 x S^2/2 x D x Hq FLOPs (~0.48 TFLOP per
 // layer and row, less where packed segments cannot meet) against ~80 MB of
-// q, k, v and o, so it is compute-bound; this first version runs the
-// products on the fp32 FMA pipes, far from the 989 TFLOP/s bf16 tensor-core
-// roof. Its design answers correctness and the data-dependent work: scores
-// never leave shared memory, nothing [S, S] is ever materialized, and tile
-// pairs that the causal mask or the segment ids zero are never computed.
+// q, k, v and o, so it is compute-bound. The dispatch is by dtype: bf16 (the
+// model's) runs on the tensor cores (train_mma_attention.cuh: mma.sync fed
+// by a cp.async ring over the live key tiles, splash's fp32 p kept exactly
+// as three bf16 parts; D a multiple of 16, 16-byte aligned rows), fp32 (the
+// tiny test model) on the FMA pipes (train_attention.cuh). Both keep the
+// scores on chip, never materialize [S, S], and never compute a tile pair
+// that the causal mask or the segment ids zero.
 
 #include "train_attention.cuh"
+#include "train_mma_attention.cuh"
 
 extern "C" int livecc_train_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                           const int* seg, void* o, float* lse, int batch, int hq,
@@ -36,13 +39,12 @@ extern "C" int livecc_train_attention_fwd(int dtype, const void* q, const void* 
   p.o = o;
   p.lse = lse;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((s + livecc::kTrainTile - 1) / livecc::kTrainTile, hq, batch);
-  const size_t smem = livecc::train_fwd_smem_bytes(d);
-  if (dtype == livecc::kFloat32)
-    return livecc::launch_train_kernel(livecc::train_fwd_kernel<float>, grid,
-                                       livecc::kFwdThreads, smem, p, st);
   if (dtype == livecc::kBFloat16)
-    return livecc::launch_train_kernel(livecc::train_fwd_kernel<__nv_bfloat16>, grid,
-                                       livecc::kFwdThreads, smem, p, st);
-  return (int)cudaErrorInvalidValue;
+    return livecc::with_head_dim(d, [&](auto dim) {
+      return livecc::launch_train_fwd_mma<decltype(dim)::value>(p, batch, st);
+    });
+  if (dtype != livecc::kFloat32) return (int)cudaErrorInvalidValue;
+  const dim3 grid((s + livecc::kTrainTile - 1) / livecc::kTrainTile, hq, batch);
+  return livecc::launch_train_kernel(livecc::train_fwd_kernel<float>, grid, livecc::kFwdThreads,
+                                     livecc::train_fwd_smem_bytes(d), p, st);
 }

@@ -17,11 +17,14 @@ same contract and is served by the same kernel). Layouts as in JAX:
 operands' dtypes. CUDA tensors go to ``csrc/train_attention_fwd.cu`` and
 ``csrc/train_attention_bwd.cu`` (launch counts ``train_attention_fwd`` and
 ``train_attention_bwd``), CPU tensors to the plain versions below; any
-other device raises. The plain versions keep splash's numerics: fp32 scores,
-masked scores at ``-0.7 * finfo(float32).max``, p fp32 against V widened to
-fp32, normalisation at the end, ``lse = m + log l``; in the backward
-``p.to(do.dtype)`` for dv, ``ds = p * (dp - di)`` rounded to ``do``'s dtype
-for dk and to k's for dq, every product in fp32.
+other device raises. On the card, bf16 operands run on the tensor cores
+(``csrc/train_mma_attention.cuh``: a head dim that is a multiple of 16 and
+16-byte aligned rows, ``build.check_bf16_rows``), fp32 operands on the FMA
+pipes (``csrc/train_attention.cuh``). The plain versions keep splash's
+numerics: fp32 scores, masked scores at ``-0.7 * finfo(float32).max``, p
+fp32 against V widened to fp32, normalisation at the end, ``lse = m + log
+l``; in the backward ``p.to(do.dtype)`` for dv, ``ds = p * (dp - di)``
+rounded to ``do``'s dtype for dk and to k's for dq, every product in fp32.
 """
 
 from __future__ import annotations
@@ -87,6 +90,7 @@ def train_attention_bwd_plain(qs, k, v, seg, o, lse, do):
 
 def _check(name: str, qs, k, v, seg, *more) -> None:
     build.check_operands(name, qs, k, v, *more)
+    build.check_bf16_rows(name, qs, k, v, *more)
     b, s, hq, d = qs.shape
     hk = k.shape[2]
     if k.shape != (b, s, hk, d) or v.shape != k.shape or hq % hk:

@@ -1,4 +1,4 @@
-"""Hold the attention kernels (K1, K2, K2-int8, K3) to their plain
+"""Hold the attention kernels (K1, K2, K2-int8, K3, K4) to their plain
 versions, by a limit that a dropped block of keys fails.
 
 ``close(out, ref, dtype)`` compares a kernel's output with the plain version
@@ -22,7 +22,10 @@ give; a check that passes them could not see a lost block:
     2 * split)`` of the longest row removed for one KV head's query heads;
   * ``drop_key_tile(...)`` (K1) and ``vit_drop_key_tile(...)`` (K3): the
     plain output with one 64-query tile of one head recomputed without one
-    64-key tile (``TILE``, the kernels' ``kMmaTileQ`` / ``kMmaTileK``).
+    64-key tile (``TILE``, the kernels' ``kMmaTileQ`` / ``kMmaTileK``);
+  * ``dropped_tile(...)`` (K4): the plain forward and backward outputs (o,
+    lse, dq, dk, dv) without one 64 x 64 tile pair of one q head (``TILE``,
+    ``kTrainMmaTileQ`` / ``kTrainMmaTileK`` of ``train_mma_attention.cuh``).
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from livecc_tpu_torch.ops import build
 from livecc_tpu_torch.ops.flash_attention import _masked_softmax_pv, _scores
 
 TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
-TILE = 64       # queries and keys per tile: kMmaTileQ, kMmaTileK of csrc/mma_attention.cuh
+TILE = 64       # queries and keys per tile: kMmaTileQ, kMmaTileK of csrc/mma_attention.cuh,
+                # kTrainMmaTileQ, kTrainMmaTileK of csrc/train_mma_attention.cuh
 
 
 def close(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype) -> float:
@@ -110,3 +114,30 @@ def vit_drop_key_tile(ref, q, k, v, cu_seqlens, seg: int, q_tile: int, k_tile: i
     out = ref.clone()
     out[a:e] = drop_key_tile(*bhsd, n, n, q_tile, k_tile, head)[0].transpose(0, 1)
     return out
+
+
+def dropped_tile(qs, k, v, seg, do, o, lse, grads, qt: int, kt: int, h: int):
+    """The plain outputs (o, lse, dq, dk, dv of batch row 0) as a K4 kernel
+    would give them had it dropped one tile pair: key tile ``kt`` for query
+    tile ``qt`` of q head ``h`` (``TILE`` x ``TILE``, the unit the kernels
+    skip). The forward loses that tile's share of the softmax; each
+    gradient loses the pair's terms, rounded as the kernels round p and
+    ds. ``o``, ``lse`` and ``grads`` are the plain versions' on these
+    inputs."""
+    kvh = h // (qs.shape[2] // k.shape[2])
+    rows, cols = slice(qt * TILE, qt * TILE + TILE), slice(kt * TILE, kt * TILE + TILE)
+    q_, do_, o_ = (x[0, rows, h].float() for x in (qs, do, o))
+    k_, v_ = k[0, cols, kvh].float(), v[0, cols, kvh].float()
+    pos = torch.arange(qs.shape[1], device=qs.device)
+    ok = (seg[0, rows, None] == seg[0, None, cols]) & (pos[None, cols] <= pos[rows, None])
+    p = torch.where(ok, torch.exp(q_ @ k_.T - lse[0, h, rows, None]),
+                    torch.zeros((), device=qs.device))
+    ds = p * (do_ @ v_.T - (o_ * do_).sum(-1, keepdim=True))
+    mass = p.sum(-1)
+    o2, lse2, dq, dk, dv = (x.clone() for x in (o, lse, *grads))
+    o2[0, rows, h] = ((o_ - p @ v_) / (1 - mass)[:, None]).to(o.dtype)
+    lse2[0, h, rows] += torch.log1p(-mass)
+    dq[0, rows, h] = (dq[0, rows, h].float() - ds.to(k.dtype).float() @ k_).to(dq.dtype)
+    dk[0, cols, kvh] = (dk[0, cols, kvh].float() - ds.to(do.dtype).float().T @ q_).to(dk.dtype)
+    dv[0, cols, kvh] = (dv[0, cols, kvh].float() - p.to(do.dtype).float().T @ do_).to(dv.dtype)
+    return o2, lse2, dq, dk, dv

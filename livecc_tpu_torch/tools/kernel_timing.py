@@ -12,14 +12,18 @@
 
 Run as a script, by path, with the checkout to time first on
 ``PYTHONPATH``, it times that checkout's ``flash_decode`` (K2 and K2-int8),
-``vit_group_attention`` (K3) and ``flash_prefill`` (K1) both ways at
+``vit_group_attention`` (K3), ``flash_prefill`` (K1) and
+``train_attention_fwd`` / ``train_attention_bwd`` (K4) both ways at
 ``chip_smoke.py``'s timed shapes and prints one JSON line, so two versions
 of the kernels compare on one card in one call:
 
     PYTHONPATH=. python3 livecc_tpu_torch/tools/kernel_timing.py
     PYTHONPATH=<another checkout> python3 livecc_tpu_torch/tools/kernel_timing.py
 
-It uses only the three wrappers' public signatures and
+Arguments, if any, name the kinds to time (``decode``, ``vit``, ``prefill``,
+``train``); by default all four.
+
+It uses only the five wrappers' public signatures and
 ``models.qwen2_vl.text.quantize_kv``. Needs a CUDA GPU.
 """
 
@@ -28,6 +32,7 @@ from __future__ import annotations
 import json
 import statistics
 import subprocess
+import sys
 
 import torch
 
@@ -150,7 +155,35 @@ def prefill_cases():
                lambda q=q, o=off_t, lm=lim_t: flash_prefill(q, k, v, o, lm, layer_index=LAYER))
 
 
-def main() -> int:
+# and its timed K4 shape: one packed training row of the 7B's heads
+# (chip_smoke.py's K4_CASES[-1]), segments of TRAIN_LENGTHS then pad
+TRAIN_S, TRAIN_LENGTHS = 8192, (2900, 2700, 2300)
+TRAIN_HEADS = (28, 4, 128)
+
+
+def train_cases():
+    """(label, call) of K4's forward and backward at the timed shape, bf16."""
+    from livecc_tpu_torch.ops.attention import prescaled
+    from livecc_tpu_torch.ops.train_attention import train_attention_bwd, train_attention_fwd
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hq, hk, d = TRAIN_HEADS
+    q, k, v, do = (torch.randn((1, TRAIN_S, h, d), generator=gen, device=dev).bfloat16()
+                   for h in (hq, hk, hk, hq))
+    qs = prescaled(q)
+    seg = torch.zeros((1, TRAIN_S), dtype=torch.int32, device=dev)
+    at = 0
+    for i, n in enumerate(TRAIN_LENGTHS):
+        seg[0, at:at + n] = i + 1
+        at += n
+    label = f"S={TRAIN_S} segments {list(TRAIN_LENGTHS)} + pad Hq={hq} Hk={hk} D={d} bf16"
+    yield f"K4 fwd {label}", lambda: train_attention_fwd(qs, k, v, seg)
+    o, lse = train_attention_fwd(qs, k, v, seg)
+    yield f"K4 bwd {label}", lambda: train_attention_bwd(qs, k, v, seg, o, lse, do)
+
+
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: needs a CUDA GPU")
     import livecc_tpu_torch
@@ -159,12 +192,20 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout
     result = {"package": livecc_tpu_torch.__path__[0], "card": card.strip(),
               "torch": torch.__version__}
-    for kind, cases in (("decode", decode_cases), ("vit", vit_cases), ("prefill", prefill_cases)):
+    kinds = {"decode": decode_cases, "vit": vit_cases, "prefill": prefill_cases,
+             "train": train_cases}
+    unknown = set(argv) - set(kinds)
+    if unknown:
+        raise SystemExit(f"kernel_timing: unknown kinds {sorted(unknown)}; known: {list(kinds)}")
+    for kind, cases in kinds.items():
+        if argv and kind not in argv:
+            continue
         rows = result[kind] = []
         for label, call in cases():
             out = call()
             torch.cuda.synchronize()
-            if not bool(torch.isfinite(out.float()).all()):
+            if not all(bool(torch.isfinite(x.float()).all())
+                       for x in (out if isinstance(out, tuple) else (out,))):
                 raise AssertionError(f"{label}: non-finite output")
             rows.append({"case": label, "cuda_ms": cuda_ms(call), "graph_ms": graph_ms(call)})
             print(f"  {label:60s} one call {rows[-1]['cuda_ms']:.4f} ms  device "
@@ -176,4 +217,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(main(sys.argv[1:]))

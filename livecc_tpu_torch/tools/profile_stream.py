@@ -39,9 +39,9 @@ UNPROFILED_SESSIONS = 3
 
 
 def _group(name: str) -> str:
-    if "train_fwd_kernel" in name:
+    if re.search(r"train_fwd(_mma)?_kernel", name):            # fp32 and bf16 K4
         return "K4 train_attention_fwd"
-    if "train_dkv_kernel" in name or "train_dq_kernel" in name:
+    if re.search(r"train_(dkv|dq)(_mma)?_kernel", name):
         return "K4 train_attention_bwd"
     m = re.search(r"mma_attention_kernel<(true|false)", name)     # bf16 K1 / K3
     if m:

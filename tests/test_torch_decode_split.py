@@ -159,6 +159,18 @@ def test_close_and_drop_split_edges():
      "K3 vit_group_attention"),
     ("void livecc::(anonymous namespace)::tile_attention_kernel<float, true, false>(...)",
      "K1 flash_prefill"),
+    # K4: the tensor-core kernels (bf16) and the FMA ones (fp32; templated
+    # on the dtype in older checkouts)
+    ("void livecc::(anonymous namespace)::train_fwd_mma_kernel<128>(livecc::TrainAttnParams)",
+     "K4 train_attention_fwd"),
+    ("void livecc::(anonymous namespace)::train_dkv_mma_kernel<128>(livecc::TrainAttnParams)",
+     "K4 train_attention_bwd"),
+    ("void livecc::(anonymous namespace)::train_dq_mma_kernel<128>(livecc::TrainAttnParams)",
+     "K4 train_attention_bwd"),
+    ("void livecc::(anonymous namespace)::train_fwd_kernel(livecc::TrainAttnParams)",
+     "K4 train_attention_fwd"),
+    ("void livecc::(anonymous namespace)::train_dq_kernel<float>(livecc::TrainAttnParams)",
+     "K4 train_attention_bwd"),
     # the one-kernel decode of older checkouts, which the script can also profile
     ("void livecc::(anonymous namespace)::decode_kernel<__nv_bfloat16, false>"
      "(livecc::(anonymous namespace)::DecodeParams)", "K2 flash_decode"),

@@ -413,6 +413,9 @@ def packed_segments(b, s, lengths, dev):
     (1, 200, 4, 4, 64, [120, 80], False),
     (1, 17, 4, 2, 16, [10], False),                    # less than one tile
     (2, 300, 8, 2, 128, [[300], [90, 110, 40]], True),  # rows packed differently
+    (1, 300, 7, 1, 64, [1, 100, 1, 120], False),       # one-row segments, pad tail
+    (1, 640, 7, 1, 80, [200, 150], True),              # all-pad tiles at the end
+    (2, 577, 28, 4, 128, [[577], [64, 1, 300]], False),  # a segment ends on a tile edge
 ])
 def test_train_attention(cuda, dtype, b, s, hq, hk, d, lengths, strided_q):
     from livecc_tpu_torch.ops.train_attention import (
@@ -444,6 +447,41 @@ def test_train_attention(cuda, dtype, b, s, hq, hk, d, lengths, strided_q):
             out, ref = out.float(), ref.float()
             lim = 1e-2 * ref.abs() + 2e-2 * ref.square().mean().sqrt()
             assert bool(((out - ref).abs() <= lim).all())
+        # no atomics: a second launch gives the same bits
+        o2, lse2 = train_attention_fwd(qs, k, v, seg)
+        grads2 = train_attention_bwd(qs, k, v, seg, o, lse, do)
+        for a, r in zip((o, lse, *grads), (o2, lse2, *grads2)):
+            assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("run", [37, 5])
+def test_train_attention_recurring_ids(cuda, run):
+    """Segment ids that recur along the row (runs of ``run`` tokens cycling
+    through ids 0, 1, 2, as a mask with gaps gives): a query attends every
+    earlier key of its id, across the gaps. Tiles then hold two or three
+    ids, so the bf16 kernels' live-tile lists take both their exact and
+    their range test. Held to the plain version in bf16 elementwise, and
+    two launches bit-equal."""
+    from livecc_tpu_torch.ops.train_attention import (
+        train_attention_bwd, train_attention_bwd_plain, train_attention_fwd,
+        train_attention_fwd_plain)
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    b, s, hq, hk, d = 1, 700, 7, 1, 128
+    qs, k, v, do = train_inputs(gen, b, s, hq, hk, d, torch.bfloat16, cuda, False)
+    seg = ((torch.arange(s, device=cuda) // run) % 3).to(torch.int32)[None]
+    o, lse = train_attention_fwd(qs, k, v, seg)
+    grads = train_attention_bwd(qs, k, v, seg, o, lse, do)
+    so, slse = train_attention_fwd_plain(qs, k, v, seg)
+    sgrads = train_attention_bwd_plain(qs, k, v, seg, so, slse, do)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, slse, atol=1e-4, rtol=0)
+    for out, ref in zip((o, *grads), (so, *sgrads)):
+        out, ref = out.float(), ref.float()
+        lim = 1e-2 * ref.abs() + 2e-2 * ref.square().mean().sqrt()
+        assert bool(((out - ref).abs() <= lim).all())
+    again = (*train_attention_fwd(qs, k, v, seg), *train_attention_bwd(qs, k, v, seg, o, lse, do))
+    assert all(torch.equal(a, r) for a, r in zip((o, lse, *grads), again))
 
 
 def test_train_flash_attention_autograd(cuda):
@@ -473,6 +511,12 @@ def test_train_attention_rejects_what_the_kernels_do_not_take(cuda):
         train_attention_fwd(q, q[:, :, :3], q[:, :, :3], seg)
     with pytest.raises(TypeError):
         train_attention_fwd(q.half(), q[:, :, :2].half(), q[:, :, :2].half(), seg)
+    b = torch.zeros(1, 64, 4, 24, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                         # bf16 head dim not a multiple of 16
+        train_attention_fwd(b, b[:, :, :2], b[:, :, :2], seg)
+    b = torch.zeros(1, 64, 4, 20, device=cuda, dtype=torch.bfloat16)[..., :16]
+    with pytest.raises(ValueError):                         # bf16 rows not 16-byte aligned
+        train_attention_fwd(b, b[:, :, :2], b[:, :, :2], seg)
 
 
 def test_tiny_train_step_cuda_matches_cpu(cuda):

@@ -1,0 +1,260 @@
+"""K4's bf16 tensor-core kernels (``csrc/train_mma_attention.cuh``), their
+tile-wise arithmetic emulated in PyTorch on the CPU.
+
+The kernels run only on the card; what they compute is written out here
+tile by tile and held to the references in bf16 by ``kernel_check.close``:
+
+  * the forward walks 64-key tiles with a running max, masked scores at
+    splash's mask value giving p = 0, and P·V as three bf16 products of p
+    split into hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid)
+    (``kPTerms``) into one fp32 accumulator;
+  * the backward's dK/dV kernel works in the transposed form, P^T and
+    dS^T rounded to bf16 as the A operands of dV += P^T dO and dK += dS^T
+    Q, walking the group's q heads and the query tiles; the dQ kernel
+    rounds dS to bf16 for dQ += dS K.
+
+The references: JAX ``_train_splash`` in interpret mode (the Pallas splash
+kernels on the CPU) and the port's plain versions.
+"""
+
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from livecc_tpu.ops import attention as jattn
+
+import livecc_tpu_torch
+from livecc_tpu_torch.ops.attention import prescaled
+from livecc_tpu_torch.ops.train_attention import (
+    MASK_VALUE, _allowed, train_attention_bwd_plain, train_attention_fwd_plain)
+from livecc_tpu_torch.tools import kernel_check
+
+TILE = kernel_check.TILE
+BF16 = torch.bfloat16
+HEADER = Path(livecc_tpu_torch.__file__).parent / "csrc" / "train_mma_attention.cuh"
+P_TERMS = 3         # bf16 parts of the forward's p: kPTerms of HEADER
+# the card's shape cut to S = 1000 (not a multiple of 64): the 7B's group of
+# 7 q heads on one KV head at D = 128, three packed segments and a pad tail
+S, HQ, HK, D = 1000, 7, 1, 128
+LENGTHS = (300, 290, 310)
+
+
+def segments(s, lengths):
+    """int32 [1, s]: segments 1..n of ``lengths``, the rest 0 (pad)."""
+    seg = np.zeros((1, s), np.int32)
+    at = 0
+    for i, n in enumerate(lengths):
+        seg[0, at:at + n] = i + 1
+        at += n
+    return seg
+
+
+def case(seed=0):
+    """bf16 (q, qs, k, v, do, seg) made with numpy from a seed."""
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(1, S, h, D).astype(np.float32)).to(BF16)
+                   for h in (HQ, HK, HK, HQ))
+    return q, prescaled(q), k, v, do, torch.from_numpy(segments(S, LENGTHS))
+
+
+def heads(x, groups):
+    """[B, S, H, D] -> fp32 [B, H * groups, S, D]."""
+    return x.transpose(1, 2).repeat_interleave(groups, dim=1).float()
+
+
+def split_bf16(p, terms):
+    """p as ``terms`` bf16 parts (in fp32), each the rounding of what the
+    earlier parts left, as the forward kernel splits it."""
+    parts = []
+    for _ in range(terms):
+        parts.append(p.to(BF16).float())
+        p = p - parts[-1]
+    return parts
+
+
+def fwd_tiles(qs, k, v, seg, terms=P_TERMS):
+    """The forward kernel's arithmetic: (o in fp32 before its rounding, lse).
+    p meets V as ``terms`` bf16 parts (``split_bf16``; 1 is K1's
+    p.astype(v.dtype)), or as exact fp32 p with ``terms=None``."""
+    g = qs.shape[2] // k.shape[2]
+    q, kk, vv = heads(qs, 1), heads(k, g), heads(v, g)
+    allowed = _allowed(seg)
+    m = torch.full(q.shape[:-1] + (1,), MASK_VALUE)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    for k0 in range(0, q.shape[2], TILE):
+        ok = allowed[..., k0:k0 + TILE]
+        sc = torch.where(ok, q @ kk[:, :, k0:k0 + TILE].transpose(-1, -2),
+                         torch.full((), MASK_VALUE))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(sc - m_new), torch.zeros(()))
+        l = l * alpha + p.sum(-1, keepdim=True)
+        vt = vv[:, :, k0:k0 + TILE]
+        acc = acc * alpha + (p @ vt if terms is None else
+                             sum(part @ vt for part in split_bf16(p, terms)))
+        m = m_new
+    return (acc / l).transpose(1, 2), (m + torch.log(l)).squeeze(-1)
+
+
+def bwd_tiles(qs, k, v, seg, o, lse, do):
+    """The backward kernels' arithmetic: (dq for qs, dk, dv) in bf16. dK/dV
+    in the transposed form, walking the group's q heads and the query
+    tiles in the kernel's order; dQ over the key tiles."""
+    b, s, hq, d = qs.shape
+    hk = k.shape[2]
+    g = hq // hk
+    q, dot = heads(qs, 1), heads(do, 1)                    # [B, Hq, S, D]
+    kk, vv = heads(k, 1), heads(v, 1)                      # [B, Hk, S, D]
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2)  # [B, Hq, S]
+    allowed_t = _allowed(seg).transpose(-1, -2)            # [B, 1, keys, queries]
+    dk, dv = torch.zeros_like(kk), torch.zeros_like(vv)
+    for gi in range(g):
+        heads_g = [kvh * g + gi for kvh in range(hk)]
+        for q0 in range(0, s, TILE):
+            cols = slice(q0, q0 + TILE)
+            qt, dt = q[:, heads_g, cols], dot[:, heads_g, cols]
+            ok = allowed_t[..., cols]
+            pt = torch.where(ok, torch.exp(kk @ qt.transpose(-1, -2) - lse[:, heads_g, None, cols]),
+                             torch.zeros(()))
+            dv = dv + pt.to(BF16).float() @ dt
+            dst = pt * (vv @ dt.transpose(-1, -2) - di[:, heads_g, None, cols])
+            dk = dk + dst.to(BF16).float() @ qt
+    allowed = _allowed(seg)
+    kr, vr = kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1)
+    dq = torch.zeros_like(q)
+    for k0 in range(0, s, TILE):
+        rows = slice(k0, k0 + TILE)
+        p = torch.where(allowed[..., rows],
+                        torch.exp(q @ kr[:, :, rows].transpose(-1, -2) - lse[..., None]),
+                        torch.zeros(()))
+        ds = p * (dot @ vr[:, :, rows].transpose(-1, -2) - di[..., None])
+        dq = dq + ds.to(BF16).float() @ kr[:, :, rows]
+    return tuple(x.transpose(1, 2).to(BF16) for x in (dq, dk, dv))
+
+
+@pytest.fixture(scope="module")
+def tiles():
+    """The emulated kernels' five outputs on ``case()``."""
+    _, qs, k, v, do, seg = case()
+    o32, lse = fwd_tiles(qs, k, v, seg)
+    o = o32.to(BF16)
+    return (o, lse, *bwd_tiles(qs, k, v, seg, o, lse, do))
+
+
+def jax_splash(q, k, v, do, seg):
+    """JAX ``_train_splash`` in interpret mode on the same bf16 inputs: (o,
+    dq for the unscaled q, dk, dv). Splash takes S in multiples of 128, so
+    the rows are extended to 1024 by pad rows (id 0, zero cotangent): being
+    after every real row, no real query attends them and their zero
+    cotangent adds nothing to any gradient."""
+    ext = 1024 - S
+
+    def pad(x):
+        return jnp.pad(jnp.asarray(x.float().numpy()), ((0, 0), (0, ext), (0, 0), (0, 0)))
+
+    seg_j = jnp.pad(jnp.asarray(seg.numpy()), ((0, 0), (0, ext)))
+    w = pad(do)
+
+    def f(q_, k_, v_):
+        out = jattn._train_splash(q_, k_, v_, seg_j, True, interpret=True)
+        return jnp.sum(out.astype(jnp.float32) * w), out
+
+    (_, o), grads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        *(pad(x).astype(jnp.bfloat16) for x in (q, k, v)))
+    return [torch.from_numpy(np.array(x.astype(jnp.float32))[:, :S]).to(BF16)
+            for x in (o, *grads)]
+
+
+def close_rows(out, ref, dtype, seg=None):
+    """``kernel_check.close``; with ``seg``, on the rows of queries that
+    have a key before them in their segment. The others (a query alone in
+    its segment's causal prefix: one key, p = 1) have a dq of exactly 0,
+    which both sides give as rounding noise of either sign, where close's
+    limit is 0: they are held to at most 1e-4 of ref's rms instead."""
+    if seg is None:
+        return kernel_check.close(out, ref, dtype)
+    ids = seg[0]
+    alone = torch.ones_like(ids, dtype=torch.bool)
+    alone[1:] = ids[1:] != ids[:-1]                  # the segments are runs of one id
+    assert len(set(ids[alone].tolist())) == int(alone.sum())
+    scale = ref.float().square().mean().sqrt().item()
+    for x in (out, ref):
+        assert x[:, alone].float().abs().max().item() <= 1e-4 * scale
+    return kernel_check.close(out[:, ~alone], ref[:, ~alone], dtype)
+
+
+@pytest.mark.parametrize("ref", ["jax_splash", "plain"])
+def test_tiles_match_the_references(tiles, ref):
+    """The kernels' arithmetic against JAX splash in interpret mode and
+    against the plain versions, each output within ``kernel_check.close``
+    in bf16 (lse, fp32, in fp32's limit). Against JAX: o, and the three
+    gradients of the backward fed JAX's o, as splash's backward reads its
+    own (di = rowsum(o * do) cancels in rows of few keys, where one bf16
+    step of o moves dq past the limit); JAX's dq is for the unscaled q, so
+    the emulation's dq for qs is scaled by d**-0.5 to meet it. Against the
+    plain versions: all five outputs, each side from its own forward."""
+    q, qs, k, v, do, seg = case()
+    o, lse, dq, dk, dv = tiles
+    if ref == "jax_splash":
+        refs = jax_splash(q, k, v, do, seg)
+        dq, dk, dv = bwd_tiles(qs, k, v, seg, refs[0], lse, do)
+        outs = (o, (dq.float() * D ** -0.5).to(BF16), dk, dv)
+        dtypes = (BF16,) * 4
+    else:
+        ro, rlse = train_attention_fwd_plain(qs, k, v, seg)
+        outs = tiles
+        refs = (ro, rlse, *train_attention_bwd_plain(qs, k, v, seg, ro, rlse, do))
+        dtypes = (BF16, torch.float32, BF16, BF16, BF16)
+    for i, (out, r, dt) in enumerate(zip(outs, refs, dtypes)):
+        is_dq = i == len(outs) - 3
+        assert close_rows(out, r, dt, seg if is_dq else None) <= 1.0
+
+
+def test_split_keeps_fp32_p():
+    """The kernel's three bf16 parts hold an fp32 p exactly (p = exp(x) for
+    x in [-60, 0]; far below that the smallest part turns subnormal), so its
+    P·V stays within 1e-5 of fp32 P·V (each row's error norm over the row's
+    norm, before the output is rounded); p rounded once to bf16 (2^-9
+    relative per term) does not."""
+    gen = torch.Generator().manual_seed(2)
+    p = torch.exp(-60 * torch.rand(1 << 16, generator=gen))
+    parts = split_bf16(p, P_TERMS)
+    assert torch.equal(parts[0] + parts[1] + parts[2], p)
+    _, qs, k, v, _, seg = case(1)
+    exact, _ = fwd_tiles(qs, k, v, seg, None)
+
+    def row_err(terms):
+        out, _ = fwd_tiles(qs, k, v, seg, terms)
+        return ((out - exact).norm(dim=-1) / exact.norm(dim=-1)).max().item()
+
+    assert row_err(P_TERMS) <= 1e-5
+    assert row_err(1) >= 1e-4
+
+
+@pytest.mark.parametrize("qt,kt,h", [(3, 1, 3), (8, 5, 0)])
+def test_a_dropped_tile_pair_fails_every_output(tiles, qt, kt, h):
+    """``kernel_check.dropped_tile`` (the plain outputs without one 64 x 64
+    tile pair of one q head) fails the check of each of o, lse, dq, dk and
+    dv against the kernels' arithmetic at least 5x over."""
+    _, qs, k, v, do, seg = case()
+    ro, rlse = train_attention_fwd_plain(qs, k, v, seg)
+    rgrads = train_attention_bwd_plain(qs, k, v, seg, ro, rlse, do)
+    fault = kernel_check.dropped_tile(qs, k, v, seg, do, ro, rlse, rgrads, qt, kt, h)
+    for out, bad, dt in zip(tiles, fault, (BF16, torch.float32, BF16, BF16, BF16)):
+        assert kernel_check.close(out, bad, dt) >= 5.0
+
+
+def test_train_tiles_are_the_kernels_constants():
+    """``kernel_check.TILE`` is the K4 tensor-core kernels' query and key
+    tile, and ``P_TERMS`` the forward's number of bf16 parts of p."""
+    text = HEADER.read_text()
+    for name, value in (("kTrainMmaTileQ", TILE), ("kTrainMmaTileK", TILE),
+                        ("kPTerms", P_TERMS)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [str(value)]
