@@ -14,28 +14,36 @@ Phases (any failure raises and the script exits non-zero):
   3. kernels   — each kernel (K1 flash_prefill, K2 flash_decode, their int8
                  variants, K3 vit_group_attention, K4 train_attention_fwd and
                  train_attention_bwd) against its plain PyTorch version on
-                 the card at the paths' shapes. bf16 K1, K2 and K3 are held
-                 to the plain version in their own dtype by
+                 the card at the paths' shapes. bf16 K1, K1-int8, K2 and
+                 K3 are held to the plain version in their own dtype by
                  ``kernel_check.close``, a limit that must also fail a
                  planted fault: a dropped split for K2
                  (``kernel_check.drop_split``), one dropped 64-key tile of
-                 one 64-query tile for K1 and K3 (``drop_key_tile``); their
-                 timed cases also check that two launches are bit-equal.
-                 fp32 cases are held to <= 1e-4 max abs, K1-int8 bf16 to
-                 2e-2 max abs against the fp32 plain version. K3 also runs
+                 one 64-query tile for K1, K1-int8 (the deepest row's, with
+                 the scales) and K3 (``drop_key_tile``); their timed cases
+                 also check that two launches are bit-equal. fp32 cases are
+                 held to <= 1e-4 max abs. K3 also runs
                  mixed segment sizes through its bounds form, and K2 a query
                  group of G * D = 4096 (two launches). Times: kernel, plain
                  version and the one PyTorch call that computes the same
                  function (library; none for the int8 kernels), each the
                  median of single calls between CUDA events, host work
                  included (``kernel_timing.cuda_ms``), beside the least time
-                 the card could take for the same work (bound); K1, K2 and
-                 K3 also in device time (``kernel_timing.graph_ms``, CUDA
-                 graph replay). K3 and K1 are timed at
+                 the card could take for the same work (bound); K1, K1-int8,
+                 K2 and K3 also in device time (``kernel_timing.graph_ms``,
+                 CUDA graph replay). K3 and K1 are timed at
                  ``kernel_timing.VIT_SHAPES`` and ``PREFILL_SHAPES`` (the
                  first timed shape gives the JSON line's numbers). The int8
                  kernels run on the pool's cache
-                 [28, 8, 4, 8192, 128] int8 with bf16 scales; K4 at the
+                 [28, 8, 4, 8192, 128] int8 with bf16 scales, K1-int8 at the
+                 timed pool tick (``kernel_timing.INT8_POOL_OFFSETS``, the
+                 JSON line's numbers), a steady tick
+                 (``INT8_STEADY_OFFSETS``) and the solo init chunk
+                 (``INT8_SOLO``, batch row 0), each also held to the fp32
+                 plain version: under ``kernel_check.FLIP_LIMIT`` of its
+                 outputs may round the other way, a limit that p * v_scale
+                 fed as one bf16 part (``kernel_check.one_part_pv``) must
+                 fail; K4 at the
                  training shape (Hq 28, Hk 4, D 128) on packed rows of 4096
                  and 1000 (checked) and 8192 (checked and timed, also in
                  device time), each output also held elementwise to the
@@ -219,7 +227,7 @@ def phase_kernels() -> dict:
     def randn(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=f32).to(dtype)
 
-    def check(name, label, out, ref, tol, timed=None):
+    def check(name, label, out, ref, tol):
         torch.cuda.synchronize()
         out, ref = out.float(), ref.float()
         if out.shape != ref.shape or not torch.isfinite(out).all():
@@ -231,8 +239,6 @@ def phase_kernels() -> dict:
             raise AssertionError(f"{name} {label}: max abs err {err} > {tol}")
         r = results.setdefault(name, {"max_abs_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        if timed is not None:
-            times(name, label, *timed)
 
     def check_decode(label, args, out, timed=False):
         """K2, or K2-int8 when ``args`` = (q, k, v, kv_limit, k_scale, v_scale)
@@ -282,18 +288,18 @@ def phase_kernels() -> dict:
             f"{nbytes / 1e6:.3f} MB)  library {lib}")
 
     def device_times(name, label, kernel_fn, plain_fn, library_fn):
-        """Device time (``graph_ms``) of a decode case's kernel, plain
-        version and library call, each by the same method."""
+        """Device time (``graph_ms``) of a decode or K1-int8 case's kernel,
+        plain version and library call, each by the same method."""
         t = [None if fn is None else graph_ms(fn) for fn in (kernel_fn, plain_fn, library_fn)]
         log(f"  {name:20s} {label:48s} device time: kernel {t[0]:.4f} ms  plain {t[1]:.4f} ms  "
             f"library " + ("none" if t[2] is None else f"{t[2]:.4f} ms"))
 
     def same_dtype(name, label, out, ref, fault, repeat=None):
-        """bf16 K1 / K3 against the plain version on the same inputs in the
-        same dtype by ``kernel_check.close``; the planted fault (one key tile
-        dropped for one query tile, ``kernel_check.drop_key_tile``) must fail
-        the same limit; with ``repeat``, a second launch must give the same
-        bits."""
+        """bf16 K1, K1-int8 or K3 against the plain version on the same
+        inputs in the same dtype by ``kernel_check.close``; the planted fault
+        (one key tile dropped for one query tile,
+        ``kernel_check.drop_key_tile``) must fail the same limit; with
+        ``repeat``, a second launch must give the same bits."""
         torch.cuda.synchronize()
         worst, w_bad = kernel_check.close(out, ref, bf16), kernel_check.close(fault, ref, bf16)
         err = (out.float() - ref.float()).abs().max().item()
@@ -467,19 +473,58 @@ def phase_kernels() -> dict:
     b = 8
     (k8, ks8), (v8, vs8) = (int8_cache((L, b, hk, smax, d)) for _ in range(2))
     layer = (k8[li], v8[li], ks8[li], vs8[li])
-    off_t = torch.tensor([0, 300, 1500, 7, 64, 900, 4000, 7936], dtype=torch.int32, device=dev)
-    lim_t = off_t + 256
-    q = randn((b, 256, hq, d), bf16).transpose(1, 2)           # strided, as the model passes it
-    check("flash_prefill_int8", f"B=8 Sq=256 offset={off_t.tolist()} bf16",
-          flash_prefill(q, k8, v8, off_t, lim_t, layer_index=li, k_scale=ks8, v_scale=vs8),
-          flash_prefill_plain(q.float(), *layer[:2], off_t, lim_t, *layer[2:]), BF16_TOL,
-          (lambda: flash_prefill(q, k8, v8, off_t, lim_t, layer_index=li, k_scale=ks8,
-                                 v_scale=vs8),
-           lambda: flash_prefill_plain(q, *layer[:2], off_t, lim_t, *layer[2:])))
-    offs, keys = off_t.tolist(), lim_t.tolist()
-    pairs = sum(256 * o + 256 * 257 // 2 for o in offs)
-    yardsticks("flash_prefill_int8", 4 * pairs * d * hq,
-               2 * q.numel() * 2 + 2 * hk * sum(keys) * (d + 2), None)
+    sq8 = kernel_timing.INT8_SQ
+    solo_sq, solo_off, solo_lim = kernel_timing.INT8_SOLO
+    # (queries, offsets, kv limits, timed): the timed pool tick, a steady
+    # tick and the solo init chunk (batch row 0 of the cache)
+    for sq_i, offs, lims, timed in ((sq8, kernel_timing.INT8_POOL_OFFSETS, None, True),
+                                    (sq8, kernel_timing.INT8_STEADY_OFFSETS, None, False),
+                                    (solo_sq, (solo_off,), (solo_lim,), False)):
+        n = len(offs)
+        lims = lims or tuple(o + sq_i for o in offs)
+        cache = tuple(x[:, :n] for x in (k8, v8, ks8, vs8))
+        one = tuple(x[li] for x in cache)
+        off_t = torch.tensor(offs, dtype=torch.int32, device=dev)
+        lim_t = torch.tensor(lims, dtype=torch.int32, device=dev)
+        if n == 1:      # the steady tick's queries, its first 4 rows of 256 as one of 1024
+            q = q.transpose(1, 2).reshape(1, -1, hq, d)[:, :sq_i].transpose(1, 2)
+        else:           # strided, as the model passes it
+            q = randn((n, sq_i, hq, d), bf16).transpose(1, 2)
+        label = f"B={n} Sq={sq_i} offset={list(offs)} kv_limit={list(lims)} bf16"
+        fns = (lambda: flash_prefill(q, cache[0], cache[1], off_t, lim_t, layer_index=li,
+                                     k_scale=cache[2], v_scale=cache[3]),
+               lambda: flash_prefill_plain(q, *one[:2], off_t, lim_t, *one[2:]))
+        out, ref = fns[0](), fns[1]()
+        row = max(range(n), key=lambda i: lims[i])             # the deepest row, its last tile
+        qt = (sq_i - 1) // 64
+        kt = min(lims[row], offs[row] + 64 * qt + 1) // 64 // 2
+        fault = kernel_check.drop_key_tile(ref, q, *one[:2], off_t, lim_t, qt, kt, head=5,
+                                           row=row, k_scale=one[2], v_scale=one[3])
+        same_dtype("flash_prefill_int8", label, out, ref, fault, fns[0])
+        del ref, fault
+        # the split of p * v_scale: the roundings of the fp32 plain version
+        ref32 = flash_prefill_plain(q.float(), *one[:2], off_t, lim_t, *one[2:])
+        flips = kernel_check.rounding_flips(out, ref32)
+        one_part = kernel_check.rounding_flips(
+            kernel_check.one_part_pv(q, *one[:2], off_t, lim_t, *one[2:]).to(bf16), ref32)
+        log(f"  {'flash_prefill_int8':20s} {label:48s} {flips:.2e} of the outputs round off the "
+            f"fp32 plain version's bf16 (limit {kernel_check.FLIP_LIMIT:g}); p * v_scale as one "
+            f"bf16 part: {one_part:.3f}")
+        if not flips <= kernel_check.FLIP_LIMIT:
+            raise AssertionError(f"flash_prefill_int8 {label}: {flips} of the outputs round off "
+                                 f"the fp32 result, past {kernel_check.FLIP_LIMIT}")
+        if not one_part > kernel_check.FLIP_LIMIT:
+            raise AssertionError(f"flash_prefill_int8 {label}: the rounding check passes p * "
+                                 f"v_scale as one bf16 part")
+        del out, ref32
+        if timed:
+            times("flash_prefill_int8", label, *fns)
+            pairs = sum(sq8 * o + sq8 * (sq8 + 1) // 2 for o in offs)
+            keys = sum(o + sq8 for o in offs)
+            yardsticks("flash_prefill_int8", 4 * pairs * d * hq,
+                       2 * q.numel() * 2 + 2 * hk * keys * (d + 2), None)
+        device_times("flash_prefill_int8", label, *fns, None)
+        del cache, one
     lim_d = torch.tensor([1, 777, 8192, 4000, 1, 777, 8192, 2500], dtype=torch.int32, device=dev)
     q = randn((b, 1, hq, d), bf16).transpose(1, 2)
     label = f"B=8 kv_limit={lim_d.tolist()} bf16"
@@ -536,11 +581,15 @@ def phase_k4(results, check, times, yardsticks, randn):
 
     Each output (o, lse, dq, dk, dv) is held to the plain version on the
     same inputs in the same dtype, which rounds p and ds as the kernels do,
-    elementwise within ``rtol * |ref| + atol * rms(ref)`` (``K4_TOL``); the
-    backward's reference starts from the plain forward's o and lse. The
-    same check must fail a planted fault, the reference with one 64 x 64
-    tile pair dropped (``kernel_check.dropped_tile``), or the script fails:
-    a limit that passes it could not see a skipped tile. bf16 cases are also
+    elementwise within ``rtol * |ref| + atol * rms(ref)`` (``K4_TOL``). The
+    backward's reference takes the backward kernel's own inputs, the forward
+    kernel's o and lse (themselves held to the plain forward): fed the plain
+    forward's lse instead, a p that sits on a bf16 rounding tie rounds the
+    other way, and one such term (p 0.557, |do| 2.58) moves a dv element by
+    one bf16 step of p times do, past the limit. The same check must fail a
+    planted fault, the reference with one 64 x 64 tile pair dropped
+    (``kernel_check.dropped_tile``), or the script fails: a limit that
+    passes it could not see a skipped tile. bf16 cases are also
     held to the plain version in fp32 (o within ``BF16_TOL``, each gradient
     within ``K4_GRAD_NORM_TOL`` norm-relative) and must give the same bits
     in a second launch. The timed case gives one-call times (``cuda_ms``)
@@ -581,9 +630,12 @@ def phase_k4(results, check, times, yardsticks, randn):
         o, lse = train_attention_fwd(qs, k, v, seg)
         grads = train_attention_bwd(qs, k, v, seg, o, lse, do)
         ro, rlse = train_attention_fwd_plain(qs, k, v, seg)
-        rgrads = train_attention_bwd_plain(qs, k, v, seg, ro, rlse, do)
+        rgrads = train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
         qt = lengths[0] // 64 - 1                    # a query tile at the end of segment 1
-        fault = kernel_check.dropped_tile(qs, k, v, seg, do, ro, rlse, rgrads, qt, qt // 2, 3)
+        fault = (*kernel_check.dropped_tile(qs, k, v, seg, do, ro, rlse, rgrads, qt, qt // 2,
+                                            3)[:2],
+                 *kernel_check.dropped_tile(qs, k, v, seg, do, o, lse, rgrads, qt, qt // 2,
+                                            3)[2:])
         torch.cuda.synchronize()
         outs = zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads), (ro, rlse, *rgrads), fault)
         for part, out, ref, bad in outs:

@@ -14,12 +14,17 @@
 // scale, p * v_scale[key] kept fp32 for p.v, normalisation after p.v; a row
 // with no valid key gives 0.
 //
-// What bounds it on the H100: as K1, the FMA-pipe products (compute-bound at
-// the 1024-token init bucket); the K/V tiles cost half K1's bytes since they
-// are read as int8. It reuses K1's tile loop (tile_attention.cuh, QUANT):
-// blocks stop at each row's causal/valid frontier, which the pool's
-// per-row offsets make different for every row.
+// What bounds it on the H100: compute (at the pool's tick ~58 GFLOP against
+// ~47 MB of int8 K/V). bf16 queries (the model's dtype) run on the tensor
+// cores (quant_mma_attention.cuh: int8 K/V tiles through a cp.async ring,
+// widened to bf16 in shared memory, p * v_scale as three exact bf16 parts;
+// D a multiple of 16 and 16-byte aligned rows, else refused); fp32 queries
+// (the tiny test model) on the FMA pipes (tile_attention.cuh, QUANT). The
+// dispatch is by the query dtype alone. Blocks stop at each row's
+// causal/valid frontier, which the pool's per-row offsets make different for
+// every row.
 
+#include "quant_mma_attention.cuh"
 #include "tile_attention.cuh"
 
 extern "C" int livecc_flash_prefill_int8(int dtype, const void* q, const void* k,
@@ -28,14 +33,35 @@ extern "C" int livecc_flash_prefill_int8(int dtype, const void* q, const void* k
                                          const int* kv_limit, int batch, int hq, int hk, int sq,
                                          int skv, int d, const long long* strides, float scale,
                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == livecc::kBFloat16) {
+    livecc::QuantMmaParams p;
+    p.q = static_cast<const __nv_bfloat16*>(q);
+    p.k = static_cast<const int8_t*>(k);
+    p.v = static_cast<const int8_t*>(v);
+    p.k_scale = static_cast<const __nv_bfloat16*>(k_scale);
+    p.v_scale = static_cast<const __nv_bfloat16*>(v_scale);
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.offset = offset;
+    p.kv_limit = kv_limit;
+    p.batch = batch;
+    p.hq = hq;
+    p.hk = hk;
+    p.sq = sq;
+    p.skv = skv;
+    p.q_sb = strides[0];   p.q_sh = strides[1];   p.q_ss = strides[2];
+    p.k_sb = strides[3];   p.k_sh = strides[4];   p.k_ss = strides[5];
+    p.v_sb = strides[6];   p.v_sh = strides[7];   p.v_ss = strides[8];
+    p.o_sb = strides[9];   p.o_sh = strides[10];  p.o_ss = strides[11];
+    p.ks_sb = strides[12]; p.ks_sh = strides[13];
+    p.vs_sb = strides[14]; p.vs_sh = strides[15];
+    p.scale = scale;
+    return livecc::launch_quant_mma_attention(p, d, s);
+  }
   livecc::TileParams p;
-  if (!livecc::prefill_params(p, q, k, v, k_scale, v_scale, o, offset, kv_limit, hq, hk, sq,
+  if (dtype != livecc::kFloat32 ||
+      !livecc::prefill_params(p, q, k, v, k_scale, v_scale, o, offset, kv_limit, hq, hk, sq,
                               skv, d, strides, scale, true))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == livecc::kFloat32)
-    return livecc::launch_tile_attention<float, true, true>(p, batch, s);
-  if (dtype == livecc::kBFloat16)
-    return livecc::launch_tile_attention<__nv_bfloat16, true, true>(p, batch, s);
-  return (int)cudaErrorInvalidValue;
+  return livecc::launch_tile_attention<float, true, true>(p, batch, s);
 }

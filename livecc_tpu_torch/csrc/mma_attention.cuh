@@ -4,8 +4,8 @@
 //
 // Replaces, for bf16 q/k/v/o: livecc_tpu/ops/pallas/attention.py:flash_prefill
 // (_prefill_kernel) and livecc_tpu/ops/pallas/vit_attention.py:
-// vit_group_attention (_vit_attn_kernel). fp32 and the int8 cache (K1-int8)
-// stay on tile_attention.cuh.
+// vit_group_attention (_vit_attn_kernel). fp32 stays on tile_attention.cuh;
+// bf16 K1-int8 (the int8 cache) has its own tile, quant_mma_attention.cuh.
 //
 // What bounds it on the H100: both kernels are compute-bound at the paths'
 // shapes (K3 at g = 880, H = 16, D = 80: 11.9 GFLOP against 27 MB; K1 at
@@ -41,8 +41,10 @@
 //     kv_end = min(kv_limit[b], Skv, offset[b] + q0 + 64),
 // a segment's block at its segment's end.
 //
-// The fragment and copy primitives are mma_common.cuh's, shared with K4
-// (train_mma_attention.cuh). mma.sync with cp.async is this version's
+// The fragment and copy primitives and the tile's steps (Q fragments,
+// S = Q K^T, the online softmax's rescale, the epilogue) are
+// mma_common.cuh's, shared with K1-int8 (quant_mma_attention.cuh); the
+// primitives also with K4 (train_mma_attention.cuh). mma.sync with cp.async is this version's
 // design; wgmma fed by TMA, with a producer warp and a deeper ring, is the
 // later redesign of this header.
 
@@ -87,8 +89,8 @@ template <bool CAUSAL, int D>
 __global__ void __launch_bounds__(kMmaThreads) mma_attention_kernel(MmaParams p) {
   static_assert(D % 16 == 0 && D <= kMaxHeadDim, "head dim: a multiple of 16 up to 128");
   constexpr int kLd = D + kMmaPad;          // shared row, in elements
-  constexpr int kKSteps = D / 16;           // k16 steps of Q K^T
-  constexpr int kNt = kMmaTileK / 8;        // n8 score tiles per warp row block
+  constexpr int kNt = kAttnNt;              // n8 score tiles per warp row block
+  static_assert(kNt * 8 == kMmaTileK, "mma_common.cuh's tile steps take 64 keys");
   constexpr int kDt = D / 8;                // n8 output tiles
   constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -139,7 +141,7 @@ __global__ void __launch_bounds__(kMmaThreads) mma_attention_kernel(MmaParams p)
   float acc[kDt][4];
 #pragma unroll
   for (int j = 0; j < kDt; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  uint32_t qf[kKSteps][4];
+  uint32_t qf[D / 16][4];
   const float sl2 = p.scale * kLog2e;
   const int row_a = offset + q0 + warp * 16 + gid;     // query positions of the two rows
   const int row_b = row_a + 8;
@@ -161,29 +163,12 @@ __global__ void __launch_bounds__(kMmaThreads) mma_attention_kernel(MmaParams p)
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {                           // Q fragments, once
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + lane % 16) * kLd + kk * 16 + (lane / 16) * 8);
-    }
+    if (t == 0) load_q_fragments<D>(qf, sQ, warp, lane);   // once
     const __nv_bfloat16* tK = sK + buf * kMmaTileK * kLd;
     const __nv_bfloat16* tV = sV + buf * kMmaTileK * kLd;
 
-    // S = Q K^T: [16 rows][64 keys] of this warp, 8 n8 tiles
-    float s[kNt][4];
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kNt; j += 2) {    // two n8 key tiles per ldmatrix.x4
-        uint32_t b[4];
-        ldmatrix_x4(b, tK + (j * 8 + lane % 8 + (lane / 16) * 8) * kLd + kk * 16 +
-                           ((lane / 8) % 2) * 8);
-        mma_bf16(s[j], qf[kk], b[0], b[1]);
-        mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
-      }
-    }
+    float s[kNt][4];                        // S = Q K^T: [16 rows][64 keys] of this warp
+    qk_scores<D>(s, qf, tK, lane);
 
     // scale (in log2 units) and mask; a masked score is kNegInf and gives p = 0
     const bool edge = k0 + kMmaTileK > limit ||
@@ -201,15 +186,7 @@ __global__ void __launch_bounds__(kMmaThreads) mma_attention_kernel(MmaParams p)
       }
     }
     float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = exp2f(m[r] - m_new);       // both finite: 1 while the row has seen no key
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
+    softmax_max(m, l, mx, alpha);
     // p = exp(s - m), summed in fp32 before it is rounded to bf16 for P V
     uint32_t pf[kNt / 2][4];
 #pragma unroll
@@ -224,13 +201,7 @@ __global__ void __launch_bounds__(kMmaThreads) mma_attention_kernel(MmaParams p)
       pf[j / 2][(j % 2) * 2 + 0] = pack_bf16(pv[0], pv[1]);
       pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(pv[2], pv[3]);
     }
-#pragma unroll
-    for (int j = 0; j < kDt; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
+    rescale_acc<kDt>(acc, alpha);
     // O += P V: k16 steps over the 64 keys, two n8 output tiles per ldmatrix.x4.trans
 #pragma unroll
     for (int kk = 0; kk < kNt / 2; ++kk) {
@@ -246,26 +217,7 @@ __global__ void __launch_bounds__(kMmaThreads) mma_attention_kernel(MmaParams p)
     __syncthreads();                        // all warps are done with this buffer
   }
   cp_async_wait<0>();                       // the Q copy of a block with no key tile
-
-  // normalise after P V; a row with no valid key (l = 0) writes 0
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + warp * 16 + gid + 8 * r;
-    if (row >= sq) continue;
-    const float safe = l[r] > 0.f ? l[r] : 1.f;     // acc is 0 where l is
-    __nv_bfloat16* orow = ob + (long long)row * p.o_ss + 2 * tig;
-#pragma unroll
-    for (int j = 0; j < kDt; ++j) {
-      const __nv_bfloat162 v2 =
-          __floats2bfloat162_rn(acc[j][2 * r] / safe, acc[j][2 * r + 1] / safe);
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) = v2;
-    }
-  }
+  store_normalised<kDt>(l, acc, ob, p.o_ss, q0 + warp * 16 + gid, sq, tig);
 }
 
 template <bool CAUSAL, int D>
@@ -286,17 +238,7 @@ template <bool CAUSAL>
 int launch_mma_attention(const MmaParams& p, int d, int rows, int n, cudaStream_t stream) {
   const dim3 grid((rows + kMmaTileQ - 1) / kMmaTileQ, p.hq, n);
   if (rows <= 0 || n <= 0 || p.hk <= 0 || p.hq % p.hk) return (int)cudaErrorInvalidValue;
-  switch (d) {
-    case 16: return launch_mma_d<CAUSAL, 16>(p, grid, stream);
-    case 32: return launch_mma_d<CAUSAL, 32>(p, grid, stream);
-    case 48: return launch_mma_d<CAUSAL, 48>(p, grid, stream);
-    case 64: return launch_mma_d<CAUSAL, 64>(p, grid, stream);
-    case 80: return launch_mma_d<CAUSAL, 80>(p, grid, stream);
-    case 96: return launch_mma_d<CAUSAL, 96>(p, grid, stream);
-    case 112: return launch_mma_d<CAUSAL, 112>(p, grid, stream);
-    case 128: return launch_mma_d<CAUSAL, 128>(p, grid, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return with_head_dim(d, [&](auto dim) { return launch_mma_d<CAUSAL, dim()>(p, grid, stream); });
 }
 
 }  // namespace

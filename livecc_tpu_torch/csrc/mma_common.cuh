@@ -1,7 +1,10 @@
 // Fragment and copy primitives of the bf16 tensor-core attention kernels,
-// shared by mma_attention.cuh (K1, K3) and train_mma_attention.cuh (K4):
-// 16-byte cp.async copies into padded shared rows, ldmatrix, and
-// mma.sync.aligned.m16n8k16 with bf16 operands and an fp32 accumulator.
+// shared by mma_attention.cuh (K1, K3), quant_mma_attention.cuh (K1-int8)
+// and train_mma_attention.cuh (K4): 16-byte cp.async copies into padded
+// shared rows, ldmatrix, and mma.sync.aligned.m16n8k16 with bf16 operands
+// and an fp32 accumulator; and the steps of a 64-query x 64-key online-
+// softmax tile that K1, K3 and K1-int8 take alike (Q fragments, S = Q K^T,
+// the running max and the rescale, the normalising epilogue).
 //
 // Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"),
 // for lane = 4 * gid + tig: the accumulator c[0..1] holds row gid, columns
@@ -13,6 +16,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "attn_common.cuh"
 
@@ -26,10 +30,15 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16 bytes from global to shared, of which the first `bytes` (0-16) are
+// copied and the rest zero-filled
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes));
+}
 // 16 bytes from global to shared, zero-filled where `valid` is false
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+  cp_async16_n(dst, src, valid ? 16 : 0);
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
@@ -72,6 +81,118 @@ __device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, const __nv_bfloat16*
     const int r = c / kChunks, col = (c % kChunks) * 8;
     const bool ok = r < valid;
     cp_async16(dst + r * kLd + col, ok ? src + r * stride + col : src, ok);
+  }
+}
+
+
+// The online-softmax tile of K1, K3 and K1-int8: a warp owns 16 query rows
+// of a 64-query block, and a thread the two rows gid and gid + 8 of them
+// (kAttnNt n8 score tiles over a 64-key tile, D / 8 output tiles).
+constexpr int kAttnNt = 8;
+
+// Warp `warp`'s 16 Q rows of the block's padded shared Q tile (rows of D
+// bf16) as k16 A-fragments, D / 4 registers a thread.
+template <int D>
+__device__ __forceinline__ void load_q_fragments(uint32_t (&qf)[D / 16][4],
+                                                 const __nv_bfloat16* sQ, int warp, int lane) {
+  constexpr int kLd = D + kMmaPad;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldmatrix_x4(qf[kk], sQ + (warp * 16 + lane % 16) * kLd + kk * 16 + (lane / 16) * 8);
+}
+
+// s = Q K^T over a 64-key tile (a padded shared tile of 64 rows of D bf16):
+// [16 rows][64 keys] of this warp in fp32, two n8 key tiles per ldmatrix.x4.
+template <int D>
+__device__ __forceinline__ void qk_scores(float (&s)[kAttnNt][4], const uint32_t (&qf)[D / 16][4],
+                                          const __nv_bfloat16* tK, int lane) {
+  constexpr int kLd = D + kMmaPad;
+#pragma unroll
+  for (int j = 0; j < kAttnNt; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < kAttnNt; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, tK + (j * 8 + lane % 8 + (lane / 16) * 8) * kLd + kk * 16 +
+                         ((lane / 8) % 2) * 8);
+      mma_bf16(s[j], qf[kk], b[0], b[1]);
+      mma_bf16(s[j + 1], qf[kk], b[2], b[3]);
+    }
+  }
+}
+
+// The tile's row maxima `mx` (log2 units, this thread's share) reduced over
+// the quad; the running max m moves to them and l is rescaled by alpha =
+// exp2(m_old - m_new), which rescale_acc then applies to the accumulator.
+// Both are finite (kNegInf while a row has seen no key), so alpha is 1 until
+// a real score arrives.
+__device__ __forceinline__ void softmax_max(float (&m)[2], float (&l)[2], float (&mx)[2],
+                                            float (&alpha)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = exp2f(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+}
+
+template <int DT>
+__device__ __forceinline__ void rescale_acc(float (&acc)[DT][4], const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    acc[j][0] *= alpha[0];
+    acc[j][1] *= alpha[0];
+    acc[j][2] *= alpha[1];
+    acc[j][3] *= alpha[1];
+  }
+}
+
+// Normalise after P V and write this thread's two rows (`row0` and row0 + 8
+// of the output, row stride `ss` elements) as bf16, rows at or past `rows`
+// skipped; l is summed over the quad first. A row with no valid key (l = 0,
+// and then acc = 0) writes exactly 0.
+template <int DT>
+__device__ __forceinline__ void store_normalised(float (&l)[2], const float (&acc)[DT][4],
+                                                 __nv_bfloat16* ob, long long ss, int row0,
+                                                 int rows, int tig) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= rows) continue;
+    const float safe = l[r] > 0.f ? l[r] : 1.f;
+    __nv_bfloat16* orow = ob + (long long)row * ss + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const __nv_bfloat162 v2 =
+          __floats2bfloat162_rn(acc[j][2 * r] / safe, acc[j][2 * r + 1] / safe);
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) = v2;
+    }
+  }
+}
+
+// f(std::integral_constant<int, D>()) for the head dims that have an
+// instance, the multiples of 16 up to 128; any other is refused.
+template <typename F>
+int with_head_dim(int d, F&& f) {
+  switch (d) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 48: return f(std::integral_constant<int, 48>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 80: return f(std::integral_constant<int, 80>());
+    case 96: return f(std::integral_constant<int, 96>());
+    case 112: return f(std::integral_constant<int, 112>());
+    case 128: return f(std::integral_constant<int, 128>());
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -1,8 +1,8 @@
 // One online-softmax attention kernel over 64-query tiles on the fp32 FMA
-// pipes: the fp32 instances of K1 (flash_prefill.cu) and K3
-// (vit_attention.cu), and K1-int8 (flash_prefill_int8.cu: QUANT, int8 K/V
-// with per-key bf16 scales) in both query dtypes. bf16 K1 and K3 run on the
-// tensor cores instead (mma_attention.cuh).
+// pipes: the fp32 instances of K1 (flash_prefill.cu), K3
+// (vit_attention.cu) and K1-int8 (flash_prefill_int8.cu: QUANT, int8 K/V
+// with per-key bf16 scales). bf16 K1 and K3 run on the tensor cores instead
+// (mma_attention.cuh), and so does bf16 K1-int8 (quant_mma_attention.cuh).
 //
 // Block = (64-query tile, q head, batch row or segment); 128 threads.
 // The block walks key tiles of 64 in order: this loop takes the place of the

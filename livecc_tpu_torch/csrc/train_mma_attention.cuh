@@ -724,23 +724,6 @@ int launch_train_bwd_mma(const TrainAttnParams& p, int batch, cudaStream_t strea
                           train_mma_dq_smem(D, p.s), p, stream);
 }
 
-// f(std::integral_constant<int, D>()) for the head dims that have an
-// instance, the multiples of 16 up to 128; any other is refused.
-template <typename F>
-int with_head_dim(int d, F&& f) {
-  switch (d) {
-    case 16: return f(std::integral_constant<int, 16>());
-    case 32: return f(std::integral_constant<int, 32>());
-    case 48: return f(std::integral_constant<int, 48>());
-    case 64: return f(std::integral_constant<int, 64>());
-    case 80: return f(std::integral_constant<int, 80>());
-    case 96: return f(std::integral_constant<int, 96>());
-    case 112: return f(std::integral_constant<int, 112>());
-    case 128: return f(std::integral_constant<int, 128>());
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 }  // namespace livecc

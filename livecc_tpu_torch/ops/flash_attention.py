@@ -16,9 +16,10 @@ as the JAX kernels:
 Each wrapper runs its CUDA kernel for CUDA tensors (``csrc/flash_prefill.cu``,
 ``csrc/flash_decode.cu``; with scales ``csrc/flash_prefill_int8.cu``,
 ``csrc/flash_decode_int8.cu``) and its plain PyTorch version for CPU
-tensors; any other device raises. bf16 K1 runs on the tensor cores
-(``csrc/mma_attention.cuh``: head dim a multiple of 16, 16-byte aligned
-rows, checked here), fp32 K1 and K1-int8 on the FMA pipes. The plain
+tensors; any other device raises. bf16 K1 and bf16 K1-int8 run on the
+tensor cores (``csrc/mma_attention.cuh``, ``csrc/quant_mma_attention.cuh``:
+head dim a multiple of 16, 16-byte aligned rows, checked here), fp32 K1 and
+fp32 K1-int8 on the FMA pipes. The plain
 versions below reproduce the kernels' semantics, including a zero output
 for a row with no valid key.
 The decode kernels split each row's keys into blocks of ``DECODE_SPLIT``
@@ -100,6 +101,21 @@ def _check_scales(name: str, k, v, k_scale, v_scale) -> None:
                              f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
 
 
+def _check_int8_rows(name: str, q, out, k, v, k_scale, v_scale) -> None:
+    """What bf16 K1-int8 (``csrc/quant_mma_attention.cuh``) takes besides
+    ``_check_cuda_operands``: bf16 q and output rows as
+    ``build.check_bf16_rows`` says, int8 K/V rows whose 16-byte copies are
+    aligned (base and the stride of every dim of more than one entry but the
+    last a multiple of 16 bytes) and scale rows likewise (``Smax * 2``
+    bytes a multiple of 16 for a contiguous cache)."""
+    build.check_bf16_rows(name, q, out)
+    for t, size in ((k, 1), (v, 1), (k_scale, 2), (v_scale, 2)):
+        if t.data_ptr() % 16 or any(s * size % 16 for s, n in zip(t.stride()[:-1], t.shape[:-1])
+                                    if n > 1):
+            raise ValueError(f"{name}: int8 K/V and scale rows must be 16-byte aligned, got "
+                             f"{t.dtype} base {t.data_ptr() % 16} mod 16 and strides {t.stride()}")
+
+
 def _check_cuda_operands(name: str, q, k, v, k_scale, v_scale) -> None:
     if k_scale is None:
         build.check_operands(name, q, k, v)
@@ -161,6 +177,8 @@ def flash_prefill(
     out = torch.empty((b, sq, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if k_scale is None:
         build.check_bf16_rows("flash_prefill", q, k, v, out)
+    elif q.dtype == torch.bfloat16:
+        _check_int8_rows("flash_prefill", q, out, k, v, k_scale, v_scale)
     offset = build.row_scalars(offset, b, q.device)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
     lib = build.load_library()

@@ -1,4 +1,4 @@
-"""Hold the attention kernels (K1, K2, K2-int8, K3, K4) to their plain
+"""Hold the attention kernels (K1, K1-int8, K2, K2-int8, K3, K4) to their plain
 versions, by a limit that a dropped block of keys fails.
 
 ``close(out, ref, dtype)`` compares a kernel's output with the plain version
@@ -20,12 +20,25 @@ give; a check that passes them could not see a lost block:
 
   * ``drop_split(...)`` (K2): the plain version with the keys ``[split,
     2 * split)`` of the longest row removed for one KV head's query heads;
-  * ``drop_key_tile(...)`` (K1) and ``vit_drop_key_tile(...)`` (K3): the
+  * ``drop_key_tile(...)`` (K1, K1-int8) and ``vit_drop_key_tile(...)`` (K3): the
     plain output with one 64-query tile of one head recomputed without one
-    64-key tile (``TILE``, the kernels' ``kMmaTileQ`` / ``kMmaTileK``);
+    64-key tile (``TILE``, the kernels' ``kMmaTileQ`` / ``kMmaTileK``,
+    ``kQuantTileQ`` / ``kQuantTileK``);
   * ``dropped_tile(...)`` (K4): the plain forward and backward outputs (o,
     lse, dq, dk, dv) without one 64 x 64 tile pair of one q head (``TILE``,
     ``kTrainMmaTileQ`` / ``kTrainMmaTileK`` of ``train_mma_attention.cuh``).
+
+bf16 K1-int8 keeps JAX's fp32 ``p * v_scale`` by splitting it into three
+bf16 parts. ``close`` cannot see one part in place of three: its worst
+share is set by the largest single rounding flip of the bf16 output, which
+an exact kernel also makes somewhere among millions of outputs. What one
+part changes is how often the output rounds the other way.
+``rounding_flips(out, ref32)`` is that share: of ``out``'s elements, those
+that differ from the fp32 plain version rounded to bf16. A kernel that
+keeps the fp32 product flips where the order of its fp32 sums moves an
+output across a rounding boundary (well under ``FLIP_LIMIT``);
+``one_part_pv(...)``, the planted fault, rounds ``p * v_scale`` to bf16 once
+and flips about 40% of its outputs.
 """
 
 from __future__ import annotations
@@ -33,11 +46,14 @@ from __future__ import annotations
 import torch
 
 from livecc_tpu_torch.ops import build
+from livecc_tpu_torch.ops.attention import NEG_INF
 from livecc_tpu_torch.ops.flash_attention import _masked_softmax_pv, _scores
 
 TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 TILE = 64       # queries and keys per tile: kMmaTileQ, kMmaTileK of csrc/mma_attention.cuh,
+                # kQuantTileQ, kQuantTileK of csrc/quant_mma_attention.cuh,
                 # kTrainMmaTileQ, kTrainMmaTileK of csrc/train_mma_attention.cuh
+FLIP_LIMIT = 1e-2   # rounding_flips: one output in a hundred off the fp32 result's rounding
 
 
 def close(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype) -> float:
@@ -52,6 +68,37 @@ def close(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype) -> float:
     diff = (out - ref).abs()
     share = torch.where(diff == 0, torch.zeros_like(diff), diff / lim)
     return share.max().item()
+
+
+def rounding_flips(out: torch.Tensor, ref32: torch.Tensor) -> float:
+    """Share of ``out``'s elements that differ from ``ref32`` (fp32, the
+    plain version computed in fp32 on the same inputs) rounded to
+    ``out``'s dtype. Raises on a shape mismatch."""
+    if out.shape != ref32.shape:
+        raise AssertionError(f"shape {tuple(out.shape)} vs {tuple(ref32.shape)}")
+    return (out != ref32.to(out.dtype)).float().mean().item()
+
+
+def one_part_pv(q, k, v, offset, kv_limit, k_scale, v_scale) -> torch.Tensor:
+    """``flash_prefill_plain`` of an int8 cache in fp32 (q widened exactly)
+    with ``p * v_scale`` rounded to bf16 once before it meets V: what a
+    K1-int8 that fed the product to the tensor cores as one bf16 part would
+    compute, before its output is rounded. fp32 ``[B, Hq, Sq, D]``."""
+    b, hq, sq, _ = q.shape
+    g = hq // k.shape[1]
+    off = build.row_scalars(offset, b, q.device)
+    lim = build.row_scalars(kv_limit, b, q.device)
+    s = _scores(q.float(), k, k_scale)
+    qpos = off[:, None] + torch.arange(sq, device=q.device)[None, :]
+    kpos = torch.arange(k.shape[2], device=q.device)
+    allowed = ((kpos[None, None, :] <= qpos[:, :, None]) &
+               (kpos[None, None, :] < lim[:, None, None]))[:, None]
+    s = torch.where(allowed, s, torch.full_like(s, NEG_INF))
+    p = torch.where(allowed, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    pv = (p * v_scale.repeat_interleave(g, dim=1).float()).to(torch.bfloat16).float()
+    o = torch.matmul(pv, v.repeat_interleave(g, dim=1).float())
+    return o / torch.where(l > 0, l, torch.ones_like(l))
 
 
 def drop_split(q, k, v, kv_limit, split: int, k_scale=None, v_scale=None,
@@ -74,12 +121,13 @@ def drop_split(q, k, v, kv_limit, split: int, k_scale=None, v_scale=None,
 
 
 def drop_key_tile(ref, q, k, v, offset, kv_limit, q_tile: int, k_tile: int, head: int = 0,
-                  row: int = 0) -> torch.Tensor:
+                  row: int = 0, k_scale=None, v_scale=None) -> torch.Tensor:
     """``ref`` (``flash_prefill_plain`` on these inputs, ``[B, Hq, Sq, D]``,
-    one-layer cache ``[B, Hk, Smax, D]``) with the queries ``[TILE * q_tile,
-    +TILE)`` of q head ``head`` in batch row ``row`` recomputed without the
-    keys ``[TILE * k_tile, +TILE)``. Raises if those queries attend none of
-    those keys (the fault would change nothing)."""
+    one-layer cache ``[B, Hk, Smax, D]``; an int8 cache with its scales
+    ``[B, Hk, 1, Smax]``) with the queries ``[TILE * q_tile, +TILE)`` of q
+    head ``head`` in batch row ``row`` recomputed without the keys ``[TILE *
+    k_tile, +TILE)``. Raises if those queries attend none of those keys (the
+    fault would change nothing)."""
     b, hq, sq, _ = q.shape
     kvh = head // (hq // k.shape[1])
     off = int(build.row_scalars(offset, b, q.device)[row])
@@ -90,6 +138,7 @@ def drop_key_tile(ref, q, k, v, offset, kv_limit, q_tile: int, k_tile: int, head
     cols = slice(k_tile * TILE, (k_tile + 1) * TILE)
     qs = q[row:row + 1, head:head + 1, rows]
     ks, vs = k[row:row + 1, kvh:kvh + 1], v[row:row + 1, kvh:kvh + 1]
+    kss, vss = ((None if x is None else x[row:row + 1, kvh:kvh + 1]) for x in (k_scale, v_scale))
     qpos = off + torch.arange(rows.start, rows.stop, device=q.device)
     kpos = torch.arange(k.shape[2], device=q.device)
     allowed = (kpos[None, :] <= qpos[:, None]) & (kpos[None, :] < lim)
@@ -97,8 +146,8 @@ def drop_key_tile(ref, q, k, v, offset, kv_limit, q_tile: int, k_tile: int, head
         raise ValueError(f"drop_key_tile: query tile {q_tile} attends no key of tile {k_tile}")
     allowed[:, cols] = False
     out = ref.clone()
-    out[row, head, rows] = _masked_softmax_pv(_scores(qs, ks, None), allowed[None, None], vs,
-                                              ref.dtype)[0, 0]
+    out[row, head, rows] = _masked_softmax_pv(_scores(qs, ks, kss), allowed[None, None], vs,
+                                              ref.dtype, vss)[0, 0]
     return out
 
 

@@ -12,16 +12,16 @@
 
 Run as a script, by path, with the checkout to time first on
 ``PYTHONPATH``, it times that checkout's ``flash_decode`` (K2 and K2-int8),
-``vit_group_attention`` (K3), ``flash_prefill`` (K1) and
-``train_attention_fwd`` / ``train_attention_bwd`` (K4) both ways at
-``chip_smoke.py``'s timed shapes and prints one JSON line, so two versions
-of the kernels compare on one card in one call:
+``vit_group_attention`` (K3), ``flash_prefill`` (K1 and, with scales,
+K1-int8) and ``train_attention_fwd`` / ``train_attention_bwd`` (K4) both
+ways at ``chip_smoke.py``'s timed shapes and prints one JSON line, so two
+versions of the kernels compare on one card in one call:
 
     PYTHONPATH=. python3 livecc_tpu_torch/tools/kernel_timing.py
     PYTHONPATH=<another checkout> python3 livecc_tpu_torch/tools/kernel_timing.py
 
 Arguments, if any, name the kinds to time (``decode``, ``vit``, ``prefill``,
-``train``); by default all four.
+``prefill_int8``, ``train``); by default all five.
 
 It uses only the five wrappers' public signatures and
 ``models.qwen2_vl.text.quantize_kv``. Needs a CUDA GPU.
@@ -155,6 +155,49 @@ def prefill_cases():
                lambda q=q, o=off_t, lm=lim_t: flash_prefill(q, k, v, o, lm, layer_index=LAYER))
 
 
+# K1-int8's shapes on the pool's int8 cache [L, 8, Hk, Smax, D], layer 27, bf16
+# q strided: chip_smoke's timed tick (rows 0-7936 deep) and a steady tick
+# (every row ~1300 deep), 256-query chunks at kv_limit = offset + 256; and
+# the solo init chunk (B = 1, Sq = 1024, offset 0, kv_limit 690)
+INT8_SQ = 256
+INT8_POOL_OFFSETS = (0, 300, 1500, 7, 64, 900, 4000, 7936)
+INT8_STEADY_OFFSETS = (1300, 1310, 1290, 1320, 1305, 1295, 1315, 1300)
+INT8_SOLO = (1024, 0, 690)
+
+
+def prefill_int8_cases():
+    """(label, call) of K1-int8 at the timed pool tick, a steady tick and
+    the solo init chunk, bf16 q."""
+    from livecc_tpu_torch.models.qwen2_vl.text import quantize_kv
+    from livecc_tpu_torch.ops.flash_attention import flash_prefill
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def cache(b):
+        codes, scale = quantize_kv(torch.randn((L, b, HK, SMAX, D), generator=gen,
+                                               device=dev).bfloat16())
+        return codes, scale.transpose(-1, -2).contiguous()
+
+    def call(q, k, v, off, lim):
+        o, lm = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (off, lim))
+        return lambda: flash_prefill(q, k[0], v[0], o, lm, layer_index=LAYER, k_scale=k[1],
+                                     v_scale=v[1])
+
+    b = len(INT8_POOL_OFFSETS)
+    k, v = cache(b), cache(b)
+    q = torch.randn((b, INT8_SQ, HQ, D), generator=gen, device=dev).bfloat16().transpose(1, 2)
+    for name, offs in (("pool tick", INT8_POOL_OFFSETS), ("steady tick", INT8_STEADY_OFFSETS)):
+        yield (f"K1-int8 {name} B={b} Sq={INT8_SQ} offsets={list(offs)} bf16",
+               call(q, k, v, offs, [o + INT8_SQ for o in offs]))
+    del k, v
+    sq, off, lim = INT8_SOLO
+    k, v = cache(1), cache(1)
+    q = torch.randn((1, sq, HQ, D), generator=gen, device=dev).bfloat16().transpose(1, 2)
+    yield (f"K1-int8 solo init chunk B=1 Sq={sq} offset={off} kv_limit={lim} bf16",
+           call(q, k, v, [off], [lim]))
+
+
 # and its timed K4 shape: one packed training row of the 7B's heads
 # (chip_smoke.py's K4_CASES[-1]), segments of TRAIN_LENGTHS then pad
 TRAIN_S, TRAIN_LENGTHS = 8192, (2900, 2700, 2300)
@@ -193,7 +236,7 @@ def main(argv: list[str]) -> int:
     result = {"package": livecc_tpu_torch.__path__[0], "card": card.strip(),
               "torch": torch.__version__}
     kinds = {"decode": decode_cases, "vit": vit_cases, "prefill": prefill_cases,
-             "train": train_cases}
+             "prefill_int8": prefill_int8_cases, "train": train_cases}
     unknown = set(argv) - set(kinds)
     if unknown:
         raise SystemExit(f"kernel_timing: unknown kinds {sorted(unknown)}; known: {list(kinds)}")

@@ -43,6 +43,8 @@ def _group(name: str) -> str:
         return "K4 train_attention_fwd"
     if re.search(r"train_(dkv|dq)(_mma)?_kernel", name):
         return "K4 train_attention_bwd"
+    if "quant_mma_attention_kernel" in name:                     # bf16 K1-int8
+        return "K1-int8 flash_prefill_int8"
     m = re.search(r"mma_attention_kernel<(true|false)", name)     # bf16 K1 / K3
     if m:
         return "K1 flash_prefill" if m.group(1) == "true" else "K3 vit_group_attention"

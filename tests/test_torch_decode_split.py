@@ -148,6 +148,12 @@ def test_close_and_drop_split_edges():
      "(livecc::(anonymous namespace)::DecodeParams)", "K2-int8 flash_decode_int8"),
     ("void livecc::(anonymous namespace)::decode_split_kernel<float, true, 8>(...)",
      "K2-int8 flash_decode_int8"),
+    # K1-int8: the tensor-core kernel (bf16), the FMA kernel's fp32 instance
+    # and its bf16 one of older checkouts
+    ("void livecc::(anonymous namespace)::quant_mma_attention_kernel<128>"
+     "(livecc::QuantMmaParams)", "K1-int8 flash_prefill_int8"),
+    ("void livecc::(anonymous namespace)::tile_attention_kernel<float, true, true>(...)",
+     "K1-int8 flash_prefill_int8"),
     ("void livecc::(anonymous namespace)::tile_attention_kernel<__nv_bfloat16, true, true>(...)",
      "K1-int8 flash_prefill_int8"),
     # the tensor-core K1 and K3 (bf16), and the FMA kernel's fp32 instances

@@ -7,9 +7,9 @@ has no jax, so ``tests/conftest.py`` stays out):
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
 fp32 kernels are held to the plain version in fp32 (max abs 1e-4). bf16
-K1, K2 and K3 are held to the plain version in their own dtype by
+K1, K1-int8, K2 and K3 are held to the plain version in their own dtype by
 ``kernel_check.close``, a limit that a dropped split of keys (K2) or a
-dropped key tile (K1, K3) fails; K1-int8, K2 and K4 also to the plain
+dropped key tile (K1, K1-int8, K3) fails; K2 and K4 also to the plain
 version computed in fp32 (max abs 2e-2, the JAX package's bf16 bound).
 """
 
@@ -19,7 +19,7 @@ import torch
 from livecc_tpu_torch.ops import build
 from livecc_tpu_torch.ops.flash_attention import (
     DECODE_SPLIT, flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
-from livecc_tpu_torch.tools import kernel_check
+from livecc_tpu_torch.tools import kernel_check, kernel_timing
 from livecc_tpu_torch.ops.vit_attention import vit_group_attention, vit_group_attention_plain
 
 pytestmark = pytest.mark.gpu
@@ -322,15 +322,28 @@ def quantized_cache(gen, shape, dev):
     return codes, scale.transpose(-1, -2).contiguous()
 
 
+POOL_OFFSETS = list(kernel_timing.INT8_POOL_OFFSETS)        # chip_smoke's timed pool tick
+STEADY_OFFSETS = list(kernel_timing.INT8_STEADY_OFFSETS)    # a steady tick, ~1300 deep
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,hq,hk,d,sq,offsets,limits", [
     (8, 28, 4, 128, 256, [0, 300, 1500, 7, 64, 900, 1200, 40], [256, 556, 1756, 263, 100, 1156, 1456, 0]),
+    (8, 28, 4, 128, 256, POOL_OFFSETS, [o + 256 for o in POOL_OFFSETS]),
+    (8, 28, 4, 128, 256, STEADY_OFFSETS, [o + 256 for o in STEADY_OFFSETS]),
     (2, 4, 2, 16, 50, [100, 7], [140, 40]),
+    (3, 7, 1, 64, 130, [0, 70, 5], [130, 131, 100]),     # a ragged last query tile, stops mid-chunk
     (1, 28, 4, 128, 1024, [0], [690]),
 ])
 def test_flash_prefill_int8(cuda, dtype, b, hq, hk, d, sq, offsets, limits):
+    """fp32 within 1e-4 of the fp32 plain version; bf16 (the tensor-core
+    kernel) by ``kernel_check.close`` against the plain version on the same
+    bf16 q, a limit that the plain output without one 64-key tile of the
+    deepest row fails, two launches bit-equal, and under
+    ``kernel_check.FLIP_LIMIT`` of the outputs off the fp32 plain version's
+    rounding, a limit that p * v_scale as one bf16 part fails."""
     gen = torch.Generator(device=cuda).manual_seed(3)
-    L, smax = 3, 2048
+    L, smax = 3, 8192
     (k5, ks), (v5, vs) = (quantized_cache(gen, (L, b, hk, smax, d), cuda) for _ in range(2))
     q = randn(gen, (b, sq, hq, d), dtype, cuda).transpose(1, 2)
     off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
@@ -338,8 +351,50 @@ def test_flash_prefill_int8(cuda, dtype, b, hq, hk, d, sq, offsets, limits):
     before = build.launch_counts["flash_prefill_int8"]
     out = flash_prefill(q, k5, v5, off, lim, layer_index=2, k_scale=ks, v_scale=vs)
     assert build.launch_counts["flash_prefill_int8"] == before + 1
-    ref = flash_prefill_plain(q.float(), k5[2], v5[2], off, lim, ks[2], vs[2])
-    assert_close(out, ref, dtype)
+    layer = (k5[2], v5[2], off, lim, ks[2], vs[2])
+    ref = flash_prefill_plain(q, *layer)
+    if 0 in limits:
+        assert not out[limits.index(0)].any()
+    if dtype == torch.float32:
+        assert_close(out, ref, dtype)
+        return
+    row = max(range(b), key=lambda i: limits[i])       # the deepest row, its last query tile
+    qt = (sq - 1) // 64
+    kt = min(limits[row], offsets[row] + 64 * qt + 1) // 64 // 2
+    fault = kernel_check.drop_key_tile(ref, q, k5[2], v5[2], off, lim, qt, kt, head=hq - 1,
+                                       row=row, k_scale=ks[2], v_scale=vs[2])
+    assert_tiles_close(out, ref, fault)
+    assert torch.equal(out, flash_prefill(q, k5, v5, off, lim, layer_index=2, k_scale=ks,
+                                          v_scale=vs))
+    # p * v_scale kept in fp32 (three bf16 parts), not rounded once: the
+    # outputs round as the fp32 plain version's do, save a few
+    ref32 = flash_prefill_plain(q.float(), *layer)
+    assert kernel_check.rounding_flips(out, ref32) <= kernel_check.FLIP_LIMIT
+    one_part = kernel_check.one_part_pv(q, k5[2], v5[2], off, lim, ks[2], vs[2]).to(dtype)
+    assert kernel_check.rounding_flips(one_part, ref32) > kernel_check.FLIP_LIMIT
+
+
+def test_bf16_int8_prefill_rejects_what_it_does_not_take(cuda):
+    """bf16 K1-int8 runs on the tensor cores: a head dim that is not a
+    multiple of 16, int8 rows that are not 16-byte aligned, or scale rows
+    of Smax * 2 bytes that are not a multiple of 16, raise (no FMA route)."""
+    bf16, i8 = torch.bfloat16, torch.int8
+    q = torch.zeros(1, 2, 4, 24, device=cuda, dtype=bf16)   # D = 24: a multiple of 8, not 16
+    k = torch.zeros(1, 1, 64, 24, device=cuda, dtype=i8)
+    s = torch.ones(1, 1, 1, 64, device=cuda, dtype=bf16)
+    with pytest.raises(ValueError):
+        flash_prefill(q, k, k, 0, 4, k_scale=s, v_scale=s)
+    q = torch.zeros(1, 2, 4, 16, device=cuda, dtype=bf16)
+    buf = torch.zeros(1, 1, 64, 24, device=cuda, dtype=i8)
+    k = buf[..., 8:]                                         # rows 24 bytes apart, base off by 8
+    with pytest.raises(ValueError):
+        flash_prefill(q, k, k, 0, 4, k_scale=s, v_scale=s)
+    k = torch.zeros(1, 2, 60, 16, device=cuda, dtype=i8)
+    s = torch.ones(1, 2, 1, 60, device=cuda, dtype=bf16)     # scale rows of 120 bytes
+    with pytest.raises(ValueError):
+        flash_prefill(q, k, k, 0, 4, k_scale=s, v_scale=s)
+    out = flash_prefill(q.float(), k, k, 0, 4, k_scale=s, v_scale=s)   # fp32 q: the FMA kernel
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -405,6 +460,16 @@ def packed_segments(b, s, lengths, dev):
     return seg.to(dev)
 
 
+def k4_share(out, ref):
+    """max |out - ref| / (1e-2 |ref| + 2e-2 rms(ref)): bf16 K4 against the
+    plain version in bf16, which rounds p and ds as the kernels do (the
+    limit of chip_smoke.py's K4_TOL); above 1 fails."""
+    torch.cuda.synchronize()
+    out, ref = out.float(), ref.float()
+    lim = 1e-2 * ref.abs() + 2e-2 * ref.square().mean().sqrt()
+    return ((out - ref).abs() / lim).max().item()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,hq,hk,d,lengths,strided_q", [
     (1, 1000, 28, 4, 128, [400, 350, 200], True),     # S % 64 != 0, 3 segments + pad
@@ -441,12 +506,12 @@ def test_train_attention(cuda, dtype, b, s, hq, hk, d, lengths, strided_q):
     if dtype == torch.bfloat16:
         # and elementwise against the plain version in bf16, which rounds as
         # the kernels do: |out - ref| <= 1e-2 |ref| + 2e-2 rms(ref)
-        so, slse = train_attention_fwd_plain(qs, k, v, seg)
-        sgrads = train_attention_bwd_plain(qs, k, v, seg, so, slse, do)
+        # (the backward's reference on the backward kernel's own inputs, the
+        # forward kernel's o and lse, as in chip_smoke.py's phase_k4)
+        so, _ = train_attention_fwd_plain(qs, k, v, seg)
+        sgrads = train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
         for out, ref in zip((o, *grads), (so, *sgrads)):
-            out, ref = out.float(), ref.float()
-            lim = 1e-2 * ref.abs() + 2e-2 * ref.square().mean().sqrt()
-            assert bool(((out - ref).abs() <= lim).all())
+            assert k4_share(out, ref) <= 1.0
         # no atomics: a second launch gives the same bits
         o2, lse2 = train_attention_fwd(qs, k, v, seg)
         grads2 = train_attention_bwd(qs, k, v, seg, o, lse, do)
@@ -473,13 +538,11 @@ def test_train_attention_recurring_ids(cuda, run):
     o, lse = train_attention_fwd(qs, k, v, seg)
     grads = train_attention_bwd(qs, k, v, seg, o, lse, do)
     so, slse = train_attention_fwd_plain(qs, k, v, seg)
-    sgrads = train_attention_bwd_plain(qs, k, v, seg, so, slse, do)
+    sgrads = train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
     torch.cuda.synchronize()
     torch.testing.assert_close(lse, slse, atol=1e-4, rtol=0)
     for out, ref in zip((o, *grads), (so, *sgrads)):
-        out, ref = out.float(), ref.float()
-        lim = 1e-2 * ref.abs() + 2e-2 * ref.square().mean().sqrt()
-        assert bool(((out - ref).abs() <= lim).all())
+        assert k4_share(out, ref) <= 1.0
     again = (*train_attention_fwd(qs, k, v, seg), *train_attention_bwd(qs, k, v, seg, o, lse, do))
     assert all(torch.equal(a, r) for a, r in zip((o, lse, *grads), again))
 
