@@ -47,12 +47,16 @@ Phases (any failure raises and the script exits non-zero):
                  training shape (Hq 28, Hk 4, D 128) on packed rows of 4096
                  and 1000 (checked) and 8192 (checked and timed, also in
                  device time), each output also held elementwise to the
-                 plain version in its own dtype by a limit that must fail
-                 one dropped tile pair (``kernel_check.dropped_tile``), and
-                 two bf16 launches bit-equal (``phase_k4``).
+                 plain version in its own dtype (bf16 gradients: to the
+                 fp32 plain version within what the bf16 plain version's
+                 rounding allows, ``kernel_check.grad_close``) by a limit
+                 that must fail one dropped tile pair
+                 (``kernel_check.dropped_tile``), and two bf16 launches
+                 bit-equal (``phase_k4``).
   4. tiny      — tiny config, fp32, seeded random weights: the engine on the
-                 CPU (plain versions) and on the GPU (kernels) give identical
-                 greedy text over 3 chunks; the tiny ViT on two clips of
+                 CPU (plain versions, the eager decode loop) and on the GPU
+                 (kernels, the decode step replayed as a CUDA graph) give
+                 identical greedy text over 3 chunks; the tiny ViT on two clips of
                  different grids runs K3's bounds form (fp32 and bf16) and
                  agrees with the CPU.
   5. tiny_pool — the same model in a StreamServer with an int8 cache,
@@ -66,9 +70,18 @@ Phases (any failure raises and the script exits non-zero):
                  chunk, greedy, repetition penalty 1.05.
   7. pool      — the same 7B model object in the serving pool of session.py:
                  StreamServer with 8 slots, an int8 KV cache of 8192, 8
-                 streams of 308x560 frames (a 6-frame init chunk, then 3
-                 steady ticks of 2-frame chunks). Every stream must get text
-                 for all 4 chunks.
+                 streams of 308x560 frames (warmup, a 6-frame init chunk,
+                 then 3 steady ticks of 2-frame chunks). Every stream must
+                 get text for all 4 chunks.
+                 main and pool decode through the captured CUDA graphs
+                 (``engine/graphs.py``); each session also runs on the same
+                 model from the same starting state through the eager plain
+                 loop (``decode_chunk_plain``, called by name), and the two
+                 must emit the same tokens in every decode and launch every
+                 kernel as often (replays counted). Each prints walls,
+                 captures (count and seconds), replays and host reads, and
+                 the graph session once more under the profiler, the
+                 device's busy time.
   8. tiny_train — tiny config, fp32: 3 training steps (packed rows, accum 2)
                  on the CPU (plain versions) and on the GPU (kernels, fused
                  CE with fp32 logit rows); the losses agree to 1e-4.
@@ -90,6 +103,7 @@ of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -579,14 +593,20 @@ def phase_k4(results, check, times, yardsticks, randn):
     (bf16, timed, with the bound and the library call on the same inputs);
     then the one-segment yardstick against SDPA's causal kernel.
 
-    Each output (o, lse, dq, dk, dv) is held to the plain version on the
+    o and lse, and fp32 gradients, are held to the plain version on the
     same inputs in the same dtype, which rounds p and ds as the kernels do,
-    elementwise within ``rtol * |ref| + atol * rms(ref)`` (``K4_TOL``). The
-    backward's reference takes the backward kernel's own inputs, the forward
+    elementwise within ``rtol * |ref| + atol * rms(ref)`` (``K4_TOL``). bf16
+    gradients (dq, dk, dv) are held to the plain version in fp32 by
+    ``kernel_check.grad_close``: within bf16's rtol of the fp32 value plus
+    twice the bf16 plain version's worst stray from fp32 in the same row
+    and a thousandth of the gradient's rms (a gradient sums thousands of
+    bf16-rounded terms, and two valid roundings of it can differ past the
+    elementwise limit). The
+    backward's references take the backward kernel's own inputs, the forward
     kernel's o and lse (themselves held to the plain forward): fed the plain
     forward's lse instead, a p that sits on a bf16 rounding tie rounds the
     other way, and one such term (p 0.557, |do| 2.58) moves a dv element by
-    one bf16 step of p times do, past the limit. The same check must fail a
+    one bf16 step of p times do. Each check must fail a
     planted fault, the reference with one 64 x 64 tile pair dropped
     (``kernel_check.dropped_tile``), or the script fails: a limit that
     passes it could not see a skipped tile. bf16 cases are also
@@ -631,6 +651,10 @@ def phase_k4(results, check, times, yardsticks, randn):
         grads = train_attention_bwd(qs, k, v, seg, o, lse, do)
         ro, rlse = train_attention_fwd_plain(qs, k, v, seg)
         rgrads = train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
+        if kind == "bf16":      # the plain version in fp32 on the same inputs
+            f32 = [x.float() for x in (qs, k, v)]
+            ro32, rlse32 = train_attention_fwd_plain(*f32, seg)
+            rgrads32 = train_attention_bwd_plain(*f32, seg, ro32, rlse32, do.float())
         qt = lengths[0] // 64 - 1                    # a query tile at the end of segment 1
         fault = (*kernel_check.dropped_tile(qs, k, v, seg, do, ro, rlse, rgrads, qt, qt // 2,
                                             3)[:2],
@@ -638,13 +662,21 @@ def phase_k4(results, check, times, yardsticks, randn):
                                             3)[2:])
         torch.cuda.synchronize()
         outs = zip(("o", "lse", "dq", "dk", "dv"), (o, lse, *grads), (ro, rlse, *rgrads), fault)
-        for part, out, ref, bad in outs:
+        for j, (part, out, ref, bad) in enumerate(outs):
             name = "train_attention_fwd" if part in ("o", "lse") else "train_attention_bwd"
-            rtol, atol = K4_TOL["lse" if part == "lse" else kind]
-            w, w_bad = worst(out, ref, rtol, atol), worst(out, bad, rtol, atol)
+            if kind == "bf16" and j >= 2:       # a bf16 gradient: against fp32
+                r32 = rgrads32[j - 2]
+                w, w_bad = (kernel_check.grad_close(x, ref, r32) for x in (out, bad))
+                limit = (f"rtol 1e-2 x |ref32| + {kernel_check.GRAD_SPREAD:g} x the bf16 plain "
+                         f"version's row max |ref - ref32| + {kernel_check.GRAD_FLOOR:g} x "
+                         f"rms(ref32)")
+            else:
+                rtol, atol = K4_TOL["lse" if part == "lse" else kind]
+                w, w_bad = worst(out, ref, rtol, atol), worst(out, bad, rtol, atol)
+                limit = f"rtol {rtol:g}, atol {atol:g} x rms"
             err = (out.float() - ref.float()).abs().max().item()
             log(f"  {name:20s} {label} {part}: max_abs_err {err:.3e}, worst {w:.3f} of the limit "
-                f"(rtol {rtol:g}, atol {atol:g} x rms); a dropped tile pair: {w_bad:.1f}x")
+                f"({limit}); a dropped tile pair: {w_bad:.1f}x")
             if not w <= 1.0:
                 raise AssertionError(f"{name} {label} {part}: {w:.3f}x the limit")
             if not w_bad > 1.0:
@@ -653,18 +685,15 @@ def phase_k4(results, check, times, yardsticks, randn):
                 r = results.setdefault(name, {"max_abs_err": 0.0})
                 r["max_abs_err"] = max(r["max_abs_err"], err)
         del rgrads, fault
-        if kind == "bf16":      # the plain version in fp32 on the same inputs
-            f32 = [x.float() for x in (qs, k, v)]
-            ro32, rlse32 = train_attention_fwd_plain(*f32, seg)
+        if kind == "bf16":
             check("train_attention_fwd", f"{label} o vs fp32 plain", o, ro32, BF16_TOL)
-            rgrads = train_attention_bwd_plain(*f32, seg, ro32, rlse32, do.float())
-            for part, g, r in zip(("dq", "dk", "dv"), grads, rgrads):
+            for part, g, r in zip(("dq", "dk", "dv"), grads, rgrads32):
                 rel = (torch.linalg.vector_norm(g.float() - r) / torch.linalg.vector_norm(r)).item()
                 log(f"  {'train_attention_bwd':20s} {label} {part} vs fp32 plain: norm-relative "
                     f"{rel:.3e} (tol {K4_GRAD_NORM_TOL:g})")
                 if not rel <= K4_GRAD_NORM_TOL:
                     raise AssertionError(f"train_attention_bwd {label} {part}: {rel} vs fp32")
-            del f32, ro32, rlse32, rgrads
+            del f32, ro32, rlse32, rgrads32
             again = (*train_attention_fwd(qs, k, v, seg), *train_attention_bwd(qs, k, v, seg, o,
                                                                                lse, do))
             if not all(torch.equal(a, b) for a, b in zip((o, lse, *grads), again)):
@@ -832,28 +861,119 @@ def phase_tiny_pool():
         raise AssertionError("tiny pool: CPU and GPU servers disagree")
 
 
+@contextlib.contextmanager
+def decoding(plain: bool, record: list):
+    """Every decode of the engine and the pool goes through
+    ``decode_chunk`` (the card's captured graphs) or, with ``plain``, the
+    eager plain loop ``decode_chunk_plain``, called by name; each call's
+    tokens and counts of generated tokens are appended to ``record``."""
+    from livecc_tpu_torch.engine import generation, streaming
+    from livecc_tpu_torch.serve import scheduler
+
+    fn = generation.decode_chunk_plain if plain else generation.decode_chunk
+
+    def recorded(*args, **kw):
+        out = fn(*args, **kw)
+        record.append((out[0].clone(), out[1].clone()))
+        return out
+
+    saved = streaming.decode_chunk, scheduler.decode_chunk
+    streaming.decode_chunk = scheduler.decode_chunk = recorded
+    try:
+        yield
+    finally:
+        streaming.decode_chunk, scheduler.decode_chunk = saved
+
+
+def same_tokens(label: str, graph: list, plain: list) -> None:
+    """Graph replay and the plain loop emitted the same tokens in every decode."""
+    import torch
+
+    if len(graph) != len(plain) or not all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(graph, plain)):
+        raise AssertionError(f"{label}: graph replay and the eager plain loop emit different "
+                             f"tokens")
+    n = sum(int(x[1].sum()) for x in graph)
+    log(f"  {label}: graph replay and the eager plain loop token-identical over {len(graph)} "
+        f"decodes ({n} tokens)")
+
+
+def run_twice(label: str, model, counts_of, session, walls_of) -> tuple[dict, list]:
+    """``session(plain)`` through the graphs and through the eager plain
+    loop, each from a fresh state on the same model: launch counts (reset
+    just before, read just after), walls (the run's, and ``walls_of`` its
+    result's chunks or ticks) and captures of each run; then the graphs'
+    once more under the profiler for the device's busy time. Fails
+    unless the two emit the same tokens and launch the same kernels as
+    often. Returns the graph run's counts and the session's result."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from livecc_tpu_torch.engine.graphs import graphs_for
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools.profile_stream import busy_seconds
+
+    graphs = graphs_for(model, model.cfg)
+    runs = {}
+    for plain in (False, True):
+        record: list = []
+        graphs.reset_stats()
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with decoding(plain, record):
+            result = session(plain)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counts_of()
+        stats = graphs.stats()
+        name = "eager plain loop" if plain else "graph replay"
+        log(f"  {label} {name}: wall {wall:.3f} s ({walls_of(result)}), {stats['captures']} "
+            f"captures in {stats['capture_seconds']:.3f} s, {stats['replays']} replays, "
+            f"{stats['host_reads']} host reads; launches {counts}")
+        runs[plain] = (counts, record, result)
+    same_tokens(label, runs[False][1], runs[True][1])
+    if runs[False][0] != runs[True][0]:
+        raise AssertionError(f"{label}: launch counts differ, graph replay {runs[False][0]} "
+                             f"against the eager plain loop {runs[True][0]}")
+    log(f"  {label}: launch counts equal, replays counted")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        session(False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = busy_seconds(prof)
+    log(f"  {label} graph replay (profiled): wall {wall:.3f} s, device busy {busy:.3f} s, idle "
+        f"share {1 - busy / wall:.3f}")
+    return runs[False][0], runs[False][2]
+
+
 def phase_main(cfg, model) -> dict:
+    """The 7B single stream, 5 chunks, through the decode graphs and through
+    the eager plain loop (``run_twice``)."""
     import torch
 
     from livecc_tpu_torch.ops import build
     from livecc_tpu_torch.tools import session
 
-    eng = session.new_engine(cfg, model)
     frames = session.main_frames()
-    state = eng.new_stream()
+
+    def run(plain):
+        eng = session.new_engine(cfg, model)
+        state = eng.new_stream()
+        return eng, state, session.run_session(eng, frames, state=state)
+
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
-    t0 = time.perf_counter()
-    out = session.run_session(eng, frames, state=state)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = dict(build.launch_counts)
+    chunk_walls = lambda r: "chunks " + ", ".join(f"{c.seconds * 1e3:.1f}"
+                                                   for c in r[0].chunk_log) + " ms"
+    counts, (eng, state, out) = run_twice("main", model, lambda: dict(build.launch_counts), run,
+                                          chunk_walls)
     peak = torch.cuda.max_memory_allocated() / 2**30
     for (t_a, t_b, text), rec in zip(out, eng.chunk_log):
         log(f"  chunk {t_a:4.1f}-{t_b:4.1f}s  wall {rec.seconds * 1e3:9.2f} ms  prompt "
             f"{rec.prompt_tokens:4d} tok  generated {rec.generated_tokens:2d} tok  {text!r}")
-    log(f"  main path: {len(out)} chunks in {wall:.2f} s, peak memory {peak:.2f} GiB, "
-        f"launches {counts}")
+    log(f"  main path: {len(out)} chunks, peak memory {peak:.2f} GiB, launches {counts}")
     if len(out) != 5 or len(eng.chunk_log) != 5:
         raise AssertionError(f"expected 5 chunks, got {len(out)}")
     if not all(rec.generated_tokens > 0 for rec in eng.chunk_log):
@@ -868,27 +988,36 @@ def phase_main(cfg, model) -> dict:
 
 
 def phase_pool(cfg, model) -> dict:
-    """The 7B in the serving pool: 8 streams, int8 KV, 4 ticks."""
+    """The 7B in the serving pool: 8 streams, int8 KV, 4 ticks, through the
+    decode graphs and through the eager plain loop (``run_twice``)."""
     import torch
 
     from livecc_tpu_torch.ops import build
     from livecc_tpu_torch.tools import session
 
-    server = session.pool_server(cfg, model)
-    t0 = time.perf_counter()
-    server.warmup([(session.HEIGHT, session.WIDTH)])
-    log(f"  warmup (init path + one pool step on the scratch pool): "
-        f"{time.perf_counter() - t0:.2f} s")
-    server.engine.metrics.reset()
+    def run(plain):
+        server = session.pool_server(cfg, model)
+        t0 = time.perf_counter()
+        server.warmup([(session.HEIGHT, session.WIDTH)])
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        server.engine.metrics.reset()
+        build.reset_launch_counts()           # the served ticks only
+        out, walls = session.run_pool(server)
+        return server, warm, out, walls
+
     torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
-    out, walls = session.run_pool(server)
-    torch.cuda.synchronize()
-    counts = dict(build.launch_counts)
+    tick_walls = lambda r: (f"warmup {r[1] * 1e3:.1f} ms, ticks "
+                            + ", ".join(f"{w * 1e3:.1f}" for w in r[3]) + " ms")
+    counts, (server, warm, out, walls) = run_twice("pool", model,
+                                                   lambda: dict(build.launch_counts), run,
+                                                   tick_walls)
     peak = torch.cuda.max_memory_allocated() / 2**30
     pool = server.pool_caches
     kv_gb = (pool.k.nbytes + pool.v.nbytes) / 1e9
     scale_mb = (pool.k_scale.nbytes + pool.v_scale.nbytes) / 1e6
+    log(f"  warmup (init path + one pool step on the scratch pool, captured there): "
+        f"{warm:.2f} s")
     for i, wall in enumerate(walls):
         kind = f"{len(out)} init chunks, solo + adoption" if i == 0 else f"pool step, B={len(out)}"
         log(f"  tick {i}: wall {wall * 1e3:9.2f} ms  ({kind})")

@@ -1,0 +1,210 @@
+"""The card's decode loop: one decode step captured as a CUDA graph, replayed.
+
+JAX runs ``decode_chunk`` as one jitted ``lax.while_loop`` that never
+returns to the host between tokens. The port's counterpart: for each key
+(``graph_key``: batch, cache length and dtype, ``GenerationParams``, the
+sampling generator, and the storage of the cache and the weights, whose
+addresses a graph bakes in) one ``decode_step`` over a fixed
+``DecodeState`` is captured once and then replayed up to
+``max_new_tokens - 1`` times a chunk. Per chunk:
+
+  * the prologue copies the chunk's starting state into the key's buffers
+    (device copies only);
+  * the first chunk of a key runs step 0 eagerly on a side stream (the
+    warm-up capture needs; it is real work and launches are counted), then
+    captures the step there; every later step, and every step of later
+    chunks, is one replay;
+  * after each replay but the last the host reads one flag, "every row has
+    stopped", through a non-blocking copy into pinned memory and a CUDA
+    event it polls, and stops replaying once it is set. That is the only host
+    read inside a chunk. Step 0 always runs: where every row starts stopped
+    (idle pool slots only) it is one extra step, which in greedy decoding
+    changes no output (a frozen offset, pad tokens, counts + 0);
+  * the epilogue samples the last token eagerly.
+
+The kernels' wrappers count launches in Python (``build.launch_counts``),
+so a replay adds nothing by itself: each graph keeps the counts its capture
+added, takes them back off (a capture launches nothing), and adds them on
+every replay, so the counts say what ran. With ``do_sample`` the graph
+registers the caller's generator, so each replay draws new numbers.
+
+A graph of a cache that is gone (grown into new buffers, a finished
+stream's, a warm-up's scratch pool) is dropped at the next lookup: each
+graph holds a weak reference to its cache's K buffer. A compaction writes
+the cache in place (``compact_cache_row``), so its graph stays valid.
+There is no fallback: a capture or a replay that fails raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+import weakref
+from typing import Optional
+
+import torch
+
+from livecc_tpu_torch.core.config import ModelConfig
+from livecc_tpu_torch.engine.generation import (
+    DecodeState, GenerationParams, decode_epilogue, decode_prologue, decode_step)
+from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL
+from livecc_tpu_torch.models.qwen2_vl.text import KVCache
+from livecc_tpu_torch.ops import build
+
+
+def graph_key(model: Qwen2VL, gen: GenerationParams, cache: KVCache, batch: int,
+              generator: Optional[torch.Generator] = None) -> tuple:
+    """What a captured decode step depends on: batch, cache length and
+    dtype, the generation settings, the generator it draws from (sampling
+    only), and the addresses of the cache's buffers and of the weights."""
+    buffers = tuple(0 if t is None else t.data_ptr()
+                    for t in (cache.k, cache.v, cache.k_scale, cache.v_scale))
+    weights = hash(tuple(p.data_ptr() for p in model.parameters()))
+    return (batch, cache.max_len, cache.k.dtype, gen, generator if gen.do_sample else None,
+            buffers, weights)
+
+
+def run_steps(n_steps: int, step, all_stopped) -> int:
+    """The card's step loop: ``step(0)`` always, then ``step(i)`` while
+    ``all_stopped()``, read after every step but the last, is false.
+    Returns the number of steps run."""
+    for i in range(n_steps):
+        step(i)
+        if i + 1 < n_steps and all_stopped():
+            return i + 1
+    return n_steps
+
+
+@dataclasses.dataclass
+class StepGraph:
+    """One captured decode step over its own ``DecodeState``."""
+
+    state: DecodeState
+    owner: weakref.ref                        # the cache's K buffer
+    graph: Optional[torch.cuda.CUDAGraph] = None
+    launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        build.launch_counts.update(self.launches)
+
+
+class DecodeGraphs:
+    """The captured decode steps of one model on the card, by ``graph_key``.
+
+    ``captures``, ``capture_seconds``, ``replays`` and ``host_reads`` count
+    what the decode loop did since the last ``reset_stats``."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self.graphs: dict[tuple, StepGraph] = {}
+        self._side: Optional[torch.cuda.Stream] = None
+        self._flag: Optional[torch.Tensor] = None
+        self._event: Optional[torch.cuda.Event] = None
+        self.reset_stats()
+
+    def reset_stats(self) -> None:
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.replays = 0
+        self.host_reads = 0
+
+    def stats(self) -> dict:
+        return {"graphs": len(self.graphs), "captures": self.captures,
+                "capture_seconds": self.capture_seconds, "replays": self.replays,
+                "host_reads": self.host_reads}
+
+    def _drop_stale(self) -> None:
+        for key in [k for k, g in self.graphs.items() if g.owner() is None]:
+            del self.graphs[key]
+
+    def _lookup(self, model: Qwen2VL, gen: GenerationParams, cache: KVCache, batch: int,
+                vocab: int, generator) -> StepGraph:
+        self._drop_stale()
+        key = graph_key(model, gen, cache, batch, generator)
+        entry = self.graphs.get(key)
+        if entry is None or entry.owner() is not cache.k:
+            state = DecodeState.empty(batch, vocab, gen.max_new_tokens, cache.k.device)
+            entry = self.graphs[key] = StepGraph(state, weakref.ref(cache.k))
+        return entry
+
+    def _all_stopped(self, st: DecodeState) -> bool:
+        """The one host read of a step: the stop flag, copied into pinned
+        memory behind the replay, read once an event after the copy has
+        completed (polled, so no synchronizing call is made)."""
+        if self._flag is None:
+            self._flag = torch.zeros((), dtype=torch.bool, pin_memory=True)
+            self._event = torch.cuda.Event()
+        self._flag.copy_(st.done, non_blocking=True)
+        self._event.record()
+        while not self._event.query():
+            pass
+        self.host_reads += 1
+        return bool(self._flag)
+
+    def _capture(self, entry: StepGraph, model: Qwen2VL, gen: GenerationParams,
+                 cache: KVCache, generator) -> None:
+        """Step 0 eagerly on a side stream (the warm-up), then the step captured there."""
+        step = lambda: decode_step(model, self.cfg, gen, entry.state, cache, generator)
+        dev = cache.k.device
+        if self._side is None:
+            self._side = torch.cuda.Stream(dev)
+        current = torch.cuda.current_stream(dev)
+        self._side.wait_stream(current)
+        with torch.cuda.stream(self._side):
+            step()
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            if gen.do_sample and generator is not None:
+                graph.register_generator_state(generator)
+            before = collections.Counter(build.launch_counts)
+            graph.capture_begin()
+            try:
+                step()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass
+                raise
+            graph.capture_end()
+        current.wait_stream(self._side)
+        entry.launches = collections.Counter(build.launch_counts)
+        entry.launches.subtract(before)
+        build.launch_counts.subtract(entry.launches)      # capture launches nothing
+        entry.graph = graph
+        self.captures += 1
+        self.capture_seconds += time.perf_counter() - t0
+
+    def decode(self, model: Qwen2VL, gen: GenerationParams, logits0: torch.Tensor,
+               cache: KVCache, counts: torch.Tensor, rope_delta: torch.Tensor,
+               generator: Optional[torch.Generator] = None, active=None) -> tuple:
+        """``decode_chunk`` on the card: see the module docstring."""
+        if gen.max_new_tokens < 1:
+            raise ValueError("decode_chunk requires max_new_tokens >= 1")
+        batch, vocab = logits0.shape
+        entry = self._lookup(model, gen, cache, batch, vocab, generator)
+        st = entry.state
+        decode_prologue(st, gen, logits0, cache, counts, rope_delta, active)
+
+        def step(_i: int) -> None:
+            if entry.graph is None:
+                self._capture(entry, model, gen, cache, generator)
+            else:
+                entry.replay()
+                self.replays += 1
+
+        run_steps(gen.max_new_tokens - 1, step, lambda: self._all_stopped(st))
+        return decode_epilogue(st, gen, cache, counts, generator)
+
+
+_GRAPHS: "weakref.WeakKeyDictionary[Qwen2VL, DecodeGraphs]" = weakref.WeakKeyDictionary()
+
+
+def graphs_for(model: Qwen2VL, cfg: ModelConfig) -> DecodeGraphs:
+    """The model's decode graphs (made on first use, dropped with the model)."""
+    graphs = _GRAPHS.get(model)
+    if graphs is None:
+        graphs = _GRAPHS[model] = DecodeGraphs(cfg)
+    return graphs

@@ -23,8 +23,9 @@ deployment is >= 8 concurrent 1 fps streams per replica:
     a pool slot by a prefix copy.
 
 Collection is synchronous (the JAX server collects on a background
-thread): eager PyTorch drives the decode loop from the host (one stop-flag
-read per step), so when a tick's pool step returns its tokens are done; the
+thread): the host drives the decode loop (on the card, one replay of the
+captured decode step and one stop-flag read per step, ``engine/graphs.py``),
+so when a tick's pool step returns its tokens are done; the
 tick copies them to the host at once and stamps each chunk's text with the
 moment it reached the host (``drain_timed``). Nothing is in flight between
 ticks, so ``flush`` and ``drain(sync=...)`` have nothing to wait for.
@@ -70,7 +71,9 @@ def make_pool_step(cfg: ModelConfig, gen: GenerationParams):
 
     Every row sits at its own cache depth: positions, key validity and the
     cache writes use the per-row offsets, so the GEMMs stay batched and the
-    attention kernels see the whole pool in one launch per layer."""
+    attention kernels see the whole pool in one launch per layer. The
+    prefill runs eagerly; on the card the decode replays the graph captured
+    over the pool's cache (``decode_chunk``)."""
 
     @torch.no_grad()
     def run(model: Qwen2VL, ids, valid, cache: KVCache, patches, cos, sin, seg, counts,
@@ -314,13 +317,14 @@ class StreamServer:
         steady_frames: int = 2,
     ) -> None:
         """Get every path a session at these resolution classes takes ready
-        before the first stream arrives. Eager PyTorch compiles nothing; what
-        is left of JAX's contract: the kernels are built (on the GPU), the
-        solo init path and one pool step per resolution run once on a
+        before the first stream arrives: the kernels are built (on the GPU),
+        the solo init path and one pool step per resolution run once on a
         scratch pool (the allocator, cuBLAS and the kernels see their serving
-        shapes), and no stream state changes. When no pool exists yet the
-        scratch BECOMES the pool (offsets, counts and markers reset), so a
-        pre-serve warmup never holds two pools."""
+        shapes; on the GPU the pool step captures its decode graph there),
+        and no stream state changes. When no pool exists yet the scratch
+        BECOMES the pool (offsets, counts and markers reset), so a pre-serve
+        warmup never holds two pools, and the first served tick replays the
+        graph captured here."""
         engine = self.engine
         if engine.device.type == "cuda":
             build.load_library()

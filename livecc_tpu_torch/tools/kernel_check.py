@@ -1,5 +1,5 @@
 """Hold the attention kernels (K1, K1-int8, K2, K2-int8, K3, K4) to their plain
-versions, by a limit that a dropped block of keys fails.
+versions, by limits that a dropped block of keys fails.
 
 ``close(out, ref, dtype)`` compares a kernel's output with the plain version
 on the same inputs in the same dtype (the plain versions on bf16 tensors
@@ -28,6 +28,25 @@ give; a check that passes them could not see a lost block:
     lse, dq, dk, dv) without one 64 x 64 tile pair of one q head (``TILE``,
     ``kTrainMmaTileQ`` / ``kTrainMmaTileK`` of ``train_mma_attention.cuh``).
 
+bf16 K4's gradients (dq, dk, dv) are held by ``grad_close(out, ref, ref32)``
+instead: each gradient sums thousands of bf16-rounded terms (p, ds), so two
+valid bf16 computations of it can differ by more than ``close``'s bf16 limit
+(dq at S = 8192 did, with the kernel the nearer of the two to the fp32
+result). ``grad_close`` measures the kernel's distance from the fp32 plain
+version, elementwise within
+
+    rtol * |ref32| + GRAD_SPREAD * max over the row |ref - ref32|
+                   + GRAD_FLOOR * rms(ref32)
+
+where ``ref`` is the bf16 plain version on the kernel's inputs: the bf16
+reference's own worst stray from fp32 in that output row (the last dim),
+doubled, sets what rounding of the same work allows, ``rtol`` (bf16's,
+just above one bf16 step) covers the output's own rounding, and a floor of
+a thousandth of the gradient's rms covers rows whose value cancels to
+about 0 (a query whose segment holds one key: ds = p (dp - di) with o = v),
+where only the fp32 summation order speaks, which the two plain versions
+share and the kernel does not. ``dropped_tile``'s gradients must fail it.
+
 bf16 K1-int8 keeps JAX's fp32 ``p * v_scale`` by splitting it into three
 bf16 parts. ``close`` cannot see one part in place of three: its worst
 share is set by the largest single rounding flip of the bf16 output, which
@@ -54,6 +73,8 @@ TILE = 64       # queries and keys per tile: kMmaTileQ, kMmaTileK of csrc/mma_at
                 # kQuantTileQ, kQuantTileK of csrc/quant_mma_attention.cuh,
                 # kTrainMmaTileQ, kTrainMmaTileK of csrc/train_mma_attention.cuh
 FLIP_LIMIT = 1e-2   # rounding_flips: one output in a hundred off the fp32 result's rounding
+GRAD_SPREAD = 2.0   # grad_close: twice the bf16 reference's worst stray from fp32 in the row
+GRAD_FLOOR = 1e-3   # grad_close: and a thousandth of the gradient's rms
 
 
 def close(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype) -> float:
@@ -66,6 +87,26 @@ def close(out: torch.Tensor, ref: torch.Tensor, dtype: torch.dtype) -> float:
     rtol, atol = TOL[dtype]
     lim = rtol * ref.abs() + atol * ref.square().mean(dim=-1, keepdim=True).sqrt()
     diff = (out - ref).abs()
+    share = torch.where(diff == 0, torch.zeros_like(diff), diff / lim)
+    return share.max().item()
+
+
+def grad_close(out: torch.Tensor, ref: torch.Tensor, ref32: torch.Tensor) -> float:
+    """Worst share of the limit ``rtol |ref32| + GRAD_SPREAD * max over the
+    row |ref - ref32| + GRAD_FLOOR * rms(ref32)`` (bf16's rtol) that
+    ``|out - ref32|`` uses (<= 1 passes): a bf16 gradient ``out`` against
+    the fp32 plain version
+    ``ref32``, with the bf16 plain version ``ref`` on the same inputs
+    setting the rounding it may carry. Raises on a shape mismatch or a
+    non-finite output."""
+    out, ref, ref32 = out.float(), ref.float(), ref32.float()
+    if not out.shape == ref.shape == ref32.shape or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"shapes {tuple(out.shape)}, {tuple(ref.shape)}, "
+                             f"{tuple(ref32.shape)} or non-finite output")
+    spread = (ref - ref32).abs().amax(dim=-1, keepdim=True)
+    lim = (TOL[torch.bfloat16][0] * ref32.abs() + GRAD_SPREAD * spread
+           + GRAD_FLOOR * ref32.square().mean().sqrt())
+    diff = (out - ref32).abs()
     share = torch.where(diff == 0, torch.zeros_like(diff), diff / lim)
     return share.max().item()
 

@@ -8,14 +8,16 @@ Both use the 7B definitions of ``livecc_tpu_torch.tools.session`` (the ones
 
   * single stream: runs the session ``UNPROFILED_SESSIONS`` times (the
     first warms up) and prints each wall, then once more under
-    ``torch.profiler`` (CPU + CUDA);
+    ``torch.profiler`` (CUDA activity only: the kernels, without the host
+    ops' events, which cost minutes to collect for an eager session);
   * ``--pool``: 8 streams join the int8 serving pool and run their init
     chunks and all but the last steady tick unprofiled; the last steady tick
     (one batched prefill + decode at B = 8) runs under the profiler.
 
-It prints each chunk's or tick's wall time; the device's busy time (union of
-kernel intervals) against the wall time, i.e. the device's idle share; and
-device time by group — the port's kernels (K3 ViT attention, K1 prefill and
+It prints each chunk's or tick's wall time, the decode graphs' captures
+(count and seconds) and replays where the checkout has them, the device's
+busy time (union of kernel intervals) against the wall time, i.e. the
+device's idle share; and device time by group — the port's kernels (K3 ViT attention, K1 prefill and
 K2 decode attention, and their int8 variants; K4 training attention for
 ``tools/train_session.py --profile``, which reuses ``report``), matrix
 products, everything else — and the top kernels by name.
@@ -75,10 +77,33 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
     return busy
 
 
+def _kernels(prof) -> list:
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def busy_seconds(prof) -> float:
+    """The device's busy time in a profile: the union of its kernels' intervals."""
+    return _busy_us([(e.time_range.start, e.time_range.end) for e in _kernels(prof)]) / 1e6
+
+
+def print_graph_stats(model, label: str = "") -> None:
+    """Print the decode graphs' captures and replays on ``model`` since
+    their last reset, then reset them; nothing for a checkout without them."""
+    try:
+        from livecc_tpu_torch.engine.graphs import graphs_for
+    except ImportError:
+        return
+    graphs = graphs_for(model, model.cfg)
+    st = graphs.stats()
+    graphs.reset_stats()
+    print(f"{label}decode graphs: {st['captures']} captures in {st['capture_seconds']:.3f} s, "
+          f"{st['replays']} replays, {st['host_reads']} host reads")
+
+
 def report(prof, wall: float) -> None:
     """Device busy time, idle share and device time by group of a profile."""
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e6
+    kernels = _kernels(prof)
+    busy = busy_seconds(prof)
     by_group: dict[str, float] = collections.defaultdict(float)
     by_name: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
@@ -113,12 +138,14 @@ def profile_session(cfg, model) -> None:
     for i in range(UNPROFILED_SESSIONS):
         print(f"session {i} wall {run(sess.new_engine(cfg, model)):.3f} s (unprofiled"
               f"{', warm-up' if i == 0 else ''})")
+        print_graph_stats(model)
     eng = sess.new_engine(cfg, model)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall = run(eng)
     for rec in eng.chunk_log:
         print(f"chunk wall {rec.seconds * 1e3:9.2f} ms  prompt {rec.prompt_tokens:4d}  "
               f"generated {rec.generated_tokens:2d}")
+    print_graph_stats(model)
     report(prof, wall)
 
 
@@ -129,10 +156,12 @@ def profile_pool_tick(cfg, model) -> None:
 
     server = sess.pool_server(cfg, model)
     server.warmup([(sess.HEIGHT, sess.WIDTH)])
+    print_graph_stats(model, "warmup: ")
     # init chunks and all steady ticks but the last, unprofiled
     _, walls = sess.run_pool(server, steady_ticks=sess.POOL_STEADY_TICKS - 1)
     for i, w in enumerate(walls):
         print(f"tick {i} wall {w * 1e3:9.2f} ms (unprofiled)")
+    print_graph_stats(model)
     sids = sorted(server._streams)
     hi = sess.INIT_FRAMES + sess.STEADY_FRAMES * sess.POOL_STEADY_TICKS
     lo = hi - sess.STEADY_FRAMES
@@ -142,7 +171,7 @@ def profile_pool_tick(cfg, model) -> None:
         server.submit_chunk(sid, clip, lo / fps, hi / fps)
     depth = server.pool_caches.offset.tolist()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         server.tick()
         torch.cuda.synchronize()
@@ -150,6 +179,7 @@ def profile_pool_tick(cfg, model) -> None:
     rows = {sid: server.drain(sid) for sid in sids}
     print(f"profiled tick: B={len(sids)} steady chunks, cache depths before it {depth}, "
           f"{sum(len(r) for r in rows.values())} chunks of text")
+    print_graph_stats(model)
     report(prof, wall)
 
 

@@ -461,13 +461,22 @@ def packed_segments(b, s, lengths, dev):
 
 
 def k4_share(out, ref):
-    """max |out - ref| / (1e-2 |ref| + 2e-2 rms(ref)): bf16 K4 against the
-    plain version in bf16, which rounds p and ds as the kernels do (the
-    limit of chip_smoke.py's K4_TOL); above 1 fails."""
+    """max |out - ref| / (1e-2 |ref| + 2e-2 rms(ref)): bf16 K4's o against
+    the plain version in bf16, which rounds p as the kernel does (the limit
+    of chip_smoke.py's K4_TOL); above 1 fails."""
     torch.cuda.synchronize()
     out, ref = out.float(), ref.float()
     lim = 1e-2 * ref.abs() + 2e-2 * ref.square().mean().sqrt()
     return ((out - ref).abs() / lim).max().item()
+
+
+def grad_share(out, ref, ref32):
+    """``kernel_check.grad_close``: a bf16 K4 gradient against the fp32
+    plain version, within bf16's rtol plus twice the bf16 plain version's
+    worst stray from fp32 in the row plus a thousandth of the gradient's
+    rms (chip_smoke.py's phase_k4); above 1 fails."""
+    torch.cuda.synchronize()
+    return kernel_check.grad_close(out, ref, ref32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -504,14 +513,17 @@ def test_train_attention(cuda, dtype, b, s, hq, hk, d, lengths, strided_q):
         torch.cuda.synchronize()
         assert (g.float() - r).abs().max().item() <= TOL[dtype] * max(1.0, r.abs().max().item())
     if dtype == torch.bfloat16:
-        # and elementwise against the plain version in bf16, which rounds as
-        # the kernels do: |out - ref| <= 1e-2 |ref| + 2e-2 rms(ref)
-        # (the backward's reference on the backward kernel's own inputs, the
-        # forward kernel's o and lse, as in chip_smoke.py's phase_k4)
+        # and elementwise: o against the plain version in bf16, which rounds
+        # as the kernels do (|out - ref| <= 1e-2 |ref| + 2e-2 rms(ref)); the
+        # gradients against the fp32 plain version within what the bf16
+        # plain version's rounding allows (kernel_check.grad_close); the
+        # backward's bf16 reference on the backward kernel's own inputs, the
+        # forward kernel's o and lse, as in chip_smoke.py's phase_k4
         so, _ = train_attention_fwd_plain(qs, k, v, seg)
         sgrads = train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
-        for out, ref in zip((o, *grads), (so, *sgrads)):
-            assert k4_share(out, ref) <= 1.0
+        assert k4_share(o, so) <= 1.0
+        for out, ref, r32 in zip(grads, sgrads, rgrads):
+            assert grad_share(out, ref, r32) <= 1.0
         # no atomics: a second launch gives the same bits
         o2, lse2 = train_attention_fwd(qs, k, v, seg)
         grads2 = train_attention_bwd(qs, k, v, seg, o, lse, do)
@@ -525,8 +537,9 @@ def test_train_attention_recurring_ids(cuda, run):
     through ids 0, 1, 2, as a mask with gaps gives): a query attends every
     earlier key of its id, across the gaps. Tiles then hold two or three
     ids, so the bf16 kernels' live-tile lists take both their exact and
-    their range test. Held to the plain version in bf16 elementwise, and
-    two launches bit-equal."""
+    their range test. Held elementwise to the plain version in bf16 (o)
+    and in fp32 (the gradients, ``kernel_check.grad_close``), and two
+    launches bit-equal."""
     from livecc_tpu_torch.ops.train_attention import (
         train_attention_bwd, train_attention_bwd_plain, train_attention_fwd,
         train_attention_fwd_plain)
@@ -539,10 +552,14 @@ def test_train_attention_recurring_ids(cuda, run):
     grads = train_attention_bwd(qs, k, v, seg, o, lse, do)
     so, slse = train_attention_fwd_plain(qs, k, v, seg)
     sgrads = train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
+    f32 = [x.float() for x in (qs, k, v)]
+    rgrads = train_attention_bwd_plain(*f32, seg, *train_attention_fwd_plain(*f32, seg),
+                                       do.float())
     torch.cuda.synchronize()
     torch.testing.assert_close(lse, slse, atol=1e-4, rtol=0)
-    for out, ref in zip((o, *grads), (so, *sgrads)):
-        assert k4_share(out, ref) <= 1.0
+    assert k4_share(o, so) <= 1.0
+    for out, ref, r32 in zip(grads, sgrads, rgrads):
+        assert grad_share(out, ref, r32) <= 1.0
     again = (*train_attention_fwd(qs, k, v, seg), *train_attention_bwd(qs, k, v, seg, o, lse, do))
     assert all(torch.equal(a, r) for a, r in zip((o, lse, *grads), again))
 

@@ -251,6 +251,26 @@ def test_a_dropped_tile_pair_fails_every_output(tiles, qt, kt, h):
         assert kernel_check.close(out, bad, dt) >= 5.0
 
 
+@pytest.mark.parametrize("qt,kt,h", [(3, 1, 3), (8, 5, 0)])
+def test_gradient_check_holds_the_tiles_and_fails_a_dropped_tile(tiles, qt, kt, h):
+    """``kernel_check.grad_close``, the check that holds bf16 K4's
+    gradients on the card: the emulated kernels' dq, dk and dv against the
+    fp32 plain version (fp32 inputs, nothing rounded), with the bf16 plain
+    backward on the emulation's o and lse setting the rounding allowed,
+    pass it; the same gradients without one tile pair fail it at least 5x
+    over."""
+    _, qs, k, v, do, seg = case()
+    o, lse = tiles[:2]
+    ref = train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
+    f32 = [x.float() for x in (qs, k, v)]
+    ref32 = train_attention_bwd_plain(*f32, seg, *train_attention_fwd_plain(*f32, seg),
+                                      do.float())
+    fault = kernel_check.dropped_tile(qs, k, v, seg, do, o, lse, ref, qt, kt, h)[2:]
+    for out, r, r32, bad in zip(tiles[2:], ref, ref32, fault):
+        assert kernel_check.grad_close(out, r, r32) <= 1.0
+        assert kernel_check.grad_close(bad, r, r32) >= 5.0
+
+
 def test_train_tiles_are_the_kernels_constants():
     """``kernel_check.TILE`` is the K4 tensor-core kernels' query and key
     tile, and ``P_TERMS`` the forward's number of bf16 parts of p."""
