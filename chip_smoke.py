@@ -24,7 +24,12 @@ Phases (any failure raises and the script exits non-zero):
                  also check that two launches are bit-equal. fp32 cases are
                  held to <= 1e-4 max abs. K3 also runs
                  mixed segment sizes through its bounds form, and K2 a query
-                 group of G * D = 4096 (two launches). Times: kernel, plain
+                 group of G * D = 4096 (two launches). K1 and K1-int8 are
+                 also held, faulted and timed at a verify window of
+                 speculative decoding (Sq = ``kernel_timing.WINDOW_SQ`` = 9;
+                 K1 at offset 1500, K1-int8 at ``INT8_STEADY_OFFSETS``; their
+                 queries come from a generator of their own, so every other
+                 case keeps its inputs). Times: kernel, plain
                  version and the one PyTorch call that computes the same
                  function (library; none for the int8 kernels), each the
                  median of single calls between CUDA events, host work
@@ -81,11 +86,27 @@ Phases (any failure raises and the script exits non-zero):
                  kernel as often (replays counted). Each prints walls,
                  captures (count and seconds), replays and host reads, and
                  the graph session once more under the profiler, the
-                 device's busy time.
-  8. tiny_train — tiny config, fp32: 3 training steps (packed rows, accum 2)
+                 device's busy time; and one replay of the decode step at
+                 the session's last depth, in device time.
+  8. main_spec — main's session with speculative decoding
+                 (``session.SPEC``: fused lookahead, 8 drafts, 3-grams, the
+                 controller off) through the captured lookahead step and
+                 through the eager lookahead loop
+                 (``decode_chunk_lookahead_plain``, called by name): both
+                 must emit main's tokens in every decode (greedy decoding is
+                 lossless) and launch every kernel as often, and the graphs
+                 read one stop flag per window. Prints walls, windows and
+                 tokens per chunk, captures, and one lookahead-step replay
+                 against main's decode-step replay at the same depth (the
+                 window premium at B = 1). Then the worst case: the
+                 host-drafted loop over the first two chunks with drafts of
+                 an id the session never emits (one window per token).
+  9. pool_spec — pool's session with lookahead decoding, the same checks
+                 against pool's tokens; the window premium at B = 8.
+ 10. tiny_train — tiny config, fp32: 3 training steps (packed rows, accum 2)
                  on the CPU (plain versions) and on the GPU (kernels, fused
                  CE with fp32 logit rows); the losses agree to 1e-4.
-  9. train     — ``livecc_tpu_torch/tools/train_session.py``: Qwen2-VL-7B at
+ 11. train     — ``livecc_tpu_torch/tools/train_session.py``: Qwen2-VL-7B at
                  full width with the LLM cut to 4 layers and the 32-block ViT
                  frozen, bf16, 3 Trainer steps of 2 packed 8192-token rows;
                  checks finite losses, trainable params moved after step 2
@@ -94,8 +115,9 @@ Phases (any failure raises and the script exits non-zero):
                  K3 launched, and that K3 ran at the training shape the
                  kernels phase timed.
 
-Launch counts are reset just before each of main, pool and train and read
-just after; every kernel of that path must have launched. Every phase always
+Launch counts are reset just before each of main, pool, main_spec (and
+its worst case), pool_spec and train and read just after; every kernel of
+that path must have launched. Every phase always
 runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
 and, as its last line, ``{"ok": true, "device": {...}}``. It imports nothing
 of JAX.
@@ -134,8 +156,15 @@ KERNELS = {
 # the kernels each path must launch
 MAIN_KERNELS = ("vit_group_attention", "flash_prefill", "flash_decode")
 POOL_KERNELS = ("vit_group_attention", "flash_prefill_int8", "flash_decode_int8")
+# lookahead decoding (controller off) runs K1 / K1-int8 in its verify windows
+MAIN_SPEC_KERNELS = ("vit_group_attention", "flash_prefill")
+POOL_SPEC_KERNELS = ("vit_group_attention", "flash_prefill_int8")
 TRAIN_KERNELS = ("vit_group_attention", "train_attention_fwd", "train_attention_bwd")
 BF16_TOL = 2e-2     # the JAX package's own bf16 bound (tests/test_vit_attention.py:22)
+# lookahead against plain decoding on the card: where a stream parts, the
+# lookahead's token within TIE_ULPS bf16 steps of the plain run's best logit,
+# among its TOP_K (``near_ties``)
+TIE_ULPS, TOP_K = 4, 8
 FP32_TOL = 1e-4
 # H100 SXM: dense bf16 tensor-core peak and HBM3 bandwidth (NVIDIA's data sheet)
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -235,11 +264,19 @@ def phase_kernels() -> dict:
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    # the verify window's queries come from a generator of their own, so
+    # every other case keeps its inputs
+    window_gen = torch.Generator(device=dev).manual_seed(9)
     bf16, f32 = torch.bfloat16, torch.float32
     results: dict[str, dict] = {}
 
-    def randn(shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev, dtype=f32).to(dtype)
+    def randn(shape, dtype, generator=gen):
+        return torch.randn(shape, generator=generator, device=dev, dtype=f32).to(dtype)
+
+    def queries(b, sq, hq, d):
+        """bf16 q [B, Hq, Sq, D], strided as the model passes it."""
+        g = window_gen if sq == kernel_timing.WINDOW_SQ else gen
+        return randn((b, sq, hq, d), bf16, g).transpose(1, 2)
 
     def check(name, label, out, ref, tol):
         torch.cuda.synchronize()
@@ -331,16 +368,17 @@ def phase_kernels() -> dict:
         r["max_abs_err"] = max(r["max_abs_err"], err)
 
     def timed_case(name, label, fns, flops, nbytes):
-        """Kernel, plain version and library call (SDPA) at one timed shape,
-        each by both methods (``cuda_ms``: one call, host work included;
-        ``graph_ms``: device time), beside the bound. The first timed shape
-        of a kernel gives its JSON numbers."""
-        one = [cuda_ms(fn) for fn in fns]
-        dev_t = [graph_ms(fn) for fn in fns]
+        """Kernel, plain version and library call (SDPA; None for an int8
+        cache) at one timed shape, each by both methods (``cuda_ms``: one
+        call, host work included; ``graph_ms``: device time), beside the
+        bound. The first timed shape of a kernel gives its JSON numbers."""
+        one = [None if fn is None else cuda_ms(fn) for fn in fns]
+        dev_t = [None if fn is None else graph_ms(fn) for fn in fns]
         b_ms, b_by = bound(flops, nbytes)
+        lib = lambda t: "none" if t is None else f"{t:.4f}"
         log(f"  {name:20s} {label:48s} one call: kernel {one[0]:.4f}  plain {one[1]:.4f}  "
-            f"library {one[2]:.4f} ms; device: kernel {dev_t[0]:.4f}  plain {dev_t[1]:.4f}  "
-            f"library {dev_t[2]:.4f} ms; bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, "
+            f"library {lib(one[2])} ms; device: kernel {dev_t[0]:.4f}  plain {dev_t[1]:.4f}  "
+            f"library {lib(dev_t[2])} ms; bound {b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, "
             f"{nbytes / 1e6:.3f} MB)")
         r = results[name]
         if "ms" not in r:
@@ -407,7 +445,7 @@ def phase_kernels() -> dict:
         else:
             prefill_cases = [(256, [0, 1500], [200, 1756], False)]
         for sq, off, lim, timed in prefill_cases:
-            q = randn((b, sq, hq, d), bf16).transpose(1, 2)      # strided, as the model passes it
+            q = queries(b, sq, hq, d)
             off_t = torch.tensor(off, dtype=torch.int32, device=dev)
             lim_t = torch.tensor(lim, dtype=torch.int32, device=dev)
             label = f"B={b} Sq={sq} offset={off} kv_limit={lim} bf16"
@@ -477,7 +515,8 @@ def phase_kernels() -> dict:
     del k4, v4, qs, q1
 
     # K1-int8 / K2-int8 on the pool's cache: [28, 8, 4, 8192, 128] int8 with
-    # lane-major bf16 scales [28, 8, 4, 1, 8192], layer 27
+    # lane-major bf16 scales [28, 8, 4, 1, 8192], layer 27; the verify window
+    # (Sq = 9 at the steady tick's depths) last, timed but not in the JSON line
     from livecc_tpu_torch.models.qwen2_vl.text import quantize_kv
 
     def int8_cache(shape):
@@ -490,10 +529,12 @@ def phase_kernels() -> dict:
     sq8 = kernel_timing.INT8_SQ
     solo_sq, solo_off, solo_lim = kernel_timing.INT8_SOLO
     # (queries, offsets, kv limits, timed): the timed pool tick, a steady
-    # tick and the solo init chunk (batch row 0 of the cache)
+    # tick, the solo init chunk (batch row 0 of the cache), a verify window
+    wsq = kernel_timing.WINDOW_SQ
     for sq_i, offs, lims, timed in ((sq8, kernel_timing.INT8_POOL_OFFSETS, None, True),
                                     (sq8, kernel_timing.INT8_STEADY_OFFSETS, None, False),
-                                    (solo_sq, (solo_off,), (solo_lim,), False)):
+                                    (solo_sq, (solo_off,), (solo_lim,), False),
+                                    (wsq, kernel_timing.INT8_STEADY_OFFSETS, None, "window")):
         n = len(offs)
         lims = lims or tuple(o + sq_i for o in offs)
         cache = tuple(x[:, :n] for x in (k8, v8, ks8, vs8))
@@ -503,7 +544,7 @@ def phase_kernels() -> dict:
         if n == 1:      # the steady tick's queries, its first 4 rows of 256 as one of 1024
             q = q.transpose(1, 2).reshape(1, -1, hq, d)[:, :sq_i].transpose(1, 2)
         else:           # strided, as the model passes it
-            q = randn((n, sq_i, hq, d), bf16).transpose(1, 2)
+            q = queries(n, sq_i, hq, d)
         label = f"B={n} Sq={sq_i} offset={list(offs)} kv_limit={list(lims)} bf16"
         fns = (lambda: flash_prefill(q, cache[0], cache[1], off_t, lim_t, layer_index=li,
                                      k_scale=cache[2], v_scale=cache[3]),
@@ -531,13 +572,15 @@ def phase_kernels() -> dict:
             raise AssertionError(f"flash_prefill_int8 {label}: the rounding check passes p * "
                                  f"v_scale as one bf16 part")
         del out, ref32
-        if timed:
+        pairs = sum(sq_i * o + sq_i * (sq_i + 1) // 2 for o in offs)
+        work = (4 * pairs * d * hq, 2 * q.numel() * 2 + 2 * hk * sum(lims) * (d + 2))
+        if timed == "window":
+            timed_case("flash_prefill_int8", label, (*fns, None), *work)
+        elif timed:
             times("flash_prefill_int8", label, *fns)
-            pairs = sum(sq8 * o + sq8 * (sq8 + 1) // 2 for o in offs)
-            keys = sum(o + sq8 for o in offs)
-            yardsticks("flash_prefill_int8", 4 * pairs * d * hq,
-                       2 * q.numel() * 2 + 2 * hk * keys * (d + 2), None)
-        device_times("flash_prefill_int8", label, *fns, None)
+            yardsticks("flash_prefill_int8", *work, None)
+        if timed != "window":
+            device_times("flash_prefill_int8", label, *fns, None)
         del cache, one
     lim_d = torch.tensor([1, 777, 8192, 4000, 1, 777, 8192, 2500], dtype=torch.int32, device=dev)
     q = randn((b, 1, hq, d), bf16).transpose(1, 2)
@@ -866,46 +909,107 @@ def decoding(plain: bool, record: list):
     """Every decode of the engine and the pool goes through
     ``decode_chunk`` (the card's captured graphs) or, with ``plain``, the
     eager plain loop ``decode_chunk_plain``, called by name; each call's
-    tokens and counts of generated tokens are appended to ``record``."""
+    tokens and counts of generated tokens are appended to ``record``. With
+    ``plain`` each entry also holds, for every selection of the call, the
+    step index and the top ``TOP_K`` ids and values of the adjusted logits
+    (``near_ties`` reads them); else None."""
+    import torch
+
     from livecc_tpu_torch.engine import generation, streaming
     from livecc_tpu_torch.serve import scheduler
 
     fn = generation.decode_chunk_plain if plain else generation.decode_chunk
+    adjust, tops = generation.adjust_logits, []
 
-    def recorded(*args, **kw):
-        out = fn(*args, **kw)
-        record.append((out[0].clone(), out[1].clone()))
+    def adjust_top(logits, counts, gen, step_index):
+        out = adjust(logits, counts, gen, step_index)
+        top = out.topk(TOP_K, dim=-1)
+        step = torch.as_tensor(step_index, device=out.device).expand(out.shape[0])
+        tops.append((step.to("cpu", copy=True), top.indices.cpu(), top.values.cpu()))
         return out
 
-    saved = streaming.decode_chunk, scheduler.decode_chunk
+    def recorded(*args, **kw):
+        tops.clear()
+        out = fn(*args, **kw)
+        record.append((out[0].clone(), out[1].clone(), list(tops) if plain else None))
+        return out
+
+    saved = streaming.decode_chunk, scheduler.decode_chunk, generation.adjust_logits
     streaming.decode_chunk = scheduler.decode_chunk = recorded
+    if plain:
+        generation.adjust_logits = adjust_top
     try:
         yield
     finally:
-        streaming.decode_chunk, scheduler.decode_chunk = saved
+        streaming.decode_chunk, scheduler.decode_chunk, generation.adjust_logits = saved
 
 
-def same_tokens(label: str, graph: list, plain: list) -> None:
-    """Graph replay and the plain loop emitted the same tokens in every decode."""
+def near_ties(label: str, spec: list, plain: list, stream_of) -> None:
+    """Greedy lookahead decoding against plain decoding of the same session,
+    both in bf16 on the card: token for token, except where a stream's two
+    runs first part, which must be a near-tie. The window forwards 9 rows
+    where a decode step forwards 1, and attends through K1 where the step
+    uses K2, so the two round the same activations differently (on an int8
+    cache a value on a rounding edge also takes the neighbouring code): a
+    stream may part where the plain run's best two logits lie closer than
+    that. There the lookahead's token must be among the plain run's top
+    ``TOP_K`` at that step, its logit at most ``TIE_ULPS`` bf16 steps (2^-7
+    relative each) below the best. A stream that parted is not compared
+    further (its history differs). ``plain`` is the eager plain loop's
+    record (with the logits' tops), ``stream_of(decode, row)`` names the
+    stream a decode's row belongs to."""
+    parted, rows, same = {}, 0, 0
+    for d, ((ts, ns, _), (tp, np_, tops)) in enumerate(zip(spec, plain)):
+        for r in range(tp.shape[0]):
+            stream = stream_of(d, r)
+            if stream in parted:
+                continue
+            rows += 1
+            a, b = tp[r, :int(np_[r])].tolist(), ts[r, :int(ns[r])].tolist()
+            if a == b:
+                same += 1
+                continue
+            p = next(i for i in range(min(len(a), len(b))) if a[i] != b[i])
+            # the last selection at position p decided the plain run's token
+            step, ids, values = next(t for t in reversed(tops) if int(t[0][r]) == p)
+            ids, values = ids[r].tolist(), values[r].tolist()
+            limit = TIE_ULPS * 2 ** -7 * abs(values[0])
+            below = values[0] - values[ids.index(b[p])] if b[p] in ids else float("inf")
+            parted[stream] = (d, r, p, a[p], b[p], values[0] - values[1], below)
+            log(f"  {label}: decode {d} row {r} parts at token {p}: plain {a[p]}, lookahead {b[p]} "
+                f"(plain's top two {values[0] - values[1]:.4f} apart; the lookahead's token "
+                f"{below:.4f} below the best, limit {limit:.4f})")
+            if not below <= limit:
+                raise AssertionError(f"{label}: decode {d} row {r} token {p}: the lookahead's "
+                                     f"{b[p]} is {below} below the plain run's best, past "
+                                     f"{limit}: not a near-tie")
+    log(f"  {label}: lookahead and plain decoding token-identical in {same} of {rows} decoded "
+        f"rows; {len(parted)} streams parted at a near-tie")
+    if len(spec) != len(plain):
+        raise AssertionError(f"{label}: {len(spec)} lookahead decodes against {len(plain)} plain")
+
+
+def same_tokens(label: str, graph: list, plain: list,
+                what: str = "graph replay and the eager plain loop") -> None:
+    """Two runs (``what``) emitted the same tokens in every decode."""
     import torch
 
     if len(graph) != len(plain) or not all(
             torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(graph, plain)):
-        raise AssertionError(f"{label}: graph replay and the eager plain loop emit different "
-                             f"tokens")
+        raise AssertionError(f"{label}: {what} emit different tokens")
     n = sum(int(x[1].sum()) for x in graph)
-    log(f"  {label}: graph replay and the eager plain loop token-identical over {len(graph)} "
-        f"decodes ({n} tokens)")
+    log(f"  {label}: {what} token-identical over {len(graph)} decodes ({n} tokens)")
 
 
-def run_twice(label: str, model, counts_of, session, walls_of) -> tuple[dict, list]:
+def run_twice(label: str, model, counts_of, session, walls_of) -> tuple[dict, object, list]:
     """``session(plain)`` through the graphs and through the eager plain
     loop, each from a fresh state on the same model: launch counts (reset
     just before, read just after), walls (the run's, and ``walls_of`` its
     result's chunks or ticks) and captures of each run; then the graphs'
     once more under the profiler for the device's busy time. Fails
     unless the two emit the same tokens and launch the same kernels as
-    often. Returns the graph run's counts and the session's result."""
+    often. Returns the graph run's counts, the session's result and the
+    eager plain loop's record (the same tokens, and the logits' tops)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -946,14 +1050,117 @@ def run_twice(label: str, model, counts_of, session, walls_of) -> tuple[dict, li
     busy = busy_seconds(prof)
     log(f"  {label} graph replay (profiled): wall {wall:.3f} s, device busy {busy:.3f} s, idle "
         f"share {1 - busy / wall:.3f}")
+    return runs[False][0], runs[False][2], runs[True][1]
+
+
+@contextlib.contextmanager
+def lookahead(plain: bool, record: list):
+    """Every lookahead decode of the engine and the pool goes through
+    ``decode_chunk_lookahead`` (the card's captured lookahead step) or, with
+    ``plain``, the eager loop ``decode_chunk_lookahead_plain``, called by
+    name; each call's tokens and counts of generated tokens are appended to
+    ``record``."""
+    from livecc_tpu_torch.engine import speculative, streaming
+    from livecc_tpu_torch.serve import scheduler
+
+    fn = (speculative.decode_chunk_lookahead_plain if plain
+          else speculative.decode_chunk_lookahead)
+
+    def recorded(*args, **kw):
+        out = fn(*args, **kw)
+        record.append((out[0].clone(), out[1].clone(), None))
+        return out
+
+    saved = streaming.decode_chunk_lookahead, scheduler.decode_chunk_lookahead
+    streaming.decode_chunk_lookahead = scheduler.decode_chunk_lookahead = recorded
+    try:
+        yield
+    finally:
+        streaming.decode_chunk_lookahead, scheduler.decode_chunk_lookahead = saved
+
+
+def run_spec_twice(label: str, model, session, walls_of, plain_record: list,
+                   streams) -> tuple:
+    """``session()`` with lookahead decoding through the captured lookahead
+    step and through the eager lookahead loop, each from a fresh state on
+    the same model, launch counts reset just before and read just after.
+    Fails unless the two emit the same tokens, launch every kernel as often
+    (replays counted), the graphs read one stop flag per window (at most
+    one a window or capture, at least that less one a decode), and the
+    tokens are the plain decoding's of the same session (``plain_record``)
+    up to near-ties (``near_ties``; ``streams(result)`` gives its
+    ``stream_of``). Returns the graph run's counts and result."""
+    import torch
+
+    from livecc_tpu_torch.engine.graphs import graphs_for
+    from livecc_tpu_torch.ops import build
+
+    graphs = graphs_for(model, model.cfg)
+    runs = {}
+    for plain in (False, True):
+        record: list = []
+        graphs.reset_stats()
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        with lookahead(plain, record):
+            result = session()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.launch_counts)
+        st = graphs.stats()
+        name = "eager lookahead loop" if plain else "lookahead graphs"
+        log(f"  {label} {name}: wall {wall:.3f} s ({walls_of(result)}), {st['captures']} captures "
+            f"in {st['capture_seconds']:.3f} s, {st['windows']} window replays, {st['replays']} "
+            f"decode replays, {st['host_reads']} host reads; launches {counts}")
+        runs[plain] = (counts, record, result, st)
+    same_tokens(label, runs[False][1], runs[True][1],
+                "the lookahead graphs and the eager lookahead loop")
+    if runs[False][0] != runs[True][0]:
+        raise AssertionError(f"{label}: launch counts differ, lookahead graphs {runs[False][0]} "
+                             f"against the eager lookahead loop {runs[True][0]}")
+    st, decodes = runs[False][3], len(runs[False][1])
+    steps = st["windows"] + st["captures"]
+    if not (st["windows"] > 0 and st["replays"] == 0
+            and steps - decodes <= st["host_reads"] <= steps):
+        raise AssertionError(f"{label}: not one captured lookahead step replayed with one host "
+                             f"read each over {decodes} decodes: {st}")
+    log(f"  {label}: launch counts equal, replays counted; {st['host_reads']} host reads for "
+        f"{steps} lookahead steps over {decodes} decodes")
+    near_ties(label, runs[False][1], plain_record, streams(runs[False][2]))
     return runs[False][0], runs[False][2]
 
 
-def phase_main(cfg, model) -> dict:
+def step_replay_ms(model, cache, state_type) -> float:
+    """Device time of one replay of the captured step of ``model`` over
+    ``cache`` whose state is a ``state_type``, after its chunk ended (no row
+    advances, so every replay does the same work at the same depth):
+    ``kernel_timing.replay_ms`` over 14 replays from step index 0, since a
+    decode step writes its token column at the index, which ends at
+    max_new_tokens (16)."""
+    from livecc_tpu_torch.engine.generation import DecodeState
+    from livecc_tpu_torch.engine.graphs import graphs_for
+    from livecc_tpu_torch.tools.kernel_timing import replay_ms
+
+    found = [g for g in graphs_for(model, model.cfg).graphs.values()
+             if g.owner() is cache.k and isinstance(g.state, state_type) and g.graph is not None]
+    if len(found) != 1:
+        raise AssertionError(f"expected one captured {state_type.__name__} step on the cache, "
+                             f"found {len(found)}")
+    if isinstance(found[0].state, DecodeState):
+        found[0].state.step.zero_()
+    return replay_ms(found[0].graph, replays=12, warmup=2)
+
+
+def phase_main(cfg, model) -> tuple[dict, list, float]:
     """The 7B single stream, 5 chunks, through the decode graphs and through
-    the eager plain loop (``run_twice``)."""
+    the eager plain loop (``run_twice``); then the device time of one replay
+    of its decode step at the session's last depth (``replay_ms``). Returns
+    the graph run's launch counts, the eager plain loop's record and that
+    time."""
     import torch
 
+    from livecc_tpu_torch.engine.generation import DecodeState
     from livecc_tpu_torch.ops import build
     from livecc_tpu_torch.tools import session
 
@@ -967,8 +1174,8 @@ def phase_main(cfg, model) -> dict:
     torch.cuda.reset_peak_memory_stats()
     chunk_walls = lambda r: "chunks " + ", ".join(f"{c.seconds * 1e3:.1f}"
                                                    for c in r[0].chunk_log) + " ms"
-    counts, (eng, state, out) = run_twice("main", model, lambda: dict(build.launch_counts), run,
-                                          chunk_walls)
+    counts, (eng, state, out), record = run_twice("main", model, lambda: dict(build.launch_counts),
+                                                  run, chunk_walls)
     peak = torch.cuda.max_memory_allocated() / 2**30
     for (t_a, t_b, text), rec in zip(out, eng.chunk_log):
         log(f"  chunk {t_a:4.1f}-{t_b:4.1f}s  wall {rec.seconds * 1e3:9.2f} ms  prompt "
@@ -984,14 +1191,21 @@ def phase_main(cfg, model) -> dict:
     missing = [name for name in MAIN_KERNELS if counts.get(name, 0) <= 0]
     if missing:
         raise AssertionError(f"the main path never launched {missing}")
-    return counts
+    step_ms = step_replay_ms(model, state.cache, DecodeState)
+    log(f"  decode step replay at depth {int(state.cache.offset[0])}, B=1: {step_ms:.3f} ms "
+        f"device time")
+    return counts, record, step_ms
 
 
-def phase_pool(cfg, model) -> dict:
+def phase_pool(cfg, model) -> tuple[dict, list, float]:
     """The 7B in the serving pool: 8 streams, int8 KV, 4 ticks, through the
-    decode graphs and through the eager plain loop (``run_twice``)."""
+    decode graphs and through the eager plain loop (``run_twice``); then the
+    device time of one replay of the pool's decode step at its last depths.
+    Returns the graph run's launch counts, the eager plain loop's record and
+    that time."""
     import torch
 
+    from livecc_tpu_torch.engine.generation import DecodeState
     from livecc_tpu_torch.ops import build
     from livecc_tpu_torch.tools import session
 
@@ -1009,9 +1223,9 @@ def phase_pool(cfg, model) -> dict:
     torch.cuda.reset_peak_memory_stats()
     tick_walls = lambda r: (f"warmup {r[1] * 1e3:.1f} ms, ticks "
                             + ", ".join(f"{w * 1e3:.1f}" for w in r[3]) + " ms")
-    counts, (server, warm, out, walls) = run_twice("pool", model,
-                                                   lambda: dict(build.launch_counts), run,
-                                                   tick_walls)
+    counts, (server, warm, out, walls), record = run_twice("pool", model,
+                                                           lambda: dict(build.launch_counts), run,
+                                                           tick_walls)
     peak = torch.cuda.max_memory_allocated() / 2**30
     pool = server.pool_caches
     kv_gb = (pool.k.nbytes + pool.v.nbytes) / 1e9
@@ -1039,6 +1253,158 @@ def phase_pool(cfg, model) -> dict:
     missing = [name for name in POOL_KERNELS if counts.get(name, 0) <= 0]
     if missing:
         raise AssertionError(f"the pool path never launched {missing}")
+    step_ms = step_replay_ms(model, pool, DecodeState)
+    log(f"  decode step replay at depths {pool.offset.tolist()}, B=8: {step_ms:.3f} ms device time")
+    return counts, record, step_ms
+
+
+def pool_streams(server):
+    """``stream_of(decode, row)`` of a ``session.run_pool`` run after a warmup:
+    decodes 0 and 1 are the warmup's (its solo init chunk, its pool step),
+    then one solo init decode per stream in stream order, then the ticks,
+    whose row r is the stream in slot r."""
+    sids = sorted(server._streams)
+    in_slot = {server._streams[sid].slot: sid for sid in sids}
+
+    def stream_of(d, r):
+        if d < 2:
+            return ("warmup", d, r)
+        return sids[d - 2] if d < 2 + len(sids) else in_slot.get(r, ("idle", r))
+
+    return stream_of
+
+
+class AdversarialDraft:
+    """Drafts that always miss: ``k`` copies of one id the session never emits."""
+
+    def __init__(self, k: int, token: int):
+        self.k, self.token = k, token
+
+    def propose(self, ids, pad_token_id=0):
+        return [self.token] * self.k
+
+
+def phase_main_spec(cfg, model, plain_record: list, decode_ms: float) -> tuple[dict, dict]:
+    """The 7B single stream of ``main`` with speculative decoding
+    (``session.SPEC``: fused lookahead, 8 drafts, 3-grams, controller off),
+    through the captured lookahead step and through the eager lookahead
+    loop (``run_spec_twice``): the tokens must be the plain decoding's up to
+    near-ties.
+    Then one lookahead-step replay at the session's last depth against
+    ``main``'s decode step there (the window premium at B = 1), and the
+    host-drafted loop over the first two chunks with drafts that always
+    miss (the worst case; its tokens held to the plain decoding's the same
+    way). Returns the lookahead graphs' launch counts and the worst case's."""
+    import torch
+
+    from livecc_tpu_torch.engine import SpecConfig, streaming
+    from livecc_tpu_torch.engine.speculative import LookaheadState
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import session
+
+    frames = session.main_frames()
+
+    def run():
+        eng = session.new_engine(cfg, model, session.SPEC)
+        state = eng.new_stream()
+        return eng, state, session.run_session(eng, frames, state=state)
+
+    def chunks(r):
+        return ", ".join(f"{c.seconds * 1e3:.1f} ms / {c.windows} windows / {c.generated_tokens} "
+                         f"tokens" for c in r[0].chunk_log)
+
+    counts, (eng, state, _) = run_spec_twice("main_spec", model, run, chunks, plain_record,
+                                             lambda _: lambda d, r: 0)
+    windows = sum(c.windows for c in eng.chunk_log)
+    tokens = sum(c.generated_tokens for c in eng.chunk_log)
+    log(f"  main_spec: {windows} windows for {tokens} tokens ({tokens / windows:.2f} tokens a "
+        f"window, 1 seed token a chunk included)")
+    missing = [name for name in MAIN_SPEC_KERNELS if counts.get(name, 0) <= 0]
+    if missing:
+        raise AssertionError(f"the main_spec path never launched {missing}")
+    window_ms = step_replay_ms(model, state.cache, LookaheadState)
+    log(f"  window premium, B=1: lookahead step replay {window_ms:.3f} ms against decode step "
+        f"replay {decode_ms:.3f} ms at depth {int(state.cache.offset[0])}: "
+        f"{window_ms / decode_ms:.3f}x")
+    del eng, state
+    # the worst case: host-drafted windows whose drafts never match
+    emitted = {int(t) for tokens, *_ in plain_record for t in tokens.flatten()}
+    miss = min(set(range(cfg.text.vocab_size)) - emitted)
+    eng = session.new_engine(cfg, model, SpecConfig(k_draft=session.SPEC.k_draft, fused=False))
+    eng.spec_draft_source = AdversarialDraft(session.SPEC.k_draft, miss)
+    n_frames = session.INIT_FRAMES + session.STEADY_FRAMES
+    host_loop, record = streaming.speculative_decode_chunk, []
+
+    def recorded(*args, **kw):
+        generated, windows = host_loop(*args, **kw)
+        tokens = torch.full((1, session.NEW_TOKENS), cfg.pad_token_id, dtype=torch.int32)
+        tokens[0, :len(generated)] = torch.tensor(generated, dtype=torch.int32)
+        record.append((tokens, torch.tensor([len(generated)]), None))
+        return generated, windows
+
+    torch.cuda.synchronize()
+    build.reset_launch_counts()
+    streaming.speculative_decode_chunk = recorded
+    try:
+        t0 = time.perf_counter()
+        session.run_session(eng, frames[:n_frames])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        streaming.speculative_decode_chunk = host_loop
+    adv_counts = dict(build.launch_counts)
+    log(f"  worst case (host-drafted, drafts of id {miss} always miss): wall {wall:.3f} s, chunks "
+        + ", ".join(f"{c.seconds * 1e3:.1f} ms / {c.windows} windows / {c.generated_tokens} tokens"
+                    for c in eng.chunk_log) + f"; launches {adv_counts}")
+    near_ties("worst case", record, plain_record[:len(record)], lambda d, r: 0)
+    if len(record) != 2 or any(c.windows != c.generated_tokens for c in eng.chunk_log):
+        raise AssertionError("worst case: not two chunks, or a draft was accepted")
+    return counts, adv_counts
+
+
+def phase_pool_spec(cfg, model, plain_record: list, decode_ms: float) -> dict:
+    """The pool of ``pool`` with lookahead decoding (``session.SPEC``)
+    through the captured lookahead step and through the eager lookahead
+    loop (``run_spec_twice``): every decode's tokens must be the plain
+    decode graphs'. Then one lookahead-step replay at the pool's last
+    depths against ``pool``'s decode step (the window premium at B = 8).
+    Returns the lookahead graphs' launch counts."""
+    import torch
+
+    from livecc_tpu_torch.engine.speculative import LookaheadState
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import session
+
+    def run():
+        server = session.pool_server(cfg, model, spec=session.SPEC)
+        t0 = time.perf_counter()
+        server.warmup([(session.HEIGHT, session.WIDTH)])
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        server.engine.metrics.reset()
+        build.reset_launch_counts()           # the served ticks only
+        out, walls = session.run_pool(server)
+        return server, warm, out, walls
+
+    def ticks(r):
+        tpw = r[0].engine.metrics.summary("spec_tokens_per_window")
+        return (f"warmup {r[1] * 1e3:.1f} ms, ticks " + ", ".join(f"{w * 1e3:.1f}" for w in r[3])
+                + f" ms; tokens a window per stream in the steady ticks: mean {tpw.get('mean')}"
+                  f" (n={tpw.get('n')})")
+
+    counts, (server, warm, out, walls) = run_spec_twice("pool_spec", model, run, ticks,
+                                                        plain_record, lambda r: pool_streams(r[0]))
+    if len(out) != session.POOL_STREAMS or any(
+            len(rows) != 1 + session.POOL_STEADY_TICKS for rows in out.values()):
+        raise AssertionError("pool_spec: a stream is missing chunks of text")
+    missing = [name for name in POOL_SPEC_KERNELS if counts.get(name, 0) <= 0]
+    if missing:
+        raise AssertionError(f"the pool_spec path never launched {missing}")
+    pool = server.pool_caches
+    window_ms = step_replay_ms(model, pool, LookaheadState)
+    log(f"  window premium, B=8: lookahead step replay {window_ms:.3f} ms against decode step "
+        f"replay {decode_ms:.3f} ms at depths {pool.offset.tolist()}: "
+        f"{window_ms / decode_ms:.3f}x")
     return counts
 
 
@@ -1144,16 +1510,22 @@ def main() -> int:
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"7B init: {n_params / 1e9:.3f} B params bf16 in {time.perf_counter() - t0:.1f} s")
-    main_counts = run_phase("main", lambda: phase_main(cfg, model))
-    pool_counts = run_phase("pool", lambda: phase_pool(cfg, model))
-    del model                      # free the serving 7B before the training model
+    main_counts, main_record, main_step_ms = run_phase("main", lambda: phase_main(cfg, model))
+    pool_counts, pool_record, pool_step_ms = run_phase("pool", lambda: phase_pool(cfg, model))
+    spec_counts, adversarial_counts = run_phase(
+        "main_spec", lambda: phase_main_spec(cfg, model, main_record, main_step_ms))
+    pool_spec_counts = run_phase(
+        "pool_spec", lambda: phase_pool_spec(cfg, model, pool_record, pool_step_ms))
+    del model, main_record, pool_record      # free the serving 7B before the training model
     gc.collect()
     torch.cuda.empty_cache()
     run_phase("tiny_train", phase_tiny_train)
     train_counts = run_phase("train", phase_train)
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": sum(c.get(name, 0) for c in (main_counts, pool_counts, train_counts)),
+        "launches": sum(c.get(name, 0) for c in (main_counts, pool_counts, spec_counts,
+                                                 adversarial_counts, pool_spec_counts,
+                                                 train_counts)),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"],
         "plain_ms": results[name]["plain_ms"],

@@ -49,3 +49,15 @@ def compact_cache_row(cache: KVCache, row: int, sink: int, keep: int) -> KVCache
     offset[row] = torch.clamp(off, max=sink + keep).to(torch.int32)
     cache.offset = offset
     return cache
+
+
+@torch.no_grad()
+def compact_token_row(hist: torch.Tensor, off, row: int, sink: int, keep: int) -> torch.Tensor:
+    """The same eviction on row ``row`` of the token-history buffer (the
+    id-shadow of the KV cache that lookahead decoding drafts from,
+    ``engine/speculative.py``), in place: ``hist[row, p]`` stays the id of
+    cache position p, since both share ``_evict_index_map``. ``off`` is the
+    row's depth before compaction. Returns ``hist``."""
+    off = torch.as_tensor(off, dtype=torch.long, device=hist.device)
+    hist[row] = hist[row].index_select(0, _evict_index_map(off, sink, keep, hist.shape[-1]))
+    return hist

@@ -1,26 +1,34 @@
-"""The card's decode loop: one decode step captured as a CUDA graph, replayed.
+"""The card's decode loops: one step captured as a CUDA graph, replayed.
 
-JAX runs ``decode_chunk`` as one jitted ``lax.while_loop`` that never
-returns to the host between tokens. The port's counterpart: for each key
-(``graph_key``: batch, cache length and dtype, ``GenerationParams``, the
-sampling generator, and the storage of the cache and the weights, whose
-addresses a graph bakes in) one ``decode_step`` over a fixed
-``DecodeState`` is captured once and then replayed up to
-``max_new_tokens - 1`` times a chunk. Per chunk:
+JAX runs ``decode_chunk`` and ``decode_chunk_lookahead`` each as one jitted
+``lax.while_loop`` that never returns to the host between steps. The
+port's counterpart: for each key (``graph_key``: batch, cache length and
+dtype, ``GenerationParams``, the sampling generator, the storage of the
+cache and the weights, whose addresses a graph bakes in, and the mode:
+plain decode, or lookahead with its ``SpecConfig`` and the address of its
+``hist`` buffer) one step over a fixed state is captured once and then
+replayed up to ``max_new_tokens - 1`` times a chunk: a ``decode_step``
+over a ``DecodeState``, or a ``lookahead_step`` (one verify window) over
+a ``LookaheadState`` (``engine/speculative.py``). A lookahead window emits
+at least one token for every running row, so ``max_new_tokens - 1``
+windows after the seed token bound a chunk as they bound the decode steps.
+Per chunk:
 
   * the prologue copies the chunk's starting state into the key's buffers
-    (device copies only);
+    (device work only);
   * the first chunk of a key runs step 0 eagerly on a side stream (the
     warm-up capture needs; it is real work and launches are counted), then
     captures the step there; every later step, and every step of later
     chunks, is one replay;
-  * after each replay but the last the host reads one flag, "every row has
-    stopped", through a non-blocking copy into pinned memory and a CUDA
-    event it polls, and stops replaying once it is set. That is the only host
-    read inside a chunk. Step 0 always runs: where every row starts stopped
-    (idle pool slots only) it is one extra step, which in greedy decoding
-    changes no output (a frozen offset, pad tokens, counts + 0);
-  * the epilogue samples the last token eagerly.
+  * after each replay but the last the host reads one flag, "no row runs
+    on", through a non-blocking copy into pinned memory and a CUDA event it
+    polls, and stops replaying once it is set. That is the only host read
+    inside a chunk. Step 0 always runs: where no row runs on from the start
+    (idle pool slots only, or every row stopped at its seed token) it is
+    one extra step, which in greedy decoding changes no output (a frozen
+    offset, pad tokens, counts + 0; a lookahead step writes only at and
+    beyond each row's offset and counts no window);
+  * the epilogue (the sample-only last token of plain decode) runs eagerly.
 
 The kernels' wrappers count launches in Python (``build.launch_counts``),
 so a replay adds nothing by itself: each graph keeps the counts its capture
@@ -30,8 +38,9 @@ registers the caller's generator, so each replay draws new numbers.
 
 A graph of a cache that is gone (grown into new buffers, a finished
 stream's, a warm-up's scratch pool) is dropped at the next lookup: each
-graph holds a weak reference to its cache's K buffer. A compaction writes
-the cache in place (``compact_cache_row``), so its graph stays valid.
+graph holds a weak reference to its cache's K buffer, and a lookahead graph
+also to its ``hist``. A compaction writes the cache and ``hist`` in place
+(``compact_cache_row``, ``compact_token_row``), so its graph stays valid.
 There is no fallback: a capture or a replay that fails raises.
 """
 
@@ -48,21 +57,27 @@ import torch
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.engine.generation import (
     DecodeState, GenerationParams, decode_epilogue, decode_prologue, decode_step)
+from livecc_tpu_torch.engine.speculative import (
+    LookaheadState, SpecConfig, lookahead_epilogue, lookahead_prologue, lookahead_step)
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL
 from livecc_tpu_torch.models.qwen2_vl.text import KVCache
 from livecc_tpu_torch.ops import build
 
 
 def graph_key(model: Qwen2VL, gen: GenerationParams, cache: KVCache, batch: int,
-              generator: Optional[torch.Generator] = None) -> tuple:
-    """What a captured decode step depends on: batch, cache length and
-    dtype, the generation settings, the generator it draws from (sampling
-    only), and the addresses of the cache's buffers and of the weights."""
+              generator: Optional[torch.Generator] = None, spec: Optional[SpecConfig] = None,
+              hist: Optional[torch.Tensor] = None) -> tuple:
+    """What a captured step depends on: batch, cache length and dtype, the
+    generation settings, the generator it draws from (sampling only), the
+    addresses of the cache's buffers and of the weights, and the mode: a
+    plain decode step, or (``spec`` given) a lookahead step with its
+    settings and the address of its ``hist``."""
     buffers = tuple(0 if t is None else t.data_ptr()
                     for t in (cache.k, cache.v, cache.k_scale, cache.v_scale))
     weights = hash(tuple(p.data_ptr() for p in model.parameters()))
+    mode = ("decode",) if spec is None else ("lookahead", spec, hist.data_ptr())
     return (batch, cache.max_len, cache.k.dtype, gen, generator if gen.do_sample else None,
-            buffers, weights)
+            buffers, weights, mode)
 
 
 def run_steps(n_steps: int, step, all_stopped) -> int:
@@ -78,12 +93,16 @@ def run_steps(n_steps: int, step, all_stopped) -> int:
 
 @dataclasses.dataclass
 class StepGraph:
-    """One captured decode step over its own ``DecodeState``."""
+    """One captured step over its own state (``DecodeState`` or ``LookaheadState``)."""
 
-    state: DecodeState
+    state: DecodeState | LookaheadState
     owner: weakref.ref                        # the cache's K buffer
+    hist: Optional[weakref.ref] = None        # a lookahead step's hist
     graph: Optional[torch.cuda.CUDAGraph] = None
     launches: collections.Counter = dataclasses.field(default_factory=collections.Counter)
+
+    def stale(self) -> bool:
+        return self.owner() is None or (self.hist is not None and self.hist() is None)
 
     def replay(self) -> None:
         self.graph.replay()
@@ -91,10 +110,11 @@ class StepGraph:
 
 
 class DecodeGraphs:
-    """The captured decode steps of one model on the card, by ``graph_key``.
+    """The captured steps of one model on the card, by ``graph_key``.
 
-    ``captures``, ``capture_seconds``, ``replays`` and ``host_reads`` count
-    what the decode loop did since the last ``reset_stats``."""
+    ``captures``, ``capture_seconds``, ``replays`` (of decode steps),
+    ``windows`` (replays of lookahead steps) and ``host_reads`` count what
+    the decode loops did since the last ``reset_stats``."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -108,28 +128,37 @@ class DecodeGraphs:
         self.captures = 0
         self.capture_seconds = 0.0
         self.replays = 0
+        self.windows = 0
         self.host_reads = 0
 
     def stats(self) -> dict:
         return {"graphs": len(self.graphs), "captures": self.captures,
                 "capture_seconds": self.capture_seconds, "replays": self.replays,
-                "host_reads": self.host_reads}
+                "windows": self.windows, "host_reads": self.host_reads}
 
     def _drop_stale(self) -> None:
-        for key in [k for k, g in self.graphs.items() if g.owner() is None]:
+        for key in [k for k, g in self.graphs.items() if g.stale()]:
             del self.graphs[key]
 
     def _lookup(self, model: Qwen2VL, gen: GenerationParams, cache: KVCache, batch: int,
-                vocab: int, generator) -> StepGraph:
+                vocab: int, generator, spec: Optional[SpecConfig] = None,
+                hist: Optional[torch.Tensor] = None) -> StepGraph:
         self._drop_stale()
-        key = graph_key(model, gen, cache, batch, generator)
+        key = graph_key(model, gen, cache, batch, generator, spec, hist)
         entry = self.graphs.get(key)
-        if entry is None or entry.owner() is not cache.k:
-            state = DecodeState.empty(batch, vocab, gen.max_new_tokens, cache.k.device)
-            entry = self.graphs[key] = StepGraph(state, weakref.ref(cache.k))
+        if entry is None or entry.owner() is not cache.k or (
+                hist is not None and entry.hist() is not hist):
+            dev = cache.k.device
+            if spec is None:
+                entry = StepGraph(DecodeState.empty(batch, vocab, gen.max_new_tokens, dev),
+                                  weakref.ref(cache.k))
+            else:
+                entry = StepGraph(LookaheadState.empty(batch, vocab, gen.max_new_tokens, dev),
+                                  weakref.ref(cache.k), weakref.ref(hist))
+            self.graphs[key] = entry
         return entry
 
-    def _all_stopped(self, st: DecodeState) -> bool:
+    def _all_stopped(self, st: DecodeState | LookaheadState) -> bool:
         """The one host read of a step: the stop flag, copied into pinned
         memory behind the replay, read once an event after the copy has
         completed (polled, so no synchronizing call is made)."""
@@ -143,11 +172,9 @@ class DecodeGraphs:
         self.host_reads += 1
         return bool(self._flag)
 
-    def _capture(self, entry: StepGraph, model: Qwen2VL, gen: GenerationParams,
-                 cache: KVCache, generator) -> None:
-        """Step 0 eagerly on a side stream (the warm-up), then the step captured there."""
-        step = lambda: decode_step(model, self.cfg, gen, entry.state, cache, generator)
-        dev = cache.k.device
+    def _capture(self, entry: StepGraph, step, dev: torch.device, gen: GenerationParams,
+                 generator) -> None:
+        """``step()`` eagerly on a side stream (the warm-up), then captured there."""
         if self._side is None:
             self._side = torch.cuda.Stream(dev)
         current = torch.cuda.current_stream(dev)
@@ -190,13 +217,38 @@ class DecodeGraphs:
 
         def step(_i: int) -> None:
             if entry.graph is None:
-                self._capture(entry, model, gen, cache, generator)
+                self._capture(entry, lambda: decode_step(model, self.cfg, gen, st, cache,
+                                                         generator),
+                              cache.k.device, gen, generator)
             else:
                 entry.replay()
                 self.replays += 1
 
         run_steps(gen.max_new_tokens - 1, step, lambda: self._all_stopped(st))
         return decode_epilogue(st, gen, cache, counts, generator)
+
+    def lookahead(self, model: Qwen2VL, gen: GenerationParams, spec: SpecConfig,
+                  prompt_ids: torch.Tensor, prompt_valid, logits0: torch.Tensor, cache: KVCache,
+                  hist: torch.Tensor, counts: torch.Tensor, rope_delta: torch.Tensor,
+                  generator: Optional[torch.Generator] = None, active=None) -> tuple:
+        """``decode_chunk_lookahead`` on the card: see the module docstring."""
+        batch, vocab = logits0.shape
+        entry = self._lookup(model, gen, cache, batch, vocab, generator, spec, hist)
+        st = entry.state
+        lookahead_prologue(st, gen, prompt_ids, prompt_valid, logits0, cache, hist, counts,
+                           rope_delta, generator, active)
+
+        def step(_i: int) -> None:
+            if entry.graph is None:
+                self._capture(entry, lambda: lookahead_step(model, self.cfg, gen, spec, st,
+                                                            cache, hist, generator),
+                              cache.k.device, gen, generator)
+            else:
+                entry.replay()
+                self.windows += 1
+
+        run_steps(gen.max_new_tokens - 1, step, lambda: self._all_stopped(st))
+        return lookahead_epilogue(st, cache, hist, counts)
 
 
 _GRAPHS: "weakref.WeakKeyDictionary[Qwen2VL, DecodeGraphs]" = weakref.WeakKeyDictionary()

@@ -1,8 +1,8 @@
 """LiveCC streaming engine: interleaved frame-chunk prefill + word decode.
 
-Port of ``livecc_tpu/engine/streaming.py:LiveCCEngine`` (without speculative
-decoding); the multi-stream pool built on it is ``serve/scheduler.py``. The
-per-chunk loop of the reference's ``LiveCCDemoInfer``: build
+Port of ``livecc_tpu/engine/streaming.py:LiveCCEngine``; the multi-stream
+pool built on it is ``serve/scheduler.py``. The per-chunk loop of the
+reference's ``LiveCCDemoInfer``: build
 the ``Time=a-b s`` turn, tokenize, prefill the chunk into one growing KV
 cache, decode up to ``max_new_tokens`` words. Kept exactly as in JAX, so the
 two engines emit the same tokens on the same weights:
@@ -14,6 +14,13 @@ two engines emit the same tokens on the same weights:
   * 6-frame (3 s) first chunk, then 2-frame (1 s) chunks; the system prompt
     is stripped from continuation turns; history continues from all but
     each chunk's final sampled token.
+
+``spec`` (``engine/speculative.py:SpecConfig``) turns on speculative
+decoding, whose greedy output is the same: fused lookahead
+(``decode_chunk_lookahead``, drafting from ``StreamState.hist``) with the
+adaptive controller choosing it or plain ``decode_chunk`` per chunk, or the
+host-drafted window loop (``fused=False``, draft source
+``spec_draft_source``, n-gram lookup by default).
 """
 
 from __future__ import annotations
@@ -28,8 +35,10 @@ import torch
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.data import chat
 from livecc_tpu_torch.data.tokenizer import Tokenizer
-from livecc_tpu_torch.engine.compact import compact_cache_row, plan_compaction
+from livecc_tpu_torch.engine.compact import compact_cache_row, compact_token_row, plan_compaction
 from livecc_tpu_torch.engine.generation import GenerationParams, decode_chunk, prefill
+from livecc_tpu_torch.engine.speculative import (
+    SpecConfig, SpecController, decode_chunk_lookahead, speculative_decode_chunk)
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, VisionInputs, get_rope_index
 from livecc_tpu_torch.models.qwen2_vl.text import KVCache
 from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
@@ -61,6 +70,9 @@ class StreamState:
     last_token: int = -1                     # prev chunk's dropped final token
     rope_delta: int | None = None            # set by the first prefill
     logits: torch.Tensor | None = None
+    # id-shadow of the KV cache ([1, Hcap] int32) that fused lookahead
+    # decoding drafts from (engine/speculative.py); allocated when spec.fused
+    hist: torch.Tensor | None = None
 
 
 @dataclasses.dataclass
@@ -73,6 +85,7 @@ class ChunkRecord:
     prompt_tokens: int
     generated_tokens: int
     dropped_tokens: int                      # evicted by compaction before this chunk
+    windows: int = 0                         # verify windows (0 where plain decode ran)
 
 
 class LiveCCEngine:
@@ -92,6 +105,7 @@ class LiveCCEngine:
         cache_dtype: torch.dtype | None = None,
         compact_keep: int | None = None,
         compact_sink_cap: int = 1024,
+        spec: SpecConfig | None = None,
     ):
         self.model = model
         self.cfg = cfg
@@ -109,6 +123,11 @@ class LiveCCEngine:
         # half the ceiling; 0 disables (the cache then doubles without bound).
         self.compact_keep = cache_len // 2 if compact_keep is None else compact_keep
         self.compact_sink_cap = compact_sink_cap
+        # speculative decoding; ``spec_draft_source`` overrides the host loop's
+        # n-gram lookup (tests inject oracle and adversarial drafts)
+        self.spec = spec
+        self.spec_draft_source = None
+        self._spec_ctl: SpecController | None = None
         self.sys_offset = chat.system_prompt_offset()
         # sampling draws (do_sample=True) come from one seeded generator
         self.generator = torch.Generator(device=self.device).manual_seed(0)
@@ -116,6 +135,12 @@ class LiveCCEngine:
         self.chunk_log: list[ChunkRecord] = []
         self._dropped = 0
         self.metrics = LatencyTracker()
+
+    def _spec_on(self) -> bool:
+        """The adaptive lookahead gate for this chunk (True: run lookahead)."""
+        if self._spec_ctl is None:
+            self._spec_ctl = SpecController(self.spec)
+        return self._spec_ctl.use_spec()
 
     # ------------------------------------------------------------------
     # state management
@@ -128,7 +153,10 @@ class LiveCCEngine:
         n = cache_len or self.cache_len
         cache = KVCache.zeros(self.cfg.text, 1, n, self.cache_dtype, self.device)
         counts = torch.zeros((1, self.cfg.text.vocab_size), dtype=torch.int32, device=self.device)
-        return StreamState(cache=cache, counts=counts, past_ids=[])
+        hist = None
+        if self.spec is not None and self.spec.fused:
+            hist = torch.full((1, n), -1, dtype=torch.int32, device=self.device)
+        return StreamState(cache=cache, counts=counts, past_ids=[], hist=hist)
 
     def _ensure_capacity(self, state: StreamState, needed: int) -> None:
         off = state.length
@@ -142,6 +170,8 @@ class LiveCCEngine:
                 old_off, self.compact_sink_cap, self.compact_keep, cap)
             if new_off < old_off and new_off + needed <= cap:
                 state.cache = compact_cache_row(state.cache, 0, sink, keep)
+                if state.hist is not None:
+                    compact_token_row(state.hist, old_off, 0, sink, keep)
                 state.rope_delta += old_off - new_off
                 state.length = new_off
                 self._dropped += old_off - new_off
@@ -165,6 +195,9 @@ class LiveCCEngine:
         c = state.cache
         state.cache = KVCache(grow(c.k, 3), grow(c.v, 3), c.offset,
                               grow(c.k_scale, 4), grow(c.v_scale, 4))
+        if state.hist is not None:
+            state.hist = torch.cat([state.hist, state.hist.new_full(
+                (1, new_cap - state.hist.shape[1]), -1)], dim=1)
 
     # ------------------------------------------------------------------
     # one chunk: text+frames -> generated words
@@ -217,9 +250,9 @@ class LiveCCEngine:
         if grid is not None:
             text = chat.expand_vision_placeholders(text, video_grid_thw=[grid])
         new_ids = self.tokenizer.encode(text)
-        generated = self._run_chunk(state, new_ids, vision, grid, gen)
+        generated, windows = self._run_chunk(state, new_ids, vision, grid, gen)
         self.chunk_log.append(ChunkRecord(time.perf_counter() - t_start, len(new_ids),
-                                          len(generated), self._dropped - dropped0))
+                                          len(generated), self._dropped - dropped0, windows))
         return self.tokenizer.decode(generated, skip_special_tokens=True)
 
     def _device_vision(self, frames: np.ndarray):
@@ -256,10 +289,14 @@ class LiveCCEngine:
         vision: Optional[VisionInputs],
         grid,
         gen: GenerationParams,
-    ) -> list[int]:
+    ) -> tuple[list[int], int]:
+        """Prefill and decode one chunk: (the generated ids, verify windows)."""
         n_new = len(new_ids)
         bucket = _bucket(n_new)
-        self._ensure_capacity(state, bucket + gen.max_new_tokens + 1)
+        # a verify window writes up to k_draft + 1 KVs past the accepted
+        # frontier; reserve one full window beyond the final emitted token
+        extra = (self.spec.k_draft + 2) if self.spec is not None else 0
+        self._ensure_capacity(state, bucket + gen.max_new_tokens + 1 + extra)
         ids = np.zeros((1, bucket), np.int32)
         ids[0, :n_new] = new_ids
         offset = state.length
@@ -282,26 +319,51 @@ class LiveCCEngine:
             ).astype(np.int32)
 
         dev = self.device
+        ids_dev = torch.from_numpy(ids).to(dev)
         logits0, state.cache, state.counts = prefill(
-            self.model, self.cfg, torch.from_numpy(ids).to(dev),
+            self.model, self.cfg, ids_dev,
             torch.from_numpy(np.ascontiguousarray(pos_pad)).to(dev),
             n_new, state.cache, vision=vision,
             counts=state.counts, remove_token=state.last_token,
         )
         state.logits = logits0
-        tokens, n_gen, state.cache, state.counts = decode_chunk(
-            self.model, self.cfg, gen, logits0, state.cache, state.counts,
-            torch.tensor([[state.rope_delta]], dtype=torch.int32, device=dev),
-            generator=self.generator,
-        )
-        n = int(n_gen[0])
-        generated = tokens[0, :n].cpu().tolist()
+        rope_delta = torch.tensor([[state.rope_delta]], dtype=torch.int32, device=dev)
+        windows = 0
+        if self.spec is not None and not self.spec.fused:
+            generated, windows = speculative_decode_chunk(
+                self, state, logits0, gen, self.spec, context_ids=state.past_ids + new_ids,
+                draft_source=self.spec_draft_source)
+        elif self.spec is not None and self._spec_on():
+            t0 = time.perf_counter()
+            tokens, n_gen, state.cache, state.hist, state.counts, n_iters = (
+                decode_chunk_lookahead(self.model, self.cfg, gen, self.spec, ids_dev, n_new,
+                                       logits0, state.cache, state.hist, state.counts,
+                                       rope_delta, generator=self.generator))
+            n = int(n_gen[0])
+            generated = tokens[0, :n].cpu().tolist()
+            windows = int(n_iters)
+            # the tokens on the host end the chunk's device work: an honest
+            # wall for the controller (the prefill included, as both modes pay it)
+            self._spec_ctl.observe_wall(True, time.perf_counter() - t0, n)
+            self._spec_ctl.observe(n, 1, windows)
+        else:
+            # plain decode; with spec on, the controller chose it this chunk
+            # (``hist`` goes stale: only later drafts suffer, never the output)
+            t0 = time.perf_counter()
+            tokens, n_gen, state.cache, state.counts = decode_chunk(
+                self.model, self.cfg, gen, logits0, state.cache, state.counts, rope_delta,
+                generator=self.generator,
+            )
+            n = int(n_gen[0])
+            generated = tokens[0, :n].cpu().tolist()
+            if self._spec_ctl is not None:
+                self._spec_ctl.observe_wall(False, time.perf_counter() - t0, n)
         # history keeps all but the final sampled token; its presence count
         # is removed at the next chunk's prefill
         state.past_ids = state.past_ids + new_ids + generated[:-1]
         state.length = offset + n_new + max(len(generated) - 1, 0)
         state.last_token = generated[-1] if generated else -1
-        return generated
+        return generated, windows
 
     # ------------------------------------------------------------------
     # offline evaluation API (reference demo/infer.py:244-310)

@@ -1,8 +1,7 @@
 """Multi-stream serving: a fixed-capacity slot pool on one model replica.
 
-Port of ``livecc_tpu/serve/scheduler.py`` (without lookahead decoding: the
-``spec`` option and its ``hist`` shadow stay in the JAX package). The target
-deployment is >= 8 concurrent 1 fps streams per replica:
+Port of ``livecc_tpu/serve/scheduler.py``. The target deployment is >= 8
+concurrent 1 fps streams per replica:
 
   * steady-state streams live in a **slot pool**: KV caches (int8 with
     lane-major scales, or bf16/fp32), presence counts and last-token markers
@@ -20,7 +19,11 @@ deployment is >= 8 concurrent 1 fps streams per replica:
     (one batch per resolution class);
   * streams joining mid-flight run their 6-frame init chunk solo through the
     single-stream engine (3D M-RoPE positions) in a small cache, then adopt
-    a pool slot by a prefix copy.
+    a pool slot by a prefix copy;
+  * with the engine's fused ``spec`` the tick decodes by lookahead
+    (``decode_chunk_lookahead``) over the pool's ``hist`` shadow, or by
+    plain decode where the adaptive controller (``SpecController``, fed
+    each tick's wall) measures that faster.
 
 Collection is synchronous (the JAX server collects on a background
 thread): the host drives the decode loop (on the card, one replay of the
@@ -43,8 +46,9 @@ import torch
 
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.data import chat
-from livecc_tpu_torch.engine.compact import compact_cache_row, plan_compaction
+from livecc_tpu_torch.engine.compact import compact_cache_row, compact_token_row, plan_compaction
 from livecc_tpu_torch.engine.generation import GenerationParams, decode_chunk, prefill
+from livecc_tpu_torch.engine.speculative import SpecConfig, SpecController, decode_chunk_lookahead
 from livecc_tpu_torch.engine.streaming import LiveCCEngine, StreamState, _bucket
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, VisionInputs
 from livecc_tpu_torch.models.qwen2_vl.text import KVCache
@@ -66,18 +70,22 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def make_pool_step(cfg: ModelConfig, gen: GenerationParams):
+def make_pool_step(cfg: ModelConfig, gen: GenerationParams, spec: SpecConfig | None = None):
     """One tick over the pool: batched prefill + batched decode.
 
     Every row sits at its own cache depth: positions, key validity and the
     cache writes use the per-row offsets, so the GEMMs stay batched and the
     attention kernels see the whole pool in one launch per layer. The
     prefill runs eagerly; on the card the decode replays the graph captured
-    over the pool's cache (``decode_chunk``)."""
+    over the pool's cache (``decode_chunk``), or with ``spec`` (a fused
+    ``SpecConfig``) the lookahead graph over the cache and ``hist``
+    (``decode_chunk_lookahead``). Returns ``(tokens, n_gen, cache, counts,
+    last_tokens, hist, n_iters)``; ``n_iters`` (verify windows) is None for
+    plain decode."""
 
     @torch.no_grad()
     def run(model: Qwen2VL, ids, valid, cache: KVCache, patches, cos, sin, seg, counts,
-            last_tokens, deltas, active, generator=None, group=None):
+            last_tokens, deltas, active, generator=None, group=None, hist=None):
         b, sb = ids.shape
         dev = ids.device
         pos = (torch.arange(sb, device=dev)[None, None, :]
@@ -86,26 +94,34 @@ def make_pool_step(cfg: ModelConfig, gen: GenerationParams):
         vision = VisionInputs(patches=patches, cos=cos, sin=sin, seg_ids=seg, group=group)
         logits0, cache, counts = prefill(model, cfg, ids, pos, valid, cache, vision=vision,
                                          counts=counts, remove_token=remove)
-        tokens, n_gen, cache, counts = decode_chunk(model, cfg, gen, logits0, cache, counts,
-                                                    deltas[:, None], generator, active=active)
+        n_iters = None
+        if spec is not None:
+            tokens, n_gen, cache, hist, counts, n_iters = decode_chunk_lookahead(
+                model, cfg, gen, spec, ids, valid, logits0, cache, hist, counts, deltas[:, None],
+                generator, active=active)
+        else:
+            tokens, n_gen, cache, counts = decode_chunk(model, cfg, gen, logits0, cache, counts,
+                                                        deltas[:, None], generator, active=active)
         rows = torch.arange(b, device=dev)
         new_last = torch.where(n_gen > 0, tokens[rows, (n_gen - 1).clamp(min=0).long()],
                                torch.full_like(n_gen, -1)).to(torch.int32)
         last_tokens = torch.where(active, new_last, last_tokens)
-        return tokens, n_gen, cache, counts, last_tokens
+        return tokens, n_gen, cache, counts, last_tokens, hist, n_iters
 
     return run
 
 
 @torch.no_grad()
 def _insert_slot(pool_cache: KVCache, pool_counts: torch.Tensor, pool_last: torch.Tensor,
-                 slot: int, cache: KVCache, counts: torch.Tensor, last: int) -> None:
+                 slot: int, cache: KVCache, counts: torch.Tensor, last: int,
+                 pool_hist: torch.Tensor | None = None, hist: torch.Tensor | None = None) -> None:
     """Copy a (possibly SHORTER) solo cache into pool slot ``slot``, in place.
 
     Init streams start with a small cache, so N joining streams never hold N
     full-length caches next to the pool; positions past the solo length keep
     whatever the slot held and sit beyond the row's kv_limit, so they are
-    never attended."""
+    never attended. ``hist`` (the lookahead id-shadow) rides along when
+    speculation is on."""
     s = cache.max_len
     pool_cache.k[:, slot, :, :s] = cache.k[:, 0]
     pool_cache.v[:, slot, :, :s] = cache.v[:, 0]
@@ -117,6 +133,8 @@ def _insert_slot(pool_cache: KVCache, pool_counts: torch.Tensor, pool_last: torc
     pool_cache.offset = offset
     pool_counts[slot] = counts[0]
     pool_last[slot] = last
+    if pool_hist is not None:
+        pool_hist[slot, :hist.shape[-1]] = hist[0]
 
 
 @dataclasses.dataclass
@@ -153,12 +171,32 @@ class StreamServer:
         self.compact_sink_cap = compact_sink_cap
         self._streams: dict[int, Stream] = {}
         self._next_sid = 0
-        self._step = make_pool_step(engine.cfg, gen)
+        self._steps: dict[bool, object] = {}             # use_spec -> pool step
+        self._spec_ctl: Optional[SpecController] = None
         # pool device state (lazy)
         self.pool_caches: Optional[KVCache] = None      # [L, C, ...]
         self.pool_counts: Optional[torch.Tensor] = None  # [C, V] int32
         self.pool_last: Optional[torch.Tensor] = None    # [C] int32
+        self.pool_hist: Optional[torch.Tensor] = None    # [C, Smax] int32 (lookahead)
         self._free: list[int] = list(range(capacity))
+
+    def _spec(self) -> SpecConfig | None:
+        """The engine's fused SpecConfig, or None (lookahead off)."""
+        sp = self.engine.spec
+        return sp if (sp is not None and sp.fused) else None
+
+    def _ctl(self) -> SpecController:
+        if self._spec_ctl is None:
+            self._spec_ctl = SpecController(self._spec())
+        return self._spec_ctl
+
+    def _get_step(self, use_spec: bool):
+        """The pool step of a decode mode (lookahead or plain)."""
+        key = bool(use_spec and self._spec() is not None)
+        if key not in self._steps:
+            self._steps[key] = make_pool_step(self.engine.cfg, self.gen,
+                                              self._spec() if key else None)
+        return self._steps[key]
 
     # -- stream lifecycle -------------------------------------------------
 
@@ -217,7 +255,8 @@ class StreamServer:
 
     def snapshot(self, path: str) -> None:
         """Persist every ADOPTED stream's session (KV cache row, scales,
-        presence counts, rope_delta, host metadata) to one .npz in the JAX
+        presence counts, the lookahead ``hist`` row, rope_delta, host metadata)
+        to one .npz in the JAX
         package's format: the same keys, floats as fp32 (npz has no bf16),
         and the cache dtype's numpy name in the meta. Streams still in their
         init chunk and pending (submitted, un-ticked) chunks are not saved."""
@@ -239,6 +278,8 @@ class StreamServer:
                 arrays[f"ks_{s.sid}"] = as_np(pool.k_scale[:, slot])
                 arrays[f"vs_{s.sid}"] = as_np(pool.v_scale[:, slot])
             arrays[f"counts_{s.sid}"] = as_np(self.pool_counts[slot])
+            if self.pool_hist is not None:
+                arrays[f"hist_{s.sid}"] = as_np(self.pool_hist[slot])
             meta.append({
                 "sid": s.sid, "resolution": list(s.resolution),
                 "query": s.query, "query_sent": s.query_sent,
@@ -296,6 +337,12 @@ class StreamServer:
             offset[slot] = off
             pool.offset = offset
             self.pool_counts[slot] = torch.from_numpy(data[f"counts_{old}"]).to(dev)
+            if self.pool_hist is not None and f"hist_{old}" in data:
+                h = torch.from_numpy(data[f"hist_{old}"]).to(dev)
+                n = min(h.shape[-1], self.pool_hist.shape[-1])
+                self.pool_hist[slot, :n] = h[:n]
+            # (a missing hist leaves -1s: drafts miss until new history
+            # accumulates; the output stays exact by acceptance)
             self.pool_last[slot] = m["last"]
             self._streams[sid] = Stream(
                 sid=sid, resolution=tuple(m["resolution"]), query=m["query"],
@@ -320,11 +367,13 @@ class StreamServer:
         before the first stream arrives: the kernels are built (on the GPU),
         the solo init path and one pool step per resolution run once on a
         scratch pool (the allocator, cuBLAS and the kernels see their serving
-        shapes; on the GPU the pool step captures its decode graph there),
-        and no stream state changes. When no pool exists yet the scratch
-        BECOMES the pool (offsets, counts and markers reset), so a pre-serve
-        warmup never holds two pools, and the first served tick replays the
-        graph captured here."""
+        shapes; on the GPU the pool step captures its decode graph there:
+        with lookahead on, the lookahead graph and, where the adaptive
+        controller can switch, the plain one too), and no stream state
+        changes. When no pool exists yet the scratch BECOMES the pool
+        (offsets, counts and markers reset), so a pre-serve warmup never holds
+        two pools, and the first served tick replays the graph captured
+        here."""
         engine = self.engine
         if engine.device.type == "cuda":
             build.load_library()
@@ -334,6 +383,10 @@ class StreamServer:
         scratch = KVCache.zeros(engine.cfg.text, c, engine.cache_len, engine.cache_dtype, dev)
         counts = torch.zeros((c, engine.cfg.text.vocab_size), dtype=torch.int32, device=dev)
         last = torch.full((c,), -1, dtype=torch.int32, device=dev)
+        spec = self._spec()
+        hist = (torch.full((c, engine.cache_len), -1, dtype=torch.int32, device=dev)
+                if spec is not None else None)
+        modes = [True] + ([False] if spec is not None and spec.adaptive else [])
         for (h, w) in resolutions:
             # (a) the solo init path, at the cache length add_stream uses
             st = engine.new_stream(cache_len=_init_cache_len(engine))
@@ -347,21 +400,26 @@ class StreamServer:
             vis = engine.vision_aux(grid)
             n_ids = len(engine.tokenizer.encode(self._prompt(3.0, 4.0, grid)))
             ids = torch.zeros((c, _bucket(n_ids)), dtype=torch.int32, device=dev)
-            self._step(engine.model, ids, torch.full((c,), n_ids, dtype=torch.int32, device=dev),
-                       scratch, staged.expand((c,) + staged.shape), vis.cos, vis.sin,
-                       vis.seg_ids, counts, last, torch.zeros((c,), dtype=torch.int32, device=dev),
-                       torch.ones((c,), dtype=torch.bool, device=dev), engine.generator,
-                       vis.group)
-            # reset per resolution so each sees a fresh-depth pool
-            scratch.offset = torch.zeros((c,), dtype=torch.int32, device=dev)
-            counts.zero_()
-            last.fill_(-1)
+            for use_spec in modes:
+                self._get_step(use_spec)(
+                    engine.model, ids, torch.full((c,), n_ids, dtype=torch.int32, device=dev),
+                    scratch, staged.expand((c,) + staged.shape), vis.cos, vis.sin, vis.seg_ids,
+                    counts, last, torch.zeros((c,), dtype=torch.int32, device=dev),
+                    torch.ones((c,), dtype=torch.bool, device=dev), engine.generator,
+                    vis.group, hist)
+                # reset so each step sees a fresh-depth pool
+                scratch.offset = torch.zeros((c,), dtype=torch.int32, device=dev)
+                counts.zero_()
+                last.fill_(-1)
+                if hist is not None:
+                    hist.fill_(-1)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         if adopt_scratch and self.pool_caches is None:
             # stale K/V contents sit beyond every row's kv_limit (offset 0)
             # and are never attended
             self.pool_caches, self.pool_counts, self.pool_last = scratch, counts, last
+            self.pool_hist = hist
 
     # -- pool management ----------------------------------------------------
 
@@ -375,6 +433,9 @@ class StreamServer:
         self.pool_counts = torch.zeros((self.capacity, engine.cfg.text.vocab_size),
                                        dtype=torch.int32, device=dev)
         self.pool_last = torch.full((self.capacity,), -1, dtype=torch.int32, device=dev)
+        if self._spec() is not None:
+            self.pool_hist = torch.full((self.capacity, engine.cache_len), -1,
+                                        dtype=torch.int32, device=dev)
 
     def _adopt(self, s: Stream) -> None:
         """Move a freshly initialised stream's cache into a pool slot."""
@@ -384,7 +445,7 @@ class StreamServer:
             raise RuntimeError("stream cache grew past the pool size; raise cache_len")
         slot = self._free.pop(0)
         _insert_slot(self.pool_caches, self.pool_counts, self.pool_last, slot,
-                     st.cache, st.counts, st.last_token)
+                     st.cache, st.counts, st.last_token, self.pool_hist, st.hist)
         s.slot = slot
         s.rope_delta = st.rope_delta
         s.length_ub = st.length
@@ -401,6 +462,8 @@ class StreamServer:
         if new_off >= old_off:
             return
         self.pool_caches = compact_cache_row(self.pool_caches, s.slot, sink, keep)
+        if self.pool_hist is not None:
+            compact_token_row(self.pool_hist, old_off, s.slot, sink, keep)
         s.rope_delta += old_off - new_off
         s.length_ub = new_off
         self.engine.metrics.record("cache_compaction_dropped_tokens", float(old_off - new_off))
@@ -416,12 +479,22 @@ class StreamServer:
         text = chat.strip_system_for_continuation(text, self.engine.sys_offset)
         return chat.expand_vision_placeholders(text, video_grid_thw=[grid])
 
-    def _collect(self, tokens_dev, n_gen_dev, slot_map: dict, dispatched: float) -> None:
-        """Copy one pool step's tokens to the host and surface each chunk's text."""
+    def _collect(self, tokens_dev, n_gen_dev, slot_map: dict, dispatched: float, n_iters_dev,
+                 used_spec: bool) -> None:
+        """Copy one pool step's tokens to the host and surface each chunk's
+        text; feed the step's wall (dispatch to tokens on the host: prefill
+        and decode, the same for both modes) to the adaptive controller."""
         metrics = self.engine.metrics
         tokens = tokens_dev.cpu().numpy()            # waits for the device
         n_gen = n_gen_dev.cpu().numpy()
         done = time.perf_counter()
+        emitted = int(sum(n_gen[slot] for slot in slot_map))
+        self._ctl().observe_wall(used_spec, done - dispatched, emitted)
+        if used_spec:
+            n_iters = int(n_iters_dev)
+            self._ctl().observe(emitted, len(slot_map), n_iters)
+            metrics.record("spec_tokens_per_window",
+                           emitted / max(len(slot_map), 1) / max(n_iters, 1))
         for slot, (sid, span, sub_ts) in slot_map.items():
             generated = tokens[slot, : int(n_gen[slot])].tolist()
             text = self.engine.tokenizer.decode(generated, skip_special_tokens=True)
@@ -476,11 +549,14 @@ class StreamServer:
         # would leave the tick half applied.
         max_bucket = 0
         charges: dict[int, int] = {}         # this tick's length growth per sid
+        # a verify window writes up to k_draft + 1 KVs past the accepted
+        # frontier: reserve that overhang in the guard
+        spec_extra = 0 if self._spec() is None else self._spec().k_draft + 1
         for group_preps in groups.values():
             bucket = _bucket(max(len(p["ids"]) for p in group_preps))
             max_bucket = max(max_bucket, bucket)
             for p in group_preps:
-                charges[p["s"].sid] = len(p["ids"]) + self.gen.max_new_tokens
+                charges[p["s"].sid] = len(p["ids"]) + self.gen.max_new_tokens + spec_extra
         for s in self._streams.values():
             if s.slot is None:
                 continue
@@ -522,11 +598,13 @@ class StreamServer:
             valid[s.slot] = len(p["ids"])
             deltas[s.slot] = s.rope_delta
             active[s.slot] = True
+        use_spec = self._ctl().use_spec()
         dispatched = time.perf_counter()
         to_dev = lambda a: torch.from_numpy(a).to(dev)
-        tokens, n_gen, self.pool_caches, self.pool_counts, self.pool_last = self._step(
+        (tokens, n_gen, self.pool_caches, self.pool_counts, self.pool_last, self.pool_hist,
+         n_iters) = self._get_step(use_spec)(
             engine.model, to_dev(ids), to_dev(valid), self.pool_caches, patches,
             vis.cos, vis.sin, vis.seg_ids, self.pool_counts, self.pool_last,
-            to_dev(deltas), to_dev(active), engine.generator, vis.group,
+            to_dev(deltas), to_dev(active), engine.generator, vis.group, self.pool_hist,
         )
-        return tokens, n_gen, slot_map, dispatched
+        return tokens, n_gen, slot_map, dispatched, n_iters, use_spec

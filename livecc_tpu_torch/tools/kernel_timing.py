@@ -9,6 +9,10 @@
   * ``graph_ms(fn)``: device time. 10 calls captured in one CUDA graph
     (their allocations come from the graph's pool), replayed 5 times
     between two events; no host work runs between the calls.
+  * ``replay_ms(graph)``: device time of one replay of a graph already
+    captured (the decode loops' steps, ``engine/graphs.py``): replays
+    enqueued back to back between two events; a graph launch enqueues in
+    microseconds, so the card runs them without a gap.
 
 Run as a script, by path, with the checkout to time first on
 ``PYTHONPATH``, it times that checkout's ``flash_decode`` (K2 and K2-int8),
@@ -52,6 +56,21 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def replay_ms(graph: torch.cuda.CUDAGraph, replays: int = 20, warmup: int = 2) -> float:
+    """Device milliseconds per replay of a captured ``graph``, ``replays``
+    replays back to back between two CUDA events."""
+    for _ in range(warmup):
+        graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays
 
 
 def graph_ms(fn, iters: int = 10, replays: int = 5) -> float:
@@ -122,8 +141,10 @@ def decode_cases():
 VIT_SHAPES = ((3, 880), (1, 880), (31, 544))
 VIT_HEADS, VIT_DIM = 16, 80
 # and its timed K1 shapes (Sq, offset, kv_limit) at B = 1 on layer 27 of the
-# 7B's bf16 cache: the 6-frame first chunk's bucket and a steady 2-frame chunk
-PREFILL_SHAPES = ((1024, 0, 690), (256, 1500, 1756))
+# 7B's bf16 cache: the 6-frame first chunk's bucket, a steady 2-frame chunk
+# and a verify window of speculative decoding (k_draft + 1 = 9 queries)
+WINDOW_SQ = 9
+PREFILL_SHAPES = ((1024, 0, 690), (256, 1500, 1756), (WINDOW_SQ, 1500, 1500 + WINDOW_SQ))
 
 
 def vit_cases():
@@ -157,8 +178,9 @@ def prefill_cases():
 
 # K1-int8's shapes on the pool's int8 cache [L, 8, Hk, Smax, D], layer 27, bf16
 # q strided: chip_smoke's timed tick (rows 0-7936 deep) and a steady tick
-# (every row ~1300 deep), 256-query chunks at kv_limit = offset + 256; and
-# the solo init chunk (B = 1, Sq = 1024, offset 0, kv_limit 690)
+# (every row ~1300 deep), 256-query chunks at kv_limit = offset + 256; the
+# solo init chunk (B = 1, Sq = 1024, offset 0, kv_limit 690); and a verify
+# window at the steady tick's depths (Sq = WINDOW_SQ, kv_limit = offset + 9)
 INT8_SQ = 256
 INT8_POOL_OFFSETS = (0, 300, 1500, 7, 64, 900, 4000, 7936)
 INT8_STEADY_OFFSETS = (1300, 1310, 1290, 1320, 1305, 1295, 1315, 1300)
@@ -196,6 +218,11 @@ def prefill_int8_cases():
     q = torch.randn((1, sq, HQ, D), generator=gen, device=dev).bfloat16().transpose(1, 2)
     yield (f"K1-int8 solo init chunk B=1 Sq={sq} offset={off} kv_limit={lim} bf16",
            call(q, k, v, [off], [lim]))
+    del k, v
+    k, v = cache(b), cache(b)
+    q = torch.randn((b, WINDOW_SQ, HQ, D), generator=gen, device=dev).bfloat16().transpose(1, 2)
+    yield (f"K1-int8 verify window B={b} Sq={WINDOW_SQ} offsets={list(INT8_STEADY_OFFSETS)} bf16",
+           call(q, k, v, INT8_STEADY_OFFSETS, [o + WINDOW_SQ for o in INT8_STEADY_OFFSETS]))
 
 
 # and its timed K4 shape: one packed training row of the 7B's heads

@@ -2,6 +2,8 @@
 
     python3 -m livecc_tpu_torch.tools.profile_stream          # single stream
     python3 -m livecc_tpu_torch.tools.profile_stream --pool   # one pool tick
+    ... --spec        # either with lookahead decoding (session.SPEC, controller off)
+    ... --adaptive    # either with lookahead under the adaptive controller
 
 Both use the 7B definitions of ``livecc_tpu_torch.tools.session`` (the ones
 ``chip_smoke.py`` drives).
@@ -14,8 +16,10 @@ Both use the 7B definitions of ``livecc_tpu_torch.tools.session`` (the ones
     chunks and all but the last steady tick unprofiled; the last steady tick
     (one batched prefill + decode at B = 8) runs under the profiler.
 
-It prints each chunk's or tick's wall time, the decode graphs' captures
-(count and seconds) and replays where the checkout has them, the device's
+It prints each chunk's or tick's wall time (with ``--spec``, its verify
+windows), the decode graphs' captures (count and seconds), decode replays
+and window replays where the checkout has them (with ``--adaptive``, the
+mode the controller chose at each dispatch and its two per-token costs), the device's
 busy time (union of kernel intervals) against the wall time, i.e. the
 device's idle share; and device time by group — the port's kernels (K3 ViT attention, K1 prefill and
 K2 decode attention, and their int8 variants; K4 training attention for
@@ -97,7 +101,29 @@ def print_graph_stats(model, label: str = "") -> None:
     st = graphs.stats()
     graphs.reset_stats()
     print(f"{label}decode graphs: {st['captures']} captures in {st['capture_seconds']:.3f} s, "
-          f"{st['replays']} replays, {st['host_reads']} host reads")
+          f"{st['replays']} replays, {st.get('windows', 0)} window replays, "
+          f"{st['host_reads']} host reads")
+
+
+def log_choices(ctl) -> list:
+    """The modes ``ctl`` (a ``SpecController``) chooses from now on, as a list
+    that grows with each dispatch."""
+    choices = []
+    use = ctl.use_spec
+
+    def logged():
+        choices.append(use())
+        return choices[-1]
+
+    ctl.use_spec = logged
+    return choices
+
+
+def print_choices(label: str, ctl, choices: list) -> None:
+    spt = {k: None if v is None else round(v * 1e3, 3) for k, v in ctl.spt.items()}
+    print(f"{label}controller: modes " + " ".join("L" if c else "P" for c in choices)
+          + f" (L lookahead, P plain); ms per emitted token: lookahead {spt[True]}, plain "
+            f"{spt[False]}; tokens a window EMA {ctl.ema}")
 
 
 def report(prof, wall: float) -> None:
@@ -121,7 +147,18 @@ def report(prof, wall: float) -> None:
         print(f"  {t * 1e3:10.2f} ms  x{n:5d}  {name[:110]}")
 
 
-def profile_session(cfg, model) -> None:
+def _engine(sess, cfg, model, spec):
+    """A session engine; with ``spec``, one whose controller logs its modes."""
+    if spec is None:
+        return sess.new_engine(cfg, model), None
+    from livecc_tpu_torch.engine import SpecController
+
+    eng = sess.new_engine(cfg, model, spec)
+    eng._spec_ctl = SpecController(spec)
+    return eng, log_choices(eng._spec_ctl)
+
+
+def profile_session(cfg, model, spec=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from livecc_tpu_torch.tools import session as sess
@@ -136,25 +173,33 @@ def profile_session(cfg, model) -> None:
         return time.perf_counter() - t0
 
     for i in range(UNPROFILED_SESSIONS):
-        print(f"session {i} wall {run(sess.new_engine(cfg, model)):.3f} s (unprofiled"
-              f"{', warm-up' if i == 0 else ''})")
+        eng, choices = _engine(sess, cfg, model, spec)
+        print(f"session {i} wall {run(eng):.3f} s (unprofiled{', warm-up' if i == 0 else ''})"
+              + ("" if spec is None else "; windows a chunk "
+                 + str([rec.windows for rec in eng.chunk_log])))
         print_graph_stats(model)
-    eng = sess.new_engine(cfg, model)
+        if spec is not None and spec.adaptive:
+            print_choices("", eng._spec_ctl, choices)
+    eng, choices = _engine(sess, cfg, model, spec)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         wall = run(eng)
     for rec in eng.chunk_log:
         print(f"chunk wall {rec.seconds * 1e3:9.2f} ms  prompt {rec.prompt_tokens:4d}  "
-              f"generated {rec.generated_tokens:2d}")
+              f"generated {rec.generated_tokens:2d}"
+              + ("" if spec is None else f"  windows {rec.windows:2d}"))
     print_graph_stats(model)
+    if spec is not None and spec.adaptive:
+        print_choices("", eng._spec_ctl, choices)
     report(prof, wall)
 
 
-def profile_pool_tick(cfg, model) -> None:
+def profile_pool_tick(cfg, model, spec=None) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from livecc_tpu_torch.tools import session as sess
 
-    server = sess.pool_server(cfg, model)
+    server = sess.pool_server(cfg, model, spec=spec)
+    choices = log_choices(server._ctl()) if spec is not None else []
     server.warmup([(sess.HEIGHT, sess.WIDTH)])
     print_graph_stats(model, "warmup: ")
     # init chunks and all steady ticks but the last, unprofiled
@@ -162,6 +207,9 @@ def profile_pool_tick(cfg, model) -> None:
     for i, w in enumerate(walls):
         print(f"tick {i} wall {w * 1e3:9.2f} ms (unprofiled)")
     print_graph_stats(model)
+    if spec is not None:
+        tpw = server.engine.metrics.summary("spec_tokens_per_window")
+        print(f"tokens a window per stream, pool ticks so far: {tpw}")
     sids = sorted(server._streams)
     hi = sess.INIT_FRAMES + sess.STEADY_FRAMES * sess.POOL_STEADY_TICKS
     lo = hi - sess.STEADY_FRAMES
@@ -180,6 +228,8 @@ def profile_pool_tick(cfg, model) -> None:
     print(f"profiled tick: B={len(sids)} steady chunks, cache depths before it {depth}, "
           f"{sum(len(r) for r in rows.values())} chunks of text")
     print_graph_stats(model)
+    if spec is not None and spec.adaptive:
+        print_choices("pool ", server._ctl(), choices)
     report(prof, wall)
 
 
@@ -187,14 +237,23 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pool", action="store_true",
                     help="profile one steady tick of the 8-stream int8 pool")
+    ap.add_argument("--spec", action="store_true",
+                    help="decode by lookahead (tools/session.py SPEC: 8 drafts, controller off)")
+    ap.add_argument("--adaptive", action="store_true",
+                    help="decode by lookahead under the adaptive controller, logging its modes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs a CUDA GPU")
 
+    import dataclasses
+
     from livecc_tpu_torch.tools import session as sess
 
+    spec = None
+    if args.spec or args.adaptive:
+        spec = dataclasses.replace(sess.SPEC, adaptive=args.adaptive)
     cfg, model = sess.main_model()
-    (profile_pool_tick if args.pool else profile_session)(cfg, model)
+    (profile_pool_tick if args.pool else profile_session)(cfg, model, spec)
     return 0
 
 

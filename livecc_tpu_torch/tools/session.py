@@ -10,6 +10,9 @@ tokens per chunk, greedy, repetition penalty 1.05.
     per slot, 8 streams that each send a 6-frame init chunk and then one
     2-frame chunk per steady tick (``run_pool``, shared with the tiny pool
     that chip_smoke runs on the CPU and on the GPU).
+
+Either runs with speculative decoding given a ``SpecConfig``; ``SPEC`` is
+the one measured (fused lookahead, 8 drafts, 3-grams, controller off).
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import torch
 
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.data.tokenizer import ByteTokenizer
-from livecc_tpu_torch.engine import GenerationParams, LiveCCEngine
+from livecc_tpu_torch.engine import GenerationParams, LiveCCEngine, SpecConfig
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, init_params
 from livecc_tpu_torch.serve import StreamServer
 
@@ -32,6 +35,7 @@ NEW_TOKENS, REPETITION_PENALTY = 16, 1.05
 # the serving pool: 8 concurrent streams per replica, int8 KV
 POOL_CAPACITY, POOL_STREAMS, POOL_CACHE_LEN, POOL_STEADY_TICKS = 8, 8, 8192, 3
 INIT_FRAMES, STEADY_FRAMES = 6, 2
+SPEC = SpecConfig(k_draft=8, max_ngram=3, fused=True, adaptive=False)
 
 
 def synth_frames(n: int, h: int, w: int, seed: int) -> np.ndarray:
@@ -50,8 +54,8 @@ def main_frames() -> np.ndarray:
     return synth_frames(N_FRAMES, HEIGHT, WIDTH, seed=SEED)
 
 
-def new_engine(cfg: ModelConfig, model: Qwen2VL) -> LiveCCEngine:
-    return LiveCCEngine(model, cfg, ByteTokenizer.for_config(cfg))
+def new_engine(cfg: ModelConfig, model: Qwen2VL, spec: SpecConfig | None = None) -> LiveCCEngine:
+    return LiveCCEngine(model, cfg, ByteTokenizer.for_config(cfg), spec=spec)
 
 
 def run_session(engine: LiveCCEngine, frames: np.ndarray, state=None) -> list:
@@ -61,10 +65,12 @@ def run_session(engine: LiveCCEngine, frames: np.ndarray, state=None) -> list:
 
 
 def pool_server(cfg: ModelConfig, model: Qwen2VL, tokenizer=None, capacity: int = POOL_CAPACITY,
-                cache_len: int = POOL_CACHE_LEN) -> StreamServer:
-    """A serving pool on ``model`` with an int8 KV cache."""
+                cache_len: int = POOL_CACHE_LEN, spec: SpecConfig | None = None) -> StreamServer:
+    """A serving pool on ``model`` with an int8 KV cache (lookahead decoding
+    with a fused ``spec``)."""
     tokenizer = ByteTokenizer.for_config(cfg) if tokenizer is None else tokenizer
-    engine = LiveCCEngine(model, cfg, tokenizer, cache_len=cache_len, cache_dtype=torch.int8)
+    engine = LiveCCEngine(model, cfg, tokenizer, cache_len=cache_len, cache_dtype=torch.int8,
+                          spec=spec)
     gen = GenerationParams(max_new_tokens=NEW_TOKENS, eos_token_id=cfg.eos_token_id,
                            pad_token_id=cfg.pad_token_id, repetition_penalty=REPETITION_PENALTY)
     return StreamServer(engine, gen, capacity=capacity)
