@@ -103,10 +103,28 @@ Phases (any failure raises and the script exits non-zero):
                  an id the session never emits (one window per token).
   9. pool_spec — pool's session with lookahead decoding, the same checks
                  against pool's tokens; the window premium at B = 8.
- 10. tiny_train — tiny config, fp32: 3 training steps (packed rows, accum 2)
+ 10. checkpoint_live — the front door on main's 7B: written as an HF
+                 checkpoint (bf16 safetensors shards of ~5 GB with an index,
+                 config.json from tests/fixtures/qwen2_vl_7b_config.json)
+                 under build/ after a check of free disk, loaded back by
+                 ``load_checkpoint`` onto the card (every parameter
+                 bit-equal; load seconds, peak device memory and peak host
+                 RSS printed), then a 10 s clip of 308x560 frames at 10 fps
+                 through the CLI's engine built on the checkpoint:
+                 ``demo.cli.main`` on the clip encoded by the port's decoder
+                 where pkg-config finds the FFmpeg development libraries,
+                 else ``LiveCC`` over the frames through a ``video_loader``
+                 (it says which). Spans contiguous from the 3 s init chunk,
+                 text in every chunk, and greedy tokens identical to the same
+                 frames through ``session.new_engine`` on the source model.
+ 11. tiny_train — tiny config, fp32: 3 training steps (packed rows, accum 2)
                  on the CPU (plain versions) and on the GPU (kernels, fused
-                 CE with fp32 logit rows); the losses agree to 1e-4.
- 11. train     — ``livecc_tpu_torch/tools/train_session.py``: Qwen2-VL-7B at
+                 CE with fp32 logit rows); the losses agree to 1e-4. Then
+                 one step's gradients with the ViT unfrozen, fp32 and bf16,
+                 on the GPU against the CPU plain path's autograd
+                 (``kernel_check.grad_close``), which a zeroed K3 backward
+                 (``kernel_check.zeroed_k3_backward``) must fail.
+ 12. train     — ``livecc_tpu_torch/tools/train_session.py``: Qwen2-VL-7B at
                  full width with the LLM cut to 4 layers and the 32-block ViT
                  frozen, bf16, 3 Trainer steps of 2 packed 8192-token rows;
                  checks finite losses, trainable params moved after step 2
@@ -116,7 +134,8 @@ Phases (any failure raises and the script exits non-zero):
                  kernels phase timed.
 
 Launch counts are reset just before each of main, pool, main_spec (and
-its worst case), pool_spec and train and read just after; every kernel of
+its worst case), pool_spec, checkpoint_live's CLI run and train and read
+just after; every kernel of
 that path must have launched. Every phase always
 runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
 and, as its last line, ``{"ok": true, "device": {...}}``. It imports nothing
@@ -181,6 +200,9 @@ K4_CASES = ((4096, (1500, 1400, 1000), "bf16", True),     # strided q
 # an output; lse is fp32 in both dtypes
 K4_TOL = {"bf16": (1e-2, 2e-2), "fp32": (1e-4, 1e-4), "lse": (1e-4, 1e-4)}
 K4_GRAD_NORM_TOL = 2e-2    # bf16 gradients against the fp32 plain version: ||g - r|| / ||r||
+# checkpoint_live: a clip of CLIP_SECONDS s at CLIP_FPS frames a second, the CLI's default query
+CLIP_SECONDS, CLIP_FPS = 10, 10
+QUERY = "Please describe the video."
 
 
 def log(msg: str) -> None:
@@ -1408,10 +1430,214 @@ def phase_pool_spec(cfg, model, plain_record: list, decode_ms: float) -> dict:
     return counts
 
 
+class FramesVideo:
+    """``VideoReader``'s API over frames in memory (``LiveCC``'s
+    ``video_loader`` where no FFmpeg is installed to decode a clip): frame i
+    at ``i / fps`` s, served at their own size."""
+
+    def __init__(self, frames, fps: float):
+        import numpy as np
+
+        self.frames, self.avg_fps = frames, float(fps)
+        self.frame_size = frames.shape[1:3]
+        self.pts_seconds = np.arange(len(frames)) / self.avg_fps
+
+    def __len__(self) -> int:
+        return len(self.frames)
+
+    def get_batch(self, indices, out_hw=None):
+        import numpy as np
+
+        if out_hw not in (None, self.frame_size):
+            raise ValueError(f"FramesVideo serves {self.frame_size} frames, asked for {out_hw}")
+        return self.frames[np.asarray(indices)]
+
+
+def rss_gb() -> float:
+    """The process's resident set (``/proc/self/status`` VmRSS) in GB."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    raise RuntimeError("no VmRSS in /proc/self/status")
+
+
+@contextlib.contextmanager
+def rss_peak(every_s: float = 0.005):
+    """Yields a dict whose "peak" is, on exit, the largest VmRSS (GB) read
+    every ``every_s`` s by a sampling thread while the block ran (not every
+    kernel keeps VmHWM, the peak)."""
+    import threading
+
+    out, stop = {"peak": rss_gb()}, threading.Event()
+
+    def sample():
+        while not stop.wait(every_s):
+            out["peak"] = max(out["peak"], rss_gb())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield out
+    finally:
+        stop.set()
+        thread.join()
+        out["peak"] = max(out["peak"], rss_gb())
+
+
+def phase_checkpoint_live(cfg, models: list) -> dict:
+    """The front door on the 7B that ``main`` ran (``models``' only entry,
+    popped and freed here): written as an HF checkpoint (bf16 safetensors
+    shards of ~5 GB with an index, >=4.52 names, config.json from
+    ``tests/fixtures/qwen2_vl_7b_config.json``) under ``build/``, loaded
+    back by ``load_checkpoint`` (bit-equal, load seconds, peak device and
+    host memory), then a 10 s clip at 10 fps of 308x560 frames through the
+    CLI's engine on the checkpoint: ``demo.cli.main`` over the clip encoded
+    by the port's decoder where the card has the FFmpeg development
+    libraries (pkg-config), else ``LiveCC`` over the frames through a
+    ``video_loader`` (``FramesVideo``) with the CLI's engine and decoding
+    settings. Its greedy tokens must be those of the same frames through
+    ``session.new_engine`` on the source model. Returns the CLI run's launch
+    counts."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from livecc_tpu_torch.data.tokenizer import ByteTokenizer
+    from livecc_tpu_torch.demo import cli
+    from livecc_tpu_torch.engine.live import LiveCC
+    from livecc_tpu_torch.models.qwen2_vl.convert import load_checkpoint
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import session
+    from livecc_tpu_torch.tools.checkpoint import save_checkpoint
+    from livecc_tpu_torch.vision_io import video_reader
+
+    model = models.pop()
+    ffmpeg = video_reader.has_ffmpeg()
+    log(f"  FFmpeg development libraries (pkg-config): "
+        + ("found: demo.cli.main runs on a clip the port's decoder encodes" if ffmpeg else
+           "absent: the port's decoder cannot build here, so LiveCC reads the frames through "
+           "a video_loader and demo.cli.main is not run"))
+    frames = session.synth_frames(CLIP_SECONDS * CLIP_FPS, session.HEIGHT, session.WIDTH,
+                                  seed=session.SEED)
+    tokenizer = ByteTokenizer.for_config(cfg)
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    parent = os.path.join(ROOT, "build")
+    os.makedirs(parent, exist_ok=True)
+    free = shutil.disk_usage(parent).free
+    log(f"  disk free at {parent}: {free / 1e9:.1f} GB; the checkpoint takes {nbytes / 1e9:.2f} GB")
+    if free < nbytes + 2e9:
+        raise AssertionError(f"checkpoint_live: {free / 1e9:.1f} GB free, need "
+                             f"{(nbytes + 2e9) / 1e9:.1f} GB")
+    work = tempfile.mkdtemp(prefix="checkpoint_live_", dir=parent)
+    try:
+        path = os.path.join(work, "qwen2-vl-7b-random")
+        t0 = time.perf_counter()
+        files = save_checkpoint(model, cfg, path,
+                                os.path.join(ROOT, "tests", "fixtures", "qwen2_vl_7b_config.json"))
+        log(f"  wrote {len(files)} shards, {nbytes / 1e9:.2f} GB bf16, in "
+            f"{time.perf_counter() - t0:.1f} s")
+        if ffmpeg:
+            clip = os.path.join(work, "clip.mp4")
+            video_reader.encode_test_video(clip, frames, fps=CLIP_FPS)
+            video, loader = clip, None
+        else:
+            video, loader = "frames", (lambda _: FramesVideo(frames, CLIP_FPS))
+
+        def commentate(engine, record):
+            live = LiveCC(engine) if loader is None else LiveCC(engine, video_loader=loader)
+            with decoding(False, record):
+                return cli.commentate(live, video, CLIP_SECONDS, QUERY,
+                                      cli.generation_params(engine))
+
+        reference: list = []
+        ref_out = commentate(session.new_engine(cfg, model), reference)
+        torch.cuda.synchronize()
+
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        rss = rss_gb()
+        with rss_peak() as host:
+            t0 = time.perf_counter()
+            cfg2, loaded = load_checkpoint(path, "cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        dev_peak = torch.cuda.max_memory_allocated() - before
+        source = dict(model.named_parameters())
+        if cfg2.text != cfg.text or cfg2.vision != cfg.vision or not all(
+                p.dtype == source[n].dtype and torch.equal(p, source[n])
+                for n, p in loaded.named_parameters()) or len(source) != len(
+                list(loaded.parameters())):
+            raise AssertionError("checkpoint_live: the loaded 7B differs from its source")
+        log(f"  load_checkpoint: {len(source)} tensors, bit-equal to the source 7B; "
+            f"{load_s:.2f} s; device memory peak {dev_peak / 2**30:.2f} GiB above the "
+            f"{before / 2**30:.2f} GiB held before; host RSS {rss:.2f} GB before, peak "
+            f"{host['peak']:.2f} GB during the load (VmRSS sampled every 5 ms; "
+            f"{nbytes / 1e9:.2f} GB of weights)")
+        del loaded, source, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        record: list = []
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        if ffmpeg:
+            out_json = os.path.join(work, "out.json")
+            with decoding(False, record):
+                result = cli.main(["--video", clip, "--model", path, "--seconds",
+                                   str(CLIP_SECONDS), "--query", QUERY, "--output", out_json],
+                                  tokenizer=tokenizer)
+            out = result["commentaries"]
+            with open(out_json) as f:
+                if json.load(f) != result:
+                    raise AssertionError("checkpoint_live: the CLI's JSON is not its result")
+            what = "demo.cli.main (engine build and checkpoint load included)"
+        else:
+            engine = cli.build_engine(path, tokenizer=tokenizer)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = commentate(engine, record)
+            what = f"LiveCC on the CLI's engine (built, checkpoint loaded, in {build_s:.2f} s before)"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.launch_counts)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"  live session over the {CLIP_SECONDS} s clip, {what}: {wall:.2f} s; "
+        f"launches {counts}")
+    for t_a, t_b, text in out:
+        log(f"  [{t_a:4.1f}-{t_b:4.1f}s] {text!r}"[:160])
+    same_tokens("checkpoint_live", record, reference,
+                "the CLI's engine on the loaded checkpoint and the source model's engine")
+    if out != ref_out:
+        raise AssertionError("checkpoint_live: the commentary differs from the source model's")
+    spans = [(a, b) for a, b, _ in out]
+    if spans[0] != (0.0, 3.0) or any(b0 != a1 for (_, a1), (b0, _) in zip(spans, spans[1:])) \
+            or spans[-1][1] != CLIP_SECONDS or not all(text for *_, text in out):
+        raise AssertionError(f"checkpoint_live: spans {spans} not contiguous from the 3 s init "
+                             f"window to {CLIP_SECONDS} s, or a chunk without text")
+    missing = [name for name in MAIN_KERNELS if counts.get(name, 0) <= 0]
+    if missing:
+        raise AssertionError(f"the checkpoint_live path never launched {missing}")
+    return counts
+
+
 def phase_tiny_train():
     """Three fp32 training steps of the tiny model on the CPU (plain
-    versions) and on the GPU (K3, K4, fused CE with fp32 logit rows)."""
-    from livecc_tpu_torch.tools.train_session import tiny_train_losses
+    versions) and on the GPU (K3, K4, fused CE with fp32 logit rows); then
+    the gradients of one step with the ViT unfrozen, in fp32 and bf16, on
+    the GPU (K3 forward, its autograd ``Function`` backward) against the
+    CPU plain path's autograd by ``kernel_check.grad_close``, which a K3
+    backward that returns zeros (``kernel_check.zeroed_k3_backward``) must
+    fail."""
+    import torch
+
+    from livecc_tpu_torch.core.config import tiny_config
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import kernel_check
+    from livecc_tpu_torch.tools.train_session import tiny_train_losses, tiny_vit_grads
 
     losses = []
     for dev in ("cpu", "cuda"):
@@ -1420,6 +1646,26 @@ def phase_tiny_train():
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses[1], losses[0]))
     if not rel <= 1e-4:
         raise AssertionError(f"tiny train: CPU and GPU losses differ by {rel:.2e} relative")
+    ref32 = tiny_vit_grads("cpu")
+
+    def worst(grads, ref):
+        """(worst share, the parameter whose gradient it is)."""
+        return max((kernel_check.grad_close(grads[n], ref[n], ref32[n]), n) for n in ref32)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        ref = ref32 if dtype == torch.float32 else tiny_vit_grads("cpu", dtype)
+        before = build.launch_counts["vit_group_attention"]
+        share, name = worst(tiny_vit_grads("cuda", dtype), ref)
+        launches = build.launch_counts["vit_group_attention"] - before
+        with kernel_check.zeroed_k3_backward():
+            fault, fault_name = worst(tiny_vit_grads("cuda", dtype), ref)
+        log(f"  unfrozen ViT {str(dtype)[6:]}: {len(ref32)} ViT gradients, worst grad_close "
+            f"{share:.3f} ({name}) against the CPU plain path; a zeroed K3 backward "
+            f"{fault:.1f} ({fault_name}); {launches} K3 launches")
+        # one K3 launch a ViT block in each of the step's two micro-batches
+        if not share <= 1.0 or not fault > 1.0 or launches != 2 * tiny_config().vision.depth:
+            raise AssertionError(f"unfrozen ViT {dtype}: grad_close {share}, zeroed backward "
+                                 f"{fault}, {launches} K3 launches")
 
 
 def phase_train() -> dict:
@@ -1516,7 +1762,10 @@ def main() -> int:
         "main_spec", lambda: phase_main_spec(cfg, model, main_record, main_step_ms))
     pool_spec_counts = run_phase(
         "pool_spec", lambda: phase_pool_spec(cfg, model, pool_record, pool_step_ms))
-    del model, main_record, pool_record      # free the serving 7B before the training model
+    del main_record, pool_record
+    models = [model]
+    del model                                # checkpoint_live frees the serving 7B
+    checkpoint_counts = run_phase("checkpoint_live", lambda: phase_checkpoint_live(cfg, models))
     gc.collect()
     torch.cuda.empty_cache()
     run_phase("tiny_train", phase_tiny_train)
@@ -1525,7 +1774,7 @@ def main() -> int:
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": sum(c.get(name, 0) for c in (main_counts, pool_counts, spec_counts,
                                                  adversarial_counts, pool_spec_counts,
-                                                 train_counts)),
+                                                 checkpoint_counts, train_counts)),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"],
         "plain_ms": results[name]["plain_ms"],

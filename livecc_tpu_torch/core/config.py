@@ -1,4 +1,4 @@
-"""Model configuration tree: a field-for-field mirror of ``livecc_tpu.core.config``.
+"""Model configuration tree: a field-for-field mirror of ``livecc_tpu/core/config.py``.
 
 The JAX package's ``core/__init__.py`` imports its device-mesh module, which
 loads ``jax``; the port keeps its own copy of the (pure) dataclasses so that

@@ -43,6 +43,7 @@ from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, VisionInputs, get_ro
 from livecc_tpu_torch.models.qwen2_vl.text import KVCache
 from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
 from livecc_tpu_torch.utils.metrics import LatencyTracker
+from livecc_tpu_torch.vision_io.budget import VisionBudget
 from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
 
 TOKEN_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768)
@@ -101,6 +102,7 @@ class LiveCCEngine:
         cfg: ModelConfig,
         tokenizer: Tokenizer,
         *,
+        budget: VisionBudget | None = None,
         cache_len: int = 8192,
         cache_dtype: torch.dtype | None = None,
         compact_keep: int | None = None,
@@ -111,6 +113,8 @@ class LiveCCEngine:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.device = next(model.parameters()).device
+        # the visual-token budget that sizes a video's frames (engine/live.py)
+        self.budget = budget or VisionBudget()
         self.cache_len = cache_len
         # bf16 KV on the GPU (half the fp32 bytes); fp32 elsewhere (the CPU
         # parity path). torch.int8 stores a quantized cache (half of bf16's

@@ -24,7 +24,7 @@ def rotate_half(x: torch.Tensor) -> torch.Tensor:
 def vision_rot_pos_ids(grid_thw: list[tuple[int, int, int]], spatial_merge_size: int = 2) -> np.ndarray:
     """Per-patch (h_pos, w_pos) ids in the ViT's 2x2-merge scan order.
 
-    Host-side numpy copy of ``livecc_tpu.ops.rope.vision_rot_pos_ids`` (that
+    Host-side numpy copy of ``livecc_tpu/ops/rope.py:vision_rot_pos_ids`` (that
     module imports jax); pinned to it by ``tests/test_torch_package.py``.
     """
     out = []

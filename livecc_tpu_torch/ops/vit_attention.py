@@ -15,6 +15,12 @@ other device raises. bf16 runs on the tensor cores (head dim a multiple of
 16, rows 16-byte aligned), fp32 on the FMA pipes. There is no ``MAX_GROUP``:
 the kernel streams key tiles. ``build.launch_counts["vit_group_attention"]``
 counts every K3 launch, of either form.
+
+On CUDA both forms are differentiable through ``_K3``, an autograd
+``Function`` whose forward is the kernel and whose backward recomputes the
+plain version and takes its vjp, as JAX's ``custom_vjp`` takes ``mha``'s
+(``livecc_tpu/ops/pallas/vit_attention.py:126-151``): an unfrozen ViT trains
+with the attention gradient. The backward is plain PyTorch (JAX's is XLA).
 """
 
 from __future__ import annotations
@@ -93,6 +99,25 @@ def _launch(q, k, v, out, cu: torch.Tensor, nseg: int, max_len: int) -> None:
         )
 
 
+class _K3(torch.autograd.Function):
+    """``run(q, k, v)`` (a K3 launch) forward; the vjp of ``plain(q, k, v)``,
+    recomputed on the saved inputs, backward."""
+
+    @staticmethod
+    def forward(ctx, run, plain, q, k, v):
+        ctx.plain = plain
+        ctx.save_for_backward(q, k, v)
+        return run(q, k, v)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        leaves = [x.detach().requires_grad_() for x in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.plain(*leaves)
+        return (None, None, *torch.autograd.grad(out, leaves, grad))
+
+
 def vit_group_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """[NG, g, H, D] -> [NG, g, H, D], bidirectional within each group. On
     the GPU the kernel gets evenly spaced bounds, cached on the device, so a
@@ -106,11 +131,15 @@ def vit_group_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"vit_group_attention: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)}")
-    qn, kn, vn = (x.reshape(ng * g, h, d) for x in (q, k, v))
-    build.check_bf16_rows("vit_group_attention", qn, kn, vn)
-    out = torch.empty((ng * g, h, d), dtype=q.dtype, device=q.device)
-    _launch(qn, kn, vn, out, _uniform_bounds(ng, g, q.device), ng, g)
-    return out.view(ng, g, h, d)
+
+    def run(q, k, v):
+        qn, kn, vn = (x.reshape(ng * g, h, d) for x in (q, k, v))
+        build.check_bf16_rows("vit_group_attention", qn, kn, vn)
+        out = torch.empty((ng * g, h, d), dtype=q.dtype, device=q.device)
+        _launch(qn, kn, vn, out, _uniform_bounds(ng, g, q.device), ng, g)
+        return out.view(ng, g, h, d)
+
+    return _K3.apply(run, vit_group_attention_plain, q, k, v)
 
 
 def vit_segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -139,7 +168,14 @@ def vit_segment_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"vit_segment_attention: cu_seqlens must be contiguous int32 [nseg + 1] "
                          f"on {q.device}, got {cu_seqlens.dtype} {tuple(cu_seqlens.shape)} on "
                          f"{cu_seqlens.device}")
-    build.check_bf16_rows("vit_group_attention", q, k, v)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(q, k, v, out, cu_seqlens, cu_seqlens.numel() - 1, max_len)
-    return out
+
+    def run(q, k, v):
+        build.check_bf16_rows("vit_group_attention", q, k, v)
+        out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        _launch(q, k, v, out, cu_seqlens, cu_seqlens.numel() - 1, max_len)
+        return out
+
+    def plain(q, k, v):   # reads the bounds back: only a backward does
+        return vit_segment_attention_plain(q, k, v, cu_seqlens.tolist())
+
+    return _K3.apply(run, plain, q, k, v)

@@ -26,7 +26,10 @@ give; a check that passes them could not see a lost block:
     ``kQuantTileQ`` / ``kQuantTileK``);
   * ``dropped_tile(...)`` (K4): the plain forward and backward outputs (o,
     lse, dq, dk, dv) without one 64 x 64 tile pair of one q head (``TILE``,
-    ``kTrainMmaTileQ`` / ``kTrainMmaTileK`` of ``train_mma_attention.cuh``).
+    ``kTrainMmaTileQ`` / ``kTrainMmaTileK`` of ``train_mma_attention.cuh``);
+  * ``zeroed_k3_backward()`` (K3's gradient): while it is entered, the
+    backward of K3's autograd ``Function`` returns zeros, as the port
+    passed no gradient through K3 before it had one.
 
 bf16 K4's gradients (dq, dk, dv) are held by ``grad_close(out, ref, ref32)``
 instead: each gradient sums thousands of bf16-rounded terms (p, ds), so two
@@ -61,6 +64,8 @@ and flips about 40% of its outputs.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -231,3 +236,18 @@ def dropped_tile(qs, k, v, seg, do, o, lse, grads, qt: int, kt: int, h: int):
     dk[0, cols, kvh] = (dk[0, cols, kvh].float() - ds.to(do.dtype).float().T @ q_).to(dk.dtype)
     dv[0, cols, kvh] = (dv[0, cols, kvh].float() - p.to(do.dtype).float().T @ do_).to(dv.dtype)
     return o2, lse2, dq, dk, dv
+
+
+@contextlib.contextmanager
+def zeroed_k3_backward():
+    """Plant the K3 gradient fault: ``ops/vit_attention.py:_K3``'s backward
+    returns zero gradients for q, k and v until the context exits."""
+    from livecc_tpu_torch.ops import vit_attention
+
+    saved = vit_attention._K3.__dict__["backward"]
+    vit_attention._K3.backward = staticmethod(
+        lambda ctx, grad: (None, None, *(torch.zeros_like(x) for x in ctx.saved_tensors)))
+    try:
+        yield
+    finally:
+        vit_attention._K3.backward = saved

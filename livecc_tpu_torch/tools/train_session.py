@@ -36,7 +36,8 @@ from livecc_tpu_torch.data import chat
 from livecc_tpu_torch.data.tokenizer import ByteTokenizer
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, get_rope_index, init_params
 from livecc_tpu_torch.train.data import collate_packed_rows, pack_samples
-from livecc_tpu_torch.train.step import TrainConfig, make_optimizer, make_train_step, split_frozen
+from livecc_tpu_torch.train.step import (
+    TrainConfig, loss_fn, make_optimizer, make_train_step, split_frozen)
 from livecc_tpu_torch.train.trainer import Trainer, TrainerConfig
 from livecc_tpu_torch.utils.flops import train_step_flops, vit_forward_flops
 from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
@@ -119,6 +120,25 @@ def tiny_train_losses(device, steps: int = 3) -> list[float]:
         model, state, metrics = fn(model, state, batch)
         losses.append(float(metrics["loss"]))
     return losses
+
+
+def tiny_vit_grads(device, dtype=torch.float32) -> dict[str, torch.Tensor]:
+    """The gradients of one training step's loss for every ViT parameter
+    of the tiny config with nothing frozen, as fp32 CPU tensors: weights
+    drawn on the CPU from ``SEED`` in fp32, then cast to ``dtype`` on
+    ``device``; 4 samples packed in rows of 512 (two micro-batches, their
+    summed losses taken back at once), fp32 logit rows. On CUDA the ViT's
+    attention runs K3 forward and its autograd ``Function`` backward; on
+    the CPU the plain version's autograd."""
+    cfg = tiny_config()
+    model = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu", torch.float32)
+    model = model.to(device=device, dtype=dtype)
+    tcfg = TrainConfig(freeze_modules=(), ce_chunk_size=32, ce_logits="f32")
+    split_frozen(model, tcfg.freeze_modules)
+    packed, _ = pack_samples(tiny_samples(cfg, n=4, seed=SEED), 512)
+    batch = collate_packed_rows(packed, cfg, accum=2, device=device)
+    sum(loss_fn(model, cfg, tcfg, batch.micro(i))[0] for i in range(batch.accum)).backward()
+    return {n: p.grad.float().cpu() for n, p in model.visual.named_parameters()}
 
 
 def train_model(cfg: ModelConfig, device="cuda") -> Qwen2VL:

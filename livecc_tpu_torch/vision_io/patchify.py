@@ -1,14 +1,21 @@
-"""Frames -> Qwen2-VL patch sequence (normalize + 3D patchify) on the device.
+"""Frames -> Qwen2-VL patch sequence (normalize + 3D patchify), host and device.
 
-Port of the streaming half of ``livecc_tpu/vision_io/patchify.py``
-(transformers Qwen2VLImageProcessor._preprocess semantics): uint8 frames go
-to the device (a quarter of the bytes of fp32 patches), where they are
-rescaled, CLIP-normalised and flattened by the same 9-D transpose to
-``[grid_t * grid_h * grid_w, C * tps * ps * ps]``.
+Port of ``livecc_tpu/vision_io/patchify.py`` (transformers
+Qwen2VLImageProcessor._preprocess semantics): frames are rescaled,
+CLIP-normalised and flattened by the same 9-D transpose to
+``[grid_t * grid_h * grid_w, C * tps * ps * ps]``. Two paths:
+
+  * ``patchify_video``: numpy in and out, on the host (the data pipeline);
+  * ``device_patchify``: the streaming path. uint8 frames go to the device
+    (a quarter of the bytes of fp32 patches) and are prepared there.
+
+``device_preprocess`` (JAX's fused bicubic resize) is not ported: the native
+decoder scales the frames it decodes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # CLIP normalization constants (Qwen2VLImageProcessor defaults).
@@ -51,6 +58,23 @@ def _patchify(frames: torch.Tensor, patch_size: int, temporal_patch_size: int,
     patches = patches.permute(0, 3, 6, 4, 7, 2, 1, 5, 8)
     flat = patches.reshape(grid_t * grid_h * grid_w, c * temporal_patch_size * patch_size * patch_size)
     return flat, (grid_t, grid_h, grid_w)
+
+
+def patchify_video(
+    frames: np.ndarray,
+    *,
+    patch_size: int = PATCH_SIZE,
+    temporal_patch_size: int = TEMPORAL_PATCH_SIZE,
+    merge_size: int = MERGE_SIZE,
+    normalize: bool = True,
+) -> tuple[np.ndarray, tuple[int, int, int]]:
+    """Host path: (T, C, H, W) frames -> (flatten_patches, grid_thw), numpy
+    arrays (float32 when ``normalize``, else the frames' dtype)."""
+    x = torch.from_numpy(np.ascontiguousarray(frames))
+    if normalize:
+        x = normalize_frames(x)
+    flat, grid = _patchify(x, patch_size, temporal_patch_size, merge_size)
+    return flat.numpy(), grid
 
 
 def grid_for_frames(t: int, h: int, w: int, cfg) -> tuple[int, int, int]:
