@@ -13,8 +13,8 @@ Phases (any failure raises and the script exits non-zero):
                  sm_90a, one process per source, in parallel).
   3. kernels   — each kernel (K1 flash_prefill, K2 flash_decode, their int8
                  variants, K3 vit_group_attention, K4 train_attention_fwd and
-                 train_attention_bwd) against its plain PyTorch version on
-                 the card at the paths' shapes. bf16 K1, K1-int8, K2 and
+                 train_attention_bwd, K5 w8a16_gemm) against its plain PyTorch
+                 version on the card at the paths' shapes. bf16 K1, K1-int8, K2 and
                  K3 are held to the plain version in their own dtype by
                  ``kernel_check.close``, a limit that must also fail a
                  planted fault: a dropped split for K2
@@ -57,7 +57,15 @@ Phases (any failure raises and the script exits non-zero):
                  rounding allows, ``kernel_check.grad_close``) by a limit
                  that must fail one dropped tile pair
                  (``kernel_check.dropped_tile``), and two bf16 launches
-                 bit-equal (``phase_k4``).
+                 bit-equal (``phase_k4``). K5 (``phase_k5``) at
+                 ``kernel_timing.W8_SHAPES`` (decode and verify-window rows
+                 on gate_proj, down_proj, k_proj and the fp32 lm_head,
+                 prefill rows on gate_proj, the ViT's fc1), held by
+                 ``kernel_check.close`` in the output's dtype, a limit that a
+                 dropped K split (small form, M <= 16) or a dropped 64-wide K
+                 tile (large form) must fail; two launches bit-equal; kernel,
+                 plain version and torch.mm on the bf16 weight timed both
+                 ways beside the bound.
   4. tiny      — tiny config, fp32, seeded random weights: the engine on the
                  CPU (plain versions, the eager decode loop) and on the GPU
                  (kernels, the decode step replayed as a CUDA graph) give
@@ -67,6 +75,9 @@ Phases (any failure raises and the script exits non-zero):
   5. tiny_pool — the same model in a StreamServer with an int8 cache,
                  capacity 3 and 2 streams over 4 ticks, on the CPU and on the
                  GPU: identical text for every stream.
+     tiny_w8   — the tiny engine of ``tiny`` with int8 weights
+                 (``quantize_weights=True``): CPU (plain) and GPU (K5's fp32
+                 form) give identical text; K5 launched.
   6. main      — the single-stream session of ``livecc_tpu_torch/tools/
                  session.py``: Qwen2-VL-7B at full width and depth, bf16,
                  random weights drawn on the card from a seeded generator;
@@ -85,9 +96,10 @@ Phases (any failure raises and the script exits non-zero):
                  must emit the same tokens in every decode and launch every
                  kernel as often (replays counted). Each prints walls,
                  captures (count and seconds), replays and host reads, and
-                 the graph session once more under the profiler, the
-                 device's busy time; and one replay of the decode step at
-                 the session's last depth, in device time.
+                 the graph session (pool: one steady tick of a fresh run)
+                 once more under the profiler, the device's busy time; and
+                 one replay of the decode step at the session's last depth,
+                 in device time.
   8. main_spec — main's session with speculative decoding
                  (``session.SPEC``: fused lookahead, 8 drafts, 3-grams, the
                  controller off) through the captured lookahead step and
@@ -103,6 +115,18 @@ Phases (any failure raises and the script exits non-zero):
                  an id the session never emits (one window per token).
   9. pool_spec — pool's session with lookahead decoding, the same checks
                  against pool's tokens; the window premium at B = 8.
+     main_w8   — main's session on the same 7B (same seed) with int8
+                 weights (``session.main_model(w8=True)``: every quantized
+                 site a QuantLinear / QuantEmbedding; memory and the
+                 quantization's peak printed) and a bf16 KV cache, through
+                 the decode graphs and the eager plain loop (identical
+                 tokens, K5 launched); wall, busy and the B = 1 step replay
+                 beside main's; then one lookahead session (K5 at M = 9 in
+                 the window graph) held as main_spec is.
+     pool_w8   — pool's 8 streams on that model: int8 weights with the
+                 int8 KV cache, JAX's TPU serving configuration; graphs
+                 against the eager plain loop, ticks, busy and the B = 8
+                 step replay beside pool's.
  10. checkpoint_live — the front door on main's 7B: written as an HF
                  checkpoint (bf16 safetensors shards of ~5 GB with an index,
                  config.json from tests/fixtures/qwen2_vl_7b_config.json)
@@ -117,6 +141,8 @@ Phases (any failure raises and the script exits non-zero):
                  (it says which). Spans contiguous from the 3 s init chunk,
                  text in every chunk, and greedy tokens identical to the same
                  frames through ``session.new_engine`` on the source model.
+                 Then the same through the CLI's ``--quantize-weights``
+                 (loaded, quantized, served through K5): text in every chunk.
  11. tiny_train — tiny config, fp32: 3 training steps (packed rows, accum 2)
                  on the CPU (plain versions) and on the GPU (kernels, fused
                  CE with fp32 logit rows); the losses agree to 1e-4. Then
@@ -134,8 +160,8 @@ Phases (any failure raises and the script exits non-zero):
                  kernels phase timed.
 
 Launch counts are reset just before each of main, pool, main_spec (and
-its worst case), pool_spec, checkpoint_live's CLI run and train and read
-just after; every kernel of
+its worst case), pool_spec, main_w8 (and its lookahead session), pool_w8,
+checkpoint_live's two CLI runs and train and read just after; every kernel of
 that path must have launched. Every phase always
 runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
 and, as its last line, ``{"ok": true, "device": {...}}``. It imports nothing
@@ -171,6 +197,8 @@ KERNELS = {
                             "livecc_tpu/ops/attention.py:126"),
     "train_attention_bwd": ("livecc_tpu_torch/csrc/train_attention_bwd.cu",
                             "livecc_tpu/ops/attention.py:126"),
+    # no Pallas kernel: XLA's fused convert + dot of JAX's int8 dense
+    "w8a16_gemm": ("livecc_tpu_torch/csrc/w8a16_gemm.cu", "livecc_tpu/ops/quant.py:61"),
 }
 # the kernels each path must launch
 MAIN_KERNELS = ("vit_group_attention", "flash_prefill", "flash_decode")
@@ -179,6 +207,10 @@ POOL_KERNELS = ("vit_group_attention", "flash_prefill_int8", "flash_decode_int8"
 MAIN_SPEC_KERNELS = ("vit_group_attention", "flash_prefill")
 POOL_SPEC_KERNELS = ("vit_group_attention", "flash_prefill_int8")
 TRAIN_KERNELS = ("vit_group_attention", "train_attention_fwd", "train_attention_bwd")
+# int8 weights: every quantized matmul through K5
+MAIN_W8_KERNELS = MAIN_KERNELS + ("w8a16_gemm",)
+POOL_W8_KERNELS = POOL_KERNELS + ("w8a16_gemm",)
+MAIN_W8_SPEC_KERNELS = MAIN_SPEC_KERNELS + ("w8a16_gemm",)
 BF16_TOL = 2e-2     # the JAX package's own bf16 bound (tests/test_vit_attention.py:22)
 # lookahead against plain decoding on the card: where a stream parts, the
 # lookahead's token within TIE_ULPS bf16 steps of the plain run's best logit,
@@ -649,6 +681,8 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     phase_k4(results, check, times, yardsticks, randn)
     torch.cuda.empty_cache()
+    phase_k5(results)
+    torch.cuda.empty_cache()
     return results
 
 
@@ -817,6 +851,88 @@ def phase_k4(results, check, times, yardsticks, randn):
     results["train_attention_bwd"]["one_segment"] = {"fwd_bwd_ms": both, "library_fwd_bwd_ms": lib}
 
 
+def phase_k5(results):
+    """K5 (``w8a16_gemm``) against its plain version at
+    ``kernel_timing.W8_SHAPES`` (the 7B's decode rows M = 1 and 8, verify
+    windows of 9 and 72 rows on gate_proj, down_proj, k_proj and the fp32
+    lm_head; prefill chunks of 256 and 1024 rows on gate_proj; the ViT's fc1
+    at 3520 patches), bf16 x, int8 codes and bf16 scales of a weight ~
+    N(0, 1/K), held to the plain version in the output's dtype (bf16, or
+    fp32 for the lm_head) by ``kernel_check.close``, which a planted fault
+    must fail: a dropped K split of one column block in the small form
+    (M <= 16, ``kernel_check.w8_drop_split``), a dropped 64-wide K tile of
+    one output tile in the large form (``w8_drop_k_tile``). Two launches
+    must be bit-equal. Times, each by both methods: kernel, plain version
+    and torch.mm on the bf16 weight (the product the bf16 model runs; with
+    an fp32 output for the lm_head), beside the bound (``kernel_timing.
+    w8_work``) and the bf16 product's. The first shape gives the JSON
+    line's numbers."""
+    import torch
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(5)
+    r = results.setdefault("w8a16_gemm", {"max_abs_err": 0.0})
+    # the plain version's bf16 product sums in fp32 throughout, as K5 does
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        k5_shapes(r, gen)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+    log(f"  {'w8a16_gemm':20s} two launches bit-equal at every shape")
+
+
+def k5_shapes(r: dict, gen) -> None:
+    """``phase_k5``'s checks and times, shape by shape, into ``r``."""
+    import torch
+
+    from livecc_tpu_torch.ops import quant
+    from livecc_tpu_torch.tools import kernel_check, kernel_timing
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms, graph_ms
+
+    for proj, m in kernel_timing.W8_SHAPES:
+        x, q, scale, out_dtype = kernel_timing.w8_operands(proj, m, gen)
+        n, k = q.shape
+        dtype = out_dtype or torch.bfloat16
+        label = f"{proj} M={m} N={n} K={k} {str(dtype)[6:]} out"
+        out = quant.w8a16_gemm(x, q, scale, out_dtype)
+        ref = quant.w8a16_gemm_plain(x, q, scale, out_dtype)
+        small = m <= quant.SMALL_M
+        fault = (kernel_check.w8_drop_split(x, q, scale, out_dtype) if small
+                 else kernel_check.w8_drop_k_tile(x, q, scale, out_dtype))
+        torch.cuda.synchronize()
+        worst, w_bad = kernel_check.close(out, ref, dtype), kernel_check.close(fault, ref, dtype)
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"  {'w8a16_gemm':20s} {label:48s} max_abs_err {err:.3e}, worst {worst:.3f} of the "
+            f"limit {kernel_check.TOL[dtype]}; a dropped "
+            f"{'K split' if small else '64-wide K tile'}: {w_bad:.1f}x")
+        if not worst <= 1.0:
+            raise AssertionError(f"w8a16_gemm {label}: {worst:.3f}x the limit")
+        if not w_bad > 1.0:
+            raise AssertionError(f"w8a16_gemm {label}: the check passes the planted fault")
+        if not torch.equal(out, quant.w8a16_gemm(x, q, scale, out_dtype)):
+            raise AssertionError(f"w8a16_gemm {label}: two launches differ")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        del out, ref, fault
+        w = q.to(torch.bfloat16) * scale[:, None]        # the bf16 weight
+        fns = (lambda: quant.w8a16_gemm(x, q, scale, out_dtype),
+               lambda: quant.w8a16_gemm_plain(x, q, scale, out_dtype),
+               (lambda: torch.mm(x, w.t())) if out_dtype is None
+               else (lambda: torch.mm(x, w.t(), out_dtype=out_dtype)))
+        one = [cuda_ms(fn) for fn in fns]
+        dev_t = [graph_ms(fn) for fn in fns]
+        flops, nbytes = kernel_timing.w8_work(m, n, k, out_dtype is not None)
+        b_ms, b_by = bound(flops, nbytes)
+        bf16_ms, _ = bound(flops, nbytes + n * k)                 # 2 bytes a weight
+        log(f"  {'w8a16_gemm':20s} {label:48s} one call: kernel {one[0]:.4f}  plain {one[1]:.4f}  "
+            f"torch.mm bf16 {one[2]:.4f} ms; device: kernel {dev_t[0]:.4f}  plain "
+            f"{dev_t[1]:.4f}  torch.mm bf16 {dev_t[2]:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), bf16 weight's {bf16_ms:.4f} ms")
+        if "ms" not in r:
+            r.update(ms=one[0], plain_ms=one[1], library_ms=one[2], bound_ms=b_ms, bound_by=b_by)
+        del x, q, scale, w, fns
+        torch.cuda.empty_cache()
+
+
 def sdpa_packed(qs, k, v, seg, do):
     """The one PyTorch call that computes K4's function on these inputs:
     SDPA with the packed rows' block-causal mask and GQA (forward, or with
@@ -926,6 +1042,38 @@ def phase_tiny_pool():
         raise AssertionError("tiny pool: CPU and GPU servers disagree")
 
 
+def phase_tiny_w8():
+    """The tiny config with int8 weights (``quantize_model``), fp32: the
+    engine on the CPU (plain versions, the eager decode loop) and on the
+    GPU (K5's fp32 form, the decode graphs) give identical greedy text over
+    3 chunks, and the GPU run launched K5."""
+    import copy
+
+    import torch
+
+    from livecc_tpu_torch.core.config import tiny_config
+    from livecc_tpu_torch.data.tokenizer import ByteTokenizer
+    from livecc_tpu_torch.engine import LiveCCEngine
+    from livecc_tpu_torch.models.qwen2_vl import init_params
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools.session import synth_frames
+
+    cfg = tiny_config()
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0), "cpu", torch.float32)
+    frames = synth_frames(10, 28, 28, seed=1)
+    outs, launches = [], []
+    for model in (cpu_model, copy.deepcopy(cpu_model).to("cuda")):
+        eng = LiveCCEngine(model, cfg, ByteTokenizer(), cache_len=512, cache_dtype=torch.float32,
+                           quantize_weights=True)
+        before = build.launch_counts["w8a16_gemm"]
+        outs.append(eng.live_cc_once_for_evaluation("describe", frames, max_new_tokens=16))
+        launches.append(build.launch_counts["w8a16_gemm"] - before)
+    log(f"  tiny w8 cpu: {outs[0]}")
+    log(f"  tiny w8 gpu: {outs[1]}; {launches[1]} K5 launches")
+    if len(outs[0]) != 3 or outs[0] != outs[1] or launches != [0, launches[1]] or not launches[1]:
+        raise AssertionError(f"tiny w8: CPU and GPU engines disagree, or K5 launches {launches}")
+
+
 @contextlib.contextmanager
 def decoding(plain: bool, record: list):
     """Every decode of the engine and the pool goes through
@@ -1023,15 +1171,18 @@ def same_tokens(label: str, graph: list, plain: list,
     log(f"  {label}: {what} token-identical over {len(graph)} decodes ({n} tokens)")
 
 
-def run_twice(label: str, model, counts_of, session, walls_of) -> tuple[dict, object, list]:
+def run_twice(label: str, model, counts_of, session, walls_of,
+              profiled=None) -> tuple[dict, object, list, dict]:
     """``session(plain)`` through the graphs and through the eager plain
     loop, each from a fresh state on the same model: launch counts (reset
     just before, read just after), walls (the run's, and ``walls_of`` its
     result's chunks or ticks) and captures of each run; then the graphs'
-    once more under the profiler for the device's busy time. Fails
+    once more under the profiler for the device's busy time, or, given
+    ``profiled``, its (wall, busy) of a shorter profiled run. Fails
     unless the two emit the same tokens and launch the same kernels as
-    often. Returns the graph run's counts, the session's result and the
-    eager plain loop's record (the same tokens, and the logits' tops)."""
+    often. Returns the graph run's counts, the session's result, the
+    eager plain loop's record (the same tokens, and the logits' tops) and
+    the profiled run's {"wall", "busy"}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1063,16 +1214,19 @@ def run_twice(label: str, model, counts_of, session, walls_of) -> tuple[dict, ob
         raise AssertionError(f"{label}: launch counts differ, graph replay {runs[False][0]} "
                              f"against the eager plain loop {runs[True][0]}")
     log(f"  {label}: launch counts equal, replays counted")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        session(False)
+    if profiled is None:
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = busy_seconds(prof)
-    log(f"  {label} graph replay (profiled): wall {wall:.3f} s, device busy {busy:.3f} s, idle "
-        f"share {1 - busy / wall:.3f}")
-    return runs[False][0], runs[False][2], runs[True][1]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            session(False)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, what = busy_seconds(prof), "graph replay (profiled)"
+    else:
+        (wall, busy), what = profiled(), "one steady tick of a fresh graph run (profiled)"
+    log(f"  {label} {what}: wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
+        f"{1 - busy / wall:.3f}")
+    return runs[False][0], runs[False][2], runs[True][1], {"wall": wall, "busy": busy}
 
 
 @contextlib.contextmanager
@@ -1174,12 +1328,19 @@ def step_replay_ms(model, cache, state_type) -> float:
     return replay_ms(found[0].graph, replays=12, warmup=2)
 
 
-def phase_main(cfg, model) -> tuple[dict, list, float]:
+def phase_main(cfg, model) -> tuple[dict, list, dict]:
+    """The 7B single stream (``single_stream``) on the bf16 model."""
+    return single_stream("main", cfg, model, MAIN_KERNELS)
+
+
+def single_stream(label: str, cfg, model, kernels) -> tuple[dict, list, dict]:
     """The 7B single stream, 5 chunks, through the decode graphs and through
     the eager plain loop (``run_twice``); then the device time of one replay
-    of its decode step at the session's last depth (``replay_ms``). Returns
-    the graph run's launch counts, the eager plain loop's record and that
-    time."""
+    of its decode step at the session's last depth (``replay_ms``). Fails
+    unless every kernel of ``kernels`` launched. Returns the graph run's
+    launch counts, the eager plain loop's record and {"step_ms": that time,
+    "wall", "busy": the profiled session's, "tokens": the graph run's
+    tokens of each decode}."""
     import torch
 
     from livecc_tpu_torch.engine.generation import DecodeState
@@ -1196,13 +1357,13 @@ def phase_main(cfg, model) -> tuple[dict, list, float]:
     torch.cuda.reset_peak_memory_stats()
     chunk_walls = lambda r: "chunks " + ", ".join(f"{c.seconds * 1e3:.1f}"
                                                    for c in r[0].chunk_log) + " ms"
-    counts, (eng, state, out), record = run_twice("main", model, lambda: dict(build.launch_counts),
-                                                  run, chunk_walls)
+    counts, (eng, state, out), record, prof = run_twice(
+        label, model, lambda: dict(build.launch_counts), run, chunk_walls)
     peak = torch.cuda.max_memory_allocated() / 2**30
     for (t_a, t_b, text), rec in zip(out, eng.chunk_log):
         log(f"  chunk {t_a:4.1f}-{t_b:4.1f}s  wall {rec.seconds * 1e3:9.2f} ms  prompt "
             f"{rec.prompt_tokens:4d} tok  generated {rec.generated_tokens:2d} tok  {text!r}")
-    log(f"  main path: {len(out)} chunks, peak memory {peak:.2f} GiB, launches {counts}")
+    log(f"  {label} path: {len(out)} chunks, peak memory {peak:.2f} GiB, launches {counts}")
     if len(out) != 5 or len(eng.chunk_log) != 5:
         raise AssertionError(f"expected 5 chunks, got {len(out)}")
     if not all(rec.generated_tokens > 0 for rec in eng.chunk_log):
@@ -1210,21 +1371,52 @@ def phase_main(cfg, model) -> tuple[dict, list, float]:
     if state.logits is None or state.logits.shape != (1, cfg.text.vocab_size) or not bool(
             torch.isfinite(state.logits).all()):
         raise AssertionError("last prefill logits missing, misshapen or non-finite")
-    missing = [name for name in MAIN_KERNELS if counts.get(name, 0) <= 0]
+    missing = [name for name in kernels if counts.get(name, 0) <= 0]
     if missing:
-        raise AssertionError(f"the main path never launched {missing}")
+        raise AssertionError(f"the {label} path never launched {missing}")
     step_ms = step_replay_ms(model, state.cache, DecodeState)
     log(f"  decode step replay at depth {int(state.cache.offset[0])}, B=1: {step_ms:.3f} ms "
         f"device time")
-    return counts, record, step_ms
+    return counts, record, dict(prof, step_ms=step_ms, tokens=[t for t, *_ in record])
 
 
-def phase_pool(cfg, model) -> tuple[dict, list, float]:
+def phase_pool(cfg, model) -> tuple[dict, list, dict]:
+    """The 7B serving pool (``pool_phase``) on the bf16 model."""
+    return pool_phase("pool", cfg, model, POOL_KERNELS)
+
+
+def profiled_pool_tick(cfg, model) -> tuple[float, float]:
+    """(wall, device busy) of the last steady tick of a fresh pool run
+    (``session.run_pool`` after a warmup) under the profiler: 8 steady
+    chunks at B = 8, the tick the pool serves at the 1 Hz cadence."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from livecc_tpu_torch.tools import session
+    from livecc_tpu_torch.tools.profile_stream import busy_seconds
+
+    server = session.pool_server(cfg, model)
+    server.warmup([(session.HEIGHT, session.WIDTH)])
+    profs = []
+
+    def around(tick):
+        if tick < session.POOL_STEADY_TICKS:
+            return contextlib.nullcontext()
+        profs.append(profile(activities=[ProfilerActivity.CUDA]))
+        return profs[-1]
+
+    _, walls = session.run_pool(server, around_tick=around)
+    return walls[-1], busy_seconds(profs[0])
+
+
+def pool_phase(label: str, cfg, model, kernels) -> tuple[dict, list, dict]:
     """The 7B in the serving pool: 8 streams, int8 KV, 4 ticks, through the
-    decode graphs and through the eager plain loop (``run_twice``); then the
-    device time of one replay of the pool's decode step at its last depths.
-    Returns the graph run's launch counts, the eager plain loop's record and
-    that time."""
+    decode graphs and through the eager plain loop (``run_twice``; busy time
+    from one steady tick, ``profiled_pool_tick``); then the device time of
+    one replay of the pool's decode step at its last depths. Fails unless
+    every kernel of ``kernels`` launched. Returns the graph run's launch
+    counts, the eager plain loop's record and {"step_ms": that time,
+    "ticks": the graph run's tick walls, "wall", "busy": the profiled
+    tick's}."""
     import torch
 
     from livecc_tpu_torch.engine.generation import DecodeState
@@ -1245,9 +1437,9 @@ def phase_pool(cfg, model) -> tuple[dict, list, float]:
     torch.cuda.reset_peak_memory_stats()
     tick_walls = lambda r: (f"warmup {r[1] * 1e3:.1f} ms, ticks "
                             + ", ".join(f"{w * 1e3:.1f}" for w in r[3]) + " ms")
-    counts, (server, warm, out, walls), record = run_twice("pool", model,
-                                                           lambda: dict(build.launch_counts), run,
-                                                           tick_walls)
+    counts, (server, warm, out, walls), record, prof = run_twice(
+        label, model, lambda: dict(build.launch_counts), run, tick_walls,
+        lambda: profiled_pool_tick(cfg, model))
     peak = torch.cuda.max_memory_allocated() / 2**30
     pool = server.pool_caches
     kv_gb = (pool.k.nbytes + pool.v.nbytes) / 1e9
@@ -1267,17 +1459,17 @@ def phase_pool(cfg, model) -> tuple[dict, list, float]:
         log(f"  stream {sid} slot {server._streams[sid].slot}: {[text for _, text in rows]!r}"[:200])
     if len(out) != session.POOL_STREAMS or any(
             len(rows) != 1 + session.POOL_STEADY_TICKS for rows in out.values()):
-        raise AssertionError(f"pool: expected {1 + session.POOL_STEADY_TICKS} chunks of text "
+        raise AssertionError(f"{label}: expected {1 + session.POOL_STEADY_TICKS} chunks of text "
                              f"for each of {session.POOL_STREAMS} streams")
     if not bool((pool.offset > 0).all()) or not bool(
             torch.isfinite(pool.k_scale.float()).all() and torch.isfinite(pool.v_scale.float()).all()):
-        raise AssertionError("pool: a slot never advanced, or non-finite scales")
-    missing = [name for name in POOL_KERNELS if counts.get(name, 0) <= 0]
+        raise AssertionError(f"{label}: a slot never advanced, or non-finite scales")
+    missing = [name for name in kernels if counts.get(name, 0) <= 0]
     if missing:
-        raise AssertionError(f"the pool path never launched {missing}")
+        raise AssertionError(f"the {label} path never launched {missing}")
     step_ms = step_replay_ms(model, pool, DecodeState)
     log(f"  decode step replay at depths {pool.offset.tolist()}, B=8: {step_ms:.3f} ms device time")
-    return counts, record, step_ms
+    return counts, record, dict(prof, step_ms=step_ms, ticks=walls)
 
 
 def pool_streams(server):
@@ -1427,6 +1619,75 @@ def phase_pool_spec(cfg, model, plain_record: list, decode_ms: float) -> dict:
     log(f"  window premium, B=8: lookahead step replay {window_ms:.3f} ms against decode step "
         f"replay {decode_ms:.3f} ms at depths {pool.offset.tolist()}: "
         f"{window_ms / decode_ms:.3f}x")
+    return counts
+
+
+def phase_main_w8(cfg, model, main_record: list, main: dict, init: dict) -> tuple[dict, dict]:
+    """``main``'s single stream on the 7B with int8 weights (``init``: its
+    build, beside the bf16 model's memory) and a bf16 KV cache, through the
+    decode graphs and the eager plain loop (``single_stream``: identical
+    tokens, equal launch counts, K5 launched). Every quantized site holds a
+    quantized module. Prints session wall, busy time and one decode-step
+    replay at B = 1 beside ``main``'s, and the share of greedy tokens equal
+    to main's bf16 run (information only: the weights differ). Then one
+    lookahead session (``session.SPEC``) through the lookahead graphs and
+    the eager lookahead loop (``run_spec_twice``), so K5's M = 9 form runs in
+    the window graph. Returns the graph runs' launch counts (plain,
+    lookahead)."""
+    from livecc_tpu_torch.ops.quant import QuantEmbedding, QuantLinear, quantized_sites
+    from livecc_tpu_torch.tools import session
+
+    plain = [f"{type(p).__name__}.{a}" for p, a in quantized_sites(model)
+             if not isinstance(getattr(p, a), (QuantLinear, QuantEmbedding))]
+    if plain:
+        raise AssertionError(f"main_w8: unquantized modules at quantized sites: {plain[:8]}")
+    log(f"  model: {init['gib']:.2f} GiB of weights on the card ({init['bytes_gib']:.2f} GiB "
+        f"of parameters and buffers; bf16: {init['bf16_gib']:.2f} GiB), "
+        f"{len(quantized_sites(model))} quantized modules, built and quantized in "
+        f"{init['seconds']:.1f} s with a peak {init['peak_gib']:.2f} GiB above what was held")
+    counts, record, w8 = single_stream("main_w8", cfg, model, MAIN_W8_KERNELS)
+    log(f"  main_w8 against main (bf16 weights): session wall {w8['wall']:.3f} against "
+        f"{main['wall']:.3f} s, device busy {w8['busy']:.3f} against {main['busy']:.3f} s "
+        f"(profiled runs); decode step replay B=1 {w8['step_ms']:.3f} against "
+        f"{main['step_ms']:.3f} ms ({w8['step_ms'] / main['step_ms']:.3f}x)")
+    same = total = 0
+    for a, b in zip(w8["tokens"], main["tokens"]):
+        same += int((a == b).sum())
+        total += a.numel()
+    log(f"  main_w8: {same} of {total} greedy token slots equal to main's bf16 run "
+        f"({same / total:.3f}; information, not a check: the weights differ)")
+    frames = session.main_frames()
+
+    def run():
+        eng = session.new_engine(cfg, model, session.SPEC)
+        state = eng.new_stream()
+        return eng, state, session.run_session(eng, frames, state=state)
+
+    def chunks(r):
+        return ", ".join(f"{c.seconds * 1e3:.1f} ms / {c.windows} windows / {c.generated_tokens} "
+                         f"tokens" for c in r[0].chunk_log)
+
+    spec_counts, _ = run_spec_twice("main_w8_spec", model, run, chunks, record,
+                                    lambda _: lambda d, r: 0)
+    missing = [name for name in MAIN_W8_SPEC_KERNELS if spec_counts.get(name, 0) <= 0]
+    if missing:
+        raise AssertionError(f"the main_w8 lookahead path never launched {missing}")
+    return counts, spec_counts
+
+
+def phase_pool_w8(cfg, model, pool: dict) -> dict:
+    """JAX's TPU serving configuration: ``pool``'s 8 streams on the 7B with
+    int8 weights and the int8 KV cache, through the decode graphs and the
+    eager plain loop (``pool_phase``: identical tokens, K5 launched). Prints
+    the steady ticks, the profiled tick's busy time and one B = 8 decode-step
+    replay beside ``pool``'s. Returns the graph run's launch counts."""
+    counts, _, w8 = pool_phase("pool_w8", cfg, model, POOL_W8_KERNELS)
+    ticks = lambda d: ", ".join(f"{t * 1e3:.1f}" for t in d["ticks"][1:])
+    log(f"  pool_w8 against pool (bf16 weights): steady ticks {ticks(w8)} against {ticks(pool)} "
+        f"ms; profiled steady tick wall {w8['wall'] * 1e3:.1f} against {pool['wall'] * 1e3:.1f} "
+        f"ms, device busy {w8['busy'] * 1e3:.1f} against {pool['busy'] * 1e3:.1f} ms; decode "
+        f"step replay B=8 {w8['step_ms']:.3f} against {pool['step_ms']:.3f} ms "
+        f"({w8['step_ms'] / pool['step_ms']:.3f}x)")
     return counts
 
 
@@ -1603,6 +1864,31 @@ def phase_checkpoint_live(cfg, models: list) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(build.launch_counts)
+        if not ffmpeg:
+            del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the same through the CLI's --quantize-weights: int8 weights, K5
+        build.reset_launch_counts()
+        t0 = time.perf_counter()
+        if ffmpeg:
+            with decoding(False, []):
+                out_w8 = cli.main(["--video", clip, "--model", path, "--seconds",
+                                   str(CLIP_SECONDS), "--query", QUERY, "--quantize-weights"],
+                                  tokenizer=tokenizer)["commentaries"]
+            what_w8 = "demo.cli.main --quantize-weights (engine build and load included)"
+        else:
+            engine = cli.build_engine(path, tokenizer=tokenizer, quantize_weights=True)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out_w8 = commentate(engine, [])
+            what_w8 = (f"LiveCC on the CLI's engine with --quantize-weights (built, loaded and "
+                       f"quantized in {build_s:.2f} s before)")
+            del engine
+        torch.cuda.synchronize()
+        wall_w8 = time.perf_counter() - t0
+        counts_w8 = dict(build.launch_counts)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"  live session over the {CLIP_SECONDS} s clip, {what}: {wall:.2f} s; "
@@ -1613,15 +1899,23 @@ def phase_checkpoint_live(cfg, models: list) -> dict:
                 "the CLI's engine on the loaded checkpoint and the source model's engine")
     if out != ref_out:
         raise AssertionError("checkpoint_live: the commentary differs from the source model's")
-    spans = [(a, b) for a, b, _ in out]
-    if spans[0] != (0.0, 3.0) or any(b0 != a1 for (_, a1), (b0, _) in zip(spans, spans[1:])) \
-            or spans[-1][1] != CLIP_SECONDS or not all(text for *_, text in out):
-        raise AssertionError(f"checkpoint_live: spans {spans} not contiguous from the 3 s init "
-                             f"window to {CLIP_SECONDS} s, or a chunk without text")
-    missing = [name for name in MAIN_KERNELS if counts.get(name, 0) <= 0]
-    if missing:
-        raise AssertionError(f"the checkpoint_live path never launched {missing}")
-    return counts
+    log(f"  live session over the {CLIP_SECONDS} s clip, {what_w8}: {wall_w8:.2f} s; "
+        f"launches {counts_w8}")
+    for t_a, t_b, text in out_w8:
+        log(f"  w8 [{t_a:4.1f}-{t_b:4.1f}s] {text!r}"[:160])
+    for label, result in (("checkpoint_live", out), ("checkpoint_live --quantize-weights",
+                                                     out_w8)):
+        spans = [(a, b) for a, b, _ in result]
+        if spans[0] != (0.0, 3.0) or any(b0 != a1 for (_, a1), (b0, _) in zip(spans, spans[1:])) \
+                or spans[-1][1] != CLIP_SECONDS or not all(text for *_, text in result):
+            raise AssertionError(f"{label}: spans {spans} not contiguous from the 3 s init "
+                                 f"window to {CLIP_SECONDS} s, or a chunk without text")
+    for label, c, kernels in (("checkpoint_live", counts, MAIN_KERNELS),
+                              ("checkpoint_live --quantize-weights", counts_w8, MAIN_W8_KERNELS)):
+        missing = [name for name in kernels if c.get(name, 0) <= 0]
+        if missing:
+            raise AssertionError(f"the {label} path never launched {missing}")
+    return counts, counts_w8
 
 
 def phase_tiny_train():
@@ -1751,21 +2045,41 @@ def main() -> int:
     results = run_phase("kernels", phase_kernels)
     run_phase("tiny", phase_tiny)
     run_phase("tiny_pool", phase_tiny_pool)
+    run_phase("tiny_w8", phase_tiny_w8)
     t0 = time.perf_counter()
     cfg, model = session.main_model()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"7B init: {n_params / 1e9:.3f} B params bf16 in {time.perf_counter() - t0:.1f} s")
-    main_counts, main_record, main_step_ms = run_phase("main", lambda: phase_main(cfg, model))
-    pool_counts, pool_record, pool_step_ms = run_phase("pool", lambda: phase_pool(cfg, model))
+    main_counts, main_record, main_sum = run_phase("main", lambda: phase_main(cfg, model))
+    pool_counts, pool_record, pool_sum = run_phase("pool", lambda: phase_pool(cfg, model))
     spec_counts, adversarial_counts = run_phase(
-        "main_spec", lambda: phase_main_spec(cfg, model, main_record, main_step_ms))
+        "main_spec", lambda: phase_main_spec(cfg, model, main_record, main_sum["step_ms"]))
     pool_spec_counts = run_phase(
-        "pool_spec", lambda: phase_pool_spec(cfg, model, pool_record, pool_step_ms))
-    del main_record, pool_record
+        "pool_spec", lambda: phase_pool_spec(cfg, model, pool_record, pool_sum["step_ms"]))
+    del pool_record
+    # the same 7B with int8 weights, drawn from the same seed and quantized
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, model_w8 = session.main_model(w8=True)
+    torch.cuda.synchronize()
+    w8_init = {"seconds": time.perf_counter() - t0,
+               "gib": (torch.cuda.memory_allocated() - held) / 2**30,
+               "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+               "bytes_gib": session.model_bytes(model_w8) / 2**30,
+               "bf16_gib": session.model_bytes(model) / 2**30}
+    main_w8_counts, main_w8_spec_counts = run_phase(
+        "main_w8", lambda: phase_main_w8(cfg, model_w8, main_record, main_sum, w8_init))
+    pool_w8_counts = run_phase("pool_w8", lambda: phase_pool_w8(cfg, model_w8, pool_sum))
+    del main_record, model_w8
+    gc.collect()
+    torch.cuda.empty_cache()
     models = [model]
     del model                                # checkpoint_live frees the serving 7B
-    checkpoint_counts = run_phase("checkpoint_live", lambda: phase_checkpoint_live(cfg, models))
+    checkpoint_counts, checkpoint_w8_counts = run_phase(
+        "checkpoint_live", lambda: phase_checkpoint_live(cfg, models))
     gc.collect()
     torch.cuda.empty_cache()
     run_phase("tiny_train", phase_tiny_train)
@@ -1774,7 +2088,9 @@ def main() -> int:
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": sum(c.get(name, 0) for c in (main_counts, pool_counts, spec_counts,
                                                  adversarial_counts, pool_spec_counts,
-                                                 checkpoint_counts, train_counts)),
+                                                 main_w8_counts, main_w8_spec_counts,
+                                                 pool_w8_counts, checkpoint_counts,
+                                                 checkpoint_w8_counts, train_counts)),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"],
         "plain_ms": results[name]["plain_ms"],

@@ -1,10 +1,12 @@
 // Fragment and copy primitives of the bf16 tensor-core attention kernels,
 // shared by mma_attention.cuh (K1, K3), quant_mma_attention.cuh (K1-int8)
-// and train_mma_attention.cuh (K4): 16-byte cp.async copies into padded
-// shared rows, ldmatrix, and mma.sync.aligned.m16n8k16 with bf16 operands
-// and an fp32 accumulator; and the steps of a 64-query x 64-key online-
-// softmax tile that K1, K3 and K1-int8 take alike (Q fragments, S = Q K^T,
-// the running max and the rescale, the normalising epilogue).
+// and train_mma_attention.cuh (K4), and of the W8A16 GEMM w8a16_gemm.cu
+// (K5): 16-byte cp.async copies into padded shared rows, ldmatrix,
+// mma.sync.aligned.m16n8k16 with bf16 operands and an fp32 accumulator,
+// the exact widening of int8 codes to bf16; and the steps of a 64-query x
+// 64-key online-softmax tile that K1, K3 and K1-int8 take alike (Q
+// fragments, S = Q K^T, the running max and the rescale, the normalising
+// epilogue).
 //
 // Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"),
 // for lane = 4 * gid + tig: the accumulator c[0..1] holds row gid, columns
@@ -67,6 +69,19 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // .x (low half) = lo
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four int8 codes (K1-int8's K/V tiles, K5's weight tiles) (one word, code 0 in the low byte) -> four bf16, exactly:
+// lo holds codes 0 and 1, hi codes 2 and 3 (the lower code in the low half)
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = w ^ 0x80808080u;       // code + 128, unsigned
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)               // 2^23 + byte i, less 2^23 + 128
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+  // the integers are exact in bf16, so bf16 is each float's upper half
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }
 
 // Copy `rows` rows of D bf16 (row stride `stride` elements) into a padded

@@ -108,19 +108,6 @@ inline size_t quant_mma_smem_bytes(int d) {
 
 namespace {
 
-// four int8 codes (one word, code 0 in the low byte) -> four bf16, exactly:
-// lo holds codes 0 and 1, hi codes 2 and 3 (the lower code in the low half)
-__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
-  const uint32_t u = w ^ 0x80808080u;       // code + 128, unsigned
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)               // 2^23 + byte i, less 2^23 + 128
-    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
-  // the integers are exact in bf16, so bf16 is each float's upper half
-  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
-}
-
 // Copy one int8 tile of 64 rows of D bytes (row stride `stride` bytes) into
 // an unpadded shared tile; rows at or past `valid` are zero-filled.
 template <int D>

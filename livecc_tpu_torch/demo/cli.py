@@ -8,12 +8,14 @@ JSON ({video_path, query, commentaries}).
 Usage:
   python -m livecc_tpu_torch.demo.cli --video clip.mp4 --query "..." \\
       [--model /path/to/hf_checkpoint] [--seconds 30] [--output out.json] \\
-      [--device cuda|cpu]
+      [--device cuda|cpu] [--quantize-weights]
 
 With --model the HF checkpoint loads in bf16 (``load_checkpoint``) with a
 bf16 KV cache and the checkpoint's tokenizer.json. Without it a tiny
 random-init config and a byte tokenizer run the whole pipeline in fp32
-(smoke mode; the output is gibberish by construction). The model runs on
+(smoke mode; the output is gibberish by construction). --quantize-weights
+serves int8 matmul weights (JAX's TPU serving configuration; off by
+default on every device here). The model runs on
 the card unless --device cpu asks for the CPU (the plain versions of the
 kernels); without CUDA, --device cuda raises.
 """
@@ -25,9 +27,11 @@ import json
 
 
 def build_engine(model_path: str | None, cache_len: int = 8192, speculative: bool = False,
-                 device: str = "cuda", tokenizer=None):
+                 device: str = "cuda", tokenizer=None, quantize_weights: bool | None = None):
     """A ``LiveCCEngine`` on ``device`` for the checkpoint at ``model_path``
-    (or the tiny smoke model); ``tokenizer`` overrides the checkpoint's."""
+    (or the tiny smoke model); ``tokenizer`` overrides the checkpoint's.
+    ``quantize_weights`` goes to the engine, which quantizes the loaded
+    model module by module (int8 weights through K5; None is off)."""
     import torch
 
     from livecc_tpu_torch.core.config import tiny_config
@@ -51,7 +55,7 @@ def build_engine(model_path: str | None, cache_len: int = 8192, speculative: boo
         cache_dtype = torch.float32
     spec = SpecConfig() if speculative else None
     return LiveCCEngine(model, cfg, tokenizer, cache_len=cache_len, cache_dtype=cache_dtype,
-                        spec=spec)
+                        quantize_weights=quantize_weights, spec=spec)
 
 
 def generation_params(engine, max_new_tokens: int = 16, eos_base_threshold: float = 0.0,
@@ -100,6 +104,11 @@ def main(argv=None, *, tokenizer=None):
     parser.add_argument("--output", default=None)
     parser.add_argument("--streaming-eos-base-threshold", type=float, default=0.0)
     parser.add_argument("--streaming-eos-threshold-step", type=float, default=0.0)
+    parser.add_argument("--quantize-weights", action=argparse.BooleanOptionalAction,
+                        default=None,
+                        help="int8 matmul weights (half the weight bytes; ops/quant.py, the "
+                             "W8A16 kernel K5). Default: off on every device until the port's "
+                             "benchmark has A/B'd it")
     parser.add_argument("--speculative", action="store_true",
                         help="fused on-device lookahead decoding (n-gram drafts verified in "
                              "one forward; engine/speculative.py)")
@@ -111,7 +120,7 @@ def main(argv=None, *, tokenizer=None):
     from livecc_tpu_torch.engine.live import LiveCC
 
     engine = build_engine(args.model, speculative=args.speculative, device=args.device,
-                          tokenizer=tokenizer)
+                          tokenizer=tokenizer, quantize_weights=args.quantize_weights)
     gen = generation_params(engine, args.max_new_tokens, args.streaming_eos_base_threshold,
                             args.streaming_eos_threshold_step)
     commentaries = commentate(LiveCC(engine), args.video, args.seconds, args.query, gen)

@@ -69,12 +69,13 @@ def graph_key(model: Qwen2VL, gen: GenerationParams, cache: KVCache, batch: int,
               hist: Optional[torch.Tensor] = None) -> tuple:
     """What a captured step depends on: batch, cache length and dtype, the
     generation settings, the generator it draws from (sampling only), the
-    addresses of the cache's buffers and of the weights, and the mode: a
+    addresses of the cache's buffers and of the weights (parameters and
+    buffers: int8 weights are buffers, ``ops/quant.py``), and the mode: a
     plain decode step, or (``spec`` given) a lookahead step with its
     settings and the address of its ``hist``."""
     buffers = tuple(0 if t is None else t.data_ptr()
                     for t in (cache.k, cache.v, cache.k_scale, cache.v_scale))
-    weights = hash(tuple(p.data_ptr() for p in model.parameters()))
+    weights = hash(tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers())))
     mode = ("decode",) if spec is None else ("lookahead", spec, hist.data_ptr())
     return (batch, cache.max_len, cache.k.dtype, gen, generator if gen.do_sample else None,
             buffers, weights, mode)

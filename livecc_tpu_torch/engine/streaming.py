@@ -41,6 +41,7 @@ from livecc_tpu_torch.engine.speculative import (
     SpecConfig, SpecController, decode_chunk_lookahead, speculative_decode_chunk)
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, VisionInputs, get_rope_index
 from livecc_tpu_torch.models.qwen2_vl.text import KVCache
+from livecc_tpu_torch.ops.quant import quantize_model
 from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
 from livecc_tpu_torch.utils.metrics import LatencyTracker
 from livecc_tpu_torch.vision_io.budget import VisionBudget
@@ -107,8 +108,18 @@ class LiveCCEngine:
         cache_dtype: torch.dtype | None = None,
         compact_keep: int | None = None,
         compact_sink_cap: int = 1024,
+        quantize_weights: bool | None = None,
         spec: SpecConfig | None = None,
     ):
+        """``quantize_weights=True`` quantizes ``model``'s matmul weights to
+        int8 IN PLACE (``ops/quant.py:quantize_model``; every later user of
+        the model sees them), so every quantized matmul runs through K5; a
+        model quantized before is served as it is. None resolves to False on
+        every device: JAX's TPU default (int8 weights, its soak A/B) is not
+        taken over, since the choice on the card waits for the port's
+        benchmark to A/B the two."""
+        if quantize_weights:
+            quantize_model(model)
         self.model = model
         self.cfg = cfg
         self.tokenizer = tokenizer

@@ -5,7 +5,12 @@ arrays run under ``lax.scan``, and matrices as ``[in, out]`` kernels for
 ``x @ W``. The port keeps one module per layer and ``nn.Linear``'s
 ``[out, in]`` weights. ``params_from_jax`` maps the first onto the second,
 so both packages compute the same function on the same weights (the output
-of ``init_params`` or ``convert_state_dict``, moved to numpy).
+of ``init_params`` or ``convert_state_dict``, moved to numpy). A tree that
+JAX's ``quantize_model_params`` made holds ``{"q", "scale"}`` nodes in
+place of those kernels (``q [L, in, out]`` with a scale ``[L, 1, out]``; the
+embedding ``q [V, H]`` with ``[V, 1]``); their modules become the port's
+``QuantLinear`` / ``QuantEmbedding`` holding the same codes (``[out, in]``)
+and scales, so both packages compute on the same codes.
 """
 
 from __future__ import annotations
@@ -14,9 +19,12 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL
+from livecc_tpu_torch.ops.quant import (
+    QuantEmbedding, QuantLinear, is_quantized, quantized_sites)
 
 # port parameter (relative to a vision block / decoder layer) ->
 # (JAX key in the stacked layer dict, transpose?)
@@ -64,27 +72,60 @@ def _jax_name_map(cfg: ModelConfig) -> dict[str, tuple[tuple[str, ...], int | No
     return out
 
 
+def _node(tree: Mapping[str, Any], path: tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _swap_quantized(model: Qwen2VL, tree: Mapping[str, Any],
+                    names: dict[str, tuple[tuple[str, ...], int | None, bool]]) -> None:
+    """Replace every module whose JAX weight is a ``{"q", "scale"}`` node by
+    an empty ``QuantLinear`` / ``QuantEmbedding`` (in place, and in
+    ``names``: its ``weight`` entry becomes ``q`` and ``scale`` entries)."""
+    for parent, attr in quantized_sites(model):
+        mod = getattr(parent, attr)
+        prefix = next(n for n, m in model.named_modules() if m is mod)
+        path, layer, transpose = names[f"{prefix}.weight"]
+        if not is_quantized(_node(tree, path)):
+            continue
+        out_dim, in_dim = mod.weight.shape
+        q = torch.empty((out_dim, in_dim), dtype=torch.int8, device=mod.weight.device)
+        scale = torch.empty((out_dim,), dtype=mod.weight.dtype, device=mod.weight.device)
+        if isinstance(mod, nn.Embedding):
+            setattr(parent, attr, QuantEmbedding(q, scale))
+        else:
+            bias = None if mod.bias is None else mod.bias.detach()
+            setattr(parent, attr, QuantLinear(q, scale, bias))
+        del names[f"{prefix}.weight"]
+        names[f"{prefix}.q"] = (path + ("q",), layer, transpose)
+        names[f"{prefix}.scale"] = (path + ("scale",), layer, False)
+
+
 @torch.no_grad()
 def params_from_jax(tree: Mapping[str, Any], cfg: ModelConfig, device=None,
                     dtype=torch.float32) -> Qwen2VL:
     """Build a ``Qwen2VL`` holding the weights of a JAX param tree whose
-    leaves are numpy arrays. Every port parameter must be covered."""
+    leaves are numpy arrays (int8 codes where the tree is quantized). Every
+    port tensor must be covered."""
     model = Qwen2VL(cfg, device=device, dtype=dtype)
     names = _jax_name_map(cfg)
-    params = dict(model.named_parameters())
-    if set(params) != set(names):
-        raise KeyError(f"bridge map and model disagree: {sorted(set(params) ^ set(names))}")
+    _swap_quantized(model, tree, names)
+    tensors = {**dict(model.named_parameters()), **dict(model.named_buffers())}
+    if set(tensors) != set(names):
+        raise KeyError(f"bridge map and model disagree: {sorted(set(tensors) ^ set(names))}")
     for name, (path, layer, transpose) in names.items():
-        arr = tree
-        for key in path:
-            arr = arr[key]
-        arr = np.asarray(arr)
+        arr = np.asarray(_node(tree, path))
         if layer is not None:
             arr = arr[layer]
         if transpose:
             arr = arr.T
-        src = torch.tensor(np.asarray(arr, dtype=np.float32))
-        if tuple(src.shape) != tuple(params[name].shape):
-            raise ValueError(f"{name}: JAX {tuple(src.shape)} vs port {tuple(params[name].shape)}")
-        params[name].copy_(src)
+        if name.endswith(".scale"):
+            arr = arr.reshape(-1)
+        if arr.dtype != np.int8:
+            arr = np.asarray(arr, dtype=np.float32)
+        src = torch.tensor(arr)
+        if tuple(src.shape) != tuple(tensors[name].shape):
+            raise ValueError(f"{name}: JAX {tuple(src.shape)} vs port {tuple(tensors[name].shape)}")
+        tensors[name].copy_(src)
     return model

@@ -181,7 +181,10 @@ def load_checkpoint(path: str, device="cuda",
     ``*.safetensors`` shards, with or without an index), loaded onto
     ``device`` in ``dtype`` one tensor at a time from the shards: about
     one tensor is on the host at a time. ``device`` is where the model
-    runs: "cuda" raises without a card."""
+    runs: "cuda" raises without a card. For int8 weights an engine built
+    with ``quantize_weights=True`` (or ``ops/quant.py:quantize_model``)
+    then quantizes it module by module, so no module is held twice but the
+    one being quantized."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("load_checkpoint: device cuda requested and CUDA is not available")
     cfg = config_from_hf_json(path)

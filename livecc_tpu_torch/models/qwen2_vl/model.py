@@ -12,7 +12,8 @@ modeling_qwen2_vl.py semantics):
     without a cache, the training one), and optionally the fp32 LM head;
     batched serving clips (``patches`` [B, Np, pd], one clip per row with
     shared tables) run through ONE vision-tower call over all rows'
-    groups, as JAX's ``vmap`` (``model.py:220-232``);
+    groups, as JAX's ``vmap`` (``model.py:220-232``); the embedding lookup
+    goes through ``ops/quant.py:embed_lookup`` (plain or int8 table);
   * ``init_params`` — a model with random weights drawn from a seeded
     ``torch.Generator`` on the target device (no download, no host copy).
 """
@@ -29,6 +30,7 @@ from torch import nn
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.models.qwen2_vl.text import KVCache, TextModel, lm_logits, text_forward
 from livecc_tpu_torch.models.qwen2_vl.vision import VisionTower
+from livecc_tpu_torch.ops.quant import embed_lookup, jax_weight
 
 
 class Qwen2VL(nn.Module):
@@ -186,14 +188,22 @@ def batched_video_embeds(model: Qwen2VL, vision: VisionInputs) -> torch.Tensor:
     rotary tables repeated B times: every row's uniform groups go to K3 in
     ONE launch (B * T / 2 groups for T-frame clips). The merger folds
     consecutive patches, which never cross a row, so each row's embeddings
-    equal a separate call's (JAX runs ``vmap``). Serving clips have a
-    uniform grid; without one, rows would share segment ids, so it raises."""
+    equal a separate call's (JAX runs ``vmap``). Without a uniform group
+    (clips of different grids) each row's segment ids are offset by the
+    ids' span, so no two rows share one, and the tower runs K3's bounds
+    form over all rows' segments (the ids are read on the host, as that
+    form reads them anyway)."""
     b, n_p, pd = vision.patches.shape
-    if vision.group is None or n_p % vision.group:
-        raise ValueError(f"batched clips need a uniform group, got group {vision.group} "
-                         f"for {n_p} patches per row")
+    group = vision.group
+    if group is not None and n_p % group == 0:
+        seg = vision.seg_ids.repeat(b)
+    else:
+        ids = vision.seg_ids.cpu()
+        span = int(ids.max()) - int(ids.min()) + 1
+        rows = torch.arange(b, dtype=ids.dtype).repeat_interleave(n_p)
+        seg, group = (ids.repeat(b) + rows * span).to(vision.seg_ids.device), None
     out = model.visual(vision.patches.reshape(b * n_p, pd), vision.cos.repeat(b, 1),
-                       vision.sin.repeat(b, 1), vision.seg_ids.repeat(b), vision.group)
+                       vision.sin.repeat(b, 1), seg, group)
     return out.reshape(b, -1, out.shape[-1])
 
 
@@ -225,7 +235,7 @@ def forward(
     hidden states when ``compute_logits`` is False, and the cache). Without
     a cache it is the training forward (JAX ``model.py:197-255``): the text
     tower runs uncached through K4 with ``attention_mask`` and ``remat``."""
-    embeds = model.text.embed(input_ids.long())
+    embeds = embed_lookup(jax_weight(model.text.embed), input_ids.long())
     if vision is not None:
         embeds = scatter_video_embeds(cfg, embeds, input_ids, _visual(model, vision))
     if vision_images is not None:

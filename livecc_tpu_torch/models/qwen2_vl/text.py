@@ -11,6 +11,8 @@ cache and the layer index — no per-layer slice is copied. An int8 cache
 write (``quantize_kv``, as ``text.py:288-313``) and runs the int8 kernels.
 Without a cache ``text_forward`` is the training forward: every layer
 attends through K4 ``train_flash_attention`` over the whole sequence.
+A layer's linears may be ``ops/quant.py:QuantLinear`` (int8 weights, K5),
+the serving configuration; ``lm_logits`` takes a quantized vocab kernel.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from livecc_tpu_torch.core.config import TextConfig
 from livecc_tpu_torch.models.qwen2_vl.layers import RMSNorm
 from livecc_tpu_torch.ops.attention import train_flash_attention
 from livecc_tpu_torch.ops.flash_attention import flash_decode, flash_prefill
+from livecc_tpu_torch.ops.quant import jax_weight, vocab_kernel, w8a16_gemm
 from livecc_tpu_torch.ops.rope import apply_mrope, mrope_cos_sin
 
 
@@ -221,13 +224,22 @@ def _uncached_forward(model: TextModel, x, cos, sin, attention_mask, remat) -> t
 
 def lm_logits(model: TextModel, cfg: TextConfig, hidden: torch.Tensor) -> torch.Tensor:
     """[B, S, H] -> [B, S, V] in float32, never rounded to the model dtype
-    (JAX's ``preferred_element_type=float32``): on CUDA one cuBLAS product of
-    the model-dtype operands with an fp32 output; on the CPU (the test path,
-    which has no such kernel) an fp32 product of the widened operands."""
-    weight = model.embed.weight if cfg.tie_word_embeddings else model.lm_head.weight
-    flat = hidden.reshape(-1, hidden.shape[-1])
-    if flat.device.type == "cuda" and flat.dtype != torch.float32:
-        out = torch.mm(flat, weight.t(), out_dtype=torch.float32)
+    (JAX's ``preferred_element_type=float32``, ``text.py:370-380``). A bf16
+    or fp32 vocab kernel: on CUDA one cuBLAS product of the model-dtype
+    operands with an fp32 output; on the CPU (the test path, which has no
+    such kernel) an fp32 product of the widened operands. An int8 one (tied
+    or untied, ``ops/quant.py``): the fp32 sum times the fp32 scale, K5's
+    fp32-output form on its ``[V, H]`` codes."""
+    if cfg.tie_word_embeddings:
+        kernel, scale = vocab_kernel(jax_weight(model.embed), transpose=True)
     else:
-        out = torch.mm(flat.float(), weight.float().t())
-    return out.reshape(*hidden.shape[:-1], weight.shape[0])
+        kernel, scale = vocab_kernel(jax_weight(model.lm_head), transpose=False)
+    flat = hidden.reshape(-1, hidden.shape[-1])
+    if scale is not None:
+        out = w8a16_gemm(flat, kernel.t(), scale.reshape(-1).to(flat.dtype),
+                         out_dtype=torch.float32)
+    elif flat.device.type == "cuda" and flat.dtype != torch.float32:
+        out = torch.mm(flat, kernel, out_dtype=torch.float32)
+    else:
+        out = torch.mm(flat.float(), kernel.float())
+    return out.reshape(*hidden.shape[:-1], kernel.shape[1])

@@ -12,6 +12,10 @@ single-video path, and so the whole streaming path) it runs through K3
 run through K3's bounds form, ``vit_segment_attention``: the bounds come
 from the runs of equal ``seg_ids``, read on the host once per tower call
 on that path only.
+
+The block and merger linears may be ``ops/quant.py:QuantLinear`` (int8
+weights through K5, the serving configuration); ``patch_embed``, the raw
+pixels' projection, stays in the model dtype, as in JAX.
 """
 
 from __future__ import annotations

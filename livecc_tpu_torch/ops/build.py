@@ -129,9 +129,12 @@ def load_library() -> ctypes.CDLL:
                                                i32, i32, i32, i32, i32, strides, ptr]
     lib.livecc_train_attention_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                                ptr, i32, i32, i32, i32, i32, strides, ptr]
+    lib.livecc_w8a16_gemm.argtypes = [i32, i32, ptr, ctypes.c_longlong, ptr, ptr, ptr, ptr,
+                                      i32, i32, i32, i32, i32, ptr]
     for fn in (lib.livecc_flash_prefill, lib.livecc_flash_decode, lib.livecc_flash_prefill_int8,
                lib.livecc_flash_decode_int8, lib.livecc_vit_attention,
-               lib.livecc_train_attention_fwd, lib.livecc_train_attention_bwd):
+               lib.livecc_train_attention_fwd, lib.livecc_train_attention_bwd,
+               lib.livecc_w8a16_gemm):
         fn.restype = i32
     return lib
 

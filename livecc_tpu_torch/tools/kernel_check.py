@@ -1,5 +1,6 @@
-"""Hold the attention kernels (K1, K1-int8, K2, K2-int8, K3, K4) to their plain
-versions, by limits that a dropped block of keys fails.
+"""Hold the attention kernels (K1, K1-int8, K2, K2-int8, K3, K4) and the
+int8-weight GEMM (K5) to their plain versions, by limits that a dropped
+block of keys (or of K5's contraction) fails.
 
 ``close(out, ref, dtype)`` compares a kernel's output with the plain version
 on the same inputs in the same dtype (the plain versions on bf16 tensors
@@ -29,7 +30,11 @@ give; a check that passes them could not see a lost block:
     ``kTrainMmaTileQ`` / ``kTrainMmaTileK`` of ``train_mma_attention.cuh``);
   * ``zeroed_k3_backward()`` (K3's gradient): while it is entered, the
     backward of K3's autograd ``Function`` returns zeros, as the port
-    passed no gradient through K3 before it had one.
+    passed no gradient through K3 before it had one;
+  * ``w8_drop_split(...)`` (K5's small form): the plain output with one
+    128-column block computed without one of its K splits
+    (``ops/quant.py:small_split``); ``w8_drop_k_tile(...)`` (K5's large
+    form): one 128 x 128 output tile computed without one 64-wide K tile.
 
 bf16 K4's gradients (dq, dk, dv) are held by ``grad_close(out, ref, ref32)``
 instead: each gradient sums thousands of bf16-rounded terms (p, ds), so two
@@ -251,3 +256,43 @@ def zeroed_k3_backward():
         yield
     finally:
         vit_attention._K3.backward = saved
+
+
+def _w8_without(x, q, scale, out_dtype, rows: slice, cols: slice, k0: int, k1: int):
+    """``w8a16_gemm_plain`` of ``x [M, K]`` with the block ``[rows, cols]``
+    recomputed without the contraction range ``[k0, k1)``."""
+    from livecc_tpu_torch.ops.quant import w8a16_gemm_plain
+
+    out = w8a16_gemm_plain(x, q, scale, out_dtype)
+    cut = q[cols].clone()
+    cut[:, k0:k1] = 0
+    out[rows, cols] = w8a16_gemm_plain(x[rows], cut, scale[cols], out_dtype)
+    return out
+
+
+def w8_drop_split(x, q, scale, out_dtype=None, block: int = 0, split: int | None = None):
+    """K5's small form had one block skipped: column block ``block``
+    (``SMALL_BLOCK_N`` columns) without the K range of split ``split`` (by
+    default the middle one) of ``small_split``."""
+    from livecc_tpu_torch.ops.quant import SMALL_BLOCK_N, small_split
+
+    n, k = q.shape
+    nsplit, split_k = small_split(n, k)
+    s = nsplit // 2 if split is None else split
+    cols = slice(block * SMALL_BLOCK_N, min(n, (block + 1) * SMALL_BLOCK_N))
+    return _w8_without(x, q, scale, out_dtype, slice(None), cols, s * split_k,
+                       min(k, (s + 1) * split_k))
+
+
+def w8_drop_k_tile(x, q, scale, out_dtype=None, m_block: int = 0, n_block: int = 0,
+                   k_tile: int | None = None):
+    """K5's large form had one tile skipped: output tile (``m_block``,
+    ``n_block``) of ``LARGE_TILE`` x ``LARGE_TILE`` without the 64-wide K
+    tile ``k_tile`` (by default the middle one)."""
+    from livecc_tpu_torch.ops.quant import K_TILE, LARGE_TILE
+
+    m, k = x.shape[0], q.shape[1]
+    t = (-(-k // K_TILE)) // 2 if k_tile is None else k_tile
+    rows = slice(m_block * LARGE_TILE, min(m, (m_block + 1) * LARGE_TILE))
+    cols = slice(n_block * LARGE_TILE, min(q.shape[0], (n_block + 1) * LARGE_TILE))
+    return _w8_without(x, q, scale, out_dtype, rows, cols, t * K_TILE, min(k, (t + 1) * K_TILE))

@@ -17,7 +17,8 @@
 Run as a script, by path, with the checkout to time first on
 ``PYTHONPATH``, it times that checkout's ``flash_decode`` (K2 and K2-int8),
 ``vit_group_attention`` (K3), ``flash_prefill`` (K1 and, with scales,
-K1-int8) and ``train_attention_fwd`` / ``train_attention_bwd`` (K4) both
+K1-int8), ``train_attention_fwd`` / ``train_attention_bwd`` (K4) and
+``w8a16_gemm`` (K5) both
 ways at ``chip_smoke.py``'s timed shapes and prints one JSON line, so two
 versions of the kernels compare on one card in one call:
 
@@ -25,10 +26,11 @@ versions of the kernels compare on one card in one call:
     PYTHONPATH=<another checkout> python3 livecc_tpu_torch/tools/kernel_timing.py
 
 Arguments, if any, name the kinds to time (``decode``, ``vit``, ``prefill``,
-``prefill_int8``, ``train``); by default all five.
+``prefill_int8``, ``train``, ``w8``: K5 at ``W8_SHAPES``); by default all six.
 
-It uses only the five wrappers' public signatures and
-``models.qwen2_vl.text.quantize_kv``. Needs a CUDA GPU.
+It uses only the six wrappers' public signatures,
+``models.qwen2_vl.text.quantize_kv`` and ``ops.quant.quantize_weight``.
+Needs a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -134,11 +136,13 @@ def decode_cases():
 
 
 # chip_smoke.py's timed K3 shapes (NG, g) at the 7B ViT's H = 16, D = 80: the
-# first chunk and a steady chunk at 308x560 (22 x 40 patches), and the call of
+# first chunk and a steady chunk at 308x560 (22 x 40 patches), the pool's
+# steady tick (8 streams' 2-frame chunks in one call), and the call of
 # chip_smoke's train phase (2 packed 24-frame clips of 16 x 34 patches per
 # micro-batch: 24 groups plus 7 of pad, a bucket of 16384 patches rounded up
-# to whole groups; chip_smoke checks that its train phase makes this call)
-VIT_SHAPES = ((3, 880), (1, 880), (31, 544))
+# to whole groups; chip_smoke checks that its train phase makes this call,
+# the last shape)
+VIT_SHAPES = ((3, 880), (1, 880), (8, 880), (31, 544))
 VIT_HEADS, VIT_DIM = 16, 80
 # and its timed K1 shapes (Sq, offset, kv_limit) at B = 1 on layer 27 of the
 # 7B's bf16 cache: the 6-frame first chunk's bucket, a steady 2-frame chunk
@@ -253,6 +257,49 @@ def train_cases():
     yield f"K4 bwd {label}", lambda: train_attention_bwd(qs, k, v, seg, o, lse, do)
 
 
+# K5's shapes at the 7B: projection -> (N, K, fp32 output); decode rows M = 1
+# and 8 and the verify windows M = 9 (B = 1) and 72 (B = 8) on gate_proj,
+# down_proj, k_proj and the lm_head (fp32 out), prefill chunks of 256 and
+# 1024 rows on gate_proj, and the ViT's fc1 at 3520 patches
+W8_PROJ = {"gate_proj": (18944, 3584, False), "down_proj": (3584, 18944, False),
+           "k_proj": (512, 3584, False), "lm_head": (152064, 3584, True),
+           "vit_fc1": (5120, 1280, False)}
+W8_SHAPES = tuple((name, m) for m in (1, 8, WINDOW_SQ, 8 * WINDOW_SQ)
+                  for name in ("gate_proj", "down_proj", "k_proj", "lm_head")) + (
+    ("gate_proj", 256), ("gate_proj", 1024), ("vit_fc1", 3520))
+
+
+def w8_operands(name: str, m: int, gen: torch.Generator):
+    """(x [M, K] bf16, int8 codes [N, K], bf16 scales [N], out_dtype) of
+    K5 at ``W8_PROJ[name]``: x ~ N(0, 1), a weight ~ N(0, 1/K) quantized."""
+    from livecc_tpu_torch.ops.quant import quantize_weight
+
+    n, k, fp32_out = W8_PROJ[name]
+    dev = gen.device
+    x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+    node = quantize_weight((torch.randn((n, k), generator=gen, device=dev) * k ** -0.5)
+                           .bfloat16(), scale_axis=-1)
+    return x, node["q"], node["scale"].reshape(-1), torch.float32 if fp32_out else None
+
+
+def w8_work(m: int, n: int, k: int, fp32_out: bool) -> tuple[float, float]:
+    """(operations, bytes) of one K5 call: 2 M N K; the codes, x, the output
+    and the scales each moved once."""
+    return 2.0 * m * n * k, n * k + 2 * m * k + (4 if fp32_out else 2) * m * n + 2 * n
+
+
+def w8_cases():
+    """(label, call) of K5 at each of ``W8_SHAPES``."""
+    from livecc_tpu_torch.ops.quant import w8a16_gemm
+
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
+    for name, m in W8_SHAPES:
+        x, q, scale, out_dtype = w8_operands(name, m, gen)
+        n, k = q.shape
+        yield (f"K5 {name} M={m} N={n} K={k} {'fp32' if out_dtype else 'bf16'} out",
+               lambda x=x, q=q, s=scale, o=out_dtype: w8a16_gemm(x, q, s, o))
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: needs a CUDA GPU")
@@ -263,7 +310,7 @@ def main(argv: list[str]) -> int:
     result = {"package": livecc_tpu_torch.__path__[0], "card": card.strip(),
               "torch": torch.__version__}
     kinds = {"decode": decode_cases, "vit": vit_cases, "prefill": prefill_cases,
-             "prefill_int8": prefill_int8_cases, "train": train_cases}
+             "prefill_int8": prefill_int8_cases, "train": train_cases, "w8": w8_cases}
     unknown = set(argv) - set(kinds)
     if unknown:
         raise SystemExit(f"kernel_timing: unknown kinds {sorted(unknown)}; known: {list(kinds)}")

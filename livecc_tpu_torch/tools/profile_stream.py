@@ -4,6 +4,7 @@
     python3 -m livecc_tpu_torch.tools.profile_stream --pool   # one pool tick
     ... --spec        # either with lookahead decoding (session.SPEC, controller off)
     ... --adaptive    # either with lookahead under the adaptive controller
+    ... --w8          # either with int8 matmul weights (K5, ops/quant.py)
 
 Both use the 7B definitions of ``livecc_tpu_torch.tools.session`` (the ones
 ``chip_smoke.py`` drives).
@@ -22,7 +23,8 @@ and window replays where the checkout has them (with ``--adaptive``, the
 mode the controller chose at each dispatch and its two per-token costs), the device's
 busy time (union of kernel intervals) against the wall time, i.e. the
 device's idle share; and device time by group — the port's kernels (K3 ViT attention, K1 prefill and
-K2 decode attention, and their int8 variants; K4 training attention for
+K2 decode attention, and their int8 variants; K5, the int8-weight GEMM
+of ``--w8``; K4 training attention for
 ``tools/train_session.py --profile``, which reuses ``report``), matrix
 products, everything else — and the top kernels by name.
 
@@ -49,6 +51,8 @@ def _group(name: str) -> str:
         return "K4 train_attention_fwd"
     if re.search(r"train_(dkv|dq)(_mma)?_kernel", name):
         return "K4 train_attention_bwd"
+    if re.search(r"w8_(small|merge|large|fma)_kernel", name):         # K5
+        return "K5 w8a16_gemm"
     if "quant_mma_attention_kernel" in name:                     # bf16 K1-int8
         return "K1-int8 flash_prefill_int8"
     m = re.search(r"mma_attention_kernel<(true|false)", name)     # bf16 K1 / K3
@@ -241,6 +245,8 @@ def main(argv=None) -> int:
                     help="decode by lookahead (tools/session.py SPEC: 8 drafts, controller off)")
     ap.add_argument("--adaptive", action="store_true",
                     help="decode by lookahead under the adaptive controller, logging its modes")
+    ap.add_argument("--w8", action="store_true",
+                    help="int8 matmul weights (tools/session.py main_model(w8=True), K5)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs a CUDA GPU")
@@ -252,7 +258,7 @@ def main(argv=None) -> int:
     spec = None
     if args.spec or args.adaptive:
         spec = dataclasses.replace(sess.SPEC, adaptive=args.adaptive)
-    cfg, model = sess.main_model()
+    cfg, model = sess.main_model(w8=args.w8) if args.w8 else sess.main_model()
     (profile_pool_tick if args.pool else profile_session)(cfg, model, spec)
     return 0
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from livecc_tpu.ops import chunked_ce as jce
 
 from livecc_tpu_torch.ops import chunked_ce as pce
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

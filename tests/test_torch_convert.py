@@ -36,6 +36,7 @@ from livecc_tpu_torch.models.qwen2_vl import convert, safetensors_io
 from livecc_tpu_torch.models.qwen2_vl.bridge import params_from_jax
 from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
 from livecc_tpu_torch.tools.checkpoint import save_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")

@@ -30,6 +30,7 @@ from livecc_tpu_torch.ops.flash_attention import (
     DECODE_MAX_GD, DECODE_SPLIT, by_subgroups, decode_subgroups, flash_decode,
     flash_decode_merge_plain, flash_decode_plain, flash_decode_split_plain)
 from livecc_tpu_torch.tools import kernel_check
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 SPLIT, SMAX, D = 64, 256, 32

@@ -25,6 +25,7 @@ from livecc_tpu_torch.core.config import tiny_config
 from livecc_tpu_torch.data.tokenizer import ByteTokenizer as PortByteTokenizer
 from livecc_tpu_torch.engine import GenerationParams, LiveCCEngine, update_counts
 from livecc_tpu_torch.models.qwen2_vl import params_from_jax
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "hf_tiny.npz")
 

@@ -30,6 +30,7 @@ from livecc_tpu_torch.engine.generation import (
 from livecc_tpu_torch.engine.graphs import graph_key, run_steps
 from livecc_tpu_torch.models.qwen2_vl import KVCache, params_from_jax
 from livecc_tpu_torch.serve import StreamServer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, SMAX = 3, 64
 OFFSETS = np.asarray([8, 3, 11], np.int32)

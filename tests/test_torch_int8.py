@@ -35,6 +35,7 @@ from livecc_tpu_torch.engine.compact import compact_cache_row
 from livecc_tpu_torch.models import qwen2_vl as pm
 from livecc_tpu_torch.models.qwen2_vl.text import quantize_kv
 from livecc_tpu_torch.ops.flash_attention import flash_decode, flash_prefill
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "hf_tiny.npz")
 T = torch.from_numpy

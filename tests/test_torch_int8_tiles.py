@@ -33,6 +33,7 @@ from livecc_tpu.ops.pallas.attention import flash_prefill as jax_flash_prefill
 import livecc_tpu_torch
 from livecc_tpu_torch.ops.flash_attention import flash_prefill_plain
 from livecc_tpu_torch.tools import kernel_check
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TILE = kernel_check.TILE
 BF16 = torch.bfloat16

@@ -32,6 +32,7 @@ from livecc_tpu_torch.data.tokenizer import ByteTokenizer
 from livecc_tpu_torch.vision_io import budget as pbudget
 from livecc_tpu_torch.vision_io import video_reader as pvr
 from livecc_tpu_torch.vision_io.patchify import device_patchify, patchify_video
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(__file__)
 GOLDEN = os.path.join(HERE, "goldens", "hf_tiny.npz")
@@ -274,6 +275,18 @@ def test_cli_writes_jax_json_in_fp32(video, checkpoint, tmp_path, monkeypatch):
     own package, with the weights and the cache kept in fp32 (the CLIs load
     bf16, whose rounding parts the two at this random model's near-tied
     logits): the same result JSON."""
+    cli_json_pair(video, checkpoint, tmp_path, monkeypatch, [])
+
+
+def test_cli_quantize_weights_writes_jax_json_in_fp32(video, checkpoint, tmp_path, monkeypatch):
+    """The same with ``--quantize-weights`` on both CLIs: each engine
+    quantizes the fp32 checkpoint to the same int8 codes (JAX's TPU serving
+    configuration); the same result JSON."""
+    cli_json_pair(video, checkpoint, tmp_path, monkeypatch, ["--quantize-weights"])
+
+
+def cli_json_pair(video, checkpoint, tmp_path, monkeypatch, flags):
+    """Run both CLIs with ``flags`` in fp32 (see above) and compare their JSON."""
     import livecc_tpu.engine as jengine
     from livecc_tpu.demo import cli as jcli
     from livecc_tpu.models.qwen2_vl import convert as jconvert
@@ -292,7 +305,8 @@ def test_cli_writes_jax_json_in_fp32(video, checkpoint, tmp_path, monkeypatch):
                         lambda *a, **k: jengine_cls(*a, **{**k, "cache_dtype": jnp.float32}))
     monkeypatch.setattr(pengine, "LiveCCEngine",
                         lambda *a, **k: pengine_cls(*a, **{**k, "cache_dtype": torch.float32}))
-    args = ["--video", video, "--model", checkpoint, "--seconds", "6", "--max-new-tokens", "6"]
+    args = ["--video", video, "--model", checkpoint, "--seconds", "6", "--max-new-tokens", "6",
+            *flags]
     jcli.main(args + ["--output", str(tmp_path / "jax.json")])
     cli.main(args + ["--output", str(tmp_path / "port.json"), "--device", "cpu"])
     ref = json.loads((tmp_path / "jax.json").read_text())

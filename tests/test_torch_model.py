@@ -27,6 +27,7 @@ from livecc_tpu_torch.core.config import tiny_config
 from livecc_tpu_torch.models import qwen2_vl as pm
 from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
 from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "hf_tiny.npz")
 T = torch.from_numpy
@@ -194,3 +195,40 @@ def test_lm_logits_bf16_is_never_rounded_to_bf16():
     out = pm.lm_logits(model, cfg, T(hidden).bfloat16())
     assert out.dtype == torch.float32 and ref.dtype == jnp.float32
     close(out, ref, 1e-4)
+
+
+def test_batched_clips_of_mixed_grids_match_jax(seeded):
+    """Two rows that share a layout of two clips of different (h, w), so no
+    uniform group: JAX ``vmap``s the tower per row; the port offsets each
+    row's segment ids and runs K3's bounds form (the plain version here)
+    over both rows at once. fp32 logits within 1e-4 of JAX's largest."""
+    from livecc_tpu.data import chat
+
+    params, model = seeded
+    jcfg, cfg = jax_tiny_config(), tiny_config()
+    grids = [grid_for_frames(2, 28, 56, cfg.vision), grid_for_frames(2, 56, 28, cfg.vision)]
+    clips = [[frames(2, seed=10 * r + i, h=h, w=w) for i, (h, w) in enumerate([(28, 56), (56, 28)])]
+             for r in range(2)]
+    patches = np.stack([np.concatenate([device_patchify(T(c)).numpy() for c in row])
+                        for row in clips])                                # [2, Np, pd]
+    text = chat.render_chat([{"role": "user", "content": [
+        {"type": "video", "video": None}, {"type": "text", "text": "and"},
+        {"type": "video", "video": None}, {"type": "text", "text": "describe"}]}],
+        add_generation_prompt=True)
+    row = ByteTokenizer().encode(chat.expand_vision_placeholders(text, video_grid_thw=grids))
+    ids = np.asarray([row, row], np.int32)
+    pos, _ = pm.get_rope_index(cfg, ids, video_grid_thw=np.asarray(grids * 2))
+    s, smax = ids.shape[1], 128
+    jvis = jm.prepare_vision_inputs(jcfg, patches[0], grids)
+    assert jvis.group is None
+    jvis = jm.VisionInputs(jnp.asarray(patches), jvis.cos, jvis.sin, jvis.seg_ids, None)
+    jlogits, _ = jm.forward(params, jcfg, jnp.asarray(ids), jnp.asarray(pos), vision=jvis,
+                            cache=jm.KVCache.zeros(jcfg.text, 2, smax),
+                            attention_mask=jnp.arange(smax)[None, :] < s)
+    pvis = pm.VisionInputs(T(patches), T(np.array(jvis.cos)), T(np.array(jvis.sin)),
+                           T(np.array(jvis.seg_ids)), None)
+    plogits, _ = pm.forward(model, cfg, T(ids), T(pos), pm.KVCache.zeros(cfg.text, 2, smax),
+                            vision=pvis)
+    ref = np.asarray(jlogits)
+    assert np.abs(plogits.numpy() - ref).max() <= 1e-4 * np.abs(ref).max()
+    assert not np.allclose(ref[0], ref[1])          # the rows' clips differ

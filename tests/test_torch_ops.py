@@ -23,6 +23,7 @@ from livecc_tpu_torch.ops import norms as pnorms
 from livecc_tpu_torch.ops import rope as prope
 from livecc_tpu_torch.ops.flash_attention import flash_decode, flash_prefill
 from livecc_tpu_torch.ops.vit_attention import vit_group_attention
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 

@@ -26,6 +26,7 @@ from livecc_tpu_torch.data import chat as pchat
 from livecc_tpu_torch.data.tokenizer import ByteTokenizer
 from livecc_tpu_torch.models.qwen2_vl.model import get_rope_index
 from livecc_tpu_torch.ops.rope import vision_rot_pos_ids
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "livecc_tpu_torch")

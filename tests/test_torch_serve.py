@@ -33,6 +33,7 @@ from livecc_tpu_torch.models import qwen2_vl as pm
 from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
 from livecc_tpu_torch.serve import StreamServer
 from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "hf_tiny.npz")
 T = torch.from_numpy

@@ -42,6 +42,7 @@ from livecc_tpu_torch.engine.speculative import (
     ngram_draft)
 from livecc_tpu_torch.models.qwen2_vl import KVCache, params_from_jax
 from livecc_tpu_torch.serve import StreamServer
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GEN = dict(max_new_tokens=6, eos_token_id=3, pad_token_id=0, repetition_penalty=1.05)
 

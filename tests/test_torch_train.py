@@ -41,6 +41,7 @@ from livecc_tpu_torch.train import data as pdata
 from livecc_tpu_torch.train import step as pstep
 from livecc_tpu_torch.train.trainer import Trainer, TrainerConfig
 from livecc_tpu_torch.utils import flops as pflops
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

@@ -25,6 +25,7 @@ from livecc_tpu.ops import attention as jattn
 from livecc_tpu_torch.ops import attention as pattn
 from livecc_tpu_torch.ops.train_attention import (
     TrainAttention, train_attention_bwd_plain, train_attention_fwd_plain)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

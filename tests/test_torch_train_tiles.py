@@ -34,6 +34,7 @@ from livecc_tpu_torch.ops.attention import prescaled
 from livecc_tpu_torch.ops.train_attention import (
     MASK_VALUE, _allowed, train_attention_bwd_plain, train_attention_fwd_plain)
 from livecc_tpu_torch.tools import kernel_check
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TILE = kernel_check.TILE
 BF16 = torch.bfloat16

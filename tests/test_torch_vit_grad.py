@@ -28,6 +28,7 @@ from livecc_tpu_torch.ops.vit_attention import (
     _K3, vit_group_attention_plain, vit_segment_attention_plain)
 from livecc_tpu_torch.tools.session import synth_frames
 from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def qkv(shape, seed):

@@ -38,6 +38,7 @@ from livecc_tpu_torch.ops.vit_attention import (
     vit_segment_attention_plain)
 from livecc_tpu_torch.tools import kernel_check, kernel_timing
 from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 
