@@ -60,12 +60,13 @@ Phases (any failure raises and the script exits non-zero):
                  bit-equal (``phase_k4``). K5 (``phase_k5``) at
                  ``kernel_timing.W8_SHAPES`` (decode and verify-window rows
                  on gate_proj, down_proj, k_proj and the fp32 lm_head,
-                 prefill rows on gate_proj, the ViT's fc1), held by
-                 ``kernel_check.close`` in the output's dtype, a limit that a
-                 dropped K split (small form, M <= 16) or a dropped 64-wide K
-                 tile (large form) must fail; two launches bit-equal; kernel,
-                 plain version and torch.mm on the bf16 weight timed both
-                 ways beside the bound.
+                 prefill rows on gate_proj and down_proj, the ViT's fc1),
+                 held by ``kernel_check.close`` in the output's dtype, a
+                 limit that a dropped K split (small form, M <= 16) or one
+                 dropped 64-wide K stage of one output tile of
+                 ``quant.large_plan``'s tiling (large form) must fail; two
+                 launches bit-equal; kernel, plain version and torch.mm on
+                 the bf16 weight timed both ways beside the bound.
   4. tiny      — tiny config, fp32, seeded random weights: the engine on the
                  CPU (plain versions, the eager decode loop) and on the GPU
                  (kernels, the decode step replayed as a CUDA graph) give
@@ -198,7 +199,7 @@ KERNELS = {
     "train_attention_bwd": ("livecc_tpu_torch/csrc/train_attention_bwd.cu",
                             "livecc_tpu/ops/attention.py:126"),
     # no Pallas kernel: XLA's fused convert + dot of JAX's int8 dense
-    "w8a16_gemm": ("livecc_tpu_torch/csrc/w8a16_gemm.cu", "livecc_tpu/ops/quant.py:61"),
+    "w8a16_gemm": ("livecc_tpu_torch/csrc/w8a16_gemm.cu", "livecc_tpu/ops/quant.py:64"),
 }
 # the kernels each path must launch
 MAIN_KERNELS = ("vit_group_attention", "flash_prefill", "flash_decode")
@@ -272,7 +273,7 @@ def phase_build():
             name = line.split("for ")[-1]
             m = re.search(r"\d+([a-z_]*kernel)(I\w*?)?E+[vN]", name)   # template or not
             log(f"  ptxas: {m.group(1) + (m.group(2) or '') if m else name}")
-        elif "Used" in line or "spill" in line:
+        elif "Used" in line or "spill" in line or "Performance Loss" in line:
             log(f"  ptxas: {line.strip()}")
 
 
@@ -860,13 +861,13 @@ def phase_k5(results):
     N(0, 1/K), held to the plain version in the output's dtype (bf16, or
     fp32 for the lm_head) by ``kernel_check.close``, which a planted fault
     must fail: a dropped K split of one column block in the small form
-    (M <= 16, ``kernel_check.w8_drop_split``), a dropped 64-wide K tile of
-    one output tile in the large form (``w8_drop_k_tile``). Two launches
-    must be bit-equal. Times, each by both methods: kernel, plain version
-    and torch.mm on the bf16 weight (the product the bf16 model runs; with
-    an fp32 output for the lm_head), beside the bound (``kernel_timing.
-    w8_work``) and the bf16 product's. The first shape gives the JSON
-    line's numbers."""
+    (M <= 16, ``kernel_check.w8_drop_split``), one dropped 64-wide K stage
+    of one output tile of ``quant.large_plan``'s tiling in the large form
+    (``w8_drop_k_tile``). Two launches must be bit-equal. Times, each by
+    both methods: kernel, plain version and torch.mm on the bf16 weight (the
+    product the bf16 model runs; with an fp32 output for the lm_head),
+    beside the bound (``kernel_timing.w8_work``) and the bf16 product's.
+    The first shape gives the JSON line's numbers."""
     import torch
 
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(5)
@@ -899,12 +900,14 @@ def k5_shapes(r: dict, gen) -> None:
         small = m <= quant.SMALL_M
         fault = (kernel_check.w8_drop_split(x, q, scale, out_dtype) if small
                  else kernel_check.w8_drop_k_tile(x, q, scale, out_dtype))
+        plan = (f"small form, splits {quant.small_split(n, k)}" if small else
+                f"large form, (token tile, nsplit, split_k) {quant.large_plan(m, n, k)}")
         torch.cuda.synchronize()
         worst, w_bad = kernel_check.close(out, ref, dtype), kernel_check.close(fault, ref, dtype)
         err = (out.float() - ref.float()).abs().max().item()
         log(f"  {'w8a16_gemm':20s} {label:48s} max_abs_err {err:.3e}, worst {worst:.3f} of the "
             f"limit {kernel_check.TOL[dtype]}; a dropped "
-            f"{'K split' if small else '64-wide K tile'}: {w_bad:.1f}x")
+            f"{'K split' if small else '64-wide K stage'}: {w_bad:.1f}x; {plan}")
         if not worst <= 1.0:
             raise AssertionError(f"w8a16_gemm {label}: {worst:.3f}x the limit")
         if not w_bad > 1.0:

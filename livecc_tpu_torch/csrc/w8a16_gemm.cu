@@ -1,7 +1,7 @@
 // K5 w8a16_gemm: a product with int8 weights and one scale per output column.
 //
 // Replaces: the int8 matmuls of the JAX package's serving configuration,
-// livecc_tpu/ops/quant.py:dense (:61-65, `(x @ q.astype(x.dtype)) * scale`,
+// livecc_tpu/ops/quant.py:dense (:64-68, `(x @ q.astype(x.dtype)) * scale`,
 // every text-layer and ViT-block kernel and the merger's) and the quantized
 // vocab product of livecc_tpu/models/qwen2_vl/text.py:lm_logits (:370-380).
 // They are no Pallas kernel: XLA fuses the int8 -> bf16 convert into the
@@ -14,10 +14,12 @@
 // rounded to x's dtype, times the scale, rounded again. The fp32 output
 // (lm_logits) is the fp32 sum times the scale, with no rounding between.
 //
-// What bounds it on the H100: at decode (M <= 16 rows: B = 1 and 8, a B = 1
-// verify window of 9) the weight's bytes, N * K int8 against ~2 M N K
-// operations; the 7B's gate_proj is 67.9 MB, 20 us at 3.35 TB/s. At prefill
-// and in the ViT (M of 256 to 10560) the operations. The three forms:
+// What bounds it on the H100 (3.35 TB/s, 989 TFLOP/s bf16, so ~295
+// operations a byte): a byte of codes carries 2 M operations. At decode (M
+// <= 16: B = 1 and 8, a B = 1 verify window of 9) and at the B = 8 verify
+// window (M = 72, 144 operations a byte) the weight's bytes: the 7B's
+// gate_proj is 67.9 MB, 20 us. From M = 256 on (prefill, the ViT, the
+// merger) the operations. The three forms:
 //
 //   * small (bf16, M <= 16): a split-K GEMV on the tensor cores. A block of
 //     4 warps owns 128 output columns and one of `nsplit` ranges of K; each
@@ -31,18 +33,61 @@
 //     of 512 k. The splits fill the card where N alone would not (k_proj has
 //     N = 512: 4 column blocks); each writes fp32 partials [nsplit, M, N],
 //     and a second kernel sums them in split order, then rounds and scales.
-//   * large (bf16, M > 16): 128 x 128 output tiles, 8 warps of 64 x 32, K in
-//     64-wide tiles through a ring of kW8Stages cp.async stages holding the
-//     x tile (bf16, padded rows) and the int8 weight tile; each tile of
-//     weights is widened to bf16 in shared memory once (as K1-int8 widens
-//     its K/V tiles), then ldmatrix feeds mma.sync; the epilogue rounds and
-//     scales from the fp32 accumulators.
+//   * large (bf16, M > 16): wgmma with the operands swapped, out^T[N, M] =
+//     q[N, K] x[M, K]^T. The weights are wgmma's A, 64 rows a consumer
+//     warpgroup and 128 a block; the tokens are its n, a token tile of 80
+//     or 256 (one m64nNk16 per 16 k), so the B = 8 window's 72 rows pad to
+//     80, not to a 128-row tile. A block is three warpgroups: a producer
+//     whose one thread keeps TMA loads of (x tile, int8 weight tile), 64 k
+//     each, in flight through a ring of full and empty mbarriers (as many
+//     stages as 227 KB hold: 12 or 5), at 40 registers (setmaxnreg), and
+//     two consumers at 232. The x tile lands 128-byte swizzled, as wgmma's
+//     K-major shared operand reads it (rows past M and columns past K are
+//     zero-filled by TMA, so the main loop has no masks); the weight tile
+//     lands 64-byte swizzled, and each consumer thread reads the codes of
+//     its A fragment with conflict-free 32-bit loads (rows gid and gid + 8,
+//     k 2 tig, +1, +8, +9 of each k16 step: two words and one byte
+//     permute), widens them in registers (int8x4_to_bf16) and runs
+//     wgmma with A from registers. The fragments are double-buffered by
+//     stage: a stage's loads and widening run while the last stage's wgmma
+//     group runs (wgmma.wait_group 1), and a stage goes back to the
+//     producers once the group that read it is done. A transform pass
+//     widening the tile into a swizzled bf16 tile (both operands from
+//     shared memory) was not taken: it writes and rereads 16 KB of shared
+//     memory a stage, where the register path reads 8 KB once.
+//     Every token tile rereads the weights and every weight tile rereads x
+//     from L2 (at M = 2048, 1184 blocks of 128 weight rows alone would read
+//     2.2 GB of x), so blocks run in clusters of two weight tiles: each
+//     producer loads half of the x tile and multicasts it to both blocks,
+//     whose consumers release a stage to both producers; and the token
+//     tile is 256 above 80 rows (ops/quant.py:large_plan). Timed block by
+//     block with clock reads in a development build, the main loop then
+//     keeps the tensor cores busy at a 256-token tile (a stage takes about
+//     the SM cycles its wgmma need); at the windows' 80-token tile widening
+//     and launching take longer than the wgmma. The rest is each block's
+//     start, its epilogue and partial waves. The epilogue rounds
+//     and scales each accumulator row (one output column; two tokens at a
+//     time, packed) and stages the transposed tile in shared memory, so
+//     every warp stores whole 16-byte runs along N. The cluster barrier
+//     that keeps a block alive while its peer may still arrive on its
+//     barriers is split: arrive after the main loop, wait after the stores.
+//     Where the output tiles do not fill the card's 132 SMs (down_proj
+//     and k_proj at M = 72, down_proj at M = 256), `nsplit` blocks share
+//     one tile's K range in a fixed order: each writes fp32 partials
+//     [nsplit, M, N] and the small form's merge sums them in split order.
+//     The tensor maps are encoded on the host at each call
+//     (cuTensorMapEncodeTiled, reached once through
+//     cudaGetDriverEntryPointByVersion, so nothing links libcuda) and passed
+//     by value as __grid_constant__ parameters, so a captured graph holds
+//     them beside the addresses it was captured with.
 //   * fp32 x (the tiny model's dtype): one thread per output, an FMA loop.
 //
-// No atomics: two launches give the same bits. wgmma fed by TMA (a
-// mixed-input product with a producer warp) is later work.
+// No atomics: two launches give the same bits.
 
 #include <cstdint>
+
+#include <cuda.h>
+#include <cudaTypedefs.h>
 
 #include "mma_common.cuh"
 
@@ -52,12 +97,33 @@ constexpr int kW8SmallRows = 16;            // M of the small form: one m16 tile
 constexpr int kW8SmallWarps = 4;
 constexpr int kW8SmallNt = 4;               // n8 tiles per warp
 constexpr int kW8SmallBlockN = kW8SmallWarps * kW8SmallNt * 8;   // 128 columns a block
-constexpr int kW8Kt = 64;                   // k per slab (small) or tile (large)
+constexpr int kW8Kt = 64;                   // k per slab (small) or stage (large)
 constexpr int kW8XChunk = 512;              // k of x staged per pass (small)
-constexpr int kW8LargeM = 128, kW8LargeN = 128;
-constexpr int kW8LargeThreads = 256;        // 8 warps: 2 (M) x 4 (N) of 64 x 32
-constexpr int kW8Stages = 3;                // cp.async ring (large)
 constexpr int kW8FmaThreads = 128;
+
+// The large form: 128 weight rows a block (two consumer warpgroups of 64),
+// a producer warpgroup, and per stage an x tile of NT rows of 64 bf16 (128
+// bytes, 128-byte swizzle) then a weight tile of 128 rows of 64 codes (64
+// bytes, 64-byte swizzle); the ring is aligned to 1024 bytes by hand.
+constexpr int kW8Rows = 128;
+constexpr int kW8Cluster = 2;               // weight tiles sharing one x tile
+constexpr int kW8Threads = 384;
+constexpr int kW8QTileBytes = kW8Rows * kW8Kt;
+constexpr int kW8SmemLimit = 232448 - 1024 - 256;   // 227 KB less alignment and barriers
+constexpr int kW8MaxStages = 12;
+constexpr int kW8StageLd = kW8Rows + 4;     // epilogue: fp32 row of the transposed tile
+constexpr int kW8StageLdH = kW8Rows + 8;    // and a bf16 one
+
+template <int NT>
+struct W8Tile {
+  static_assert(NT % (8 * kW8Cluster) == 0 && NT <= 256, "a wgmma n, split in whole 8-row groups");
+  static constexpr int kXBytes = NT * kW8Kt * 2;
+  static constexpr int kStageBytes = kXBytes + kW8QTileBytes;
+  static constexpr int kStages = kW8SmemLimit / kStageBytes < kW8MaxStages
+                                     ? kW8SmemLimit / kStageBytes : kW8MaxStages;
+  static constexpr int kSmem = kStages * kStageBytes + 1024;
+  static_assert(NT * kW8StageLd * 4 <= kStages * kStageBytes, "the epilogue fits the ring");
+};
 
 struct W8Params {
   const void* x;
@@ -65,18 +131,10 @@ struct W8Params {
   const int8_t* q;                          // [N, K]
   const void* scale;                        // [N], x's dtype
   void* out;                                // [M, N]
-  float* partial;                           // [nsplit, M, N] (small form)
+  float* partial;                           // [nsplit, M, N] (small form; a split large form)
   int m, n, k, split_k, nsplit;
   bool out_fp32;
 };
-
-// The large form's shared memory: the widened weight tile, then the ring's
-// stages of (x tile, int8 weight tile).
-constexpr int kW8Ld = kW8Kt + kMmaPad;      // padded bf16 row
-constexpr int kW8XTileBytes = kW8LargeM * kW8Ld * 2;
-constexpr int kW8QTileBytes = kW8LargeN * kW8Kt;
-constexpr int kW8StageBytes = kW8XTileBytes + kW8QTileBytes;
-constexpr int kW8LargeSmem = kW8LargeN * kW8Ld * 2 + kW8Stages * kW8StageBytes;   // 96 KB
 
 namespace {
 
@@ -195,100 +253,320 @@ __global__ void w8_merge_kernel(W8Params p) {
   store_out<T>(p, (int)(i / p.n), (int)(i % p.n), sum);
 }
 
-__global__ void __launch_bounds__(kW8LargeThreads, 2) w8_large_kernel(W8Params p) {
-  extern __shared__ __align__(16) unsigned char w8_smem[];
-  __nv_bfloat16* sW = reinterpret_cast<__nv_bfloat16*>(w8_smem);     // widened [128][kW8Ld]
-  unsigned char* ring = w8_smem + kW8LargeN * kW8Ld * 2;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int wm = warp / 4, wn = warp % 4;   // the warp's 64 rows and 32 columns
-  const int m0 = blockIdx.y * kW8LargeM, n0 = blockIdx.x * kW8LargeN;
-  const int tiles = (p.k + kW8Kt - 1) / kW8Kt;
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+// The large form's primitives: mbarriers, TMA, wgmma (PTX ISA 8.0, sm_90a).
 
-  // tile t of x (128 rows of 64 bf16) and of the weights (128 rows of 64
-  // int8) into `stage`; rows past M or N and columns past K zero-filled
-  auto load = [&](int t, int stage) {
-    __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(ring + stage * kW8StageBytes);
-    int8_t* sq = reinterpret_cast<int8_t*>(ring + stage * kW8StageBytes + kW8XTileBytes);
-    const int kt = t * kW8Kt;
-    for (int c = tid; c < kW8LargeM * (kW8Kt / 8); c += kW8LargeThreads) {
-      const int r = c / (kW8Kt / 8), col = (c % (kW8Kt / 8)) * 8;
-      const bool ok = m0 + r < p.m && kt + col < p.k;
-      cp_async16(sx + r * kW8Ld + col, ok ? x + (m0 + r) * p.ldx + kt + col : x, ok);
-    }
-    for (int c = tid; c < kW8LargeN * (kW8Kt / 16); c += kW8LargeThreads) {
-      const int r = c / (kW8Kt / 16), col = (c % (kW8Kt / 16)) * 16;
-      const bool ok = n0 + r < p.n && kt + col < p.k;
-      cp_async16(sq + c * 16, ok ? p.q + (long long)(n0 + r) * p.k + kt + col : p.q, ok);
-    }
-  };
-
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+// an arrival on the barrier at `bar`'s place in the shared memory of the
+// cluster's block `rank`
+__device__ __forceinline__ void mbar_arrive_at(uint64_t* bar, uint32_t rank) {
+  asm volatile("{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+               "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+               :: "r"(smem_addr(bar)), "r"(rank) : "memory");
+}
+// until the phase of parity `parity` has completed (a fresh barrier counts
+// the phase before its first as completed: parity 1 passes at once)
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// the cluster barrier: every thread of the cluster's blocks that has not
+// exited arrives; a wait returns once all have
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// a 2-d TMA load of the box at (c0 inner, c1 outer) into `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
+                                         uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3}], [%4];\n"
+               :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+                  "r"(smem_addr(bar))
+               : "memory");
+}
+// the same into `dst` of every block of the cluster in `mask`, completing on
+// the barrier at `bar`'s place in each
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map, int c0,
+                                                   int c1, uint64_t* bar, uint16_t mask) {
+  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+               ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n"
+               :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+                  "r"(smem_addr(bar)), "h"(mask)
+               : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator accesses across wgmma's
+template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 #pragma unroll
-  for (int t = 0; t < kW8Stages - 1; ++t) {
-    if (t < tiles) load(t, t);
-    cp_async_commit();
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+// wgmma's shared-memory descriptor of a K-major tile with 128-byte rows in
+// the 128-byte swizzle (8-row groups 1024 bytes apart; 1024-byte aligned)
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+#define W8_ACC8(b) "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), \
+                   "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+
+// d[40] += A (64 x 16, bf16 fragments a) * B (16 x 80, K-major shared, descriptor b)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
+      : W8_ACC8(0), W8_ACC8(8), W8_ACC8(16), W8_ACC8(24),
+        W8_ACC8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[128] += A (64 x 16, bf16 fragments a) * B (16 x 256, K-major shared, descriptor b)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+      : W8_ACC8(0), W8_ACC8(8), W8_ACC8(16), W8_ACC8(24),
+        W8_ACC8(32), W8_ACC8(40), W8_ACC8(48), W8_ACC8(56),
+        W8_ACC8(64), W8_ACC8(72), W8_ACC8(80), W8_ACC8(88),
+        W8_ACC8(96), W8_ACC8(104), W8_ACC8(112), W8_ACC8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int NT>
+__device__ __forceinline__ void wgmma_rs(float (&d)[NT / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (NT == 80) wgmma_rs_n80(d, a, b);
+  else wgmma_rs_n256(d, a, b);
+}
+
+// This thread's A fragments of a stage's four k16 steps, widened to bf16:
+// weight rows r0 and r0 + 8 of the tile (64 codes a row in the 64-byte
+// swizzle: 16-byte chunk c of row r sits at chunk c ^ ((r >> 1) & 3)), k
+// 2 tig, +1 and 2 tig + 8, +9 of each step. Word tig / 2 of each half of a
+// chunk holds the pairs of tig and its neighbour; one byte permute keeps
+// this thread's two pairs. a[s] = {row r0 k 2 tig.., row r0 + 8 k 2 tig..,
+// row r0 k 2 tig + 8.., row r0 + 8 k 2 tig + 8..}, mma's m16k16 A layout.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const int8_t* sq, int r0, int tig) {
+  const int swz = (r0 >> 1) & 3;            // the same for row r0 + 8
+  const uint32_t sel = (tig & 1) ? 0x7632u : 0x5410u;
+  const int off = 4 * (tig >> 1);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int8_t* at = sq + (r0 + 8 * h) * kW8Kt + 16 * (s ^ swz) + off;
+      const uint32_t lo = *reinterpret_cast<const uint32_t*>(at);
+      const uint32_t hi = *reinterpret_cast<const uint32_t*>(at + 8);
+      int8x4_to_bf16(__byte_perm(lo, hi, sel), a[s][h], a[s][2 + h]);
+    }
   }
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+}
 
-  for (int t = 0; t < tiles; ++t) {
-    const int stage = t % kW8Stages;
-    cp_async_wait<kW8Stages - 2>();
-    __syncthreads();                        // tile t is in; every warp is done with tile t - 1
-    const int8_t* sq = reinterpret_cast<const int8_t*>(ring + stage * kW8StageBytes +
-                                                        kW8XTileBytes);
-    for (int c = tid; c < kW8LargeN * (kW8Kt / 16); c += kW8LargeThreads) {
-      uint32_t b[8];
-      widen16(reinterpret_cast<const uint4*>(sq)[c], b);
-      uint4* dst = reinterpret_cast<uint4*>(sW + (c / (kW8Kt / 16)) * kW8Ld + (c % (kW8Kt / 16)) * 16);
-      dst[0] = make_uint4(b[0], b[1], b[2], b[3]);
-      dst[1] = make_uint4(b[4], b[5], b[6], b[7]);
+// One stage of a consumer warpgroup: wait for it, widen its codes into
+// fragment buffer B, launch its four wgmma as one group, then wait for the
+// previous group (the other buffer) and hand that group's stage back.
+template <int NT, int B>
+__device__ __forceinline__ void w8_stage(float (&acc)[NT / 2], uint32_t (&a)[2][4][4],
+                                         unsigned char* ring, uint64_t* full, uint64_t* empty,
+                                         int t, int r0, int lane, uint32_t peer) {
+  using Tile = W8Tile<NT>;
+  const int s = t % Tile::kStages;
+  unsigned char* stage = ring + s * Tile::kStageBytes;
+  mbar_wait(&full[s], (t / Tile::kStages) & 1);
+  load_a(a[B], reinterpret_cast<const int8_t*>(stage + Tile::kXBytes), r0, lane % 4);
+  const uint64_t desc = sw128_desc(stage);
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kW8Kt / 16; ++kk)
+    wgmma_rs<NT>(acc, a[B][kk], desc + 2 * kk);   // 16 k = 32 bytes further along the rows
+  wgmma_commit();
+  fence_acc(acc);
+  wgmma_wait<1>();
+  if (t > 0 && lane == 0) {                 // the stage goes back to both blocks' producers
+    mbar_arrive(&empty[(t - 1) % Tile::kStages]);
+    mbar_arrive_at(&empty[(t - 1) % Tile::kStages], peer);
+  }
+}
+
+// Block (token tile x, 128-row weight tile y, split z), in clusters of two
+// weight tiles: each block's producer loads half of the shared x tile and
+// multicasts it to both, so x is read from L2 once per 256 weight rows.
+// Threads 0-255: the two consumer warpgroups (weight rows 0-63, 64-127);
+// 256-383: the producer.
+template <int NT>
+__global__ void __cluster_dims__(1, kW8Cluster, 1) __launch_bounds__(kW8Threads, 1)
+    w8_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap qmap, W8Params p) {
+  using Tile = W8Tile<NT>;
+  constexpr int S = Tile::kStages;
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  extern __shared__ unsigned char w8_dyn[];
+  unsigned char* ring = w8_dyn + ((1024 - (smem_addr(w8_dyn) & 1023)) & 1023);
+  const int m0 = blockIdx.x * NT, n0 = blockIdx.y * kW8Rows, k0 = blockIdx.z * p.split_k;
+  const int tiles = (min(p.k, k0 + p.split_k) - k0 + kW8Kt - 1) / kW8Kt;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);               // the producer's expect_tx, then TMA's bytes
+      mbar_init(&empty[s], 8 * kW8Cluster);  // one arrival per consumer warp of the cluster
     }
-    // the refill goes to the stage tile t - 1 used
-    if (t + kW8Stages - 1 < tiles) load(t + kW8Stages - 1, (t + kW8Stages - 1) % kW8Stages);
-    cp_async_commit();
-    __syncthreads();                        // the widened tile is in
-    const __nv_bfloat16* sx = reinterpret_cast<const __nv_bfloat16*>(ring + stage * kW8StageBytes);
-#pragma unroll
-    for (int kk = 0; kk < kW8Kt / 16; ++kk) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(a[mt], sx + (wm * 64 + mt * 16 + lane % 16) * kW8Ld + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, sW + (wn * 32 + j * 8 + lane % 8 + (lane / 16) * 8) * kW8Ld + kk * 16 +
-                           ((lane / 8) % 2) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          mma_bf16(acc[mt][j], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][j + 1], a[mt], b[2], b[3]);
-        }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_arrive();                         // the peer's barriers exist before any copy
+  cluster_wait();
+  const uint32_t rank = cluster_rank(), peer = rank ^ 1;
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      for (int t = 0; t < tiles; ++t) {
+        const int s = t % S;
+        unsigned char* stage = ring + s * Tile::kStageBytes;
+        mbar_wait(&empty[s], ((t / S) & 1) ^ 1);
+        mbar_expect_tx(&full[s], Tile::kStageBytes);
+        tma_load_multicast(stage + rank * (Tile::kXBytes / 2), &xmap, k0 + t * kW8Kt,
+                           m0 + rank * (NT / 2), &full[s], (1 << kW8Cluster) - 1);
+        tma_load(stage + Tile::kXBytes, &qmap, k0 + t * kW8Kt, n0, &full[s]);
       }
     }
+    return;
   }
-  cp_async_wait<0>();
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
+  const int r0 = wg * 64 + (threadIdx.x / 32 % 4) * 16 + gid;   // rows r0, r0 + 8 of the tile
+  // the scales of rows r0 and r0 + 8, loaded while the main loop runs (1
+  // for partials: the merge scales)
+  const bool split = p.nsplit > 1;
+  float sc[2];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
+  for (int h = 0; h < 2; ++h) {
+    const int n = n0 + r0 + 8 * h;
+    sc[h] = !split && n < p.n ? scale_at<__nv_bfloat16>(p, n) : 1.f;
+  }
+  float acc[NT / 2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+  for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+  // stages in pairs, so that on every path into a stage the group still in
+  // flight is the other buffer's (ptxas serializes the wgmma's otherwise)
+  uint32_t a[2][4][4];
+  int t = 0;
+  for (; t + 1 < tiles; t += 2) {
+    w8_stage<NT, 0>(acc, a, ring, full, empty, t, r0, lane, peer);
+    w8_stage<NT, 1>(acc, a, ring, full, empty, t + 1, r0, lane, peer);
+  }
+  if (t < tiles) w8_stage<NT, 0>(acc, a, ring, full, empty, t, r0, lane, peer);
+  wgmma_wait<0>();
+  fence_acc(acc);
+  // this block's last arrival on its peer's barriers is behind it; it waits
+  // for the peer's at its end (no block leaves while its peer may arrive)
+  cluster_arrive();
+
+  // Epilogue: the tile transposed into [NT tokens][128 columns] over the
+  // ring (both consumers done with it first), then 16-byte runs along N.
+  // acc[4 j + 2 h + c] is weight row r0 + 8 h, token 8 j + 2 tig + c.
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  const int rows = min(NT, p.m - m0), cols = min(kW8Rows, p.n - n0);
+  if (split || p.out_fp32) {                // fp32: partials, or sums times the scale
+    float* st = reinterpret_cast<float*>(ring);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = m0 + wm * 64 + mt * 16 + gid + 8 * r;
-        if (row >= p.m) continue;
+    for (int j = 0; j < NT / 8; ++j)
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = n0 + wn * 32 + j * 8 + 2 * tig + c;
-          if (col < p.n) store_out<__nv_bfloat16>(p, row, col, acc[mt][j][2 * r + c]);
-        }
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          st[(8 * j + 2 * tig + c) * kW8StageLd + r0 + 8 * h] = acc[4 * j + 2 * h + c] * sc[h];
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float* dst = split ? p.partial + (long long)blockIdx.z * p.m * p.n
+                       : static_cast<float*>(p.out);
+    for (int i = threadIdx.x; i < rows * 32; i += 256) {   // 32 runs of 4 a row
+      const int r = i / 32, c = i % 32 * 4;
+      if (c >= cols) continue;
+      const float* src = st + r * kW8StageLd + c;
+      float* d = dst + (long long)(m0 + r) * p.n + n0 + c;
+      if (c + 4 <= cols && p.n % 4 == 0)
+        *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(src);
+      else
+        for (int e = 0; e < 4 && c + e < cols; ++e) d[e] = src[e];
+    }
+  } else {                                  // bf16: the two roundings, two tokens at once
+    __nv_bfloat16* st = reinterpret_cast<__nv_bfloat16*>(ring);
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 r = __bfloat1622float2(
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]));
+        const __nv_bfloat162 o = __floats2bfloat162_rn(r.x * sc[h], r.y * sc[h]);
+        st[(8 * j + 2 * tig) * kW8StageLdH + r0 + 8 * h] = o.x;
+        st[(8 * j + 2 * tig + 1) * kW8StageLdH + r0 + 8 * h] = o.y;
       }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(p.out);
+    for (int i = threadIdx.x; i < rows * 16; i += 256) {   // 16 runs of 8 a row
+      const int r = i / 16, c = i % 16 * 8;
+      if (c >= cols) continue;
+      const __nv_bfloat16* src = st + r * kW8StageLdH + c;
+      __nv_bfloat16* d = dst + (long long)(m0 + r) * p.n + n0 + c;
+      if (c + 8 <= cols && p.n % 8 == 0)
+        *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(src);
+      else
+        for (int e = 0; e < 8 && c + e < cols; ++e) d[e] = src[e];
     }
   }
+  cluster_wait();
 }
 
 __global__ void __launch_bounds__(kW8FmaThreads) w8_fma_kernel(W8Params p) {
@@ -301,19 +579,79 @@ __global__ void __launch_bounds__(kW8FmaThreads) w8_fma_kernel(W8Params p) {
   store_out<float>(p, m, n, sum);
 }
 
+// cuTensorMapEncodeTiled from the CUDA driver API, looked up once through
+// the runtime (null where it has none)
+using W8Encode = PFN_cuTensorMapEncodeTiled_v12000;
+W8Encode w8_encoder() {
+  static const W8Encode fn = []() -> W8Encode {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                         &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    return reinterpret_cast<W8Encode>(ptr);
+  }();
+  return fn;
+}
+
+// A 2-d tensor map over `rows` rows of `inner` elements (row stride
+// `ld_bytes`), boxes of box_inner x box_rows; out-of-range elements read 0.
+bool w8_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
+            uint64_t rows, uint64_t ld_bytes, uint32_t box_inner, uint32_t box_rows,
+            CUtensorMapSwizzle swizzle) {
+  const W8Encode encode = w8_encoder();
+  const cuuint64_t dims[2] = {inner, rows}, strides[1] = {ld_bytes};
+  const cuuint32_t box[2] = {box_inner, box_rows}, unit[2] = {1, 1};
+  return encode != nullptr &&
+         encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The splits' partials summed in split order, rounded and scaled.
+int w8_merge(const W8Params& p, cudaStream_t s) {
+  const long long mn = (long long)p.m * p.n;
+  w8_merge_kernel<__nv_bfloat16><<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int w8_large(const W8Params& p, cudaStream_t s) {
+  using Tile = W8Tile<NT>;
+  CUtensorMap xmap, qmap;
+  if (!w8_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.x, p.k, p.m, p.ldx * 2, kW8Kt,
+              NT / kW8Cluster, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !w8_map(&qmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, p.k, p.n, p.k, kW8Kt, kW8Rows,
+              CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(w8_wgmma_kernel<NT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Tile::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (p.n + kW8Rows - 1) / kW8Rows;     // rounded up to whole clusters
+  const dim3 grid((p.m + NT - 1) / NT, (tiles + kW8Cluster - 1) / kW8Cluster * kW8Cluster,
+                  p.nsplit);
+  w8_wgmma_kernel<NT><<<grid, kW8Threads, Tile::kSmem, s>>>(xmap, qmap, p);
+  err = cudaGetLastError();
+  return err != cudaSuccess || p.nsplit == 1 ? (int)err : w8_merge(p, s);
+}
+
 }  // namespace
 
 }  // namespace livecc
 
-// dtype: x's (livecc::DType). nsplit > 0 runs bf16's small form (M <= 16)
-// over `nsplit` ranges of `split_k` (a multiple of 64) with `partial`
-// ([nsplit, M, N] fp32, from the caller), nsplit == 0 the large form.
-// Refused (an error, nothing launched): bf16 x with K not a multiple of 16,
-// x's row stride not a multiple of 8, or x or q not 16-byte aligned; a small
-// form whose M, split or partial does not fit.
+// dtype: x's (livecc::DType). bf16 runs over `nsplit` ranges of `split_k`
+// (a multiple of 64) of K: token_tile 0 is the small form (M <= 16; fp32
+// partials [nsplit, M, N] from the caller, then the merge), 80 or 256 the
+// large form's token tile (partials needed when nsplit > 1). fp32 x
+// takes the FMA form, which ignores the plan. Refused (an error, nothing
+// launched): bf16 x with K not a multiple of 16, x's row stride not a
+// multiple of 8, or x or q not 16-byte aligned; a plan whose splits do not
+// cover K, a missing partial, a small form past 16 rows, another token tile.
 extern "C" int livecc_w8a16_gemm(int dtype, int out_fp32, const void* x, long long ldx,
                                  const void* q, const void* scale, void* out, void* partial,
-                                 int m, int n, int k, int split_k, int nsplit, void* stream) {
+                                 int m, int n, int k, int token_tile, int split_k, int nsplit,
+                                 void* stream) {
   using namespace livecc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   W8Params p{x, ldx, static_cast<const int8_t*>(q), scale, out, static_cast<float*>(partial),
@@ -326,26 +664,22 @@ extern "C" int livecc_w8a16_gemm(int dtype, int out_fp32, const void* x, long lo
   if (dtype != kBFloat16 || k % 16 || ldx % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
       reinterpret_cast<uintptr_t>(q) % 16)
     return (int)cudaErrorInvalidValue;
-  if (nsplit > 0) {
-    if (m > kW8SmallRows || partial == nullptr || split_k <= 0 || split_k % kW8Kt ||
-        (long long)(nsplit - 1) * split_k >= k || (long long)nsplit * split_k < k)
-      return (int)cudaErrorInvalidValue;
-    const dim3 grid((n + kW8SmallBlockN - 1) / kW8SmallBlockN, nsplit);
-    if (m > 8)
-      w8_small_kernel<true><<<grid, kW8SmallWarps * 32, 0, s>>>(p);
-    else
-      w8_small_kernel<false><<<grid, kW8SmallWarps * 32, 0, s>>>(p);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const long long mn = (long long)m * n;
-    w8_merge_kernel<__nv_bfloat16><<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(p);
-    return (int)cudaGetLastError();
+  if (nsplit <= 0 || split_k <= 0 || split_k % kW8Kt || (long long)(nsplit - 1) * split_k >= k ||
+      (long long)nsplit * split_k < k || (partial == nullptr && (nsplit > 1 || token_tile == 0)))
+    return (int)cudaErrorInvalidValue;
+  switch (token_tile) {
+    case 0: {
+      if (m > kW8SmallRows) return (int)cudaErrorInvalidValue;
+      const dim3 grid((n + kW8SmallBlockN - 1) / kW8SmallBlockN, nsplit);
+      if (m > 8)
+        w8_small_kernel<true><<<grid, kW8SmallWarps * 32, 0, s>>>(p);
+      else
+        w8_small_kernel<false><<<grid, kW8SmallWarps * 32, 0, s>>>(p);
+      cudaError_t err = cudaGetLastError();
+      return err != cudaSuccess ? (int)err : w8_merge(p, s);
+    }
+    case 80: return w8_large<80>(p, s);
+    case 256: return w8_large<256>(p, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(w8_large_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kW8LargeSmem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((n + kW8LargeN - 1) / kW8LargeN, (m + kW8LargeM - 1) / kW8LargeM);
-  w8_large_kernel<<<grid, kW8LargeThreads, kW8LargeSmem, s>>>(p);
-  return (int)cudaGetLastError();
 }

@@ -130,7 +130,7 @@ def load_library() -> ctypes.CDLL:
     lib.livecc_train_attention_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                                ptr, i32, i32, i32, i32, i32, strides, ptr]
     lib.livecc_w8a16_gemm.argtypes = [i32, i32, ptr, ctypes.c_longlong, ptr, ptr, ptr, ptr,
-                                      i32, i32, i32, i32, i32, ptr]
+                                      i32, i32, i32, i32, i32, i32, ptr]
     for fn in (lib.livecc_flash_prefill, lib.livecc_flash_decode, lib.livecc_flash_prefill_int8,
                lib.livecc_flash_decode_int8, lib.livecc_vit_attention,
                lib.livecc_train_attention_fwd, lib.livecc_train_attention_bwd,

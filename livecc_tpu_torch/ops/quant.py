@@ -19,9 +19,11 @@ untied lm_head and the tied embedding are both its ``[N, K]`` operand.
 
 ``w8a16_gemm(x, q, scale)`` is K5 (``csrc/w8a16_gemm.cu``), ``x [..., K] @
 q[N, K]^T * scale[N]``: on CUDA tensors the kernel (bf16 x: a split-K
-tensor-core GEMV for M <= ``SMALL_M`` rows, 128 x 128 tiles above; fp32 x:
-an FMA loop), on CPU tensors ``w8a16_gemm_plain``, JAX's formula step by
-step; any other device raises. The kernel launches on the current stream,
+tensor-core GEMV for M <= ``SMALL_M`` rows; above, wgmma with the weights
+as A over 128-row weight tiles and a token tile of ``TOKEN_TILES``, split
+in K where the tiles do not fill the card, ``large_plan``; fp32 x: an FMA
+loop), on CPU tensors ``w8a16_gemm_plain``, JAX's formula step by step;
+any other device raises. The kernel launches on the current stream,
 makes no host sync and takes its workspace from the torch allocator here,
 so the decode graphs capture it.
 
@@ -34,6 +36,7 @@ ViT block and the merger's two; ``patch_embed``, the norms and the biases
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Union
 
 import torch
@@ -54,8 +57,10 @@ MERGER_LINEARS = ("fc1", "fc2")
 # K5's small form (csrc/w8a16_gemm.cu): rows it takes, columns a block owns,
 # k per slab; the splits aim at TARGET_BLOCKS blocks (4 on each of 132 SMs)
 SMALL_M, SMALL_BLOCK_N, K_TILE, TARGET_BLOCKS = 16, 128, 64, 528
-# K5's large form: output tile
-LARGE_TILE = 128
+# K5's large form: weight rows a block (wgmma's m: two warpgroups of 64), the
+# token tiles (wgmma's n) and the card's SMs (one block each: ~200 KB of
+# shared memory)
+LARGE_ROWS, TOKEN_TILES, SMS = 128, (80, 256), 132
 
 
 def is_quantized(w: Any) -> bool:
@@ -114,6 +119,27 @@ def small_split(n: int, k: int) -> tuple[int, int]:
     return -(-tiles // per), per * K_TILE
 
 
+@functools.lru_cache(maxsize=4096)
+def large_plan(m: int, n: int, k: int) -> tuple[int, int, int]:
+    """(token_tile, nsplit, split_k) of K5's large form for M tokens, N
+    columns and K. A block computes one 128-column x ``token_tile`` output
+    tile over one of ``nsplit`` ranges of ``split_k`` (a multiple of 64, the
+    last one shorter) of K. The token tile is 80 up to 80 tokens (the B =
+    8 verify window's 72) and 256 above: every tile of tokens rereads the
+    weights and every tile of columns rereads x, and those reads from L2,
+    not the last partial wave, were what bounded the form at the 7B's
+    prefill shapes on the H100. Where the tiles do not fill one wave of
+    132 blocks, K is split into as many ranges as keep the blocks within the
+    wave, while the fp32 partials, written and read once (``2 * nsplit * M
+    * N * 4`` bytes), stay within the codes' ``N * K``; the merge sums them
+    in split order."""
+    tile = TOKEN_TILES[0] if m <= TOKEN_TILES[0] else TOKEN_TILES[1]
+    ktiles, units = -(-k // K_TILE), -(-n // LARGE_ROWS) * -(-m // tile)
+    want = max(1, min(ktiles, SMS // units, k // (8 * m)))
+    per = -(-ktiles // want)
+    return tile, -(-ktiles // per), per * K_TILE
+
+
 def w8a16_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
                out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """K5: ``x [..., K] @ q[N, K]^T * scale[N]`` -> ``[..., N]`` in x's
@@ -142,16 +168,20 @@ def w8a16_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     if x.dtype == torch.bfloat16 and (k % 16 or q.data_ptr() % 16):
         raise ValueError(f"w8a16_gemm: bf16 needs K a multiple of 16 and a 16-byte aligned q, "
                          f"got K {k}, q base {q.data_ptr() % 16} mod 16")
-    nsplit, split_k, partial = 0, 0, None
-    if x.dtype == torch.bfloat16 and m <= SMALL_M:
-        nsplit, split_k = small_split(n, k)
-        partial = torch.empty((nsplit, m, n), dtype=torch.float32, device=x.device)
+    tile, nsplit, split_k, partial = 0, 1, -(-k // K_TILE) * K_TILE, None
+    if x.dtype == torch.bfloat16:
+        if m <= SMALL_M:
+            nsplit, split_k = small_split(n, k)
+        else:
+            tile, nsplit, split_k = large_plan(m, n, k)
+        if tile == 0 or nsplit > 1:
+            partial = torch.empty((nsplit, m, n), dtype=torch.float32, device=x.device)
     lib = build.load_library()
     with build.on_device(x.device):
         build.launch("w8a16_gemm", lib.livecc_w8a16_gemm, build.DTYPE_CODES[x.dtype],
                      int(out_fp32), x2.data_ptr(), x2.stride(0), q.data_ptr(), scale.data_ptr(),
                      out.data_ptr(), 0 if partial is None else partial.data_ptr(), m, n, k,
-                     split_k, nsplit, build.current_stream(x.device))
+                     tile, split_k, nsplit, build.current_stream(x.device))
     return out.reshape(*lead, n)
 
 

@@ -34,7 +34,8 @@ give; a check that passes them could not see a lost block:
   * ``w8_drop_split(...)`` (K5's small form): the plain output with one
     128-column block computed without one of its K splits
     (``ops/quant.py:small_split``); ``w8_drop_k_tile(...)`` (K5's large
-    form): one 128 x 128 output tile computed without one 64-wide K tile.
+    form): one output tile of ``large_plan``'s tiling (its token tile x
+    128 columns) computed without one 64-wide K stage of one of its splits.
 
 bf16 K4's gradients (dq, dk, dv) are held by ``grad_close(out, ref, ref32)``
 instead: each gradient sums thousands of bf16-rounded terms (p, ds), so two
@@ -285,14 +286,18 @@ def w8_drop_split(x, q, scale, out_dtype=None, block: int = 0, split: int | None
 
 
 def w8_drop_k_tile(x, q, scale, out_dtype=None, m_block: int = 0, n_block: int = 0,
-                   k_tile: int | None = None):
-    """K5's large form had one tile skipped: output tile (``m_block``,
-    ``n_block``) of ``LARGE_TILE`` x ``LARGE_TILE`` without the 64-wide K
-    tile ``k_tile`` (by default the middle one)."""
-    from livecc_tpu_torch.ops.quant import K_TILE, LARGE_TILE
+                   split: int | None = None, stage: int | None = None):
+    """K5's large form had one stage skipped: output tile (``m_block``,
+    ``n_block``) of ``large_plan``'s tiling (its token tile of rows x
+    ``LARGE_ROWS`` columns) without one 64-wide K stage, stage ``stage`` of
+    split ``split`` of the plan's K ranges (by default the middle of each)."""
+    from livecc_tpu_torch.ops.quant import K_TILE, LARGE_ROWS, large_plan
 
-    m, k = x.shape[0], q.shape[1]
-    t = (-(-k // K_TILE)) // 2 if k_tile is None else k_tile
-    rows = slice(m_block * LARGE_TILE, min(m, (m_block + 1) * LARGE_TILE))
-    cols = slice(n_block * LARGE_TILE, min(q.shape[0], (n_block + 1) * LARGE_TILE))
-    return _w8_without(x, q, scale, out_dtype, rows, cols, t * K_TILE, min(k, (t + 1) * K_TILE))
+    m, (n, k) = x.shape[0], q.shape
+    tile, nsplit, split_k = large_plan(m, n, k)
+    k0 = (nsplit // 2 if split is None else split) * split_k
+    t = -(-(min(k, k0 + split_k) - k0) // K_TILE) // 2 if stage is None else stage
+    rows = slice(m_block * tile, min(m, (m_block + 1) * tile))
+    cols = slice(n_block * LARGE_ROWS, min(n, (n_block + 1) * LARGE_ROWS))
+    return _w8_without(x, q, scale, out_dtype, rows, cols, k0 + t * K_TILE,
+                       min(k, k0 + (t + 1) * K_TILE))

@@ -26,7 +26,9 @@ versions of the kernels compare on one card in one call:
     PYTHONPATH=<another checkout> python3 livecc_tpu_torch/tools/kernel_timing.py
 
 Arguments, if any, name the kinds to time (``decode``, ``vit``, ``prefill``,
-``prefill_int8``, ``train``, ``w8``: K5 at ``W8_SHAPES``); by default all six.
+``prefill_int8``, ``train``, ``w8``: K5 at ``W8_SHAPES``, ``w8_large``: K5
+at its large form's shapes, ``W8_LARGE_SHAPES``); by default all but
+``w8_large``, which ``w8`` covers.
 
 It uses only the six wrappers' public signatures,
 ``models.qwen2_vl.text.quantize_kv`` and ``ops.quant.quantize_weight``.
@@ -259,14 +261,19 @@ def train_cases():
 
 # K5's shapes at the 7B: projection -> (N, K, fp32 output); decode rows M = 1
 # and 8 and the verify windows M = 9 (B = 1) and 72 (B = 8) on gate_proj,
-# down_proj, k_proj and the lm_head (fp32 out), prefill chunks of 256 and
-# 1024 rows on gate_proj, and the ViT's fc1 at 3520 patches
+# down_proj, k_proj and the lm_head (fp32 out); prefill: a steady chunk's
+# 256 rows on gate_proj and on down_proj (28 column tiles: a split plan),
+# 1024 rows on gate_proj, the pool tick's 2048 on gate_proj and down_proj;
+# the ViT's fc1 at 3520 patches
 W8_PROJ = {"gate_proj": (18944, 3584, False), "down_proj": (3584, 18944, False),
            "k_proj": (512, 3584, False), "lm_head": (152064, 3584, True),
            "vit_fc1": (5120, 1280, False)}
 W8_SHAPES = tuple((name, m) for m in (1, 8, WINDOW_SQ, 8 * WINDOW_SQ)
                   for name in ("gate_proj", "down_proj", "k_proj", "lm_head")) + (
-    ("gate_proj", 256), ("gate_proj", 1024), ("vit_fc1", 3520))
+    ("gate_proj", 256), ("down_proj", 256), ("gate_proj", 1024), ("gate_proj", 2048),
+    ("down_proj", 2048), ("vit_fc1", 3520))
+# the shapes of K5's large form (M > 16 rows)
+W8_LARGE_SHAPES = tuple((name, m) for name, m in W8_SHAPES if m > 16)
 
 
 def w8_operands(name: str, m: int, gen: torch.Generator):
@@ -288,12 +295,12 @@ def w8_work(m: int, n: int, k: int, fp32_out: bool) -> tuple[float, float]:
     return 2.0 * m * n * k, n * k + 2 * m * k + (4 if fp32_out else 2) * m * n + 2 * n
 
 
-def w8_cases():
-    """(label, call) of K5 at each of ``W8_SHAPES``."""
+def w8_cases(shapes=W8_SHAPES):
+    """(label, call) of K5 at each of ``shapes``."""
     from livecc_tpu_torch.ops.quant import w8a16_gemm
 
     gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
-    for name, m in W8_SHAPES:
+    for name, m in shapes:
         x, q, scale, out_dtype = w8_operands(name, m, gen)
         n, k = q.shape
         yield (f"K5 {name} M={m} N={n} K={k} {'fp32' if out_dtype else 'bf16'} out",
@@ -310,12 +317,13 @@ def main(argv: list[str]) -> int:
     result = {"package": livecc_tpu_torch.__path__[0], "card": card.strip(),
               "torch": torch.__version__}
     kinds = {"decode": decode_cases, "vit": vit_cases, "prefill": prefill_cases,
-             "prefill_int8": prefill_int8_cases, "train": train_cases, "w8": w8_cases}
+             "prefill_int8": prefill_int8_cases, "train": train_cases, "w8": w8_cases,
+             "w8_large": lambda: w8_cases(W8_LARGE_SHAPES)}
     unknown = set(argv) - set(kinds)
     if unknown:
         raise SystemExit(f"kernel_timing: unknown kinds {sorted(unknown)}; known: {list(kinds)}")
     for kind, cases in kinds.items():
-        if argv and kind not in argv:
+        if not (kind in argv if argv else kind != "w8_large"):
             continue
         rows = result[kind] = []
         for label, call in cases():

@@ -51,7 +51,7 @@ def _group(name: str) -> str:
         return "K4 train_attention_fwd"
     if re.search(r"train_(dkv|dq)(_mma)?_kernel", name):
         return "K4 train_attention_bwd"
-    if re.search(r"w8_(small|merge|large|fma)_kernel", name):         # K5
+    if re.search(r"w8_(small|merge|large|wgmma|fma)_kernel", name):   # K5
         return "K5 w8a16_gemm"
     if "quant_mma_attention_kernel" in name:                     # bf16 K1-int8
         return "K1-int8 flash_prefill_int8"

@@ -5,8 +5,9 @@ Marked ``gpu``: each test skips (inside the ``cuda`` fixture) where
 
     python -m pytest --noconftest -m gpu tests/test_torch_w8_gpu.py -q
 
-Both bf16 forms (small: M <= 16, split K with a merge pass; large: 128 x
-128 tiles) and the fp32-activation form are held to the plain version
+Both bf16 forms (small: M <= 16, split K with a merge pass; large: wgmma
+with the weights as A over 128-row tiles, a token tile of 80 or 256 and, where ``quant.large_plan`` splits K, fp32 partials merged in split
+order) and the fp32-activation form are held to the plain version
 (``ops/quant.py:w8a16_gemm_plain``) on the same inputs in the same dtype by
 ``kernel_check.close``, in bf16 and with the fp32 output of ``lm_logits``;
 a planted fault (``kernel_check.w8_drop_split``, ``w8_drop_k_tile``) must
@@ -31,9 +32,15 @@ from livecc_tpu_torch.tools.session import synth_frames
 pytestmark = pytest.mark.gpu
 BF16, F32 = torch.bfloat16, torch.float32
 # (M, N, K): small form at decode rows, large form past 16 rows; N not a
-# multiple of 128 and K not a multiple of 64 included
+# multiple of 128 (nor of 8) and K not a multiple of 64 included. The large
+# shapes reach each token tile unsplit (80: M <= 80, here the B = 8 window's
+# 72 rows; 256 above, at M = 100 and with a ragged second tile at M = 300)
+# and split plans: k_proj's at the B = 8 window (6 splits), down_proj's at a
+# steady prefill chunk (4 splits), M = 24 split 5 ways over K = 1040 (a
+# 16-wide last stage)
 SMALL = [(1, 512, 3584), (8, 1000, 1040), (9, 3584, 1024), (16, 257, 2048)]
-LARGE = [(17, 640, 1280), (72, 1000, 1040), (300, 1024, 3584)]
+LARGE = [(17, 640, 1280), (72, 1000, 1040), (100, 1000, 1040), (300, 1024, 3584),
+         (72, 512, 3584), (256, 3584, 18944), (24, 257, 1040), (2048, 3584, 1280)]
 
 
 @pytest.fixture
@@ -71,8 +78,9 @@ def test_bf16_forms_match_the_plain_version(cuda, shape, out_dtype):
     if m <= quant.SMALL_M:
         fault = kernel_check.w8_drop_split(x, q, scale, out_dtype, block=(n - 1) // 128)
     else:
-        fault = kernel_check.w8_drop_k_tile(x, q, scale, out_dtype, m_block=(m - 1) // 128,
-                                            n_block=(n - 1) // 128)
+        tile = quant.large_plan(m, n, k)[0]
+        fault = kernel_check.w8_drop_k_tile(x, q, scale, out_dtype, m_block=(m - 1) // tile,
+                                            n_block=(n - 1) // quant.LARGE_ROWS)
     assert kernel_check.close(fault, ref, dtype) > 1.0
     assert torch.equal(out, quant.w8a16_gemm(x, q, scale, out_dtype))
 
@@ -87,11 +95,14 @@ def test_fp32_activations(cuda, m):
 
 
 def test_strided_rows_and_refusals(cuda):
-    """x may be a view with strided rows; what the kernel does not take raises."""
-    x, q, scale = operands(8, 384, 512, BF16, cuda)
-    wide = torch.zeros((8, 1024), dtype=BF16, device=cuda)
-    wide[:, :512] = x
-    assert torch.equal(quant.w8a16_gemm(wide[:, :512], q, scale), quant.w8a16_gemm(x, q, scale))
+    """x may be a view with strided rows (either form); what the kernel does
+    not take raises."""
+    for m in (8, 72):
+        x, q, scale = operands(m, 384, 512, BF16, cuda)
+        wide = torch.zeros((m, 1024), dtype=BF16, device=cuda)
+        wide[:, :512] = x
+        assert torch.equal(quant.w8a16_gemm(wide[:, :512], q, scale),
+                           quant.w8a16_gemm(x, q, scale))
     with pytest.raises(ValueError):
         quant.w8a16_gemm(x[:, :504], q[:, :504].contiguous(), scale)   # bf16 K % 16 != 0
     with pytest.raises(ValueError):
@@ -100,7 +111,7 @@ def test_strided_rows_and_refusals(cuda):
         quant.w8a16_gemm(x, q, scale.float())                      # scale not in x's dtype
 
 
-@pytest.mark.parametrize("m", [1, 72])
+@pytest.mark.parametrize("m", [1, 72, 256])
 def test_captured_replay_equals_eager_and_no_sync(cuda, m):
     x, q, scale = operands(m, 1000, 1024, BF16, cuda)
     side = torch.cuda.Stream()
