@@ -128,6 +128,31 @@ Phases (any failure raises and the script exits non-zero):
                  int8 KV cache, JAX's TPU serving configuration; graphs
                  against the eager plain loop, ticks, busy and the B = 8
                  step replay beside pool's.
+     eval      — the benchmark harnesses (``livecc_tpu_torch/eval``) on
+                 main's 7B (bf16, full depth): two VideoMME items at the 720p
+                 budget (64 frames of a 720x1280 source at 2 fps, served by
+                 ``FramesVideo`` at the budget's 560x1008, which the
+                 predictor must ask for: 32 ViT groups of g = 2880, 23k
+                 tokens in the 32768 bucket) through ``videomme.run`` at
+                 batch 1 and 2 (report written and merged; letters equal
+                 but at a near-tie; K3 and K4's forward launched, no
+                 backward); each item's host and forward walls, one item
+                 profiled (busy, idle share, device time by group, model
+                 FLOP rate), peak device memory. Then K3 and K4's forward
+                 on that item's last ViT block's and LLM layer's q, k, v
+                 against ``kernel_check``'s blocked plain versions by
+                 ``close``, which a dropped key tile (the heaviest of a
+                 query tile) must fail; kernel, blocked plain and SDPA
+                 times beside the bound. The reduced item (8 frames of
+                 560x1008, batch 2, the 4096 bucket): letter logits with the
+                 kernels within ``close``'s bf16 limit of the plain path's
+                 (K3 and K4's plain versions swapped in). A LiveSports-3K
+                 CC event (10 s at 2 fps of 308x560) through
+                 ``livesports3kcc.generate``: rows equal a direct
+                 ``live_cc_once_for_evaluation``; wall and FLOP rate
+                 (``serving_chunk_flops``); one caption. Where Pillow is
+                 installed, ``eval.cli.main mvbench`` on the tiny model over
+                 a frame directory (else it says so).
  10. checkpoint_live — the front door on main's 7B: written as an HF
                  checkpoint (bf16 safetensors shards of ~5 GB with an index,
                  config.json from tests/fixtures/qwen2_vl_7b_config.json)
@@ -162,7 +187,8 @@ Phases (any failure raises and the script exits non-zero):
 
 Launch counts are reset just before each of main, pool, main_spec (and
 its worst case), pool_spec, main_w8 (and its lookahead session), pool_w8,
-checkpoint_live's two CLI runs and train and read just after; every kernel of
+eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs
+and train and read just after; every kernel of
 that path must have launched. Every phase always
 runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
 and, as its last line, ``{"ok": true, "device": {...}}``. It imports nothing
@@ -233,6 +259,17 @@ K4_CASES = ((4096, (1500, 1400, 1000), "bf16", True),     # strided q
 # an output; lse is fp32 in both dtypes
 K4_TOL = {"bf16": (1e-2, 2e-2), "fp32": (1e-4, 1e-4), "lse": (1e-4, 1e-4)}
 K4_GRAD_NORM_TOL = 2e-2    # bf16 gradients against the fp32 plain version: ||g - r|| / ||r||
+# eval: VideoMME items at the 720p budget (EVAL_FRAMES frames of a 720x1280
+# source at 2 fps, served at the budget's 560x1008: 32 groups of g = 2880,
+# the 32768 bucket), the reduced item (8 frames of 560x1008: 4 groups, the
+# 4096 bucket), a LiveSports-3K CC event of CC_SECONDS s
+EVAL_SOURCE_HW, EVAL_FRAMES, EVAL_FPS = (720, 1280), 64, 2.0
+EVAL_REDUCED_HW, EVAL_REDUCED_FRAMES = (560, 1008), 8
+EVAL_QUESTIONS = ("What does the player in the red shirt do after the whistle?",
+                  "How many players cross the halfway line?")
+EVAL_OPTIONS = ("A. He shoots.", "B. He passes.", "C. He falls.", "D. He waves.")
+EVAL_KERNELS = ("vit_group_attention", "train_attention_fwd")
+CC_SECONDS = 10
 # checkpoint_live: a clip of CLIP_SECONDS s at CLIP_FPS frames a second, the CLI's default query
 CLIP_SECONDS, CLIP_FPS = 10, 10
 QUERY = "Please describe the video."
@@ -1695,15 +1732,18 @@ def phase_pool_w8(cfg, model, pool: dict) -> dict:
 
 
 class FramesVideo:
-    """``VideoReader``'s API over frames in memory (``LiveCC``'s
-    ``video_loader`` where no FFmpeg is installed to decode a clip): frame i
-    at ``i / fps`` s, served at their own size."""
+    """``VideoReader``'s API over frames in memory (``LiveCC``'s and
+    ``MCQPredictor``'s ``video_loader`` where no FFmpeg is installed to
+    decode a clip): frame i at ``i / fps`` s. It reports ``source_hw`` (by
+    default the frames' own size) as the video's frame size and serves the
+    frames at their own size only: a caller asking for any other size
+    raises."""
 
-    def __init__(self, frames, fps: float):
+    def __init__(self, frames, fps: float, source_hw=None):
         import numpy as np
 
         self.frames, self.avg_fps = frames, float(fps)
-        self.frame_size = frames.shape[1:3]
+        self.frame_size = tuple(source_hw or frames.shape[1:3])
         self.pts_seconds = np.arange(len(frames)) / self.avg_fps
 
     def __len__(self) -> int:
@@ -1712,8 +1752,9 @@ class FramesVideo:
     def get_batch(self, indices, out_hw=None):
         import numpy as np
 
-        if out_hw not in (None, self.frame_size):
-            raise ValueError(f"FramesVideo serves {self.frame_size} frames, asked for {out_hw}")
+        own = tuple(self.frames.shape[1:3])
+        if tuple(out_hw or self.frame_size) != own:
+            raise ValueError(f"FramesVideo serves {own} frames, asked for {out_hw}")
         return self.frames[np.asarray(indices)]
 
 
@@ -1921,6 +1962,516 @@ def phase_checkpoint_live(cfg, models: list) -> dict:
     return counts, counts_w8
 
 
+def eval_items(n_frames: int, hw, questions):
+    """VideoMME rows over ``len(questions)`` synthetic clips of ``n_frames``
+    uint8 frames of ``hw`` at ``EVAL_FPS`` (numpy seeds 20, 21, ...), and the
+    clips by path."""
+    from livecc_tpu_torch.tools import session
+
+    clips, rows = {}, []
+    for i, question in enumerate(questions):
+        path = f"item{i}_{n_frames}x{hw[0]}x{hw[1]}.mp4"
+        clips[path] = session.synth_frames(n_frames, *hw, seed=20 + i)
+        rows.append({"video": path, "question": question, "options": list(EVAL_OPTIONS),
+                     "answer": "A", "duration": "short", "domain": "Sports Competition",
+                     "sub_category": "Football", "task_type": "Action Recognition",
+                     "video_id": f"match{i}", "question_id": f"{i}-1"})
+    return rows, clips
+
+
+@contextlib.contextmanager
+def attention_swapped(vit_fn=None, llm_fn=None, store=None):
+    """While entered, the vision tower's K3 call and the text tower's K4
+    call (``vision.vit_group_attention``, ``text.train_flash_attention``) go
+    to ``vit_fn`` / ``llm_fn`` where given; with ``store``, each call's
+    inputs are kept there ("vit": (q, k, v), "llm": (q, k, v, mask)), the
+    last call's replacing the one before."""
+    from livecc_tpu_torch.models.qwen2_vl import text, vision
+
+    vit, llm = vision.vit_group_attention, text.train_flash_attention
+    vit_fn, llm_fn = vit_fn or vit, llm_fn or llm
+
+    def vit_call(q, k, v):
+        if store is not None:
+            store["vit"] = (q, k, v)
+        return vit_fn(q, k, v)
+
+    def llm_call(q, k, v, attention_mask=None):
+        if store is not None:
+            store["llm"] = (q, k, v, attention_mask)
+        return llm_fn(q, k, v, attention_mask)
+
+    vision.vit_group_attention, text.train_flash_attention = vit_call, llm_call
+    try:
+        yield store
+    finally:
+        vision.vit_group_attention, text.train_flash_attention = vit, llm
+
+
+def timed_calls(obj, name: str, record: list) -> None:
+    """Replace ``obj.name`` by a wrapper that appends (synchronized wall
+    seconds, result) of every call to ``record``."""
+    import torch
+
+    fn = getattr(obj, name)
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t0, out))
+        return out
+
+    setattr(obj, name, run)
+
+
+def same_letters(label: str, a, b) -> None:
+    """Letters of two runs of the same items, fp32 [B, L] logits each (or
+    lists of them): equal, or where they part, ``b``'s letter within
+    ``TIE_ULPS`` bf16 steps of ``a``'s best logit (``near_ties``' limit)."""
+    import torch
+
+    a, b = torch.cat(list(a)), torch.cat(list(b))
+    for i, (x, y) in enumerate(zip(a.tolist(), b.tolist())):
+        ia, ib = max(range(len(x)), key=x.__getitem__), max(range(len(y)), key=y.__getitem__)
+        top2 = sorted(x)[-2:]
+        if ia != ib:
+            limit = TIE_ULPS * 2 ** -7 * abs(x[ia])
+            log(f"  {label}: item {i} parts: {EVAL_OPTIONS[ia][0]} against "
+                f"{EVAL_OPTIONS[ib][0]} ({x[ia] - x[ib]:.4f} apart, limit {limit:.4f})")
+            if not x[ia] - x[ib] <= limit:
+                raise AssertionError(f"{label}: item {i}: letters {ia} and {ib} differ past a "
+                                     f"near-tie ({x[ia] - x[ib]} > {limit})")
+        log(f"  {label}: item {i}: letter {EVAL_OPTIONS[ia][0]} / {EVAL_OPTIONS[ib][0]}, top two "
+            f"{top2[1] - top2[0]:.4f} apart; logits {[round(t, 4) for t in x]} / "
+            f"{[round(t, 4) for t in y]}")
+
+
+def phase_eval(cfg, model) -> tuple[dict, dict, dict]:
+    """The benchmark harnesses (``livecc_tpu_torch/eval``) on main's 7B:
+    a 720p VideoMME item through ``videomme.run`` at batch 1 and 2, K3 and
+    K4's forward at its shapes against their blocked plain versions, the
+    reduced item's forward against the plain path, a LiveSports-3K CC
+    event and a caption on the engine, and the tiny model's MVBench run
+    through ``eval.cli.main`` over a frame directory where Pillow is
+    installed. Returns the MCQ runs' launch counts, the CC event's and the
+    eval kernels' results."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    from livecc_tpu_torch.data.tokenizer import ByteTokenizer
+    from livecc_tpu_torch.eval import mcq, videomme
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import profile_stream
+    from livecc_tpu_torch.utils import flops
+    from livecc_tpu_torch.vision_io.budget import VisionBudget
+
+    hw = VisionBudget().spatial_target(*EVAL_SOURCE_HW, nframes=EVAL_FRAMES)
+    rows, clips = eval_items(EVAL_FRAMES, hw, EVAL_QUESTIONS)
+    asked = []
+
+    def loader(path):
+        asked.append(path)
+        return FramesVideo(clips[path], EVAL_FPS, source_hw=EVAL_SOURCE_HW)
+
+    tok = ByteTokenizer.for_config(cfg)
+    predictor = mcq.MCQPredictor(model, cfg, tok, video_loader=loader)
+    host, fwd = [], []
+    timed_calls(predictor, "encode_item", host)
+    timed_calls(predictor, "letter_logits", fwd)
+    log(f"  VideoMME items: {len(rows)} clips of {EVAL_FRAMES} frames of a "
+        f"{EVAL_SOURCE_HW[0]}x{EVAL_SOURCE_HW[1]} source at {EVAL_FPS:g} fps, served at the "
+        f"budget's {hw[0]}x{hw[1]}")
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bench = os.path.join(tmp, "videomme.jsonl")
+        with open(bench, "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+        build.reset_launch_counts()
+        for bs in (1, 2):
+            out = os.path.join(tmp, f"batch{bs}")
+            n0 = len(fwd)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            report = videomme.run(predictor, bench, out, batch_size=bs)
+            wall = time.perf_counter() - t0
+            peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+            files = sorted(os.listdir(out))
+            want = ["results_no_subtitles.json", "results_no_subtitles.txt",
+                    "videomme_no_subtitles.json", "videomme_shard0.json"]
+            if report is None or report["n"] != len(rows) or files != want:
+                raise AssertionError(f"eval batch {bs}: report {report}, files {files}")
+            with open(os.path.join(out, "videomme_no_subtitles.json")) as f:
+                preds = json.load(f)["predictions"]
+            runs[bs] = [x for _, x in fwd[n0:]]
+            log(f"  videomme.run batch_size={bs}: {wall:.3f} s for {len(rows)} items, predictions "
+                f"{preds}, report written and merged ({report['overall']}% of {report['n']}); "
+                f"peak device memory {peak:.2f} GiB above the model's")
+        counts = dict(build.launch_counts)
+    if asked != [r["video"] for r in rows] * 2:
+        raise AssertionError(f"eval: the predictor read {asked}")
+    same_letters("eval batch 1 against batch 2", runs[1], runs[2])
+    log(f"  launches of the two runs: {counts}")
+    missing = [k for k in EVAL_KERNELS if counts.get(k, 0) <= 0]
+    if missing or counts.get("train_attention_bwd"):
+        raise AssertionError(f"eval: the MCQ path launched {counts}")
+
+    # per group: host (frames, patchify, ids, positions) and the forward
+    enc = host[0][1]
+    n_real = enc["ids"].shape[1]
+    s = mcq._bucket(n_real)
+    patches, grid = enc["patches"].shape[0], enc["grid"]
+    for i, ((h_s, _), (f_s, _)) in enumerate(zip(host[:2], fwd[:2])):
+        log(f"  batch 1 item {i}: host {h_s:.3f} s + forward {f_s:.3f} s = {h_s + f_s:.3f} s")
+    for (f_s, x) in fwd[2:3]:
+        log(f"  batch 2 group: host {host[2][0] + host[3][0]:.3f} s + forward {f_s:.3f} s")
+    log(f"  item: {n_real} tokens ({patches // 4} visual) in the {s} bucket, grid {grid}: "
+        f"{patches} patches, {grid[0]} groups of g = {grid[1] * grid[2]}; K4 pairs: pad share "
+        f"{causal_pairs((), s - n_real) / causal_pairs((n_real,), s):.3f}")
+    store = {}
+    torch.cuda.synchronize()
+    with attention_swapped(store=store), \
+            torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        h0 = time.perf_counter()
+        item = predictor.encode_item(mcq.MCQItem(video=rows[0]["video"],
+                                                 question=rows[0]["question"],
+                                                 options=rows[0]["options"]))
+        h_s = time.perf_counter() - h0
+        logits = predictor.letter_logits([item], videomme.LETTERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = profile_stream.busy_seconds(prof)
+    groups = profile_stream.device_groups(prof)
+    total = sum(groups.values())
+    model_flops = (flops.llm_forward_flops(cfg.text, s) + flops.vit_forward_flops(
+        cfg.vision, patches, grid[1] * grid[2]) + flops.lm_head_flops(cfg.text, 1))
+    log(f"  profiled item: wall {wall:.3f} s (host {h_s:.3f} s), device busy {busy:.3f} s, idle "
+        f"share {1 - busy / wall:.3f}; model {model_flops / 1e12:.1f} TFLOP, "
+        f"{model_flops / wall / 1e12:.1f} TFLOP/s of the wall, {model_flops / busy / 1e12:.1f} "
+        f"of the busy time")
+    for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {g:28s} {t * 1e3:10.2f} ms  {t / total:6.1%} of device time")
+    if not torch.equal(logits, runs[1][0]):
+        raise AssertionError("eval: the profiled item's logits differ from batch 1's")
+    results = eval_kernels(store, n_real)
+    del store, enc, item, host
+    torch.cuda.empty_cache()
+    eval_reduced(cfg, model, tok)
+    cc_counts = eval_cc(cfg, model)
+    if importlib.util.find_spec("PIL") is None:
+        log("  mvbench (tiny model, frame directory): Pillow is not installed on this machine; "
+            "eval.cli.main mvbench is not run")
+    else:
+        eval_mvbench_tiny()
+    return counts, cc_counts, results
+
+
+def heaviest_key_tile(q, k, allowed) -> int:
+    """The 64-key tile (``kernel_check.TILE``) that carries most of the
+    softmax mass of a query tile, among those that hold under 0.99 of every
+    row's (so that the rows keep other keys): fp32 q [r, D] (scaled), k
+    [n, D], allowed bool [r, n]. A planted dropped tile there moves the
+    output most."""
+    import torch
+
+    from livecc_tpu_torch.tools import kernel_check
+
+    sc = torch.where(allowed, q @ k.T, torch.full((), float("-inf"), device=q.device))
+    p = torch.softmax(sc, dim=-1)
+    tiles = -(-p.shape[1] // kernel_check.TILE)
+    p = torch.nn.functional.pad(p, (0, tiles * kernel_check.TILE - p.shape[1]))
+    mass = p.reshape(p.shape[0], tiles, kernel_check.TILE).sum(-1)        # [r, tiles]
+    total = torch.where(mass.amax(0) < 0.99, mass.sum(0), torch.full((), -1.0, device=q.device))
+    if not bool((total > 0).any()):
+        raise AssertionError("heaviest_key_tile: every key tile holds a row's whole mass")
+    return int(total.argmax())
+
+
+def eval_kernels(store: dict, n_real: int) -> dict:
+    """K3 and K4's forward at the item's shapes against ``kernel_check``'s
+    blocked plain versions (group by group; 1024 query rows at a time) by
+    ``kernel_check.close``: on the profiled item's last ViT block's and last
+    LLM layer's q, k and v, and on random inputs of the same shapes (K4: the
+    item's segments), where a dropped key tile (the heaviest of a query
+    tile) must fail the limit. On the item's own inputs the same fault is
+    printed, not required to fail: one tile of 64 among thousands of keys
+    the softmax spreads over may move no output past the limit. Times on
+    the item's inputs (``cuda_ms``, and device time) beside the bound and
+    SDPA."""
+    import torch
+
+    from livecc_tpu_torch.ops.attention import prescaled, segment_ids as seg_of
+    from livecc_tpu_torch.ops.train_attention import train_attention_fwd
+    from livecc_tpu_torch.ops.vit_attention import vit_group_attention
+    from livecc_tpu_torch.tools import kernel_check
+
+    bf16, tile = torch.bfloat16, kernel_check.TILE
+    gen = torch.Generator(device=store["vit"][0].device).manual_seed(14)
+    results = {}
+
+    def randn_like(x):
+        return torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+
+    def vit_check(q, k, v, label, required):
+        ng, g, h, d = q.shape
+        out = vit_group_attention(q, k, v)
+        ref = kernel_check.vit_group_attention_blocked(q, k, v)
+        qt = (g - 1) // tile
+        rows = slice(qt * tile, g)
+        kt = heaviest_key_tile(q[-1, rows, 3].float() * d ** -0.5, k[-1, :, 3].float(),
+                               torch.ones((g - rows.start, g), dtype=torch.bool, device=q.device))
+        qn, kn, vn, rn = (x.reshape(ng * g, h, d) for x in (q, k, v, ref))
+        fault = kernel_check.vit_drop_key_tile(rn, qn, kn, vn, list(range(0, (ng + 1) * g, g)),
+                                               ng - 1, qt, kt, head=3)
+        return held("vit_group_attention", label, out, ref, fault.view(ref.shape), required,
+                    f"dropped key tile {kt} of query tile {qt}")
+
+    def k4_check(qs, k, v, seg, label, required):
+        s, hq, hk = qs.shape[1], qs.shape[2], k.shape[2]
+        o, lse = train_attention_fwd(qs, k, v, seg)
+        ro, rlse = kernel_check.train_attention_fwd_blocked(qs, k, v, seg)
+        qt = n_real // tile - 1                     # the item's last full query tile
+        rows = slice(qt * tile, (qt + 1) * tile)
+        pos = torch.arange(s, device=qs.device)
+        kt = heaviest_key_tile(qs[0, rows, 3].float(), k[0, :, 3 // (hq // hk)].float(),
+                               (pos[None, :] <= pos[rows, None]) & (seg[0, None, :] == 1))
+        bad_o, _ = kernel_check.dropped_fwd_tile(qs, k, v, seg, ro, rlse, qt, kt, 3)
+        lse_share = kernel_check.close(lse, rlse, torch.float32)
+        log(f"  {'train_attention_fwd':20s} {label} lse: worst {lse_share:.3f} of the fp32 "
+            f"limit")
+        if not lse_share <= 1.0:
+            raise AssertionError(f"train_attention_fwd {label}: lse {lse_share:.3f}x the limit")
+        return held("train_attention_fwd", label, o, ro, bad_o, required,
+                    f"dropped key tile {kt} of query tile {qt}")
+
+    with torch.inference_mode():
+        q, k, v = store["vit"]
+        ng, g, h, d = q.shape
+        shape = f"NG={ng} g={g} H={h} D={d} bf16"
+        err = vit_check(q, k, v, f"{shape} (the item's last ViT block)", False)
+        err = max(err, vit_check(*(randn_like(x) for x in (q, k, v)), f"{shape} (random)", True))
+        results["vit_group_attention"] = timed_eval(
+            "vit_group_attention", shape, err,
+            fns=(lambda: vit_group_attention(q, k, v),
+                 lambda: kernel_check.vit_group_attention_blocked(q, k, v)),
+            library=sdpa_eval(q, k, v, None), flops=4 * ng * g * g * h * d,
+            nbytes=4 * ng * g * h * d * 2)
+
+        q, k, v, mask = store["llm"]
+        b, s, hq, d = q.shape
+        hk = k.shape[2]
+        qs, seg = prescaled(q), seg_of(q, mask)
+        shape = f"B={b} S={s} segment {n_real} + pad {s - n_real} Hq={hq} Hk={hk} D={d} bf16"
+        err = k4_check(qs, k, v, seg, f"{shape} (the item's last LLM layer)", False)
+        err = max(err, k4_check(prescaled(randn_like(q)), randn_like(k), randn_like(v), seg,
+                                f"{shape} (random)", True))
+        pairs = causal_pairs((n_real,), s)
+        results["train_attention_fwd"] = timed_eval(
+            "train_attention_fwd", shape, err,
+            fns=(lambda: train_attention_fwd(qs, k, v, seg),
+                 lambda: kernel_check.train_attention_fwd_blocked(qs, k, v, seg)),
+            library=sdpa_eval(qs[:, :n_real], k[:, :n_real], v[:, :n_real], True),
+            flops=4 * pairs * d * hq,
+            nbytes=2 * (2 * s * hq * d + 2 * s * hk * d) + 4 * s * hq + 4 * s)
+        pad = causal_pairs((), s - n_real)
+        log(f"  {'train_attention_fwd':20s} causal pairs {pairs} (pad {pad}, a {pad / pairs:.3f} "
+            f"share of the work); SDPA is_causal over the {n_real} real tokens")
+    return results
+
+
+def held(name, label, out, ref, fault, required, note) -> float:
+    """``close`` of a kernel's output against the blocked plain version,
+    and of the planted fault (which must fail where ``required``); returns
+    the max abs error."""
+    import torch
+
+    from livecc_tpu_torch.tools import kernel_check
+
+    torch.cuda.synchronize()
+    bf16 = torch.bfloat16
+    worst, w_bad = kernel_check.close(out, ref, bf16), kernel_check.close(fault, ref, bf16)
+    err = (out.float() - ref.float()).abs().max().item()
+    log(f"  {name:20s} {label}: max_abs_err {err:.3e}, worst {worst:.3f} of the limit "
+        f"{kernel_check.TOL[bf16]}; {note}: {w_bad:.2f}x"
+        + ("" if required else " (not required to fail on these inputs)"))
+    if not worst <= 1.0:
+        raise AssertionError(f"{name} {label}: {worst:.3f}x the limit")
+    if required and not w_bad > 1.0:
+        raise AssertionError(f"{name} {label}: the check passes a dropped key tile")
+    return err
+
+
+def timed_eval(name, label, err, fns, library, flops, nbytes) -> dict:
+    """One-call times (``cuda_ms``) of a kernel, its blocked plain version and
+    SDPA, the kernel's device time (``graph_ms``) and the bound."""
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms, graph_ms
+
+    ms, plain_ms, lib_ms = cuda_ms(fns[0]), cuda_ms(fns[1], iters=3, warmup=1), cuda_ms(library)
+    dev_ms = graph_ms(fns[0])
+    b_ms, b_by = bound(flops, nbytes)
+    log(f"  {name:20s} {label}: one call: kernel {ms:.4f}  blocked plain {plain_ms:.4f}  SDPA "
+        f"{lib_ms:.4f} ms; device: kernel {dev_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+        f"{flops / 1e12:.4f} TFLOP, {nbytes / 1e9:.4f} GB)")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "graph_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def sdpa_eval(q, k, v, causal):
+    """The one PyTorch call beside an eval kernel: SDPA on K3's groups
+    (``causal`` None: [NG, g, H, D], bidirectional), or on K4's real tokens
+    (pre-scaled q [1, n, Hq, D], GQA, ``is_causal``)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if causal is None:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0,
+                                                  enable_gqa=True)
+
+
+def eval_reduced(cfg, model, tok) -> None:
+    """The reduced item (``EVAL_REDUCED_FRAMES`` frames of
+    ``EVAL_REDUCED_HW``, batch 2): its [B, 4] letter logits with K3 and K4
+    against the same forward with their plain versions on the card."""
+    import torch
+
+    from livecc_tpu_torch.eval import mcq, videomme
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.ops.attention import train_attention_plain
+    from livecc_tpu_torch.ops.vit_attention import vit_group_attention_plain
+    from livecc_tpu_torch.tools import kernel_check
+
+    rows, clips = eval_items(EVAL_REDUCED_FRAMES, EVAL_REDUCED_HW, EVAL_QUESTIONS)
+    predictor = mcq.MCQPredictor(model, cfg, tok, video_loader=lambda p: FramesVideo(
+        clips[p], EVAL_FPS))
+    group = [predictor.encode_item(mcq.MCQItem(video=r["video"], question=r["question"],
+                                               options=r["options"])) for r in rows]
+    build.reset_launch_counts()
+    kernels = predictor.letter_logits(group, videomme.LETTERS)
+    counts = dict(build.launch_counts)
+    with attention_swapped(vit_group_attention_plain, train_attention_plain):
+        plain = predictor.letter_logits(group, videomme.LETTERS)
+    plain_counts = {k: v - counts.get(k, 0) for k, v in build.launch_counts.items()}
+    worst = kernel_check.close(kernels, plain, torch.bfloat16)
+    n = [x["ids"].shape[1] for x in group]
+    log(f"  reduced items: {len(group)} x {EVAL_REDUCED_FRAMES} frames of "
+        f"{EVAL_REDUCED_HW[0]}x{EVAL_REDUCED_HW[1]}, grid {group[0]['grid']}, {n} tokens in the "
+        f"{mcq._bucket(max(n))} bucket: letter logits with the kernels against the plain path "
+        f"worst {worst:.3f} of the bf16 limit {kernel_check.TOL[torch.bfloat16]}; kernels "
+        f"{kernels.tolist()}, plain {plain.tolist()}; launches {counts}, plain path "
+        f"{plain_counts}")
+    if not worst <= 1.0:
+        raise AssertionError(f"eval reduced item: the kernels' letter logits {worst:.3f}x the "
+                             f"limit from the plain path's")
+    if any(counts.get(k, 0) <= 0 for k in EVAL_KERNELS) or any(
+            plain_counts.get(k, 0) for k in EVAL_KERNELS):
+        raise AssertionError(f"eval reduced item: launches {counts}, plain path {plain_counts}")
+
+
+def eval_cc(cfg, model) -> dict:
+    """A LiveSports-3K CC event (``CC_SECONDS`` s at 2 fps of 308x560)
+    through ``livesports3kcc.generate`` on ``session.new_engine``: its rows
+    equal a direct ``live_cc_once_for_evaluation``; wall and FLOP rate
+    (``serving_chunk_flops``); then one caption through
+    ``captions.generate_captions``. Returns the event's launch counts."""
+    import tempfile
+
+    import torch
+
+    from livecc_tpu_torch.eval import captions, livesports3kcc
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import session
+    from livecc_tpu_torch.utils import flops
+    from livecc_tpu_torch.vision_io.patchify import grid_for_frames
+
+    engine = session.new_engine(cfg, model)
+    frames = session.synth_frames(2 * CC_SECONDS, session.HEIGHT, session.WIDTH, seed=30)
+    event = {"video_id": "match0", "event_id": "e0", "begin": 120.0, "end": 120.0 + CC_SECONDS,
+             "title": "Cup final", "preASR": "and the corner is swung in", "video": "match0.mp4"}
+
+    def read_clip(ev):
+        if ev is not event:
+            raise AssertionError(f"read_clip got {ev}")
+        return frames
+
+    with tempfile.TemporaryDirectory() as tmp:
+        n0 = len(engine.chunk_log)
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merged = livesports3kcc.generate(engine, [event], tmp, read_clip=read_clip)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(build.launch_counts)
+        with open(merged) as f:
+            row = json.loads(f.readline())
+        chunks = engine.chunk_log[n0:]
+        direct = engine.live_cc_once_for_evaluation(
+            livesports3kcc.build_commentary_query(event["title"], event["preASR"]), frames,
+            video_start=event["begin"], max_new_tokens=32, repetition_penalty=1.15)
+        if row["chunks"] != direct or row["event_id"] != "e0":
+            raise AssertionError(f"eval cc: generate's rows {row['chunks']} against the direct "
+                                 f"call's {direct}")
+        total, kv = 0, 0
+        sizes = [engine.initial_fps_frames] + [engine.streaming_fps_frames] * len(chunks[1:])
+        for rec, n in zip(chunks, sizes):
+            grid = grid_for_frames(n, session.HEIGHT, session.WIDTH, cfg.vision)
+            total += flops.serving_chunk_flops(cfg, rec.prompt_tokens, kv, rec.generated_tokens,
+                                               grid[0] * grid[1] * grid[2], grid[1] * grid[2])
+            kv += rec.prompt_tokens + rec.generated_tokens
+        log(f"  livesports3kcc.generate: one {CC_SECONDS} s event, {len(chunks)} chunks in "
+            f"{wall:.3f} s, {total / wall / 1e12:.2f} model TFLOP/s (serving_chunk_flops); rows "
+            f"= a direct live_cc_once_for_evaluation; pred {row['pred'][:60]!r}; launches {counts}")
+        missing = [k for k in MAIN_KERNELS if counts.get(k, 0) <= 0]
+        n_chunks = 1 + (2 * CC_SECONDS - engine.initial_fps_frames) // engine.streaming_fps_frames
+        if missing or not len(row["chunks"]) == len(chunks) == n_chunks:
+            raise AssertionError(f"eval cc: {len(row['chunks'])} chunks, launches {counts}")
+        t0 = time.perf_counter()
+        path = captions.generate_captions(engine, [event], os.path.join(tmp, "cap"),
+                                          read_clip=read_clip)
+        with open(path) as f:
+            cap = json.loads(f.readline())
+        log(f"  captions.generate_captions: {time.perf_counter() - t0:.3f} s, caption of "
+            f"{len(cap['caption'])} characters")
+        if cap["event_id"] != "e0" or not isinstance(cap["caption"], str):
+            raise AssertionError(f"eval caption: {cap}")
+    return counts
+
+
+def eval_mvbench_tiny() -> None:
+    """``eval.cli.main mvbench`` on the tiny model on the card (the CLI's
+    default device) over one item whose video is a directory of PNG frames."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from livecc_tpu_torch.eval import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        frames_dir = os.path.join(tmp, "tvqa_clip")
+        os.makedirs(frames_dir)
+        for i, frame in enumerate(np.random.RandomState(40).randint(0, 256, (6, 56, 84, 3),
+                                                                     dtype=np.uint8)):
+            Image.fromarray(frame).save(os.path.join(frames_dir, f"{i:04d}.png"))
+        bench = os.path.join(tmp, "mvbench.jsonl")
+        with open(bench, "w") as f:
+            f.write(json.dumps({"video": frames_dir, "question": "What happens?",
+                                "candidates": ["a pass", "a goal", "a foul"], "answer": "a goal",
+                                "task_type": "Action Sequence"}) + "\n")
+        report = cli.main(["mvbench", "--benchmark", bench, "--output_dir",
+                           os.path.join(tmp, "out"), "--max_frames", "4"])
+    log(f"  mvbench through eval.cli.main (tiny model, cuda, frame directory): {report}")
+    if not report or report["n"] != 1:
+        raise AssertionError(f"eval mvbench: {report}")
+
+
 def phase_tiny_train():
     """Three fp32 training steps of the tiny model on the CPU (plain
     versions) and on the GPU (K3, K4, fused CE with fp32 logit rows); then
@@ -2079,6 +2630,9 @@ def main() -> int:
     del main_record, model_w8
     gc.collect()
     torch.cuda.empty_cache()
+    eval_counts, cc_counts, _ = run_phase("eval", lambda: phase_eval(cfg, model))
+    gc.collect()
+    torch.cuda.empty_cache()
     models = [model]
     del model                                # checkpoint_live frees the serving 7B
     checkpoint_counts, checkpoint_w8_counts = run_phase(
@@ -2092,8 +2646,9 @@ def main() -> int:
         "launches": sum(c.get(name, 0) for c in (main_counts, pool_counts, spec_counts,
                                                  adversarial_counts, pool_spec_counts,
                                                  main_w8_counts, main_w8_spec_counts,
-                                                 pool_w8_counts, checkpoint_counts,
-                                                 checkpoint_w8_counts, train_counts)),
+                                                 pool_w8_counts, eval_counts, cc_counts,
+                                                 checkpoint_counts, checkpoint_w8_counts,
+                                                 train_counts)),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"],
         "plain_ms": results[name]["plain_ms"],

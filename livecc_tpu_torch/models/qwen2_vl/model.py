@@ -14,6 +14,8 @@ modeling_qwen2_vl.py semantics):
     shared tables) run through ONE vision-tower call over all rows'
     groups, as JAX's ``vmap`` (``model.py:220-232``); the embedding lookup
     goes through ``ops/quant.py:embed_lookup`` (plain or int8 table);
+  * ``prepare_vision_inputs`` — rotary tables, segment ids and the uniform
+    ``group`` of a set of clips, built on the host and moved to a device;
   * ``init_params`` — a model with random weights drawn from a seeded
     ``torch.Generator`` on the target device (no download, no host copy).
 """
@@ -31,6 +33,7 @@ from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.models.qwen2_vl.text import KVCache, TextModel, lm_logits, text_forward
 from livecc_tpu_torch.models.qwen2_vl.vision import VisionTower
 from livecc_tpu_torch.ops.quant import embed_lookup, jax_weight
+from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
 
 
 class Qwen2VL(nn.Module):
@@ -77,6 +80,29 @@ class VisionInputs:
     sin: torch.Tensor        # [N, head_dim]
     seg_ids: torch.Tensor    # [N] int32 (pad patches < 0)
     group: int | None = None
+
+
+def prepare_vision_inputs(cfg: ModelConfig, patches, grid_thw: list[tuple[int, int, int]],
+                          device) -> VisionInputs:
+    """ViT inputs for a set of clips (JAX ``model.py:69-88``): rotary tables
+    and segment ids (``t + 10**6 * clip``) built on the host, moved with the
+    patches to ``device``. When every clip shares one (h, w), ``group`` is
+    h * w and the tower runs K3's group form; otherwise its bounds form."""
+    cos, sin = vision_rotary_cos_sin(
+        grid_thw, cfg.vision.head_dim, spatial_merge_size=cfg.vision.spatial_merge_size
+    )
+    seg_ids = np.concatenate(
+        [np.repeat(np.arange(t) + 10**6 * i, h * w) for i, (t, h, w) in enumerate(grid_thw)]
+    ).astype(np.int32)
+    hws = {(h, w) for _, h, w in grid_thw}
+    group = (grid_thw[0][1] * grid_thw[0][2]) if len(hws) == 1 else None
+    return VisionInputs(
+        patches=torch.as_tensor(patches).to(device),
+        cos=torch.from_numpy(cos).to(device),
+        sin=torch.from_numpy(sin).to(device),
+        seg_ids=torch.from_numpy(seg_ids).to(device),
+        group=group,
+    )
 
 
 # ---------------------------------------------------------------------------

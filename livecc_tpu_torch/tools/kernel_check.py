@@ -28,6 +28,7 @@ give; a check that passes them could not see a lost block:
   * ``dropped_tile(...)`` (K4): the plain forward and backward outputs (o,
     lse, dq, dk, dv) without one 64 x 64 tile pair of one q head (``TILE``,
     ``kTrainMmaTileQ`` / ``kTrainMmaTileK`` of ``train_mma_attention.cuh``);
+    ``dropped_fwd_tile(...)`` the forward's two alone;
   * ``zeroed_k3_backward()`` (K3's gradient): while it is entered, the
     backward of K3's autograd ``Function`` returns zeros, as the port
     passed no gradient through K3 before it had one;
@@ -36,6 +37,11 @@ give; a check that passes them could not see a lost block:
     (``ops/quant.py:small_split``); ``w8_drop_k_tile(...)`` (K5's large
     form): one output tile of ``large_plan``'s tiling (its token tile x
     128 columns) computed without one 64-wide K stage of one of its splits.
+
+Where a plain version cannot run whole (the MCQ item's S = 32768 forward,
+its 32 ViT groups of 2880), ``train_attention_fwd_blocked`` and
+``vit_group_attention_blocked`` compute it in blocks of independent rows
+or groups.
 
 bf16 K4's gradients (dq, dk, dv) are held by ``grad_close(out, ref, ref32)``
 instead: each gradient sums thousands of bf16-rounded terms (p, ds), so two
@@ -217,31 +223,92 @@ def vit_drop_key_tile(ref, q, k, v, cu_seqlens, seg: int, q_tile: int, k_tile: i
     return out
 
 
-def dropped_tile(qs, k, v, seg, do, o, lse, grads, qt: int, kt: int, h: int):
-    """The plain outputs (o, lse, dq, dk, dv of batch row 0) as a K4 kernel
-    would give them had it dropped one tile pair: key tile ``kt`` for query
-    tile ``qt`` of q head ``h`` (``TILE`` x ``TILE``, the unit the kernels
-    skip). The forward loses that tile's share of the softmax; each
-    gradient loses the pair's terms, rounded as the kernels round p and
-    ds. ``o``, ``lse`` and ``grads`` are the plain versions' on these
-    inputs."""
+def _tile_p(qs, k, seg, lse, qt: int, kt: int, h: int):
+    """(query rows, key columns, KV head, fp32 q and k of the tile pair, its
+    probabilities p) of key tile ``kt`` for query tile ``qt`` of q head ``h``
+    in batch row 0, from the plain forward's ``lse``."""
     kvh = h // (qs.shape[2] // k.shape[2])
     rows, cols = slice(qt * TILE, qt * TILE + TILE), slice(kt * TILE, kt * TILE + TILE)
-    q_, do_, o_ = (x[0, rows, h].float() for x in (qs, do, o))
-    k_, v_ = k[0, cols, kvh].float(), v[0, cols, kvh].float()
+    q_, k_ = qs[0, rows, h].float(), k[0, cols, kvh].float()
     pos = torch.arange(qs.shape[1], device=qs.device)
     ok = (seg[0, rows, None] == seg[0, None, cols]) & (pos[None, cols] <= pos[rows, None])
     p = torch.where(ok, torch.exp(q_ @ k_.T - lse[0, h, rows, None]),
                     torch.zeros((), device=qs.device))
-    ds = p * (do_ @ v_.T - (o_ * do_).sum(-1, keepdim=True))
+    return rows, cols, kvh, q_, k_, p
+
+
+def dropped_fwd_tile(qs, k, v, seg, o, lse, qt: int, kt: int, h: int):
+    """The plain forward's (o, lse) as K4's forward would give them had it
+    dropped key tile ``kt`` for query tile ``qt`` of q head ``h`` (batch row
+    0): the tile's share of the softmax removed. ``o`` and ``lse`` are the
+    plain version's on these inputs."""
+    rows, cols, kvh, _, _, p = _tile_p(qs, k, seg, lse, qt, kt, h)
+    o_, v_ = o[0, rows, h].float(), v[0, cols, kvh].float()
     mass = p.sum(-1)
-    o2, lse2, dq, dk, dv = (x.clone() for x in (o, lse, *grads))
+    o2, lse2 = o.clone(), lse.clone()
     o2[0, rows, h] = ((o_ - p @ v_) / (1 - mass)[:, None]).to(o.dtype)
     lse2[0, h, rows] += torch.log1p(-mass)
+    return o2, lse2
+
+
+def dropped_tile(qs, k, v, seg, do, o, lse, grads, qt: int, kt: int, h: int):
+    """The plain outputs (o, lse, dq, dk, dv of batch row 0) as a K4 kernel
+    would give them had it dropped one tile pair: key tile ``kt`` for query
+    tile ``qt`` of q head ``h`` (``TILE`` x ``TILE``, the unit the kernels
+    skip). The forward loses that tile's share of the softmax
+    (``dropped_fwd_tile``); each gradient loses the pair's terms, rounded as
+    the kernels round p and ds. ``o``, ``lse`` and ``grads`` are the plain
+    versions' on these inputs."""
+    rows, cols, kvh, q_, k_, p = _tile_p(qs, k, seg, lse, qt, kt, h)
+    do_, o_ = do[0, rows, h].float(), o[0, rows, h].float()
+    v_ = v[0, cols, kvh].float()
+    ds = p * (do_ @ v_.T - (o_ * do_).sum(-1, keepdim=True))
+    o2, lse2 = dropped_fwd_tile(qs, k, v, seg, o, lse, qt, kt, h)
+    dq, dk, dv = (x.clone() for x in grads)
     dq[0, rows, h] = (dq[0, rows, h].float() - ds.to(k.dtype).float() @ k_).to(dq.dtype)
     dk[0, cols, kvh] = (dk[0, cols, kvh].float() - ds.to(do.dtype).float().T @ q_).to(dk.dtype)
     dv[0, cols, kvh] = (dv[0, cols, kvh].float() - p.to(do.dtype).float().T @ do_).to(dv.dtype)
     return o2, lse2, dq, dk, dv
+
+
+def train_attention_fwd_blocked(qs, k, v, seg, rows: int = 1024):
+    """``train_attention_fwd_plain`` computed ``rows`` query rows at a time,
+    for shapes whose whole ``[B, Hq, S, S]`` scores do not fit (S = 32768:
+    120 GB). Each block runs the plain version's operations on its rows
+    against the keys up to its last row (later keys are masked for every
+    row of the block, and their exp is 0): ``[B, Hq, rows, <= S]`` fp32
+    scores, 3.8 GB at the MCQ shape. (o, lse) as the plain version's."""
+    from livecc_tpu_torch.ops.train_attention import MASK_VALUE, _heads
+
+    b, s, hq, d = qs.shape
+    g = hq // k.shape[2]
+    o = torch.empty((b, s, hq, d), dtype=qs.dtype, device=qs.device)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=qs.device)
+    pos = torch.arange(s, device=qs.device)
+    for a in range(0, s, rows):
+        e = min(s, a + rows)
+        qt, kt, vt = _heads(qs[:, a:e], 1), _heads(k[:, :e], g), _heads(v[:, :e], g)
+        sc = torch.matmul(qt, kt.transpose(-1, -2))                      # [B, Hq, r, e]
+        ok = (seg[:, a:e, None] == seg[:, None, :e]) & (pos[None, :e] <= pos[a:e, None])
+        sc = torch.where(ok[:, None], sc, torch.full_like(sc, MASK_VALUE))
+        m = sc.amax(dim=-1, keepdim=True)
+        p = torch.exp(sc - m)
+        del sc
+        l = p.sum(dim=-1, keepdim=True)
+        o[:, a:e] = (torch.matmul(p, vt) / l).transpose(1, 2).to(qs.dtype)
+        lse[:, :, a:e] = (m + torch.log(l)).squeeze(-1)
+        del p, qt, kt, vt
+    return o, lse
+
+
+def vit_group_attention_blocked(q, k, v):
+    """``vit_group_attention_plain`` group by group (``[NG, g, H, D]``): at
+    NG = 32, g = 2880 the whole version's fp32 scores take 17 GB, one
+    group's 0.53 GB."""
+    from livecc_tpu_torch.ops.vit_attention import vit_group_attention_plain
+
+    return torch.cat([vit_group_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1])
+                      for i in range(q.shape[0])])
 
 
 @contextlib.contextmanager

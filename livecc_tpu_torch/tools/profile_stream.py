@@ -130,16 +130,23 @@ def print_choices(label: str, ctl, choices: list) -> None:
             f"{spt[False]}; tokens a window EMA {ctl.ema}")
 
 
+def device_groups(prof) -> dict[str, float]:
+    """Device seconds of a profile's kernels by group (the port's kernels,
+    matmul, other)."""
+    by_group: dict[str, float] = collections.defaultdict(float)
+    for e in _kernels(prof):
+        by_group[_group(e.name)] += (e.time_range.end - e.time_range.start) / 1e6
+    return dict(by_group)
+
+
 def report(prof, wall: float) -> None:
     """Device busy time, idle share and device time by group of a profile."""
     kernels = _kernels(prof)
     busy = busy_seconds(prof)
-    by_group: dict[str, float] = collections.defaultdict(float)
+    by_group = device_groups(prof)
     by_name: dict[str, list] = collections.defaultdict(lambda: [0.0, 0])
     for e in kernels:
-        dur = (e.time_range.end - e.time_range.start) / 1e6
-        by_group[_group(e.name)] += dur
-        by_name[e.name][0] += dur
+        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e6
         by_name[e.name][1] += 1
     total = sum(by_group.values())
     print(f"wall {wall:.3f} s  device busy {busy:.3f} s  idle share "

@@ -1,9 +1,11 @@
 """Analytic FLOP counts for model FLOP/s reporting.
 
-A copy of ``train_step_flops`` and its helpers from
-``livecc_tpu/utils/flops.py`` (that module imports the JAX package's
-config), counting the matmul and attention FLOPs of the Qwen2-VL towers
-from the config; ``tools/train_session.py`` reports model FLOP/s with it.
+A copy of ``livecc_tpu/utils/flops.py`` (that module imports the JAX
+package's config), counting the matmul and attention FLOPs of the Qwen2-VL
+towers from the config: ``tools/train_session.py`` reports training model
+FLOP/s with ``train_step_flops``, ``chip_smoke.py`` an MCQ item's with
+``llm_forward_flops`` and a commentary event's with
+``serving_chunk_flops``.
 
 Conventions: one multiply-accumulate = 2 FLOPs; backward = 2x forward for
 trainable weights; frozen modules (the ViT by default) count forward only.
@@ -71,3 +73,22 @@ def train_step_flops(
     vit = vit_forward_flops(cfg.vision, n_patches, vit_group) if n_patches else 0
     vit *= 1 if vit_frozen else 3
     return accum * (llm + head + vit)
+
+
+def serving_chunk_flops(
+    cfg: ModelConfig,
+    prefill_len: int,
+    kv_len: int,
+    decode_steps: int,
+    n_patches: int = 0,
+    vit_group: int | None = None,
+) -> int:
+    """One streaming chunk: ViT + prefill against kv_len cache + decode."""
+    t = cfg.text
+    prefill = 2 * prefill_len * llm_matmul_params(t)
+    prefill += t.num_hidden_layers * 4 * prefill_len * (kv_len + prefill_len // 2) * t.hidden_size
+    decode = decode_steps * (2 * llm_matmul_params(t)
+                             + t.num_hidden_layers * 4 * (kv_len + prefill_len) * t.hidden_size)
+    head = lm_head_flops(t, 1 + decode_steps)
+    vit = vit_forward_flops(cfg.vision, n_patches, vit_group) if n_patches else 0
+    return prefill + decode + head + vit
