@@ -57,7 +57,15 @@ Phases (any failure raises and the script exits non-zero):
                  rounding allows, ``kernel_check.grad_close``) by a limit
                  that must fail one dropped tile pair
                  (``kernel_check.dropped_tile``), and two bf16 launches
-                 bit-equal (``phase_k4``). K5 (``phase_k5``) at
+                 bit-equal (``phase_k4``). K4's non-causal form
+                 (``causal=False``, splash's ``FullMask``; on no path) at the
+                 same shapes (``phase_k4_noncausal``): held by ``close`` and
+                 ``grad_close`` by limits that the causal walk and mask kept
+                 under ``causal=False`` (``kernel_check.causal_walk``) must
+                 fail, two bf16 launches bit-equal, and at S = 8192 kernel,
+                 plain version and SDPA with the segment block mask timed
+                 beside the bound (the kernels line's ``noncausal`` key of
+                 the two K4 entries). K5 (``phase_k5``) at
                  ``kernel_timing.W8_SHAPES`` (decode and verify-window rows
                  on gate_proj, down_proj, k_proj and the fp32 lm_head,
                  prefill rows on gate_proj and down_proj, the ViT's fc1),
@@ -184,11 +192,36 @@ Phases (any failure raises and the script exits non-zero):
                  bf16 step at 1.0), the ViT bit-unchanged, K4 fwd/bwd and
                  K3 launched, and that K3 ran at the training shape the
                  kernels phase timed.
+ 13. train_cli — the training front door (``phase_train_cli``):
+                 ``python -m livecc_tpu_torch.train.cli``'s ``main`` on an
+                 HF checkpoint of train's configuration (7B width, LLM depth
+                 4, bf16, written under build/) over a seek-indexed JSONL
+                 corpus in the Live-CC-5M schema: streaming rows of 30, 60
+                 and 120 s of a 360x640 source (2 fps frames interleaved
+                 with ASR words at 2.5 a second through ``LMMDataset``) and
+                 a plain QA row, frames from ``SeededSource`` where FFmpeg is
+                 absent. Each sample's length, bucket and K3 shape printed
+                 (one must be in the 32768 bucket); 3 steps of 2 micro-batches
+                 (no packing, remat=True), then a second call that resumes
+                 from step 3 (restored parameters bit-equal to those saved)
+                 and takes step 4: finite losses, no dataset retries, the
+                 checked text parameters moved, the ViT unchanged, K3 and
+                 K4 fwd/bwd launched; each step's wall, tokens, rates and
+                 peak memory, state.pt's save and restore seconds and size.
+                 Then one 32768-bucket micro-step under remat True, "names",
+                 "names_mlp" and "dots" (losses bit-equal, gradients within
+                 ``grad_close`` of remat=True's against the fp32 micro-step;
+                 wall and peak each) and one profiled (device time by group,
+                 K4's share, idle share). Last, K3 at each sample's (NG, g)
+                 and K4's forward and backward at each bucket's longest row
+                 against ``kernel_check``'s blocked plain versions (the
+                 backward by ``grad_close``; a dropped tile must fail each
+                 check), timed at 32768.
 
 Launch counts are reset just before each of main, pool, main_spec (and
 its worst case), pool_spec, main_w8 (and its lookahead session), pool_w8,
-eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs
-and train and read just after; every kernel of
+eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs,
+train and train_cli's two CLI runs and read just after; every kernel of
 that path must have launched. Every phase always
 runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
 and, as its last line, ``{"ok": true, "device": {...}}``. It imports nothing
@@ -273,6 +306,17 @@ CC_SECONDS = 10
 # checkpoint_live: a clip of CLIP_SECONDS s at CLIP_FPS frames a second, the CLI's default query
 CLIP_SECONDS, CLIP_FPS = 10, 10
 QUERY = "Please describe the video."
+# train_cli: streaming rows of CLI_CLIPS seconds of a CLI_SOURCE_HW source at
+# CLI_SOURCE_FPS, ASR words at CLI_WORDS_PER_S (live speech), and a plain QA
+# row over the first clip; the remat policies of the A/B
+CLI_CLIPS, CLI_SOURCE_HW, CLI_SOURCE_FPS, CLI_WORDS_PER_S = (30, 60, 120), (360, 640), 2.0, 2.5
+CLI_SEED = 3
+CLI_QUERY = "Please commentate on the match live."
+CLI_QUESTION, CLI_ANSWER = "Which team scores first?", "The team in red, from a corner."
+CLI_VOCAB = ("pass", "shot", "goal", "cross", "header", "save", "corner", "tackle", "through",
+             "ball", "keeper", "wide", "striker", "midfield", "counter", "press", "offside",
+             "foul", "free", "kick", "and", "the", "he", "into", "box", "what", "a", "finish")
+CLI_REMATS = (True, "names", "names_mlp", "dots")
 
 
 def log(msg: str) -> None:
@@ -719,6 +763,8 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     phase_k4(results, check, times, yardsticks, randn)
     torch.cuda.empty_cache()
+    phase_k4_noncausal(results, randn)
+    torch.cuda.empty_cache()
     phase_k5(results)
     torch.cuda.empty_cache()
     return results
@@ -889,6 +935,108 @@ def phase_k4(results, check, times, yardsticks, randn):
     results["train_attention_bwd"]["one_segment"] = {"fwd_bwd_ms": both, "library_fwd_bwd_ms": lib}
 
 
+def phase_k4_noncausal(results, randn):
+    """K4's non-causal form (``causal=False``: splash's ``FullMask`` with
+    segment ids, on no training path) at ``K4_CASES``' shapes against its
+    plain version on the same inputs in the same dtype: o and lse by
+    ``kernel_check.close``; fp32 gradients by ``close`` and bf16 ones by
+    ``kernel_check.grad_close`` against the fp32 plain version. Each check
+    must fail the planted fault ``kernel_check.causal_walk`` (the causal
+    form's walk and mask kept under ``causal=False``), and two bf16 launches
+    must be bit-equal. At the timed shape: kernel, plain version and SDPA
+    with the segment block mask alone (``sdpa_packed(causal=False)``), one
+    call each (``cuda_ms``), beside the bound over every within-segment
+    pair (the pad segment's included). The numbers go under the
+    ``train_attention_fwd`` / ``train_attention_bwd`` entries' key
+    ``noncausal`` of the kernels line: one kernel, one launch count, the
+    form a template flag."""
+    import torch
+
+    from livecc_tpu_torch.ops.attention import prescaled
+    from livecc_tpu_torch.ops.train_attention import (
+        train_attention_bwd, train_attention_bwd_plain, train_attention_fwd,
+        train_attention_fwd_plain)
+    from livecc_tpu_torch.tools import kernel_check
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms
+
+    dev = torch.device("cuda")
+    hq, hk, d = K4_HEADS
+    for i, (s, lengths, kind, strided) in enumerate(K4_CASES):
+        dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+        q = randn((1, hq, s, d), dtype).transpose(1, 2) if strided else randn((1, s, hq, d), dtype)
+        qs, k, v, do = prescaled(q), *(randn((1, s, h, d), dtype) for h in (hk, hk, hq))
+        seg = segment_ids(s, lengths, dev)
+        label = f"S={s} segments {list(lengths)} {kind}{' strided q' if strided else ''} non-causal"
+        o, lse = train_attention_fwd(qs, k, v, seg, causal=False)
+        grads = train_attention_bwd(qs, k, v, seg, o, lse, do, causal=False)
+        ro, rlse = train_attention_fwd_plain(qs, k, v, seg, causal=False)
+        rgrads = train_attention_bwd_plain(qs, k, v, seg, o, lse, do, causal=False)
+        fault = kernel_check.causal_walk(qs, k, v, seg, do, o, lse)
+        if kind == "bf16":
+            f32 = [x.float() for x in (qs, k, v)]
+            r32 = train_attention_bwd_plain(*f32, seg, *train_attention_fwd_plain(
+                *f32, seg, causal=False), do.float(), causal=False)
+            del f32
+        torch.cuda.synchronize()
+        for j, (part, out, ref, bad) in enumerate(zip(("o", "lse", "dq", "dk", "dv"),
+                                                      (o, lse, *grads), (ro, rlse, *rgrads),
+                                                      fault)):
+            name = "train_attention_fwd" if j < 2 else "train_attention_bwd"
+            if kind == "bf16" and j >= 2:
+                w, w_bad = (kernel_check.grad_close(x, ref, r32[j - 2]) for x in (out, bad))
+                limit = "grad_close against the fp32 plain version"
+            else:
+                tol = torch.float32 if part == "lse" else dtype
+                w, w_bad = (kernel_check.close(x, ref, tol) for x in (out, bad))
+                limit = f"close {kernel_check.TOL[tol]}"
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"  {name:20s} {label} {part}: max_abs_err {err:.3e}, worst {w:.3f} of the "
+                f"limit ({limit}); the causal walk: {w_bad:.1f}x")
+            if not w <= 1.0:
+                raise AssertionError(f"{name} {label} {part}: {w:.3f}x the limit")
+            if not w_bad > 1.0:
+                raise AssertionError(f"{name} {label} {part}: the check passes the causal walk")
+            if part != "lse":
+                r = results[name].setdefault("noncausal", {"max_abs_err": 0.0})
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+        del rgrads, fault
+        if kind == "bf16":
+            del r32
+            again = (*train_attention_fwd(qs, k, v, seg, causal=False),
+                     *train_attention_bwd(qs, k, v, seg, o, lse, do, causal=False))
+            if not all(torch.equal(a, b) for a, b in zip((o, lse, *grads), again)):
+                raise AssertionError(f"train_attention {label}: two launches differ")
+            log(f"  {'train_attention':20s} {label}: two launches bit-equal (o, lse, dq, dk, dv)")
+            del again
+        del ro, rlse
+        torch.cuda.empty_cache()
+        if i == len(K4_CASES) - 1:          # timed
+            pairs = sum(n * n for n in (*lengths, s - sum(lengths)))
+            io = 2 * (2 * s * hq * d + 2 * s * hk * d)          # q, o, k, v in bf16
+            work = {"train_attention_fwd": (4 * pairs * d * hq, io + 4 * s * hq + 4 * s),
+                    "train_attention_bwd": (10 * pairs * d * hq, io + 2 * s * hq * d
+                                            + 3 * (2 * s * hk * d) + 4 * s * hq + 4 * s)}
+            fns = {"train_attention_fwd": (
+                       lambda: train_attention_fwd(qs, k, v, seg, causal=False),
+                       lambda: train_attention_fwd_plain(qs, k, v, seg, causal=False),
+                       sdpa_packed(qs, k, v, seg, None, causal=False)),
+                   "train_attention_bwd": (
+                       lambda: train_attention_bwd(qs, k, v, seg, o, lse, do, causal=False),
+                       lambda: train_attention_bwd_plain(qs, k, v, seg, o, lse, do, causal=False),
+                       sdpa_packed(qs, k, v, seg, do, causal=False))}
+            for name, (kernel_fn, plain_fn, library_fn) in fns.items():
+                r = results[name]["noncausal"]
+                r["ms"], r["plain_ms"], r["library_ms"] = (cuda_ms(fn) for fn in
+                                                           (kernel_fn, plain_fn, library_fn))
+                r["bound_ms"], r["bound_by"] = bound(*work[name])
+                log(f"  {name:20s} {label}: kernel {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
+                    f"SDPA {r['library_ms']:.3f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                    f"{work[name][0] / 1e9:.3f} GFLOP)")
+            del fns
+        del qs, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+
+
 def phase_k5(results):
     """K5 (``w8a16_gemm``) against its plain version at
     ``kernel_timing.W8_SHAPES`` (the 7B's decode rows M = 1 and 8, verify
@@ -973,16 +1121,20 @@ def k5_shapes(r: dict, gen) -> None:
         torch.cuda.empty_cache()
 
 
-def sdpa_packed(qs, k, v, seg, do):
+def sdpa_packed(qs, k, v, seg, do, causal=True):
     """The one PyTorch call that computes K4's function on these inputs:
-    SDPA with the packed rows' block-causal mask and GQA (forward, or with
-    ``do`` the backward of a forward made outside the timing)."""
+    SDPA with the packed rows' block-causal mask (the segment block mask
+    alone when not ``causal``) and GQA (forward, or with ``do`` the backward
+    of a forward made outside the timing)."""
     import torch
     import torch.nn.functional as F
 
     s = qs.shape[1]
     pos = torch.arange(s, device=qs.device)
-    mask = ((seg[0][:, None] == seg[0][None, :]) & (pos[None, :] <= pos[:, None]))[None, None]
+    mask = seg[0][:, None] == seg[0][None, :]
+    if causal:
+        mask = mask & (pos[None, :] <= pos[:, None])
+    mask = mask[None, None]
     qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
     if do is None:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=1.0,
@@ -2322,17 +2474,24 @@ def timed_eval(name, label, err, fns, library, flops, nbytes) -> dict:
             "graph_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def sdpa_eval(q, k, v, causal):
+def sdpa_eval(q, k, v, causal, do=None):
     """The one PyTorch call beside an eval kernel: SDPA on K3's groups
     (``causal`` None: [NG, g, H, D], bidirectional), or on K4's real tokens
-    (pre-scaled q [1, n, Hq, D], GQA, ``is_causal``)."""
+    (pre-scaled q [1, n, Hq, D], GQA, ``is_causal``); with ``do``, K4's
+    backward: the gradients of a forward made outside the timing."""
+    import torch
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     if causal is None:
         return lambda: F.scaled_dot_product_attention(qt, kt, vt)
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0,
-                                                  enable_gqa=True)
+    if do is None:
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0,
+                                                      enable_gqa=True)
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=1.0, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, leaves, dot, retain_graph=True)
 
 
 def eval_reduced(cfg, model, tok) -> None:
@@ -2579,6 +2738,485 @@ def phase_train() -> dict:
     return counts
 
 
+class SeededSource:
+    """``VideoReader``'s API over a source of ``n`` frames at ``fps`` frames
+    a second that reports ``source_hw`` as its frame size and holds no
+    frame: frame i, at whatever size the reader asks for, is drawn from
+    numpy seed ``seed * 1_000_003 + i``. The train_cli phase's
+    ``video_loader`` where no FFmpeg is installed (``FramesVideo`` serves
+    one size, and the dataset reads a clip at one size for a streaming row
+    and another for a plain row)."""
+
+    def __init__(self, n: int, fps: float, source_hw, seed: int):
+        import numpy as np
+
+        self.n, self.avg_fps, self.frame_size, self.seed = n, float(fps), tuple(source_hw), seed
+        self.pts_seconds = np.arange(n) / self.avg_fps
+
+    def __len__(self) -> int:
+        return self.n
+
+    def get_batch(self, indices, out_hw=None):
+        import numpy as np
+
+        h, w = out_hw or self.frame_size
+        return np.stack([np.random.RandomState(self.seed * 1_000_003 + int(i)).randint(
+            0, 256, (h, w, 3), dtype=np.uint8) for i in indices])
+
+
+def train_cli_corpus(root: str, ffmpeg: bool):
+    """The train_cli corpus under ``root``: a JSONL file in the Live-CC-5M
+    schema with the port's seek index (``write_seek_index``), one streaming
+    row per clip of ``CLI_CLIPS`` seconds (a query and an ASR
+    ``text_stream`` of [start, end, word] at ``CLI_WORDS_PER_S`` words a
+    second) and a plain video-QA row over the first clip. The clips are
+    ``SeededSource``s of ``CLI_SOURCE_HW`` at ``CLI_SOURCE_FPS``: encoded by
+    the port's ``encode_test_video`` where ``ffmpeg``, else served by the
+    returned ``video_loader``. Returns (corpus path, video_loader or None)."""
+    import numpy as np
+
+    from livecc_tpu_torch.data.lmm_dataset import write_seek_index
+    from livecc_tpu_torch.vision_io.video_reader import encode_test_video
+
+    rng = np.random.RandomState(CLI_SEED)
+    sources, rows = {}, []
+    for i, seconds in enumerate(CLI_CLIPS):
+        path = os.path.join(root, f"clip_{seconds}s.mp4")
+        sources[path] = SeededSource(int(seconds * CLI_SOURCE_FPS), CLI_SOURCE_FPS,
+                                     CLI_SOURCE_HW, CLI_SEED + i)
+        n_words = int(seconds * CLI_WORDS_PER_S)
+        stream = [[round(j / CLI_WORDS_PER_S, 2), round(j / CLI_WORDS_PER_S + 0.32, 2),
+                   str(rng.choice(CLI_VOCAB))] for j in range(n_words)]
+        rows.append([{"role": "user", "content": [{"type": "video", "video": path},
+                                                  {"type": "text", "text": CLI_QUERY}]},
+                     {"role": "assistant", "content": [{"type": "text", "text_stream": stream}]}])
+    first = os.path.join(root, f"clip_{CLI_CLIPS[0]}s.mp4")
+    rows.append([{"role": "user", "content": [{"type": "video", "video": first},
+                                              {"type": "text", "text": CLI_QUESTION}]},
+                 {"role": "assistant", "content": [{"type": "text", "text": CLI_ANSWER}]}])
+    path = os.path.join(root, "live_cc.jsonl")
+    with open(path, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+    write_seek_index(path)
+    if not ffmpeg:
+        return path, sources.__getitem__
+    for clip, src in sources.items():
+        encode_test_video(clip, src.get_batch(range(len(src))), fps=int(CLI_SOURCE_FPS))
+    return path, None
+
+
+def phase_train_cli() -> dict:
+    """The training front door (``python -m livecc_tpu_torch.train.cli``)
+    on the 7B's width at LiveCC's sample length. The checkpoint:
+    Qwen2-VL-7B at full width with the LLM cut to 4 layers
+    (``train_session.train_model_config``), bf16 weights drawn on the card
+    from a seed and written by ``tools/checkpoint.py:save_checkpoint`` under
+    ``build/`` (config.json: ``tests/fixtures/qwen2_vl_7b_config.json`` with
+    ``num_hidden_layers`` 4); ``ByteTokenizer.for_config``. The corpus
+    (``train_cli_corpus``): streaming rows of 30, 60 and 120 s of a
+    360x640 source and a plain QA row, read through ``LMMDataset`` (frames
+    from ``SeededSource`` where FFmpeg is absent). First every sample once,
+    printed (row length, bucket, K3's (NG, g)); one must land in the 32768
+    bucket. Then ``cli.main`` with ``--total_steps 3 --accum_steps 2
+    --save_steps 3 --freeze_modules visual`` (defaults otherwise: no
+    packing, remat=True, lr 2e-5), and again with ``--total_steps 4``,
+    which resumes from step 3 (its restored parameters must equal those
+    saved) and takes step 4. Checks: steps 1-3 and 4, finite losses, no
+    retries, the text parameters train's phase checks moved (all but the
+    bf16 norm scales), the frozen ViT bit-unchanged, K3 and K4's forward
+    and backward launched in each run. Prints each step's wall, tokens,
+    rates and peak memory, the seconds to save and restore ``state.pt``
+    and its size. Then on the longest sample (one 32768-bucket
+    micro-batch): forward and backward under each of ``CLI_REMATS``
+    (losses bit-equal to remat=True's; the checked gradients bit-equal or
+    within ``kernel_check.grad_close`` of remat=True's; wall and peak
+    memory each), and one profiled micro-step under remat=True (device time
+    by group, idle share, K4's share). Last, ``train_cli_kernels`` at the
+    samples' shapes. The step records are the trainer's own (``log.jsonl``:
+    wall, peak memory, load, save and restore seconds), the window's work
+    comes through ``cli.main``'s ``on_step``; only ``Trainer.try_restore``,
+    a public method, is wrapped, in the resumed run, to hold what it
+    restored. Returns the launch counts of the two
+    CLI runs."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from livecc_tpu_torch.data.lmm_dataset import LMMDataset
+    from livecc_tpu_torch.data.tokenizer import ByteTokenizer
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import train_session as ts
+    from livecc_tpu_torch.tools.checkpoint import save_checkpoint
+    from livecc_tpu_torch.train import cli
+    from livecc_tpu_torch.train import trainer as tr
+    from livecc_tpu_torch.train.data import SEQ_BUCKETS
+    from livecc_tpu_torch.vision_io import video_reader
+
+    cfg = ts.train_model_config()
+    tokenizer = ByteTokenizer.for_config(cfg)
+    work = os.path.join(ROOT, "build", "train_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        ffmpeg = video_reader.has_ffmpeg()
+        corpus, loader = train_cli_corpus(work, ffmpeg)
+        log(f"  corpus {corpus}: clips of {list(CLI_CLIPS)} s of a {CLI_SOURCE_HW[0]}x"
+            f"{CLI_SOURCE_HW[1]} source at {CLI_SOURCE_FPS:g} fps, "
+            + ("encoded and decoded by the port's reader (FFmpeg found)" if ffmpeg else
+               "frames from SeededSource through a video_loader (no FFmpeg here)"))
+
+        # every sample once, through the dataset the CLI builds
+        ds = LMMDataset(annotation_paths=[corpus], tokenizer=tokenizer, cfg=cfg,
+                        video_loader=loader)
+        longest, buckets, vit_shapes, k4_rows = None, [], set(), {}
+        for i in range(len(ds)):
+            x = ds[i]
+            n = x["input_ids"].shape[1]
+            bucket = next(b for b in SEQ_BUCKETS if n <= b)
+            grids = x["video_grid_thw"]
+            k3 = sorted({(int(g[1] * g[2])) for g in grids})
+            if len(k3) == 1:
+                vit_shapes.add((int(grids[:, 0].sum()), k3[0]))
+            log(f"  sample {i}: {n} tokens ({int((x['labels'] != -100).sum())} supervised, "
+                f"{int((x['input_ids'] == cfg.video_token_id).sum())} video) in the {bucket} "
+                f"bucket; K3 (NG, g) = ({int(grids[:, 0].sum())}, {k3[0] if len(k3) == 1 else k3})"
+                f"; {x['pixel_patches'].shape[0]} patches")
+            buckets.append(bucket)
+            k4_rows[bucket] = max(k4_rows.get(bucket, 0), n)
+            if longest is None or n > longest["input_ids"].shape[1]:
+                longest = x
+        if ds.retries:
+            raise AssertionError(f"train_cli: the dataset retried {ds.retries} samples")
+        if max(buckets) != SEQ_BUCKETS[-1]:
+            raise AssertionError(f"train_cli: no sample in the {SEQ_BUCKETS[-1]} bucket: {buckets}")
+        del ds
+
+        # the checkpoint
+        model = ts.train_model(cfg)
+        config_json = os.path.join(work, "config.json")
+        with open(os.path.join(ROOT, "tests", "fixtures", "qwen2_vl_7b_config.json")) as f:
+            config = json.load(f)
+        config["num_hidden_layers"] = cfg.text.num_hidden_layers
+        with open(config_json, "w") as f:
+            json.dump(config, f)
+        ckpt = os.path.join(work, "ckpt_7b_d4")
+        t0 = time.perf_counter()
+        save_checkpoint(model, cfg, ckpt, config_json)
+        log(f"  checkpoint {ckpt}: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+            f"params bf16 written in {time.perf_counter() - t0:.1f} s; disk free "
+            f"{shutil.disk_usage(work).free / 1e9:.1f} GB")
+        checked = {n: p.detach().cpu() for n, p in model.text.named_parameters()
+                   if n.startswith("layers.0.") or n in ("final_ln.weight", "lm_head.weight")}
+        visual = {n: p.detach().cpu() for n, p in model.visual.named_parameters()}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        out = os.path.join(work, "out")
+        flags = ["--annotation_paths", corpus, "--pretrained", ckpt, "--output_dir", out,
+                 "--accum_steps", "2", "--save_steps", "3", "--freeze_modules", "visual",
+                 "--log_steps", "1"]
+        windows, counts, lasts, state_gb = {}, [], [], []
+
+        def on_step(step, batch, metrics):
+            """The window's work, for the rates beside the trainer's record."""
+            flops, tokens = ts.window_flops(cfg, batch)
+            windows[step] = {
+                "flops": flops, "tokens": tokens, "padded": batch.input_ids.numel(),
+                "bucket": batch.input_ids.shape[-1], "supervised": int(metrics["tokens"]),
+                "k3": "none" if batch.vision_patches is None else (
+                    f"groups (NG, g) = ({batch.vision_patches.shape[-2] // batch.vision_group}, "
+                    f"{batch.vision_group})" if batch.vision_group else "bounds form (mixed grids)")}
+
+        def restore(real):
+            """Trainer.try_restore, then its parameters held to step 3's
+            state.pt, which is then dropped (disk)."""
+            def run(self):
+                ok = real(self)
+                same = ok and self.step == 3 and all(
+                    torch.equal(p.detach().cpu(), step3[n])
+                    for n, p in self.model.named_parameters())
+                if not same:
+                    raise AssertionError("train_cli: the resume did not restore the parameters "
+                                         "saved at step 3")
+                shutil.rmtree(os.path.join(out, "ckpt", "3"))
+                return ok
+            return run
+
+        for steps in (3, 4):
+            build.reset_launch_counts()
+            argv = flags + ["--total_steps", str(steps)]
+            if steps == 3:
+                lasts.append(cli.main(argv, tokenizer=tokenizer, video_loader=loader,
+                                      on_step=on_step))
+                saved = os.path.join(out, "ckpt", "3", "state.pt")
+                state_gb.append(os.path.getsize(saved) / 1e9)
+                # host copies: a mapping of the file would keep its 21.6 GB on
+                # the card machine's disk through step 4's save
+                step3 = {n: t.clone() for n, t in torch.load(
+                    saved, map_location="cpu", mmap=True)["params"].items()}
+            else:                   # the resumed run: the step-3 state, checked and dropped
+                real = tr.Trainer.try_restore
+                tr.Trainer.try_restore = restore(real)
+                try:
+                    lasts.append(cli.main(argv, tokenizer=tokenizer, video_loader=loader,
+                                          on_step=on_step))
+                finally:
+                    tr.Trainer.try_restore = real
+                state_gb.append(os.path.getsize(os.path.join(out, "ckpt", "4", "state.pt")) / 1e9)
+            counts.append(dict(build.launch_counts))
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(out, "log.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        for rec in records:
+            w = windows[rec["step"]]
+            log(f"  step {rec['step']}: wall {rec['wall_s']:.3f} s  loss {rec['loss']:.4f}  "
+                f"tokens {w['tokens']} real / {w['padded']} padded (bucket {w['bucket']}), "
+                f"{w['supervised']} supervised  {w['tokens'] / rec['wall_s']:.0f} tokens/s  model "
+                f"{w['flops'] / rec['wall_s'] / 1e12:.1f} TFLOP/s  peak {rec['peak_gib']:.2f} GiB  "
+                f"window loaded in {rec['load_s']:.2f} s  K3 {w['k3']}")
+        log(f"  state.pt: {state_gb} GB, saved in "
+            f"{[round(r['save_s'], 2) for r in records if 'save_s' in r]} s (steps 3, 4), "
+            f"restored in {[round(r['restore_s'], 2) for r in records if 'restore_s' in r]} s "
+            f"(step {[r['restored_step'] for r in records if 'restored_step' in r]}; the first "
+            f"run found none)")
+        log(f"  last records: {lasts}; launches {counts}")
+        if [r["step"] for r in records] != [1, 2, 3, 4]:
+            raise AssertionError(f"train_cli: steps {[r['step'] for r in records]}, not 1-4")
+        if not all(np.isfinite(r["loss"]) for r in records):
+            raise AssertionError(f"train_cli: non-finite losses {[r['loss'] for r in records]}")
+        if any(last.get("retries") != 0 for last in lasts):
+            raise AssertionError(f"train_cli: the dataset retried: {lasts}")
+        for c in counts:
+            missing = [name for name in TRAIN_KERNELS if c.get(name, 0) <= 0]
+            if missing:
+                raise AssertionError(f"train_cli: a run never launched {missing}")
+        # the first update has learning rate 0; steps 2-3 move what trains,
+        # but bf16 norm scales at 1.0 (an update below half a bf16 step)
+        stay = [n for n in checked if n.endswith("ln.weight")]
+        moved = [n for n in checked if not torch.equal(step3["text." + n], checked[n])]
+        if set(moved) != set(checked) - set(stay):
+            raise AssertionError(f"train_cli: params that did not move: "
+                                 f"{sorted(set(checked) - set(stay) - set(moved))}")
+        if not all(torch.equal(step3["visual." + n], p) for n, p in visual.items()):
+            raise AssertionError("train_cli: the frozen ViT changed")
+        log(f"  moved by step 3: {len(moved)} of the {len(checked)} checked tensors; the ViT "
+            f"bit-unchanged; the resume restored step 3's parameters bit for bit")
+        del step3, visual
+        gc.collect()
+
+        remat_ab(cfg, ckpt, longest, checked)
+        train_cli_kernels(k4_rows, sorted(vit_shapes))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    total = {}
+    for c in counts:
+        for name, n in c.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def train_cli_kernels(k4_rows: dict, vit_shapes) -> None:
+    """K4 and K3 at train_cli's shapes, on random bf16 inputs: K4's forward
+    and backward at each bucket ``S`` of ``k4_rows`` with one causal
+    segment of ``k4_rows[S]`` tokens and the pad segment (the bucket's
+    longest sample's row), K3 at each (NG, g) of ``vit_shapes``. K4's
+    forward and K3 are held to ``kernel_check``'s blocked plain versions by
+    ``close`` (a dropped key tile must fail it); K4's backward is held by
+    ``grad_close`` to the blocked plain backward
+    (``kernel_check.train_attention_bwd_blocked``) in bf16, on the forward
+    kernel's o and lse, and in fp32 on the fp32 blocked forward's, and the
+    reference with one tile pair dropped (``dropped_tile``) must fail it.
+    Times, at the largest S: one call (``cuda_ms``) of kernel, blocked
+    plain and SDPA (K4: ``is_causal`` over the real tokens; its backward:
+    the gradients of a forward made outside the timing), K4's forward and
+    K3 also in device time."""
+    import torch
+
+    from livecc_tpu_torch.ops.attention import prescaled
+    from livecc_tpu_torch.ops.train_attention import train_attention_bwd, train_attention_fwd
+    from livecc_tpu_torch.ops.vit_attention import vit_group_attention
+    from livecc_tpu_torch.tools import kernel_check
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    tile = kernel_check.TILE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    with torch.no_grad():
+        for ng, g in vit_shapes:
+            h, d = 16, 80
+            q, k, v = (randn(ng, g, h, d) for _ in range(3))
+            shape = f"NG={ng} g={g} H={h} D={d} bf16 (train_cli)"
+            out = vit_group_attention(q, k, v)
+            ref = kernel_check.vit_group_attention_blocked(q, k, v)
+            qn, kn, vn, rn = (x.reshape(ng * g, h, d) for x in (q, k, v, ref))
+            qt = (g - 1) // tile
+            fault = kernel_check.vit_drop_key_tile(rn, qn, kn, vn, list(range(0, (ng + 1) * g, g)),
+                                                   ng - 1, qt, qt // 2, head=3)
+            err = held("vit_group_attention", shape, out, ref, fault.view(ref.shape), True,
+                       f"dropped key tile {qt // 2} of query tile {qt}")
+            timed_eval("vit_group_attention", shape, err,
+                       fns=(lambda: vit_group_attention(q, k, v),
+                            lambda: kernel_check.vit_group_attention_blocked(q, k, v)),
+                       library=sdpa_eval(q, k, v, None), flops=4 * ng * g * g * h * d,
+                       nbytes=4 * ng * g * h * d * 2)
+            del q, k, v, out, ref, fault
+    hq, hk, d = K4_HEADS
+    for s, n_real in sorted(k4_rows.items()):
+        timed = s == max(k4_rows)
+        qs, k, v, do = prescaled(randn(1, s, hq, d)), randn(1, s, hk, d), randn(1, s, hk, d), \
+            randn(1, s, hq, d)
+        seg = segment_ids(s, (n_real,), dev)
+        shape = (f"B=1 S={s} segment {n_real} + pad {s - n_real} Hq={hq} Hk={hk} D={d} bf16 "
+                 f"(train_cli)")
+        pairs = causal_pairs((n_real,), s)
+        io = 2 * (2 * s * hq * d + 2 * s * hk * d)
+        qt = n_real // tile - 1
+        with torch.no_grad():
+            o, lse = train_attention_fwd(qs, k, v, seg)
+            ro, rlse = kernel_check.train_attention_fwd_blocked(qs, k, v, seg)
+            bad, _ = kernel_check.dropped_fwd_tile(qs, k, v, seg, ro, rlse, qt, qt // 2, 3)
+            err = held("train_attention_fwd", shape, o, ro, bad, True,
+                       f"dropped key tile {qt // 2} of query tile {qt}")
+            del ro, rlse, bad
+            if timed:
+                timed_eval("train_attention_fwd", shape, err,
+                           fns=(lambda: train_attention_fwd(qs, k, v, seg),
+                                lambda: kernel_check.train_attention_fwd_blocked(qs, k, v, seg)),
+                           library=sdpa_eval(qs[:, :n_real], k[:, :n_real], v[:, :n_real], True),
+                           flops=4 * pairs * d * hq, nbytes=io + 4 * s * hq + 4 * s)
+            # the backward against the blocked plain backward, bf16 and fp32
+            grads = train_attention_bwd(qs, k, v, seg, o, lse, do)
+            ref = kernel_check.train_attention_bwd_blocked(qs, k, v, seg, o, lse, do)
+            f32 = [x.float() for x in (qs, k, v)]
+            ref32 = kernel_check.train_attention_bwd_blocked(
+                *f32, seg, *kernel_check.train_attention_fwd_blocked(*f32, seg), do.float())
+            del f32
+            fault = kernel_check.dropped_tile(qs, k, v, seg, do, o, lse, ref, qt, qt // 2, 3)[2:]
+            torch.cuda.synchronize()
+            for part, out, r, r32, bad in zip(("dq", "dk", "dv"), grads, ref, ref32, fault):
+                w, w_bad = (kernel_check.grad_close(x, r, r32) for x in (out, bad))
+                err = (out.float() - r.float()).abs().max().item()
+                log(f"  {'train_attention_bwd':20s} {shape} {part}: max_abs_err {err:.3e}, worst "
+                    f"{w:.3f} of grad_close's limit against the blocked plain backward; a "
+                    f"dropped tile pair ({qt}, {qt // 2}): {w_bad:.2f}x")
+                if not w <= 1.0:
+                    raise AssertionError(f"train_attention_bwd {shape} {part}: {w:.3f}x the limit")
+                if not w_bad > 1.0:
+                    raise AssertionError(f"train_attention_bwd {shape} {part}: the check passes "
+                                         f"a dropped tile pair")
+            del grads, ref, ref32, fault
+            torch.cuda.empty_cache()
+        if timed:
+            ms = cuda_ms(lambda: train_attention_bwd(qs, k, v, seg, o, lse, do))
+            plain_ms = cuda_ms(lambda: kernel_check.train_attention_bwd_blocked(
+                qs, k, v, seg, o, lse, do), iters=3, warmup=1)
+            lib_ms = cuda_ms(sdpa_eval(qs[:, :n_real], k[:, :n_real], v[:, :n_real], True,
+                                       do[:, :n_real]))
+            b_ms, b_by = bound(10 * pairs * d * hq,
+                               io + 2 * s * hq * d + 3 * (2 * s * hk * d) + 4 * s * hq + 4 * s)
+            log(f"  {'train_attention_bwd':20s} {shape}: one call: kernel {ms:.4f}  blocked plain "
+                f"{plain_ms:.4f}  SDPA is_causal backward over the {n_real} real tokens "
+                f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
+                f"{10 * pairs * d * hq / 1e12:.4f} TFLOP); causal pairs {pairs}")
+        del qs, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+
+def remat_ab(cfg, ckpt: str, sample: dict, checked: dict) -> None:
+    """``phase_train_cli``'s remat A/B and profiled micro-step on the
+    checkpoint's bf16 weights and one 32768-bucket micro-batch
+    (``sample``). Each policy's forward and backward: wall, peak memory,
+    the loss (bit-equal to remat=True's) and the gradients of the
+    ``checked`` tensors, bit-equal to remat=True's (the named policies'
+    regions keep remat=True's backward graph) or, where not, held to them by
+    ``kernel_check.grad_close`` against the same micro-step in fp32 (the
+    model cast to fp32, fp32 logit rows), which tells bf16 roundings in
+    another order from an error. One micro-step under remat=True is
+    profiled."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from livecc_tpu_torch.models.qwen2_vl.convert import load_checkpoint
+    from livecc_tpu_torch.tools import kernel_check
+    from livecc_tpu_torch.tools import train_session as ts
+    from livecc_tpu_torch.tools.profile_stream import busy_seconds, device_groups
+    from livecc_tpu_torch.train.data import collate
+    from livecc_tpu_torch.train.step import TrainConfig, loss_fn, split_frozen
+
+    _, model = load_checkpoint(ckpt, "cuda", torch.bfloat16)
+    batch = collate([sample], cfg, device="cuda")
+    micro = batch.micro(0)
+    flops, tokens = ts.window_flops(cfg, batch)
+
+    def fwd_bwd(remat, **kw):
+        """(loss, wall s, peak GiB, the checked gradients) of one micro-step."""
+        tcfg = TrainConfig(remat=remat, **kw)
+        split_frozen(model, tcfg.freeze_modules)
+        for p in model.parameters():
+            p.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model, cfg, tcfg, micro)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        params = dict(model.text.named_parameters())
+        grads = {n: params[n].grad for n in checked}
+        for p in model.parameters():
+            p.grad = None
+        return loss.detach(), wall, torch.cuda.max_memory_allocated() / 2**30, grads
+
+    fwd_bwd(True)                           # warm-up
+    runs = {remat: fwd_bwd(remat) for remat in CLI_REMATS}
+    # one profiled micro-step under remat=True
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, wall, _, _ = fwd_bwd(True)
+    busy = busy_seconds(prof)
+    groups = device_groups(prof)
+    device = sum(groups.values())
+    k4 = groups.get("K4 train_attention_fwd", 0.0) + groups.get("K4 train_attention_bwd", 0.0)
+    log(f"  profiled micro-step ({tokens} tokens in the {batch.input_ids.shape[-1]} bucket, "
+        f"remat=True): wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
+        f"{1 - busy / wall:.3f}, model {flops / wall / 1e12:.1f} TFLOP/s; K4 "
+        f"{k4 / device:.1%} of device time")
+    for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {g:28s} {t * 1e3:10.2f} ms  {t / device:6.1%}")
+    del prof
+    ref_loss, _, _, ref = runs[True]
+    ref32 = None
+    for remat, (loss, wall, peak, grads) in runs.items():
+        same = [n for n, g in grads.items() if torch.equal(g, ref[n])]
+        note = ""
+        if len(same) < len(grads):
+            if ref32 is None:               # the fp32 reference of the gradients
+                model.float()
+                _, wall32, peak32, ref32 = fwd_bwd(True, ce_logits="f32")
+                log(f"  fp32 reference micro-step (remat=True): wall {wall32:.3f} s  peak "
+                    f"{peak32:.2f} GiB")
+            worst = max(kernel_check.grad_close(grads[n], ref[n], ref32[n])
+                        for n in grads if n not in same)
+            note = f", the others' worst grad_close {worst:.3f}"
+            if not worst <= 1.0:
+                raise AssertionError(f"train_cli remat={remat!r}: gradients {worst:.3f}x "
+                                     f"grad_close's limit")
+        log(f"  remat={remat!r:12s} micro-step fwd+bwd: wall {wall:.3f} s  peak {peak:.2f} GiB  "
+            f"loss {loss.item():.6f}; {len(same)} of {len(grads)} checked gradients bit-equal "
+            f"to remat=True's{note}")
+        if not torch.equal(loss, ref_loss):
+            raise AssertionError(f"train_cli remat={remat!r}: loss {loss.item()} is not "
+                                 f"remat=True's {ref_loss.item()}")
+    del model, batch, micro, runs, ref32
+
+
 def run_phase(name: str, fn):
     log(f"== phase {name}")
     t0 = time.perf_counter()
@@ -2641,6 +3279,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_phase("tiny_train", phase_tiny_train)
     train_counts = run_phase("train", phase_train)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cli_counts = run_phase("train_cli", phase_train_cli)
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": sum(c.get(name, 0) for c in (main_counts, pool_counts, spec_counts,
@@ -2648,13 +3289,14 @@ def main() -> int:
                                                  main_w8_counts, main_w8_spec_counts,
                                                  pool_w8_counts, eval_counts, cc_counts,
                                                  checkpoint_counts, checkpoint_w8_counts,
-                                                 train_counts)),
+                                                 train_counts, train_cli_counts)),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"],
         "plain_ms": results[name]["plain_ms"],
         "bound_ms": results[name]["bound_ms"],
         "bound_by": results[name]["bound_by"],
         "library_ms": results[name]["library_ms"],
+        **({"noncausal": results[name]["noncausal"]} if "noncausal" in results[name] else {}),
     } for name, (src, replaces) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)

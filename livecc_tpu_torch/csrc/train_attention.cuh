@@ -6,9 +6,11 @@
 // d**-0.5 and rounded to its dtype ("qs"), q [B, S, Hq, D], k/v [B, S, Hk, D],
 // all read through (batch, seq, head) strides with a unit-stride head dim;
 // seg int32 [B, S] contiguous segment ids (a bool validity mask arrives as
-// 0/1). Query i attends key j iff seg[i] == seg[j] and j <= i (always
-// causal: no training caller asks for anything else); so pad tokens (id 0)
-// attend among themselves, as splash does. Outputs are contiguous:
+// 0/1). Query i attends key j iff seg[i] == seg[j] and, in the causal form
+// (every training caller's), j <= i: splash's CausalMask. The non-causal
+// form (the kCausal template flag false, the entry points' causal = 0) is
+// splash's FullMask: the segments alone. So pad tokens (id 0) attend among
+// themselves, as splash does. Outputs are contiguous:
 // o, dq [B, S, Hq, D], dk, dv [B, S, Hk, D] in the operands'
 // dtype, lse fp32 [B, Hq, S]; di = rowsum(o * do) fp32 [B, Hq, S] is an input
 // of the backward (splash computes it outside its kernels too).
@@ -20,11 +22,12 @@
 // Backward: p = exp(s - lse), dv += p.to(do)^T do, ds = p * (dp - di),
 // dk += ds.to(do)^T q, dq += ds.to(k) k; every product accumulates in fp32.
 // A masked score contributes exactly 0 (every row holds its own diagonal
-// key, so the running max is real before any row is normalised).
+// key, in either form, so the running max is real before any row is
+// normalised).
 //
 // Tiles are 64 queries x 64 keys held in shared memory as fp32 with an odd
 // row stride (D + 1), as in tile_attention.cuh. Work that the data makes
-// zero is skipped: a block never walks past its causal frontier, and a tile
+// zero is skipped: a causal block never walks past its causal frontier, and a tile
 // pair whose segment ids cannot meet (no key id inside the query tile's id
 // range, or the reverse) is skipped on a __syncthreads_or vote. Skipping a
 // tile changes no bit of the result (its p would be 0 everywhere).
@@ -114,7 +117,7 @@ __device__ __forceinline__ void segment_range(int* lo, int* hi, const int* segb,
 // owns a 4x8 tile of the [64, 64] scores and a 4 x (D/8) tile of the fp32
 // output accumulator.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kCausal>
 __global__ void __launch_bounds__(kFwdThreads) train_fwd_kernel(TrainAttnParams p) {
   extern __shared__ float smem[];
   __shared__ int q_lo, q_hi;
@@ -158,7 +161,7 @@ __global__ void __launch_bounds__(kFwdThreads) train_fwd_kernel(TrainAttnParams 
 #pragma unroll
     for (int j = 0; j < kMaxHeadDim / 8; ++j) acc[i][j] = 0.f;
 
-  const int kv_end = min(s_len, q0 + kTrainTile);
+  const int kv_end = kCausal ? min(s_len, q0 + kTrainTile) : s_len;
   for (int k0 = 0; k0 < kv_end; k0 += kTrainTile) {
     __syncthreads();   // the previous step is done with sK, sV, sS, sSegK
     const bool hit = load_segments(sSegK, segb, k0, s_len, INT_MAX, q_lo, q_hi);
@@ -190,7 +193,7 @@ __global__ void __launch_bounds__(kFwdThreads) train_fwd_kernel(TrainAttnParams 
       for (int j = 0; j < 8; ++j) {
         const int col = tx + 8 * j;
         const int kpos = k0 + col;
-        const bool ok = kpos < s_len && kpos <= q0 + r && sSegK[col] == sSegQ[r];
+        const bool ok = kpos < s_len && (!kCausal || kpos <= q0 + r) && sSegK[col] == sSegQ[r];
         sS[r * (kTrainTile + 1) + col] = ok ? sc[i][j] : kSplashMask;
       }
     }
@@ -264,12 +267,13 @@ __global__ void __launch_bounds__(kFwdThreads) train_fwd_kernel(TrainAttnParams 
 
 // ---------------------------------------------------------------------------
 // Backward dK/dV: block = (64-key tile, KV head, row), 256 threads. It walks
-// the G q heads of its group and the query tiles from its diagonal on, so
-// each dK/dV row is summed by one block (no atomics). Each thread owns a 4x4
+// the G q heads of its group and the query tiles from its diagonal on (all
+// of them in the non-causal form), so each dK/dV row is summed by one block
+// (no atomics). Each thread owns a 4x4
 // tile of the [64 keys, 64 queries] scores and 4 x (D/16) of both fp32
 // accumulators.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kCausal>
 __global__ void __launch_bounds__(kBwdThreads) train_dkv_kernel(TrainAttnParams p) {
   extern __shared__ float smem[];
   __shared__ int k_lo, k_hi;
@@ -317,7 +321,7 @@ __global__ void __launch_bounds__(kBwdThreads) train_dkv_kernel(TrainAttnParams 
     const T* dob = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
     const float* lseb = p.lse + ((long long)b * p.hq + h) * s_len;
     const float* dib = p.di + ((long long)b * p.hq + h) * s_len;
-    for (int q0 = k0; q0 < s_len; q0 += kTrainTile) {
+    for (int q0 = kCausal ? k0 : 0; q0 < s_len; q0 += kTrainTile) {
       __syncthreads();   // the previous step is done with sQ, sDO, sP, sDS, sSegQ
       const bool hit = load_segments(sSegQ, segb, q0, s_len, INT_MIN, k_lo, k_hi);
       if (!__syncthreads_or(hit)) continue;   // no query of this tile meets a key
@@ -364,7 +368,7 @@ __global__ void __launch_bounds__(kBwdThreads) train_dkv_kernel(TrainAttnParams 
           const int qc = tx + 16 * j;
           const int qpos = q0 + qc;
           const bool ok = k0 + kr < s_len && qpos < s_len &&
-                          k0 + kr <= qpos && sSegK[kr] == sSegQ[qc];
+                          (!kCausal || k0 + kr <= qpos) && sSegK[kr] == sSegQ[qc];
           const float pv = ok ? expf(sc[i][j] - sLse[qc]) : 0.f;
           const float ds = pv * (dp[i][j] - sDi[qc]);
           sP[kr * lds + qc] = round_to<T>(pv);
@@ -418,10 +422,11 @@ __global__ void __launch_bounds__(kBwdThreads) train_dkv_kernel(TrainAttnParams 
 
 // ---------------------------------------------------------------------------
 // Backward dQ: block = (64-query tile, q head, row), 256 threads; walks the
-// key tiles up to its causal frontier. Each thread owns a 4x4 tile of the
+// key tiles up to its causal frontier (all of them in the non-causal
+// form). Each thread owns a 4x4 tile of the
 // [64 queries, 64 keys] scores and 4 x (D/16) of the fp32 dq accumulator.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool kCausal>
 __global__ void __launch_bounds__(kBwdThreads) train_dq_kernel(TrainAttnParams p) {
   extern __shared__ float smem[];
   __shared__ int q_lo, q_hi;
@@ -472,7 +477,7 @@ __global__ void __launch_bounds__(kBwdThreads) train_dq_kernel(TrainAttnParams p
 #pragma unroll
     for (int j = 0; j < kMaxHeadDim / 16; ++j) dq[i][j] = 0.f;
 
-  const int kv_end = min(s_len, q0 + kTrainTile);
+  const int kv_end = kCausal ? min(s_len, q0 + kTrainTile) : s_len;
   for (int k0 = 0; k0 < kv_end; k0 += kTrainTile) {
     __syncthreads();   // the previous step is done with sK, sV, sDS, sSegK
     const bool hit = load_segments(sSegK, segb, k0, s_len, INT_MAX, q_lo, q_hi);
@@ -514,7 +519,7 @@ __global__ void __launch_bounds__(kBwdThreads) train_dq_kernel(TrainAttnParams p
       for (int j = 0; j < 4; ++j) {
         const int kc = tx + 16 * j;
         const int kpos = k0 + kc;
-        const bool ok = kpos < s_len && q0 + qr < s_len && kpos <= q0 + qr &&
+        const bool ok = kpos < s_len && q0 + qr < s_len && (!kCausal || kpos <= q0 + qr) &&
                         sSegK[kc] == sSegQ[qr];
         const float pv = ok ? expf(sc[i][j] - sLse[qr]) : 0.f;
         sDS[qr * lds + kc] = round_to<T>(pv * (dp[i][j] - sDi[qr]));

@@ -3,7 +3,8 @@
 //
 // Replaces: the backward of livecc_tpu/ops/attention.py:_train_splash (JAX's
 // Pallas splash kernels with use_fused_bwd_kernel=True: dq and dk/dv in one
-// kernel) and of _train_flash_stock (:65).
+// kernel) and of _train_flash_stock (:65); with causal = 0, of splash's
+// FullMask form (:109-112), which no training caller asks for.
 //
 // Two launches on one stream, counted as one call by the wrapper:
 //   * dK/dV — one block per (64-key tile, KV head, row) walks the G = 7 q
@@ -30,8 +31,8 @@
 extern "C" int livecc_train_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                           const int* seg, const void* dout, const float* lse,
                                           const float* di, void* dq, void* dk, void* dv, int batch,
-                                          int hq, int hk, int s, int d, const long long* strides,
-                                          void* stream) {
+                                          int hq, int hk, int s, int d, int causal,
+                                          const long long* strides, void* stream) {
   livecc::TrainAttnParams p = {};
   if (!livecc::train_params(p, hq, hk, s, d, strides, true) || batch <= 0)
     return (int)cudaErrorInvalidValue;
@@ -48,15 +49,18 @@ extern "C" int livecc_train_attention_bwd(int dtype, const void* q, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == livecc::kBFloat16)
     return livecc::with_head_dim(d, [&](auto dim) {
-      return livecc::launch_train_bwd_mma<decltype(dim)::value>(p, batch, st);
+      constexpr int D = decltype(dim)::value;
+      return causal ? livecc::launch_train_bwd_mma<D, true>(p, batch, st)
+                    : livecc::launch_train_bwd_mma<D, false>(p, batch, st);
     });
   if (dtype != livecc::kFloat32) return (int)cudaErrorInvalidValue;
   const int tiles = (s + livecc::kTrainTile - 1) / livecc::kTrainTile;
   const size_t smem = livecc::train_bwd_smem_bytes(d);
-  const int err = livecc::launch_train_kernel(livecc::train_dkv_kernel<float>,
-                                              dim3(tiles, hk, batch), livecc::kBwdThreads, smem,
-                                              p, st);
+  const int err = livecc::launch_train_kernel(
+      causal ? livecc::train_dkv_kernel<float, true> : livecc::train_dkv_kernel<float, false>,
+      dim3(tiles, hk, batch), livecc::kBwdThreads, smem, p, st);
   if (err) return err;
-  return livecc::launch_train_kernel(livecc::train_dq_kernel<float>, dim3(tiles, hq, batch),
-                                     livecc::kBwdThreads, smem, p, st);
+  return livecc::launch_train_kernel(
+      causal ? livecc::train_dq_kernel<float, true> : livecc::train_dq_kernel<float, false>,
+      dim3(tiles, hq, batch), livecc::kBwdThreads, smem, p, st);
 }

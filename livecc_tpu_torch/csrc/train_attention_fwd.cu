@@ -5,7 +5,8 @@
 // MQA kernel, built by _splash_kernel; :126) and _train_flash_stock (JAX's
 // Pallas flash kernel; :65), which share one contract behind
 // train_flash_attention (:39): causal, GQA, segment ids for padding and
-// packing.
+// packing; with causal = 0, splash's FullMask form (:109-112), which no
+// training caller asks for.
 //
 // Contract and numerics: see train_attention.cuh. One block per (64-query
 // tile, q head, row) loops over key tiles up to its causal frontier; the
@@ -27,8 +28,8 @@
 
 extern "C" int livecc_train_attention_fwd(int dtype, const void* q, const void* k, const void* v,
                                           const int* seg, void* o, float* lse, int batch, int hq,
-                                          int hk, int s, int d, const long long* strides,
-                                          void* stream) {
+                                          int hk, int s, int d, int causal,
+                                          const long long* strides, void* stream) {
   livecc::TrainAttnParams p = {};
   if (!livecc::train_params(p, hq, hk, s, d, strides, false) || batch <= 0)
     return (int)cudaErrorInvalidValue;
@@ -41,10 +42,13 @@ extern "C" int livecc_train_attention_fwd(int dtype, const void* q, const void* 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == livecc::kBFloat16)
     return livecc::with_head_dim(d, [&](auto dim) {
-      return livecc::launch_train_fwd_mma<decltype(dim)::value>(p, batch, st);
+      constexpr int D = decltype(dim)::value;
+      return causal ? livecc::launch_train_fwd_mma<D, true>(p, batch, st)
+                    : livecc::launch_train_fwd_mma<D, false>(p, batch, st);
     });
   if (dtype != livecc::kFloat32) return (int)cudaErrorInvalidValue;
   const dim3 grid((s + livecc::kTrainTile - 1) / livecc::kTrainTile, hq, batch);
-  return livecc::launch_train_kernel(livecc::train_fwd_kernel<float>, grid, livecc::kFwdThreads,
-                                     livecc::train_fwd_smem_bytes(d), p, st);
+  return livecc::launch_train_kernel(
+      causal ? livecc::train_fwd_kernel<float, true> : livecc::train_fwd_kernel<float, false>,
+      grid, livecc::kFwdThreads, livecc::train_fwd_smem_bytes(d), p, st);
 }

@@ -2,7 +2,8 @@
 // cores: the forward with log-sum-exp, and the backward's dK/dV and dQ
 // kernels. fp32 operands stay on the FMA kernels of train_attention.cuh,
 // whose contract and numerics these kernels keep (see there): query i
-// attends key j iff seg[i] == seg[j] and j <= i, q pre-scaled and rounded,
+// attends key j iff seg[i] == seg[j] and, in the causal form, j <= i (the
+// kCausal template flag; without it, splash's FullMask), q pre-scaled and rounded,
 // masked scores at kSplashMask with p = 0, lse = m + log l in fp32, and
 // di = rowsum(o * do) computed outside the kernels.
 //
@@ -70,6 +71,11 @@
 //   * Launch order: the forward's and dQ's query tiles are launched from the
 //     last one down, dK/dV's key tiles from the first up, so the blocks with
 //     the longest causal walks start first.
+//   * The non-causal form (kCausal = false): the forward's and dQ's walks
+//     cover every live key tile instead of stopping at the diagonal, dK/dV's
+//     every live query tile instead of starting at it, and the masks test
+//     the segments alone. The launch order stays; it means nothing there: a
+//     block's walk is as long as the tiles its ids cover, wherever it sits.
 //
 // wgmma fed by TMA, with a producer warp and a deeper ring, is later work.
 
@@ -169,7 +175,7 @@ __device__ int live_tiles(int* ids, int* list, int* shared3, const int* segb, in
 // ---------------------------------------------------------------------------
 // Forward: block = (q head, row, 64-query tile from the last down).
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_fwd_mma_kernel(TrainAttnParams p) {
   static_assert(D % 16 == 0 && D <= kMaxHeadDim, "head dim: a multiple of 16 up to 128");
   constexpr int kLd = D + kMmaPad;
@@ -199,7 +205,8 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_fwd_mma_kernel(Trai
   const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
 
   cp_tile<D, kTrainMmaThreads>(sQ, qb + (long long)q0 * p.q_ss, p.q_ss, kTrainMmaTileQ, s - q0);
-  const int n_live = live_tiles(sSegQ, sList, shared3, segb, s, q0, INT_MIN, 0, qt + 1);
+  const int n_live = live_tiles(sSegQ, sList, shared3, segb, s, q0, INT_MIN, 0,
+                                kCausal ? qt + 1 : (int)gridDim.z);
 
   auto fetch = [&](int i, int buf) {        // key tile list[i] into ring slot buf
     const int k0 = sList[i] * kT;
@@ -257,7 +264,7 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_fwd_mma_kernel(Trai
       }
     }
 
-    // masks: past S, causal, segments; a masked score is kSplashMask
+    // masks: past S, causal (kCausal), segments; a masked score is kSplashMask
     float mx[2] = {kSplashMask, kSplashMask};
 #pragma unroll
     for (int j = 0; j < kNt; ++j) {
@@ -265,7 +272,7 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_fwd_mma_kernel(Trai
       for (int e = 0; e < 4; ++e) {
         const int kl = j * 8 + 2 * tig + (e & 1);
         const int key = k0 + kl;
-        const bool ok = key < s && key <= (e < 2 ? row_a : row_b) &&
+        const bool ok = key < s && (!kCausal || key <= (e < 2 ? row_a : row_b)) &&
                         tSeg[kl] == (e < 2 ? seg_a : seg_b);
         sc[j][e] = ok ? sc[j][e] : kSplashMask;
         mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
@@ -354,7 +361,7 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_fwd_mma_kernel(Trai
 // Backward dK/dV: block = (KV head, row, 64-key tile from the first up); the
 // ring walks (q head g of the group, live query tile) pairs.
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_dkv_mma_kernel(TrainAttnParams p) {
   static_assert(D % 16 == 0 && D <= kMaxHeadDim, "head dim: a multiple of 16 up to 128");
   constexpr int kLd = D + kMmaPad;
@@ -388,7 +395,7 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_dkv_mma_kernel(Trai
 
   cp_tile<D, kTrainMmaThreads>(sK, kb + (long long)k0 * p.k_ss, p.k_ss, kTrainMmaTileK, s - k0);
   cp_tile<D, kTrainMmaThreads>(sV, vb + (long long)k0 * p.v_ss, p.v_ss, kTrainMmaTileK, s - k0);
-  const int n_live = live_tiles(sSegK, sList, shared3, segb, s, k0, INT_MAX, kt,
+  const int n_live = live_tiles(sSegK, sList, shared3, segb, s, k0, INT_MAX, kCausal ? kt : 0,
                                 (int)gridDim.z);
   const int total = groups * n_live;
 
@@ -468,8 +475,8 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_dkv_mma_kernel(Trai
           const int ql = qh + j * 8 + 2 * tig + (e & 1);
           const int query = q0 + ql;
           const int key = e < 2 ? key_a : key_b;
-          const bool ok =
-              query < s && key < s && key <= query && tSeg[ql] == (e < 2 ? seg_a : seg_b);
+          const bool ok = query < s && key < s && (!kCausal || key <= query) &&
+                          tSeg[ql] == (e < 2 ? seg_a : seg_b);
           st[j][e] = ok ? __expf(st[j][e] - tLse[ql]) : 0.f;
         }
       }
@@ -553,7 +560,7 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_dkv_mma_kernel(Trai
 // ---------------------------------------------------------------------------
 // Backward dQ: block = (q head, row, 64-query tile from the last down).
 // ---------------------------------------------------------------------------
-template <int D>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_dq_mma_kernel(TrainAttnParams p) {
   static_assert(D % 16 == 0 && D <= kMaxHeadDim, "head dim: a multiple of 16 up to 128");
   constexpr int kLd = D + kMmaPad;
@@ -587,7 +594,8 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_dq_mma_kernel(Train
   cp_tile<D, kTrainMmaThreads>(sQ, qb + (long long)q0 * p.q_ss, p.q_ss, kTrainMmaTileQ, s - q0);
   cp_tile<D, kTrainMmaThreads>(sDO, dob + (long long)q0 * p.do_ss, p.do_ss, kTrainMmaTileQ,
                                s - q0);
-  const int n_live = live_tiles(sSegQ, sList, shared3, segb, s, q0, INT_MIN, 0, qt + 1);
+  const int n_live = live_tiles(sSegQ, sList, shared3, segb, s, q0, INT_MIN, 0,
+                                kCausal ? qt + 1 : (int)gridDim.z);
 
   auto fetch = [&](int i, int buf) {
     const int k0 = sList[i] * kT;
@@ -657,7 +665,8 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_dq_mma_kernel(Train
         const int kl = j * 8 + 2 * tig + (e & 1);
         const int key = k0 + kl;
         const int r = e >> 1;
-        const bool ok = key < s && key <= (r ? row_b : row_a) && tSeg[kl] == (r ? seg_b : seg_a);
+        const bool ok = key < s && (!kCausal || key <= (r ? row_b : row_a)) &&
+                        tSeg[kl] == (r ? seg_b : seg_a);
         const float pv = ok ? __expf(sc[j][e] - (r ? lse_b : lse_a)) : 0.f;
         dp[j][e] = pv * (dp[j][e] - (r ? di_b : di_a));
       }
@@ -706,21 +715,22 @@ int launch_train_mma(Kernel kernel, dim3 grid, size_t smem, const TrainAttnParam
 }
 
 // The forward of bf16 operands: grid (Hq, B, query tiles).
-template <int D>
+template <int D, bool kCausal>
 int launch_train_fwd_mma(const TrainAttnParams& p, int batch, cudaStream_t stream) {
-  return launch_train_mma(train_fwd_mma_kernel<D>, dim3(p.hq, batch, train_mma_tiles(p.s)),
-                          train_mma_fwd_smem(D, p.s), p, stream);
+  return launch_train_mma(train_fwd_mma_kernel<D, kCausal>,
+                          dim3(p.hq, batch, train_mma_tiles(p.s)), train_mma_fwd_smem(D, p.s), p,
+                          stream);
 }
 
 // The backward of bf16 operands: dK/dV over (Hk, B, key tiles), then dQ over
 // (Hq, B, query tiles), on one stream.
-template <int D>
+template <int D, bool kCausal>
 int launch_train_bwd_mma(const TrainAttnParams& p, int batch, cudaStream_t stream) {
   const int tiles = train_mma_tiles(p.s);
-  const int err = launch_train_mma(train_dkv_mma_kernel<D>, dim3(p.hk, batch, tiles),
+  const int err = launch_train_mma(train_dkv_mma_kernel<D, kCausal>, dim3(p.hk, batch, tiles),
                                    train_mma_dkv_smem(D, p.s), p, stream);
   if (err) return err;
-  return launch_train_mma(train_dq_mma_kernel<D>, dim3(p.hq, batch, tiles),
+  return launch_train_mma(train_dq_mma_kernel<D, kCausal>, dim3(p.hq, batch, tiles),
                           train_mma_dq_smem(D, p.s), p, stream);
 }
 

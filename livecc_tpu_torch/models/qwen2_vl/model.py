@@ -255,7 +255,7 @@ def forward(
     compute_logits: bool = True,
     attention_mask: Optional[torch.Tensor] = None,   # uncached: bool [B, S] or int32 segments
     vision_images: Optional[VisionInputs] = None,    # image clips -> image_token_id slots
-    remat: bool = False,
+    remat: bool | str = False,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Multimodal forward. Returns (fp32 logits [B, S, V], or the final
     hidden states when ``compute_logits`` is False, and the cache). Without

@@ -118,18 +118,27 @@ class DecoderLayer(nn.Module):
         self.up_proj = nn.Linear(h, i, bias=False, **kw)
         self.down_proj = nn.Linear(i, h, bias=False, **kw)
 
-    def forward(self, x, cos, sin, attend) -> torch.Tensor:
-        b, s, h = x.shape
-        cfg = self.cfg
-        hq, hk, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    def qkv(self, x) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Pre-norm q, k, v projections (bias included), [B, S, heads, D]."""
+        b, s, _ = x.shape
         y = self.input_ln(x)
-        q = self.q_proj(y).reshape(b, s, hq, hd)
-        k = self.k_proj(y).reshape(b, s, hk, hd)
-        v = self.v_proj(y).reshape(b, s, hk, hd)
+        return tuple(proj(y).reshape(b, s, -1, self.cfg.head_dim)
+                     for proj in (self.q_proj, self.k_proj, self.v_proj))
+
+    def attention(self, q, k, v, cos, sin, attend) -> torch.Tensor:
+        """M-RoPE, attention and the output projection: [B, S, H]."""
+        b, s = q.shape[:2]
         q, k = apply_mrope(q, k, cos, sin)
-        x = x + self.o_proj(attend(q, k, v).reshape(b, s, h))
+        return self.o_proj(attend(q, k, v).reshape(b, s, -1))
+
+    def mlp_in(self, x) -> torch.Tensor:
+        """silu(gate) * up of the post-norm input: [B, S, I]."""
         y = self.post_ln(x)
-        return x + self.down_proj(F.silu(self.gate_proj(y)) * self.up_proj(y))
+        return F.silu(self.gate_proj(y)) * self.up_proj(y)
+
+    def forward(self, x, cos, sin, attend) -> torch.Tensor:
+        x = x + self.attention(*self.qkv(x), cos, sin, attend)
+        return x + self.down_proj(self.mlp_in(x))
 
 
 class TextModel(nn.Module):
@@ -154,7 +163,7 @@ def text_forward(
     cache: KVCache | None = None,
     kv_limit: torch.Tensor | None = None,   # int32 [B]: keys < kv_limit valid
     attention_mask: torch.Tensor | None = None,   # uncached: bool [B, S] or int32 segment ids
-    remat: bool = False,
+    remat: bool | str = False,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Returns (final hidden states [B, S, H], the cache with offset + S).
 
@@ -166,7 +175,8 @@ def text_forward(
     through ``train_flash_attention`` (K4, splash semantics) and the cache
     returned is None. ``remat=True`` checkpoints each layer
     (``torch.utils.checkpoint``, JAX's ``nothing_saveable``): the backward
-    re-runs the layer, K4's forward included."""
+    re-runs the layer, K4's forward included. The named policies "names",
+    "names_mlp" and "dots" keep some products' outputs (``remat_layer``)."""
     b, s, _ = inputs_embeds.shape
     cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
     cos = cos.to(inputs_embeds.dtype)
@@ -204,21 +214,73 @@ def text_forward(
     return model.final_ln(x), cache
 
 
+REMAT_POLICIES = (False, True, "names", "names_mlp", "dots")
+
+
+def check_remat(remat) -> None:
+    """Raise on a ``remat`` that is not one of ``REMAT_POLICIES``."""
+    if not any(remat is p or (isinstance(p, str) and remat == p) for p in REMAT_POLICIES):
+        raise ValueError(f"remat={remat!r}: expected one of {REMAT_POLICIES}")
+
+
+def _region(fn, *args):
+    """``fn(*args)`` as a checkpoint region: its inputs are kept for the
+    backward, everything inside it is recomputed there. Recomputation stops
+    once the last tensor the region's backward needs is saved again, an
+    input of the region's last product, so that product is not run again."""
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def remat_layer(layer: DecoderLayer, x, cos, sin, attend, remat) -> torch.Tensor:
+    """One decoder layer under a named remat policy (JAX ``remat_policy``
+    and ``decoder_block``'s tags, ``text.py:143-205``), as explicit
+    checkpoint regions between the tensors the policy keeps: what a policy
+    keeps is a region's input, the rest is recomputed in the backward, K4's
+    forward always (as splash's in JAX: its residuals are not nameable).
+
+      * "names" keeps q, k and v and x + o_proj (JAX: o_proj's output, the
+        same bytes);
+      * "names_mlp" keeps silu(gate) * up besides;
+      * "dots" keeps every product's output (JAX's
+        ``dots_with_no_batch_dims_saveable``: q, k, v, x + o_proj, gate and
+        up; down's output is read by no backward).
+
+    JAX's ``remat_down`` names a tensor no backward reads, so no region
+    keeps it. The regions split the layer's ops and never run one twice,
+    so the backward graph is remat=True's and so are the gradients, bit
+    for bit on deterministic kernels. That costs recomputed products JAX
+    skips: the q / k / v region reruns q and k (v is its last), "dots"'s
+    gate / up region reruns gate."""
+    q, k, v = _region(layer.qkv, x)
+    x = x + _region(layer.attention, q, k, v, cos, sin, attend)
+    if remat == "names":
+        return x + _region(lambda x_: layer.down_proj(layer.mlp_in(x_)), x)
+    if remat == "names_mlp":
+        return x + layer.down_proj(_region(layer.mlp_in, x))
+
+    def gate_up(x_):
+        y = layer.post_ln(x_)
+        return layer.gate_proj(y), layer.up_proj(y)
+
+    gate, up = _region(gate_up, x)
+    return x + _region(lambda g, u: layer.down_proj(F.silu(g) * u), gate, up)
+
+
 def _uncached_forward(model: TextModel, x, cos, sin, attention_mask, remat) -> torch.Tensor:
-    """Every layer over the whole sequence, attention through K4."""
-    if remat not in (False, True):
-        raise NotImplementedError(
-            f"remat={remat!r}: the named remat policies ('names', 'names_mlp', 'dots') are "
-            "not ported (ROADMAP Queue 1); use remat=True or False")
+    """Every layer over the whole sequence, attention through K4, under the
+    remat policy ``remat`` (``REMAT_POLICIES``) while gradients are on."""
+    check_remat(remat)
 
     def attend(q, k, v):
         return train_flash_attention(q, k, v, attention_mask)
 
     for layer in model.layers:
-        if remat and torch.is_grad_enabled():
+        if not remat or not torch.is_grad_enabled():
+            x = layer(x, cos, sin, attend)
+        elif remat is True:
             x = checkpoint(layer, x, cos, sin, attend, use_reentrant=False)
         else:
-            x = layer(x, cos, sin, attend)
+            x = remat_layer(layer, x, cos, sin, attend, remat)
     return model.final_ln(x)
 
 

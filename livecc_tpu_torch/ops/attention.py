@@ -48,14 +48,13 @@ def train_flash_attention(
     impl: str | None = None,
 ) -> torch.Tensor:
     """TRAINING attention with a backward: K4 on CUDA, its plain version on
-    the CPU. Query i attends key j iff their segment ids match and j <= i;
-    pads (id 0) attend among themselves. No [S, S] array on CUDA. Only
-    ``causal=True`` is served: no training caller asks for anything else."""
+    the CPU. Query i attends key j iff their segment ids match and, when
+    ``causal`` (JAX's default and every training caller's), j <= i:
+    splash's ``CausalMask``, or its ``FullMask`` without the causal term.
+    Pads (id 0) attend among themselves. No [S, S] array on CUDA."""
     if impl not in (None, "splash", "flash"):
         raise ValueError(f"train_flash_attention: unknown impl {impl!r}")
-    if not causal:
-        raise NotImplementedError("train_flash_attention: only causal=True is ported")
-    return TrainAttention.apply(prescaled(q), k, v, segment_ids(q, attention_mask))
+    return TrainAttention.apply(prescaled(q), k, v, segment_ids(q, attention_mask), causal)
 
 
 def train_attention_plain(q, k, v, attention_mask=None) -> torch.Tensor:

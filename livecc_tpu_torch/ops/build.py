@@ -125,10 +125,11 @@ def load_library() -> ctypes.CDLL:
                                              i32, i32, i32, i32, i32, strides, f32, ptr, i32, ptr]
     lib.livecc_vit_attention.argtypes = [i32, ptr, ptr, ptr, ptr, ptr,
                                          i32, i32, i32, i32, strides, f32, ptr]
+    # the training entry points end in (..., d, causal, strides, stream)
     lib.livecc_train_attention_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                                               i32, i32, i32, i32, i32, strides, ptr]
+                                               i32, i32, i32, i32, i32, i32, strides, ptr]
     lib.livecc_train_attention_bwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                               ptr, i32, i32, i32, i32, i32, strides, ptr]
+                                               ptr, i32, i32, i32, i32, i32, i32, strides, ptr]
     lib.livecc_w8a16_gemm.argtypes = [i32, i32, ptr, ctypes.c_longlong, ptr, ptr, ptr, ptr,
                                       i32, i32, i32, i32, i32, i32, ptr]
     for fn in (lib.livecc_flash_prefill, lib.livecc_flash_decode, lib.livecc_flash_prefill_int8,

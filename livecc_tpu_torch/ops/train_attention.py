@@ -9,8 +9,10 @@ same contract and is served by the same kernel). Layouts as in JAX:
     the autograd function, so autograd carries the chain rule);
   * ``k``, ``v`` ``[B, S, Hk, D]``, GQA with ``G = Hq / Hk``;
   * ``seg`` int32 ``[B, S]`` segment ids: query i attends key j iff
-    ``seg[i] == seg[j]`` and ``j <= i`` (always causal). Pad tokens (id 0)
-    attend among themselves, as in splash.
+    ``seg[i] == seg[j]`` and, in the causal form (the default, splash's
+    ``CausalMask``), ``j <= i``; ``causal=False`` drops the second term
+    (splash's ``FullMask``). Pad tokens (id 0) attend among themselves, as
+    in splash.
 
 ``TrainAttention`` is the ``torch.autograd.Function``: its forward keeps
 ``(qs, k, v, seg, o, lse)``, its backward returns dq, dk and dv in the
@@ -36,10 +38,12 @@ from livecc_tpu_torch.ops import build
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)   # splash DEFAULT_MASK_VALUE
 
 
-def _allowed(seg: torch.Tensor) -> torch.Tensor:
+def _allowed(seg: torch.Tensor, causal: bool = True) -> torch.Tensor:
     """bool [B, 1, S, S]: query i may attend key j."""
-    pos = torch.arange(seg.shape[1], device=seg.device)
-    ok = (seg[:, :, None] == seg[:, None, :]) & (pos[None, :] <= pos[:, None])
+    ok = seg[:, :, None] == seg[:, None, :]
+    if causal:
+        pos = torch.arange(seg.shape[1], device=seg.device)
+        ok = ok & (pos[None, :] <= pos[:, None])
     return ok[:, None]
 
 
@@ -51,13 +55,13 @@ def _heads(x: torch.Tensor, groups: int) -> torch.Tensor:
     return x.float()
 
 
-def train_attention_fwd_plain(qs, k, v, seg):
+def train_attention_fwd_plain(qs, k, v, seg, causal: bool = True):
     """Plain version of the forward kernel: (o [B, S, Hq, D] in qs's dtype,
     lse fp32 [B, Hq, S])."""
     g = qs.shape[2] // k.shape[2]
     qt, kt, vt = _heads(qs, 1), _heads(k, g), _heads(v, g)
     s = torch.matmul(qt, kt.transpose(-1, -2))                          # [B, Hq, S, S]
-    s = torch.where(_allowed(seg), s, torch.full_like(s, MASK_VALUE))
+    s = torch.where(_allowed(seg, causal), s, torch.full_like(s, MASK_VALUE))
     m = s.amax(dim=-1, keepdim=True).detach()       # the softmax does not depend on m
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
@@ -66,14 +70,14 @@ def train_attention_fwd_plain(qs, k, v, seg):
     return o.transpose(1, 2).to(qs.dtype), lse
 
 
-def train_attention_bwd_plain(qs, k, v, seg, o, lse, do):
+def train_attention_bwd_plain(qs, k, v, seg, o, lse, do, causal: bool = True):
     """Plain version of the backward kernels: (dq for qs, dk, dv)."""
     b, s, hq, d = qs.shape
     hk = k.shape[2]
     g = hq // hk
     qt, kt, vt = _heads(qs, 1), _heads(k, g), _heads(v, g)
     dot = do.transpose(1, 2)                                            # [B, Hq, S, D]
-    allowed = _allowed(seg)
+    allowed = _allowed(seg, causal)
     sc = torch.matmul(qt, kt.transpose(-1, -2))
     p = torch.where(allowed, torch.exp(sc - lse[..., None]), torch.zeros_like(sc))
     di = (o.float() * do.float()).sum(-1).transpose(1, 2)               # [B, Hq, S]
@@ -108,10 +112,10 @@ def _device(name: str, x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-def train_attention_fwd(qs, k, v, seg):
+def train_attention_fwd(qs, k, v, seg, causal: bool = True):
     """Forward: (o [B, S, Hq, D], lse fp32 [B, Hq, S])."""
     if not _device("train_attention_fwd", qs):
-        return train_attention_fwd_plain(qs, k, v, seg)
+        return train_attention_fwd_plain(qs, k, v, seg, causal)
     _check("train_attention_fwd", qs, k, v, seg)
     b, s, hq, d = qs.shape
     hk = k.shape[2]
@@ -124,16 +128,16 @@ def train_attention_fwd(qs, k, v, seg):
         build.launch(
             "train_attention_fwd", lib.livecc_train_attention_fwd,
             build.DTYPE_CODES[qs.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(),
-            seg.data_ptr(), o.data_ptr(), lse.data_ptr(), b, hq, hk, s, d,
+            seg.data_ptr(), o.data_ptr(), lse.data_ptr(), b, hq, hk, s, d, int(causal),
             build.stride_array((qs, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2))), stream,
         )
     return o, lse
 
 
-def train_attention_bwd(qs, k, v, seg, o, lse, do):
+def train_attention_bwd(qs, k, v, seg, o, lse, do, causal: bool = True):
     """Backward: (dq for qs, dk, dv) in the operands' dtypes."""
     if not _device("train_attention_bwd", qs):
-        return train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
+        return train_attention_bwd_plain(qs, k, v, seg, o, lse, do, causal)
     do = do.to(qs.dtype)
     if do.stride(-1) != 1:
         do = do.contiguous()
@@ -153,7 +157,7 @@ def train_attention_bwd(qs, k, v, seg, o, lse, do):
             "train_attention_bwd", lib.livecc_train_attention_bwd,
             build.DTYPE_CODES[qs.dtype], qs.data_ptr(), k.data_ptr(), v.data_ptr(),
             seg.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, hq, hk, s, d,
+            dk.data_ptr(), dv.data_ptr(), b, hq, hk, s, d, int(causal),
             build.stride_array((qs, (0, 1, 2)), (k, (0, 1, 2)), (v, (0, 1, 2)),
                                (do, (0, 1, 2))), stream,
         )
@@ -161,16 +165,18 @@ def train_attention_bwd(qs, k, v, seg, o, lse, do):
 
 
 class TrainAttention(torch.autograd.Function):
-    """``o = attention(qs, k, v | seg)`` with the K4 kernels forward and backward."""
+    """``o = attention(qs, k, v | seg)`` with the K4 kernels forward and
+    backward; ``causal`` picks the form (both count as K4's launches)."""
 
     @staticmethod
-    def forward(ctx, qs, k, v, seg):
-        o, lse = train_attention_fwd(qs, k, v, seg)
+    def forward(ctx, qs, k, v, seg, causal=True):
+        o, lse = train_attention_fwd(qs, k, v, seg, causal)
         ctx.save_for_backward(qs, k, v, seg, o, lse)
+        ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
         qs, k, v, seg, o, lse = ctx.saved_tensors
-        dq, dk, dv = train_attention_bwd(qs, k, v, seg, o, lse, do)
-        return dq, dk, dv, None
+        dq, dk, dv = train_attention_bwd(qs, k, v, seg, o, lse, do, ctx.causal)
+        return dq, dk, dv, None, None

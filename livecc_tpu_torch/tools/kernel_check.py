@@ -28,7 +28,11 @@ give; a check that passes them could not see a lost block:
   * ``dropped_tile(...)`` (K4): the plain forward and backward outputs (o,
     lse, dq, dk, dv) without one 64 x 64 tile pair of one q head (``TILE``,
     ``kTrainMmaTileQ`` / ``kTrainMmaTileK`` of ``train_mma_attention.cuh``);
-    ``dropped_fwd_tile(...)`` the forward's two alone;
+    ``dropped_fwd_tile(...)`` the forward's two alone; ``causal_walk(...)``
+    (K4's non-causal form): the five outputs as the kernels would give them
+    had they kept the causal form's walk and mask under ``causal=False``
+    (a kernel that stayed causal passes wherever later keys hardly move an
+    output);
   * ``zeroed_k3_backward()`` (K3's gradient): while it is entered, the
     backward of K3's autograd ``Function`` returns zeros, as the port
     passed no gradient through K3 before it had one;
@@ -271,6 +275,18 @@ def dropped_tile(qs, k, v, seg, do, o, lse, grads, qt: int, kt: int, h: int):
     return o2, lse2, dq, dk, dv
 
 
+def causal_walk(qs, k, v, seg, do, o, lse):
+    """K4's non-causal outputs (o, lse, dq, dk, dv) as kernels that kept the
+    causal walk and mask would give them: the causal plain forward, and the
+    causal plain backward on the non-causal forward's ``o`` and ``lse``
+    (what the backward kernels are fed)."""
+    from livecc_tpu_torch.ops.train_attention import (
+        train_attention_bwd_plain, train_attention_fwd_plain)
+
+    return (*train_attention_fwd_plain(qs, k, v, seg, causal=True),
+            *train_attention_bwd_plain(qs, k, v, seg, o, lse, do, causal=True))
+
+
 def train_attention_fwd_blocked(qs, k, v, seg, rows: int = 1024):
     """``train_attention_fwd_plain`` computed ``rows`` query rows at a time,
     for shapes whose whole ``[B, Hq, S, S]`` scores do not fit (S = 32768:
@@ -299,6 +315,43 @@ def train_attention_fwd_blocked(qs, k, v, seg, rows: int = 1024):
         lse[:, :, a:e] = (m + torch.log(l)).squeeze(-1)
         del p, qt, kt, vt
     return o, lse
+
+
+def train_attention_bwd_blocked(qs, k, v, seg, o, lse, do, rows: int = 1024):
+    """``train_attention_bwd_plain`` (causal) computed ``rows`` query rows at
+    a time against the keys up to the block's last row, as
+    ``train_attention_fwd_blocked``: each block's dq rows in full, its dk
+    and dv terms summed over the blocks in fp32 and rounded at the end.
+    The same roundings of p and ds as the plain version; the products in
+    place, so a block holds two ``[B, Hq, rows, <= S]`` fp32 tensors (7.5
+    GB at S = 32768, Hq 28) and a rounded copy of one."""
+    from livecc_tpu_torch.ops.train_attention import _heads
+
+    b, s, hq, d = qs.shape
+    hk = k.shape[2]
+    g = hq // hk
+    dq = torch.empty((b, s, hq, d), dtype=qs.dtype, device=qs.device)
+    dk = torch.zeros((b, hq, s, d), dtype=torch.float32, device=qs.device)
+    dv = torch.zeros_like(dk)
+    pos = torch.arange(s, device=qs.device)
+    for a in range(0, s, rows):
+        e = min(s, a + rows)
+        qt, kt, vt = _heads(qs[:, a:e], 1), _heads(k[:, :e], g), _heads(v[:, :e], g)
+        dot = do[:, a:e].transpose(1, 2).float()                          # [B, Hq, r, D]
+        ok = (seg[:, a:e, None] == seg[:, None, :e]) & (pos[None, :e] <= pos[a:e, None])
+        p = torch.matmul(qt, kt.transpose(-1, -2))                       # [B, Hq, r, e]
+        p.sub_(lse[:, :, a:e, None]).exp_().masked_fill_(~ok[:, None], 0.0)
+        di = (o[:, a:e].float() * do[:, a:e].float()).sum(-1).transpose(1, 2)
+        dv[:, :, :e] += torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dot)
+        ds = torch.matmul(dot, vt.transpose(-1, -2))                     # dp
+        ds.sub_(di[..., None]).mul_(p)
+        del p
+        dk[:, :, :e] += torch.matmul(ds.to(do.dtype).float().transpose(-1, -2), qt)
+        dq[:, a:e] = torch.matmul(ds.to(k.dtype).float(), kt).transpose(1, 2).to(qs.dtype)
+        del ds, qt, kt, vt
+    dk = dk.reshape(b, hk, g, s, d).sum(2).transpose(1, 2).to(k.dtype)
+    dv = dv.reshape(b, hk, g, s, d).sum(2).transpose(1, 2).to(v.dtype)
+    return dq, dk, dv
 
 
 def vit_group_attention_blocked(q, k, v):

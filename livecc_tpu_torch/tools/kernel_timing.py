@@ -17,13 +17,18 @@
 Run as a script, by path, with the checkout to time first on
 ``PYTHONPATH``, it times that checkout's ``flash_decode`` (K2 and K2-int8),
 ``vit_group_attention`` (K3), ``flash_prefill`` (K1 and, with scales,
-K1-int8), ``train_attention_fwd`` / ``train_attention_bwd`` (K4) and
+K1-int8), ``train_attention_fwd`` / ``train_attention_bwd`` (K4, causal and,
+where the checkout has it, non-causal) and
 ``w8a16_gemm`` (K5) both
 ways at ``chip_smoke.py``'s timed shapes and prints one JSON line, so two
 versions of the kernels compare on one card in one call:
 
     PYTHONPATH=. python3 livecc_tpu_torch/tools/kernel_timing.py
     PYTHONPATH=<another checkout> python3 livecc_tpu_torch/tools/kernel_timing.py
+
+Each case's line carries ``sha256``, a digest of its outputs' bytes
+(``digest``): the inputs are drawn from seeded generators on the card, so
+two checkouts whose kernels give the same bits print the same digests.
 
 Arguments, if any, name the kinds to time (``decode``, ``vit``, ``prefill``,
 ``prefill_int8``, ``train``, ``w8``: K5 at ``W8_SHAPES``, ``w8_large``: K5
@@ -37,6 +42,7 @@ Needs a CUDA GPU.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import subprocess
@@ -238,7 +244,11 @@ TRAIN_HEADS = (28, 4, 128)
 
 
 def train_cases():
-    """(label, call) of K4's forward and backward at the timed shape, bf16."""
+    """(label, call) of K4's forward and backward at the timed shape, fp32
+    and bf16, then of its non-causal form (``causal=False``, bf16) where
+    the checkout has one."""
+    import inspect
+
     from livecc_tpu_torch.ops.attention import prescaled
     from livecc_tpu_torch.ops.train_attention import train_attention_bwd, train_attention_fwd
 
@@ -253,10 +263,23 @@ def train_cases():
     for i, n in enumerate(TRAIN_LENGTHS):
         seg[0, at:at + n] = i + 1
         at += n
-    label = f"S={TRAIN_S} segments {list(TRAIN_LENGTHS)} + pad Hq={hq} Hk={hk} D={d} bf16"
-    yield f"K4 fwd {label}", lambda: train_attention_fwd(qs, k, v, seg)
-    o, lse = train_attention_fwd(qs, k, v, seg)
-    yield f"K4 bwd {label}", lambda: train_attention_bwd(qs, k, v, seg, o, lse, do)
+    label = f"S={TRAIN_S} segments {list(TRAIN_LENGTHS)} + pad Hq={hq} Hk={hk} D={d}"
+    for dtype in (torch.float32, torch.bfloat16):
+        q_, k_, v_, do_ = (x.to(dtype) for x in (qs, k, v, do))
+        kind = f"{label} {str(dtype)[6:]}"
+        yield (f"K4 fwd {kind}",
+               lambda q_=q_, k_=k_, v_=v_: train_attention_fwd(q_, k_, v_, seg))
+        o, lse = train_attention_fwd(q_, k_, v_, seg)
+        yield (f"K4 bwd {kind}",
+               lambda a=(q_, k_, v_, seg, o, lse, do_): train_attention_bwd(*a))
+    label += " bfloat16"
+    if "causal" not in inspect.signature(train_attention_fwd).parameters:
+        return
+    yield (f"K4 fwd non-causal {label}",
+           lambda: train_attention_fwd(qs, k, v, seg, causal=False))
+    o, lse = train_attention_fwd(qs, k, v, seg, causal=False)
+    yield (f"K4 bwd non-causal {label}",
+           lambda: train_attention_bwd(qs, k, v, seg, o, lse, do, causal=False))
 
 
 # K5's shapes at the 7B: projection -> (N, K, fp32 output); decode rows M = 1
@@ -307,6 +330,16 @@ def w8_cases(shapes=W8_SHAPES):
                lambda x=x, q=q, s=scale, o=out_dtype: w8a16_gemm(x, q, s, o))
 
 
+def digest(out) -> str:
+    """sha256 of the bytes of a call's output tensors, in order: two
+    checkouts' kernels that give the same bits on the same inputs give the
+    same digest."""
+    h = hashlib.sha256()
+    for x in out if isinstance(out, tuple) else (out,):
+        h.update(x.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: needs a CUDA GPU")
@@ -332,9 +365,10 @@ def main(argv: list[str]) -> int:
             if not all(bool(torch.isfinite(x.float()).all())
                        for x in (out if isinstance(out, tuple) else (out,))):
                 raise AssertionError(f"{label}: non-finite output")
-            rows.append({"case": label, "cuda_ms": cuda_ms(call), "graph_ms": graph_ms(call)})
+            rows.append({"case": label, "cuda_ms": cuda_ms(call), "graph_ms": graph_ms(call),
+                         "sha256": digest(out)})
             print(f"  {label:60s} one call {rows[-1]['cuda_ms']:.4f} ms  device "
-                  f"{rows[-1]['graph_ms']:.4f} ms", flush=True)
+                  f"{rows[-1]['graph_ms']:.4f} ms  outputs {rows[-1]['sha256'][:16]}", flush=True)
             del out
         torch.cuda.empty_cache()
     print(json.dumps(result))

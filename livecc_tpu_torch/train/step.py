@@ -36,6 +36,7 @@ import torch
 
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, VisionInputs, forward
+from livecc_tpu_torch.models.qwen2_vl.text import check_remat
 from livecc_tpu_torch.ops.chunked_ce import IGNORE_INDEX, chunked_cross_entropy
 
 
@@ -61,9 +62,13 @@ class TrainConfig:
     # gather only the supervised positions into a [ce_sup_bucket] buffer
     # before the vocab projection; overflow is dropped and counted
     ce_sup_bucket: Optional[int] = None
-    # per-layer rematerialization: True (full recompute) or False; the named
-    # JAX policies are not ported
-    remat: bool = True
+    # per-layer rematerialization (the reference's --gradient_checkpointing):
+    # True (full recompute), False, or JAX's named policies "names",
+    # "names_mlp", "dots" (models/qwen2_vl/text.py:remat_layer)
+    remat: bool | str = True
+
+    def __post_init__(self):
+        check_remat(self.remat)
 
 
 def lr_schedule(cfg: TrainConfig):

@@ -8,7 +8,14 @@ Port of ``livecc_tpu/train/trainer.py`` without a mesh:
     is full and carrying the unpacked leftovers to the next step;
   * a background thread loads and collates batch N+1 while the device runs
     step N;
-  * metrics are appended to ``<output_dir>/log.jsonl``;
+  * metrics are appended to ``<output_dir>/log.jsonl``: JAX's record
+    (step, loss, supervised tokens, elapsed seconds) and the step's timing:
+    ``wall_s`` (since the previous record, or train()'s start, to the loss
+    read back), ``load_s`` (the step's window loaded and collated, in the
+    prefetch thread but the first), ``save_s`` where the step saved,
+    ``restored_step`` and ``restore_s`` in the first record after a
+    restore, and on a GPU ``peak_gib`` (the device's peak allocation since
+    the previous record);
   * ``save`` writes ``<output_dir>/ckpt/<step>/state.pt`` with ``torch.save``
     (params, optimizer state, step: orbax is not on the GPU machine) every
     ``save_steps`` and at the last step; ``try_restore`` loads the latest.
@@ -68,6 +75,7 @@ class Trainer:
         self.opt_state = self.optimizer.init(split_frozen(model, tcfg.freeze_modules)[0])
         self.step_fn = make_train_step(cfg, tcfg, self.optimizer)
         self.step = 0
+        self._restored: dict = {}         # restored_step, restore_s: for the next record
         self._pack_buf: list = []
         os.makedirs(run.output_dir, exist_ok=True)
         self._ckpt_dir = os.path.abspath(os.path.join(run.output_dir, "ckpt"))
@@ -77,7 +85,9 @@ class Trainer:
 
     # -- checkpointing -----------------------------------------------------
 
-    def save(self) -> None:
+    def save(self) -> float:
+        """Write ``ckpt/<step>/state.pt``; returns the seconds it took."""
+        t0 = time.perf_counter()
         path = os.path.join(self._ckpt_dir, str(self.step))
         os.makedirs(path, exist_ok=True)
         state = {"params": self.model.state_dict(), "opt_state": self.opt_state,
@@ -85,6 +95,7 @@ class Trainer:
         tmp = os.path.join(path, "state.pt.tmp")
         torch.save(state, tmp)
         os.replace(tmp, os.path.join(path, "state.pt"))
+        return time.perf_counter() - t0
 
     def latest_step(self) -> int | None:
         if not os.path.isdir(self._ckpt_dir):
@@ -97,6 +108,7 @@ class Trainer:
         latest = self.latest_step()
         if latest is None:
             return False
+        t0 = time.perf_counter()
         state = torch.load(os.path.join(self._ckpt_dir, str(latest), "state.pt"),
                            map_location=self.device)
         self.model.load_state_dict(state["params"])
@@ -106,6 +118,9 @@ class Trainer:
             nu[name].copy_(state["opt_state"]["nu"][name])
         self.opt_state["count"] = state["opt_state"]["count"]
         self.step = state["step"]
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._restored = {"restored_step": latest, "restore_s": time.perf_counter() - t0}
         return True
 
     # -- loop --------------------------------------------------------------
@@ -124,6 +139,11 @@ class Trainer:
             with ThreadPoolExecutor(max_workers=self.run.loader_workers) as pool:
                 return list(pool.map(self.dataset.__getitem__, indices))
         return [self.dataset[i] for i in indices]
+
+    def _load_timed(self, rng: random.Random):
+        t0 = time.perf_counter()
+        batch = self._load_batch(rng)
+        return batch, time.perf_counter() - t0
 
     def _load_batch(self, rng: random.Random):
         samples = self._fetch(self.sample_indices(rng))
@@ -154,30 +174,47 @@ class Trainer:
         last logged record. ``on_step(step, batch, metrics)``, if given, is
         called after every step (the metrics are device tensors)."""
         rng = random.Random(self.run.seed + self.step)
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.time()
+        since = time.perf_counter()
         last = {}
         with ThreadPoolExecutor(max_workers=1) as pool:
-            future = pool.submit(self._load_batch, rng)
+            future = pool.submit(self._load_timed, rng)
             while self.step < self.run.total_steps:
-                batch = future.result()
+                batch, load_s = future.result()
                 if self.step + 1 < self.run.total_steps:
-                    future = pool.submit(self._load_batch, rng)
+                    future = pool.submit(self._load_timed, rng)
                 self.model, self.opt_state, metrics = self.step_fn(self.model, self.opt_state,
                                                                    batch)
                 self.step += 1
                 if on_step is not None:
                     on_step(self.step, batch, metrics)
+                record = None
                 if self.step % self.run.log_steps == 0 or self.step == self.run.total_steps:
-                    last = {"step": self.step, "loss": float(metrics["loss"]),
-                            "tokens": int(metrics["tokens"]),
-                            "elapsed_s": round(time.time() - t0, 2)}
+                    record = {"step": self.step, "loss": float(metrics["loss"]),
+                              "tokens": int(metrics["tokens"]),
+                              "elapsed_s": round(time.time() - t0, 2)}
+                    record.update(wall_s=time.perf_counter() - since, load_s=load_s,
+                                  **self._restored)
+                    self._restored = {}
+                    if cuda:
+                        record["peak_gib"] = torch.cuda.max_memory_allocated(self.device) / 2**30
                     dropped = int(metrics["ce_dropped"])
                     if dropped:
-                        last["ce_dropped"] = dropped
+                        record["ce_dropped"] = dropped
                         warnings.warn(f"ce_sup_bucket dropped {dropped} supervised tokens "
                                       "this step; raise TrainConfig.ce_sup_bucket")
-                    self._log(last)
                 save = self.run.save_steps
                 if save and (self.step % save == 0 or self.step == self.run.total_steps):
-                    self.save()
+                    save_s = self.save()
+                    if record is not None:
+                        record["save_s"] = save_s
+                if record is not None:
+                    self._log(record)
+                    last = record
+                    if cuda:
+                        torch.cuda.reset_peak_memory_stats(self.device)
+                    since = time.perf_counter()
         return last

@@ -140,13 +140,122 @@ def test_uncached_text_forward_remat_and_jax(jax_params, masked):
 
 
 def test_named_remat_policies_raise():
+    """The named policies are served (``test_remat_policy_matches_false_and_jax``);
+    a name that is none of ``REMAT_POLICIES`` raises, in the forward and in
+    ``TrainConfig``."""
     cfg = tiny_config()
     model = pm.Qwen2VL(cfg)
     x = torch.zeros(1, 4, cfg.text.hidden_size)
     pos = torch.zeros(3, 1, 4, dtype=torch.int32)
-    for policy in ("names", "names_mlp", "dots"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for policy in ("name", "everything", 1, None):
+        with pytest.raises(ValueError, match="remat"):
             pm.text_forward(model.text, cfg.text, x, pos, remat=policy)
+        with pytest.raises(ValueError, match="remat"):
+            pstep.TrainConfig(remat=policy)
+    for policy in pm.text.REMAT_POLICIES:
+        assert pstep.TrainConfig(remat=policy).remat == policy
+
+
+REMATS = [False, True, "names", "names_mlp", "dots"]
+
+
+def remat_run(params, remat, emb, pos, w):
+    """The uncached text tower of the tiny port model (trainable params)
+    under ``remat``: (loss, {name: grad}, bytes kept for the backward,
+    products the backward runs). Bytes: the distinct storages that reach
+    ``saved_tensors_hooks`` (a checkpoint region's inputs among them; the
+    parameters are not counted). Products: aten mm / addmm calls during
+    ``backward()`` (each product's two gradients plus its recomputation)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    cfg = tiny_config().text
+    model = port_model(params)
+    pstep.split_frozen(model, ("visual",))
+    skip = {p.untyped_storage().data_ptr() for p in model.parameters()}
+    kept = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in skip:
+            kept[st.data_ptr()] = st.nbytes()
+        return t
+
+    class Products(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+                Products.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        h, _ = pm.text_forward(model.text, cfg, T(emb), T(pos), remat=remat)
+    loss = (h * T(w)).sum()
+    with Products():
+        loss.backward()
+    grads = {n: p.grad.numpy() for n, p in model.text.named_parameters() if p.grad is not None}
+    return float(loss.detach()), grads, sum(kept.values()), Products.n
+
+
+@pytest.fixture(scope="module")
+def remat_runs(jax_params):
+    rng = np.random.RandomState(3)
+    b, s, h = 1, 48, tiny_config().text.hidden_size
+    emb, w = (rng.randn(b, s, h).astype(np.float32) for _ in range(2))
+    pos = np.broadcast_to(np.arange(s)[None, None], (3, b, s)).astype(np.int32)
+    return (emb, pos, w), {r: remat_run(jax_params, r, emb, pos, w) for r in REMATS}
+
+
+@pytest.mark.parametrize("remat", REMATS)
+def test_remat_policy_matches_false_and_jax(jax_params, remat_runs, remat):
+    """Each policy's loss and gradients equal remat=False's (fp32, 1e-5 of
+    each gradient's scale) and JAX's ``text_forward`` under the same policy
+    (``remat_policy``). The named policies' regions split the layer's ops
+    without running one twice, so their backward graph is remat=True's:
+    loss and gradients bit-equal to it."""
+    (emb, pos, w), runs = remat_runs
+    loss, grads, _, _ = runs[remat]
+    ref_loss, ref_grads, _, _ = runs[False]
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-6)
+    assert grads.keys() == ref_grads.keys()
+    for n, g in grads.items():
+        assert np.abs(g - ref_grads[n]).max() <= 1e-5 * np.abs(ref_grads[n]).max(), n
+    if remat:
+        assert loss == runs[True][0]
+        for n, g in grads.items():
+            np.testing.assert_array_equal(g, runs[True][1][n], err_msg=n)
+
+    def jloss(p):
+        h, _ = jm.text_forward(p, jax_tiny_config().text, jnp.asarray(emb), jnp.asarray(pos),
+                               remat=remat)
+        return jnp.sum(h * w)
+
+    jl, jg = jax.value_and_grad(jloss)(jax_params["text"])
+    np.testing.assert_allclose(loss, float(jl), rtol=1e-5)
+    ref = dict(port_model({"visual": jax_params["visual"], "text": jg}).text.named_parameters())
+    for n, g in grads.items():
+        r = ref[n].detach().numpy()
+        assert np.abs(g - r).max() <= 1e-5 * np.abs(r).max(), n
+
+
+def test_remat_policies_keep_ordered_bytes_and_rerun_no_kept_product(remat_runs):
+    """Bytes kept for the backward, strictly: True < "names" < "names_mlp"
+    < False and "names" < "dots" < False, so a policy that silently equals
+    True or False fails. And the products the backward runs (two
+    gradients of each of the 7 per layer, plus what it recomputes): a
+    region's recomputation stops at its last product's saved inputs, so
+    True reruns all but down_proj; "names" and "names_mlp" rerun q and k
+    (their region ends with v) and gate and up (whose outputs silu's
+    backward reads, as in JAX); "dots" q, k and gate (its gate / up region
+    ends with up)."""
+    _, runs = remat_runs
+    kept = {r: run[2] for r, run in runs.items()}
+    assert kept[True] < kept["names"] < kept["names_mlp"] < kept[False], kept
+    assert kept["names"] < kept["dots"] < kept[False], kept
+    layers = tiny_config().text.num_hidden_layers
+    products = {r: run[3] for r, run in runs.items()}
+    assert products == {False: 14 * layers, True: 20 * layers, "names": 18 * layers,
+                        "names_mlp": 18 * layers, "dots": 17 * layers}, products
 
 
 # ---------------------------------------------------------------------------

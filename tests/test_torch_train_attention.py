@@ -186,9 +186,106 @@ def test_wrapper_rejects_unknown_impl_and_device():
 
 
 def test_only_causal_training_attention_is_served():
-    """JAX's signature keeps ``causal``; no training caller passes False,
-    and the port raises for it rather than serve it."""
-    x = torch.zeros(1, 4, 2, 8)
-    with pytest.raises(NotImplementedError):
-        pattn.train_flash_attention(x, x, x, causal=False)
-    assert pattn.train_flash_attention(x, x, x, causal=True).shape == x.shape
+    """JAX's signature keeps ``causal``; every training caller passes True.
+    ``causal=False`` is served too, as splash's ``FullMask`` form (the
+    segments alone): it differs from the causal form where a later key of
+    the segment is attended."""
+    q, k, v, _ = inputs(5, 1, 12, 2, 1, 8)
+    full = pattn.train_flash_attention(T(q), T(k), T(v), causal=False)
+    causal = pattn.train_flash_attention(T(q), T(k), T(v), causal=True)
+    assert full.shape == causal.shape == q.shape
+    np.testing.assert_allclose(full[:, -1].numpy(), causal[:, -1].numpy(), atol=1e-6)
+    assert not torch.allclose(full[:, :-1], causal[:, :-1])
+
+
+@pytest.mark.parametrize("mask_kind", ["segments", "bool"])
+def test_noncausal_matches_jax_splash_interpret(mask_kind):
+    """K4's non-causal form (splash ``FullMask`` with segment ids): the
+    plain forward and its vjp through ``train_flash_attention(causal=False)``
+    against JAX ``_train_splash(causal=False, interpret=True)``, fp32,
+    packed rows with a pad tail, every row."""
+    b, s, hq, hk, d = 1, 256, 4, 2, 32
+    q, k, v, w = inputs(6, b, s, hq, hk, d)
+    mask = segments(b, s, [100, 90]) if mask_kind == "segments" else np.arange(s)[None] < 200
+    qt, kt, vt = (T(x).requires_grad_() for x in (q, k, v))
+    o = pattn.train_flash_attention(qt, kt, vt, T(mask), causal=False)
+    (o * T(w)).sum().backward()
+
+    def f(q_, k_, v_):
+        out = jattn._train_splash(q_, k_, v_, jnp.asarray(mask), False, interpret=True)
+        return jnp.sum(out * w), out
+
+    (_, jo), jgrads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), atol=1e-5, rtol=0)
+    for g, jg in zip((qt, kt, vt), jgrads):
+        np.testing.assert_allclose(g.grad.numpy(), np.asarray(jg), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("explicit", [False, True])
+def test_noncausal_matches_jax_mha_segment_mask(explicit):
+    """The non-causal plain forward and vjp against JAX ``mha`` with the
+    segment mask alone (pads attend pads, as in splash), fp32, GQA, two rows
+    packed differently with pad tails; through the autograd ``Function``
+    (``explicit``: the plain backward ``train_attention_bwd_plain``) or
+    through autograd of the plain forward."""
+    b, s, hq, hk, d = 2, 70, 6, 2, 16
+    q, k, v, w = inputs(7, b, s, hq, hk, d)
+    seg = segments(b, s, [30, 25])
+    seg[1] = segments(1, s, [10, 40, 12])[0]
+    qs = T(q) * d ** -0.5
+    args = [x.clone().requires_grad_() for x in (qs, T(k), T(v))]
+    if explicit:
+        o = TrainAttention.apply(*args, T(seg), False)
+    else:
+        o = train_attention_fwd_plain(*args, T(seg), causal=False)[0]
+    (o * T(w)).sum().backward()
+
+    def f(q_, k_, v_):
+        m = jnp.asarray(seg)[:, None, :, None] == jnp.asarray(seg)[:, None, None, :]
+        out = jattn.mha(q_, k_, v_, mask=m)
+        return jnp.sum(out * w), out
+
+    (_, jo), jgrads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(jo), atol=1e-5, rtol=0)
+    grads = (args[0].grad * d ** -0.5, args[1].grad, args[2].grad)   # dq for the unscaled q
+    for g, jg in zip(grads, jgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jg), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_backward_equals_the_plain_one(dtype):
+    """``kernel_check.train_attention_bwd_blocked`` (query rows in blocks of
+    64, dk and dv summed over the blocks in fp32; the reference of K4's
+    backward where the whole plain version does not fit) against
+    ``train_attention_bwd_plain`` on packed segments with a pad tail: dq
+    bit-equal, dk and dv within fp32's summation order (1e-5), or one bf16
+    step (rtol 2**-7) where a sum rounds the other way. In bf16, as the
+    reference of ``grad_close`` against the fp32 plain version: the plain
+    version passes it, a dropped tile pair (``dropped_tile``) fails it."""
+    from livecc_tpu_torch.tools import kernel_check
+
+    gen = torch.Generator().manual_seed(0)
+    s, (hq, hk, d) = 300, (4, 2, 16)
+    qs, k, v, do = (torch.randn((1, s, h, d), generator=gen).to(dtype) for h in (hq, hk, hk, hq))
+    qs = (qs.float() * d ** -0.5).to(dtype)
+    seg = T(segments(1, s, [120, 110]))
+    o, lse = train_attention_fwd_plain(qs, k, v, seg)
+    ref = train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
+    blk = kernel_check.train_attention_bwd_blocked(qs, k, v, seg, o, lse, do, rows=64)
+    assert torch.equal(blk[0], ref[0])
+    for b, r in zip(blk[1:], ref[1:]):
+        assert b.dtype == r.dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(b, r, rtol=1e-5, atol=1e-5)
+        else:
+            torch.testing.assert_close(b.float(), r.float(), rtol=2 ** -7, atol=1e-6)
+    if dtype == torch.bfloat16:
+        f32 = [x.float() for x in (qs, k, v)]
+        r32 = train_attention_bwd_plain(*f32, seg, *train_attention_fwd_plain(*f32, seg),
+                                        do.float())
+        bad = kernel_check.dropped_tile(qs, k, v, seg, do, o, lse, blk, 1, 0, 3)[2:]
+        for b, r, x, fault in zip(blk, ref, r32, bad):
+            assert kernel_check.grad_close(r, b, x) <= 1.0
+            assert kernel_check.grad_close(fault, b, x) > 1.0

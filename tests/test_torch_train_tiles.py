@@ -11,10 +11,16 @@ tile by tile and held to the references in bf16 by ``kernel_check.close``:
   * the backward's dK/dV kernel works in the transposed form, P^T and
     dS^T rounded to bf16 as the A operands of dV += P^T dO and dK += dS^T
     Q, walking the group's q heads and the query tiles; the dQ kernel
-    rounds dS to bf16 for dQ += dS K.
+    rounds dS to bf16 for dQ += dS K;
+  * every kernel walks only its live tiles (``live_tiles``: the tiles that
+    hold one of the block's ids), the forward's and dQ's up to the
+    diagonal and dK/dV's from it on in the causal form, all of them in the
+    non-causal one (``causal=False``, splash's ``FullMask``).
 
 The references: JAX ``_train_splash`` in interpret mode (the Pallas splash
-kernels on the CPU) and the port's plain versions.
+kernels on the CPU) and the port's plain versions, causal and not; the
+planted fault of the non-causal form, ``kernel_check.causal_walk`` (the
+causal walk and mask kept), must fail.
 """
 
 import re
@@ -44,6 +50,7 @@ P_TERMS = 3         # bf16 parts of the forward's p: kPTerms of HEADER
 # 7 q heads on one KV head at D = 128, three packed segments and a pad tail
 S, HQ, HK, D = 1000, 7, 1, 128
 LENGTHS = (300, 290, 310)
+EXT_ID = 99         # the segment of the rows that extend S to splash's 1024
 
 
 def segments(s, lengths):
@@ -79,13 +86,48 @@ def split_bf16(p, terms):
     return parts
 
 
-def fwd_tiles(qs, k, v, seg, terms=P_TERMS):
+def live_tiles(seg, r0, t0, t1):
+    """The kernels' ``live_tiles`` (batch row 0): the tiles t in [t0, t1)
+    that hold an id of rows [r0, r0 + TILE), exactly when those rows hold
+    at most two ids, else any id in their range."""
+    ids = seg[0, r0:r0 + TILE]
+    lo, hi = ids.min(), ids.max()
+    three = bool(((ids != lo) & (ids != hi)).any())
+    out = []
+    for t in range(t0, t1):
+        x = seg[0, t * TILE:(t + 1) * TILE]
+        if bool((((x >= lo) & (x <= hi)) if three else ((x == lo) | (x == hi))).any()):
+            out.append(t)
+    return out
+
+
+def walked(seg, causal, by_keys=False):
+    """bool [1, 1, S, S] (queries, keys): the tile pairs the kernels walk.
+    The forward and dQ: each query tile's live key tiles up to its diagonal
+    (all of them when not ``causal``); dK/dV (``by_keys``): each key
+    tile's live query tiles from its diagonal on (all when not ``causal``)."""
+    s = seg.shape[1]
+    n = -(-s // TILE)
+    mask = torch.zeros((s, s), dtype=torch.bool)
+    for own in range(n):
+        if by_keys:
+            span = (own if causal else 0, n)
+        else:
+            span = (0, own + 1 if causal else n)
+        for other in live_tiles(seg, own * TILE, *span):
+            qt, kt = (other, own) if by_keys else (own, other)
+            mask[qt * TILE:(qt + 1) * TILE, kt * TILE:(kt + 1) * TILE] = True
+    return mask[None, None]
+
+
+def fwd_tiles(qs, k, v, seg, terms=P_TERMS, causal=True):
     """The forward kernel's arithmetic: (o in fp32 before its rounding, lse).
     p meets V as ``terms`` bf16 parts (``split_bf16``; 1 is K1's
-    p.astype(v.dtype)), or as exact fp32 p with ``terms=None``."""
+    p.astype(v.dtype)), or as exact fp32 p with ``terms=None``. A tile pair
+    the kernel does not walk takes no part (``walked``)."""
     g = qs.shape[2] // k.shape[2]
     q, kk, vv = heads(qs, 1), heads(k, g), heads(v, g)
-    allowed = _allowed(seg)
+    allowed = _allowed(seg, causal) & walked(seg, causal)
     m = torch.full(q.shape[:-1] + (1,), MASK_VALUE)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(q)
@@ -104,17 +146,19 @@ def fwd_tiles(qs, k, v, seg, terms=P_TERMS):
     return (acc / l).transpose(1, 2), (m + torch.log(l)).squeeze(-1)
 
 
-def bwd_tiles(qs, k, v, seg, o, lse, do):
+def bwd_tiles(qs, k, v, seg, o, lse, do, causal=True):
     """The backward kernels' arithmetic: (dq for qs, dk, dv) in bf16. dK/dV
     in the transposed form, walking the group's q heads and the query
-    tiles in the kernel's order; dQ over the key tiles."""
+    tiles in the kernel's order; dQ over the key tiles; each over the tile
+    pairs its kernel walks."""
     b, s, hq, d = qs.shape
     hk = k.shape[2]
     g = hq // hk
     q, dot = heads(qs, 1), heads(do, 1)                    # [B, Hq, S, D]
     kk, vv = heads(k, 1), heads(v, 1)                      # [B, Hk, S, D]
     di = (o.float() * do.float()).sum(-1).transpose(1, 2)  # [B, Hq, S]
-    allowed_t = _allowed(seg).transpose(-1, -2)            # [B, 1, keys, queries]
+    allowed_t = (_allowed(seg, causal)
+                 & walked(seg, causal, by_keys=True)).transpose(-1, -2)   # [B, 1, keys, queries]
     dk, dv = torch.zeros_like(kk), torch.zeros_like(vv)
     for gi in range(g):
         heads_g = [kvh * g + gi for kvh in range(hk)]
@@ -127,7 +171,7 @@ def bwd_tiles(qs, k, v, seg, o, lse, do):
             dv = dv + pt.to(BF16).float() @ dt
             dst = pt * (vv @ dt.transpose(-1, -2) - di[:, heads_g, None, cols])
             dk = dk + dst.to(BF16).float() @ qt
-    allowed = _allowed(seg)
+    allowed = _allowed(seg, causal) & walked(seg, causal)
     kr, vr = kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1)
     dq = torch.zeros_like(q)
     for k0 in range(0, s, TILE):
@@ -149,22 +193,22 @@ def tiles():
     return (o, lse, *bwd_tiles(qs, k, v, seg, o, lse, do))
 
 
-def jax_splash(q, k, v, do, seg):
+def jax_splash(q, k, v, do, seg, causal=True):
     """JAX ``_train_splash`` in interpret mode on the same bf16 inputs: (o,
     dq for the unscaled q, dk, dv). Splash takes S in multiples of 128, so
-    the rows are extended to 1024 by pad rows (id 0, zero cotangent): being
-    after every real row, no real query attends them and their zero
-    cotangent adds nothing to any gradient."""
+    the rows are extended to 1024 by rows of a segment of their own (id
+    ``EXT_ID``, zero cotangent): no real query attends them, causal or
+    not, and their zero cotangent adds nothing to any gradient."""
     ext = 1024 - S
 
     def pad(x):
         return jnp.pad(jnp.asarray(x.float().numpy()), ((0, 0), (0, ext), (0, 0), (0, 0)))
 
-    seg_j = jnp.pad(jnp.asarray(seg.numpy()), ((0, 0), (0, ext)))
+    seg_j = jnp.pad(jnp.asarray(seg.numpy()), ((0, 0), (0, ext)), constant_values=EXT_ID)
     w = pad(do)
 
     def f(q_, k_, v_):
-        out = jattn._train_splash(q_, k_, v_, seg_j, True, interpret=True)
+        out = jattn._train_splash(q_, k_, v_, seg_j, causal, interpret=True)
         return jnp.sum(out.astype(jnp.float32) * w), out
 
     (_, o), grads = jax.value_and_grad(f, argnums=(0, 1, 2), has_aux=True)(
@@ -279,3 +323,62 @@ def test_train_tiles_are_the_kernels_constants():
     for name, value in (("kTrainMmaTileQ", TILE), ("kTrainMmaTileK", TILE),
                         ("kPTerms", P_TERMS)):
         assert re.findall(rf"constexpr int {name} = (\d+);", text) == [str(value)]
+
+
+@pytest.fixture(scope="module")
+def full_tiles():
+    """The emulated kernels' five outputs on ``case()`` in the non-causal
+    form."""
+    _, qs, k, v, do, seg = case()
+    o32, lse = fwd_tiles(qs, k, v, seg, causal=False)
+    o = o32.to(BF16)
+    return (o, lse, *bwd_tiles(qs, k, v, seg, o, lse, do, causal=False))
+
+
+def test_walks_cover_the_live_tiles():
+    """The causal walks stop at (forward, dQ) or start from (dK/dV) the
+    diagonal; the non-causal walks reach every tile that shares an id with
+    the block's own, so every pair the non-causal mask allows is walked."""
+    seg = case()[5]
+    full = _allowed(seg, False)
+    assert not (full & ~walked(seg, False)).any()
+    assert not (full & ~walked(seg, False, by_keys=True)).any()
+    assert not (_allowed(seg) & ~walked(seg, True)).any()
+    assert (full & ~walked(seg, True)).any()
+    assert walked(seg, False).sum() < S * S           # segments that cannot meet are skipped
+
+
+@pytest.mark.parametrize("ref", ["jax_splash", "plain"])
+def test_noncausal_tiles_match_the_references(full_tiles, ref):
+    """The non-causal walk's arithmetic against JAX splash with a
+    ``FullMask`` in interpret mode and against the non-causal plain
+    versions, as ``test_tiles_match_the_references`` holds the causal one
+    (no query is alone in its segment here, so dq is held on every row)."""
+    q, qs, k, v, do, seg = case()
+    o, lse, dq, dk, dv = full_tiles
+    if ref == "jax_splash":
+        refs = jax_splash(q, k, v, do, seg, causal=False)
+        dq, dk, dv = bwd_tiles(qs, k, v, seg, refs[0], lse, do, causal=False)
+        outs, dtypes = (o, (dq.float() * D ** -0.5).to(BF16), dk, dv), (BF16,) * 4
+    else:
+        ro, rlse = train_attention_fwd_plain(qs, k, v, seg, causal=False)
+        outs = full_tiles
+        refs = (ro, rlse, *train_attention_bwd_plain(qs, k, v, seg, ro, rlse, do, causal=False))
+        dtypes = (BF16, torch.float32, BF16, BF16, BF16)
+    for out, r, dt in zip(outs, refs, dtypes):
+        assert kernel_check.close(out, r, dt) <= 1.0
+
+
+def test_causal_walk_fails_the_noncausal_tiles(full_tiles):
+    """``kernel_check.causal_walk``, the non-causal outputs as kernels that
+    kept the causal walk and mask would give them, fails the check of each
+    of o, lse, dq, dk and dv against the non-causal emulation at least 5x
+    over; and the emulation run with the causal walk is that fault."""
+    _, qs, k, v, do, seg = case()
+    o, lse = full_tiles[:2]
+    fault = kernel_check.causal_walk(qs, k, v, seg, do, o, lse)
+    for out, bad, dt in zip(full_tiles, fault, (BF16, torch.float32, BF16, BF16, BF16)):
+        assert kernel_check.close(bad, out, dt) >= 5.0
+    causal_o, causal_lse = fwd_tiles(qs, k, v, seg)
+    assert kernel_check.close(causal_o.to(BF16), fault[0], BF16) <= 1.0
+    assert kernel_check.close(causal_lse, fault[1], torch.float32) <= 1.0
