@@ -87,6 +87,9 @@ Phases (any failure raises and the script exits non-zero):
      tiny_w8   — the tiny engine of ``tiny`` with int8 weights
                  (``quantize_weights=True``): CPU (plain) and GPU (K5's fp32
                  form) give identical text; K5 launched.
+     tiny_asr  — the tiny Whisper in fp32 (``models/whisper``): CPU and GPU
+                 give identical greedy tokens on three seeded mels, to EOS
+                 and with EOS out of reach (to the clamp).
   6. main      — the single-stream session of ``livecc_tpu_torch/tools/
                  session.py``: Qwen2-VL-7B at full width and depth, bf16,
                  random weights drawn on the card from a seeded generator;
@@ -161,6 +164,36 @@ Phases (any failure raises and the script exits non-zero):
                  (``serving_chunk_flops``); one caption. Where Pillow is
                  installed, ``eval.cli.main mvbench`` on the tiny model over
                  a frame directory (else it says so).
+     asr       — Whisper large-v3-turbo at full width and depth
+                 (``phase_asr``): fp32 weights drawn on the card from a
+                 seed, written as an HF checkpoint under build/
+                 (``save_whisper_checkpoint``), loaded by
+                 ``tools/asr.py:WhisperTranscriber`` in bf16 on the card;
+                 90 s of seeded PCM through its ``audio_loader`` in 3
+                 segments, each decoded greedily (to the 447-token cap on
+                 random weights); words in every segment; segment 0's
+                 encoder states and first-step logits within
+                 ``ASR_REL_TOL`` of the checkpoint in fp32 on the card.
+                 Wall, each segment's encode / decode seconds and tokens,
+                 the real-time factor, peak memory.
+     produce   — the corpus scorers on main's 7B (``phase_produce``):
+                 ``tools/lmm4asd.py:TalkingHeadPredictor`` over 64 seeded
+                 clips (8 frames each as images of 308x168: 512 ViT groups
+                 of g = 264, rows of ~730 tokens in the 1024 bucket) at
+                 batch 64, and at batch 1 on 4 of them (within
+                 ``LMM_LOG_TOL`` in log space); ``tools/filters.py:
+                 lm_loss_scores`` on 8 transcripts of 1025-1985 tokens;
+                 each again under the profiler (bit-equal; busy, idle,
+                 device time by group); the asr phase's words through
+                 ``clips_for_pretrain`` -> ``to_conversation`` ->
+                 ``write_corpus`` and one row read back by ``LMMDataset``.
+                 Then K3 at NG = 512, g = 264 and K4's forward at B = 64,
+                 S = 1024 (pads as segment 0) and at B = 1, S = 2048 on
+                 random bf16 inputs (``produce_kernels``): held by
+                 ``close`` against the blocked plain versions, a dropped
+                 key tile failing; two launches bit-equal; kernel, plain
+                 and SDPA timed beside the bound (the kernels line's
+                 ``produce`` key of K3 and K4's forward).
  10. checkpoint_live — the front door on main's 7B: written as an HF
                  checkpoint (bf16 safetensors shards of ~5 GB with an index,
                  config.json from tests/fixtures/qwen2_vl_7b_config.json)
@@ -217,11 +250,20 @@ Phases (any failure raises and the script exits non-zero):
                  against ``kernel_check``'s blocked plain versions (the
                  backward by ``grad_close``; a dropped tile must fail each
                  check), timed at 32768.
+ 14. midsize   — the port's forward at the 7B's width (4 LLM layers, 4
+                 ViT blocks; weights from ``utils/param_recipe.py``)
+                 against HF's golden ``tests/goldens/hf_midsize.npz``
+                 (``tools/midsize.py``): text, multimodal with its
+                 positions, the streaming continuation and the vision
+                 tower through K4's forward, K3 and K1; fp32 within JAX's
+                 limits, then the model rounded to bf16 within
+                 ``midsize.BF16``.
 
 Launch counts are reset just before each of main, pool, main_spec (and
 its worst case), pool_spec, main_w8 (and its lookahead session), pool_w8,
 eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs,
-train and train_cli's two CLI runs and read just after; every kernel of
+train, train_cli's two CLI runs, produce's batch and lm_loss runs and
+midsize's two runs and read just after; every kernel of
 that path must have launched. Every phase always
 runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
 and, as its last line, ``{"ok": true, "device": {...}}``. It imports nothing
@@ -317,6 +359,20 @@ CLI_VOCAB = ("pass", "shot", "goal", "cross", "header", "save", "corner", "tackl
              "ball", "keeper", "wide", "striker", "midfield", "counter", "press", "offside",
              "foul", "free", "kick", "and", "the", "he", "into", "box", "what", "a", "finish")
 CLI_REMATS = (True, "names", "names_mlp", "dots")
+# asr: Whisper large-v3-turbo from seed ASR_SEED on ASR_SECONDS s of seeded
+# PCM; bf16 against fp32 on the card, ||bf16 - fp32|| / ||fp32||
+ASR_SECONDS, ASR_SEED, ASR_REL_TOL = 90, 5, 5e-2
+# produce: the lmm4asd filter over LMM_CLIPS clips (LMM_SECONDS s of an
+# LMM_SOURCE_HW source at LMM_FPS) at batch LMM_BATCH, and at batch 1 on
+# LMM_SINGLE of them, whose P('Yes') must stay within LMM_LOG_TOL of the
+# batch's in log space; lm_loss on transcripts of about LM_LOSS_CHARS
+# characters (1000-2048 tokens)
+LMM_CLIPS, LMM_BATCH, LMM_SINGLE = 64, 64, 4
+LMM_SECONDS, LMM_SOURCE_HW, LMM_FPS = 60, (360, 640), 2.0
+LMM_LOG_TOL = 0.25
+LM_LOSS_CHARS = (940, 1080, 1220, 1360, 1500, 1640, 1780, 1920)
+PRODUCE_KERNELS = ("vit_group_attention", "train_attention_fwd")
+MIDSIZE_KERNELS = ("vit_group_attention", "train_attention_fwd", "flash_prefill")
 
 
 def log(msg: str) -> None:
@@ -2345,6 +2401,59 @@ def heaviest_key_tile(q, k, allowed) -> int:
     return int(total.argmax())
 
 
+def vit_held(q, k, v, label: str, required: bool) -> float:
+    """K3 on bf16 q, k, v [NG, g, H, D] against ``kernel_check``'s blocked
+    plain version by ``held``, with the heaviest key tile of the last
+    group's last query tile (head 3) dropped as the planted fault."""
+    import torch
+
+    from livecc_tpu_torch.ops.vit_attention import vit_group_attention
+    from livecc_tpu_torch.tools import kernel_check
+
+    ng, g, h, d = q.shape
+    tile = kernel_check.TILE
+    out = vit_group_attention(q, k, v)
+    ref = kernel_check.vit_group_attention_blocked(q, k, v)
+    qt = (g - 1) // tile
+    rows = slice(qt * tile, g)
+    kt = heaviest_key_tile(q[-1, rows, 3].float() * d ** -0.5, k[-1, :, 3].float(),
+                           torch.ones((g - rows.start, g), dtype=torch.bool, device=q.device))
+    qn, kn, vn, rn = (x.reshape(ng * g, h, d) for x in (q, k, v, ref))
+    fault = kernel_check.vit_drop_key_tile(rn, qn, kn, vn, list(range(0, (ng + 1) * g, g)),
+                                           ng - 1, qt, kt, head=3)
+    return held("vit_group_attention", label, out, ref, fault.view(ref.shape), required,
+                f"dropped key tile {kt} of query tile {qt}")
+
+
+def k4_fwd_held(qs, k, v, seg, n_real: int, label: str, required: bool) -> float:
+    """K4's forward on pre-scaled qs [B, S, Hq, D], k, v and segment ids
+    against ``kernel_check``'s blocked plain version by ``held`` (lse by
+    ``close`` in fp32), with the heaviest key tile of batch row 0's last
+    full query tile of its first ``n_real`` tokens (head 3) dropped as the
+    planted fault."""
+    import torch
+
+    from livecc_tpu_torch.ops.train_attention import train_attention_fwd
+    from livecc_tpu_torch.tools import kernel_check
+
+    s, hq, hk = qs.shape[1], qs.shape[2], k.shape[2]
+    tile = kernel_check.TILE
+    o, lse = train_attention_fwd(qs, k, v, seg)
+    ro, rlse = kernel_check.train_attention_fwd_blocked(qs, k, v, seg)
+    qt = n_real // tile - 1
+    rows = slice(qt * tile, (qt + 1) * tile)
+    pos = torch.arange(s, device=qs.device)
+    kt = heaviest_key_tile(qs[0, rows, 3].float(), k[0, :, 3 // (hq // hk)].float(),
+                           (pos[None, :] <= pos[rows, None]) & (seg[0, None, :] == 1))
+    bad_o, _ = kernel_check.dropped_fwd_tile(qs, k, v, seg, ro, rlse, qt, kt, 3)
+    lse_share = kernel_check.close(lse, rlse, torch.float32)
+    log(f"  {'train_attention_fwd':20s} {label} lse: worst {lse_share:.3f} of the fp32 limit")
+    if not lse_share <= 1.0:
+        raise AssertionError(f"train_attention_fwd {label}: lse {lse_share:.3f}x the limit")
+    return held("train_attention_fwd", label, o, ro, bad_o, required,
+                f"dropped key tile {kt} of query tile {qt}")
+
+
 def eval_kernels(store: dict, n_real: int) -> dict:
     """K3 and K4's forward at the item's shapes against ``kernel_check``'s
     blocked plain versions (group by group; 1024 query rows at a time) by
@@ -2363,51 +2472,18 @@ def eval_kernels(store: dict, n_real: int) -> dict:
     from livecc_tpu_torch.ops.vit_attention import vit_group_attention
     from livecc_tpu_torch.tools import kernel_check
 
-    bf16, tile = torch.bfloat16, kernel_check.TILE
     gen = torch.Generator(device=store["vit"][0].device).manual_seed(14)
     results = {}
 
     def randn_like(x):
         return torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
 
-    def vit_check(q, k, v, label, required):
-        ng, g, h, d = q.shape
-        out = vit_group_attention(q, k, v)
-        ref = kernel_check.vit_group_attention_blocked(q, k, v)
-        qt = (g - 1) // tile
-        rows = slice(qt * tile, g)
-        kt = heaviest_key_tile(q[-1, rows, 3].float() * d ** -0.5, k[-1, :, 3].float(),
-                               torch.ones((g - rows.start, g), dtype=torch.bool, device=q.device))
-        qn, kn, vn, rn = (x.reshape(ng * g, h, d) for x in (q, k, v, ref))
-        fault = kernel_check.vit_drop_key_tile(rn, qn, kn, vn, list(range(0, (ng + 1) * g, g)),
-                                               ng - 1, qt, kt, head=3)
-        return held("vit_group_attention", label, out, ref, fault.view(ref.shape), required,
-                    f"dropped key tile {kt} of query tile {qt}")
-
-    def k4_check(qs, k, v, seg, label, required):
-        s, hq, hk = qs.shape[1], qs.shape[2], k.shape[2]
-        o, lse = train_attention_fwd(qs, k, v, seg)
-        ro, rlse = kernel_check.train_attention_fwd_blocked(qs, k, v, seg)
-        qt = n_real // tile - 1                     # the item's last full query tile
-        rows = slice(qt * tile, (qt + 1) * tile)
-        pos = torch.arange(s, device=qs.device)
-        kt = heaviest_key_tile(qs[0, rows, 3].float(), k[0, :, 3 // (hq // hk)].float(),
-                               (pos[None, :] <= pos[rows, None]) & (seg[0, None, :] == 1))
-        bad_o, _ = kernel_check.dropped_fwd_tile(qs, k, v, seg, ro, rlse, qt, kt, 3)
-        lse_share = kernel_check.close(lse, rlse, torch.float32)
-        log(f"  {'train_attention_fwd':20s} {label} lse: worst {lse_share:.3f} of the fp32 "
-            f"limit")
-        if not lse_share <= 1.0:
-            raise AssertionError(f"train_attention_fwd {label}: lse {lse_share:.3f}x the limit")
-        return held("train_attention_fwd", label, o, ro, bad_o, required,
-                    f"dropped key tile {kt} of query tile {qt}")
-
     with torch.inference_mode():
         q, k, v = store["vit"]
         ng, g, h, d = q.shape
         shape = f"NG={ng} g={g} H={h} D={d} bf16"
-        err = vit_check(q, k, v, f"{shape} (the item's last ViT block)", False)
-        err = max(err, vit_check(*(randn_like(x) for x in (q, k, v)), f"{shape} (random)", True))
+        err = vit_held(q, k, v, f"{shape} (the item's last ViT block)", False)
+        err = max(err, vit_held(*(randn_like(x) for x in (q, k, v)), f"{shape} (random)", True))
         results["vit_group_attention"] = timed_eval(
             "vit_group_attention", shape, err,
             fns=(lambda: vit_group_attention(q, k, v),
@@ -2420,9 +2496,9 @@ def eval_kernels(store: dict, n_real: int) -> dict:
         hk = k.shape[2]
         qs, seg = prescaled(q), seg_of(q, mask)
         shape = f"B={b} S={s} segment {n_real} + pad {s - n_real} Hq={hq} Hk={hk} D={d} bf16"
-        err = k4_check(qs, k, v, seg, f"{shape} (the item's last LLM layer)", False)
-        err = max(err, k4_check(prescaled(randn_like(q)), randn_like(k), randn_like(v), seg,
-                                f"{shape} (random)", True))
+        err = k4_fwd_held(qs, k, v, seg, n_real, f"{shape} (the item's last LLM layer)", False)
+        err = max(err, k4_fwd_held(prescaled(randn_like(q)), randn_like(k), randn_like(v), seg,
+                                   n_real, f"{shape} (random)", True))
         pairs = causal_pairs((n_real,), s)
         results["train_attention_fwd"] = timed_eval(
             "train_attention_fwd", shape, err,
@@ -3217,6 +3293,426 @@ def remat_ab(cfg, ckpt: str, sample: dict, checked: dict) -> None:
     del model, batch, micro, runs, ref32
 
 
+# ---------------------------------------------------------------------------
+# data production: ASR, the corpus scorers, the Live-CC JSONL
+# ---------------------------------------------------------------------------
+
+def phase_tiny_asr():
+    """The tiny Whisper in fp32 (weights drawn on the CPU from a seed): the
+    CPU and the card give identical greedy tokens on three seeded mels, once
+    to EOS and once with EOS out of reach (to the clamp)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from livecc_tpu_torch.models import whisper as pw
+
+    cfg = pw.tiny_whisper_config()
+    cpu = pw.init_whisper(cfg, torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).to("cuda")
+    for c in (cfg, dataclasses.replace(cfg, eos_token_id=-1)):
+        for seed in range(3):
+            mel = np.random.RandomState(seed).randn(
+                c.num_mel_bins, 2 * c.max_source_positions).astype(np.float32)
+            want = pw.greedy_transcribe_tokens(cpu, c, mel, [c.decoder_start_token_id])
+            got = pw.greedy_transcribe_tokens(gpu, c, mel, [c.decoder_start_token_id])
+            if got != want or not got:
+                raise AssertionError(f"tiny asr seed {seed}: CPU {want} and GPU {got} differ")
+        log(f"  tiny whisper, eos {c.eos_token_id}: CPU and GPU tokens identical on 3 mels "
+            f"(last: {len(got)} tokens)")
+
+
+def asr_decode_text(ids) -> str:
+    """The asr phase's ``decode_text``: token id i is the word
+    ``CLI_VOCAB[i % len(CLI_VOCAB)]``."""
+    return " ".join(CLI_VOCAB[i % len(CLI_VOCAB)] for i in ids)
+
+
+def rel_err(a, b) -> float:
+    """||a - b|| / ||b|| in fp32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_asr() -> list:
+    """Whisper large-v3-turbo (``WhisperConfig()``: 32 encoder and 4
+    decoder layers of d 1280) through ``tools/asr.py:WhisperTranscriber``.
+    fp32 weights drawn on the card from seed ``ASR_SEED`` are written under
+    build/ as an HF checkpoint (``save_whisper_checkpoint``) and loaded back
+    by the transcriber in bf16 on the card; ``ASR_SECONDS`` s of seeded PCM
+    reach it through its ``audio_loader`` (this machine may have no FFmpeg),
+    in segments of 30 s. Random weights seldom reach EOS, so a segment
+    decodes to the 447-token cap, the worst case. Checks words in every
+    segment, spans in order, and the bf16 encoder states and first-step
+    logits of segment 0 within ``ASR_REL_TOL`` of the same checkpoint in
+    fp32 on the card. Prints the wall, each segment's encode and decode
+    seconds and tokens, the real-time factor and the peak device memory.
+    Returns the words."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from livecc_tpu_torch.audio.mel import SAMPLE_RATE, log_mel_spectrogram
+    from livecc_tpu_torch.models import whisper as pw
+    from livecc_tpu_torch.models.whisper import model as whisper_model
+    from livecc_tpu_torch.models.whisper.model import decoder_hidden, lm_logits
+    from livecc_tpu_torch.tools.asr import WhisperTranscriber
+    from livecc_tpu_torch.tools.checkpoint import save_whisper_checkpoint
+
+    cfg = pw.WhisperConfig()
+    ckpt = os.path.join(ROOT, "build", "asr_whisper")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.perf_counter()
+    model = pw.init_whisper(cfg, torch.Generator(device="cuda").manual_seed(ASR_SEED), "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    file = save_whisper_checkpoint(model, cfg, ckpt)
+    del model
+    log(f"  large-v3-turbo: {n_params / 1e6:.1f} M params drawn and written as fp32 "
+        f"({os.path.getsize(file) / 1e9:.2f} GB) in {time.perf_counter() - t0:.1f} s")
+    pcm = (np.random.RandomState(ASR_SEED).randn(ASR_SECONDS * SAMPLE_RATE) * 0.1).astype(
+        np.float32)
+
+    def audio_loader(path, sr):
+        if sr != SAMPLE_RATE:
+            raise ValueError(f"asked for {sr} Hz")
+        return pcm
+
+    t0 = time.perf_counter()
+    tr = WhisperTranscriber(ckpt, audio_loader=audio_loader, decode_text=asr_decode_text)
+    torch.cuda.synchronize()
+    log(f"  loaded in bf16 on the card in {time.perf_counter() - t0:.1f} s")
+    # each segment's greedy call, and the encoder call inside it
+    segments, encodes = [], []
+    originals = pw.greedy_transcribe_tokens, whisper_model.whisper_encode
+    timed_calls(pw, "greedy_transcribe_tokens", segments)
+    timed_calls(whisper_model, "whisper_encode", encodes)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    try:
+        t0 = time.perf_counter()
+        words = tr("match.mp4")
+        wall = time.perf_counter() - t0
+    finally:
+        pw.greedy_transcribe_tokens, whisper_model.whisper_encode = originals
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    n_seg = -(-ASR_SECONDS // 30)
+    for i, ((seg_s, tokens), (enc_s, _)) in enumerate(zip(segments, encodes)):
+        log(f"  segment {i}: encode {enc_s:.3f} s, decode {seg_s - enc_s:.3f} s for "
+            f"{len(tokens)} tokens ({(seg_s - enc_s) / len(tokens) * 1e3:.2f} ms a step)")
+    log(f"  {ASR_SECONDS} s of audio: wall {wall:.3f} s, real-time factor {wall / ASR_SECONDS:.4f}, "
+        f"{len(words)} words, {sum(len(t) for _, t in segments)} tokens; peak device memory "
+        f"{peak:.2f} GiB above what the card held before the call (the 7B and the "
+        f"transcriber's weights)")
+    per_seg = [[w for w in words if i * 30 <= w[0] < (i + 1) * 30] for i in range(n_seg)]
+    if len(segments) != n_seg or not all(per_seg) or any(
+            a[1] > b[0] + 1e-6 for a, b in zip(words, words[1:])):
+        raise AssertionError(f"asr: {len(segments)} segments, words per segment "
+                             f"{[len(x) for x in per_seg]}")
+    mel = torch.from_numpy(log_mel_spectrogram(pcm[:30 * SAMPLE_RATE], cfg.num_mel_bins))[None]
+    ref = pw.load_safetensors_dir(ckpt, cfg, "cuda", torch.float32)
+    with torch.no_grad():
+        ids = torch.zeros(1, 8, dtype=torch.long, device="cuda")
+        ids[0, 0] = cfg.decoder_start_token_id
+        outs = []
+        for m in (tr.model, ref):
+            enc = pw.whisper_encode(m, cfg, mel)
+            outs.append((enc, lm_logits(m, decoder_hidden(m, cfg, ids, enc)[:, 0])))
+    errs = [rel_err(a, b) for a, b in zip(*outs)]
+    first = [int(o[1].argmax()) for o in outs]
+    log(f"  bf16 against fp32 (segment 0): encoder states {errs[0]:.4f}, first-step logits "
+        f"{errs[1]:.4f} (||bf16 - fp32|| / ||fp32||; limit {ASR_REL_TOL}); first token "
+        f"{first[0]} / {first[1]}")
+    if not max(errs) <= ASR_REL_TOL:
+        raise AssertionError(f"asr: bf16 strays {errs} from fp32, limit {ASR_REL_TOL}")
+    del tr, ref, outs, segments, encodes
+    shutil.rmtree(ckpt)
+    return words
+
+
+def lmm_source(path: str) -> "SeededSource":
+    """The produce phase's clips: ``LMM_SECONDS`` s of ``LMM_SOURCE_HW`` at
+    ``LMM_FPS``, seeded by the clip's number (``clip<i>.mp4``)."""
+    i = int(os.path.basename(path)[4:-4])
+    return SeededSource(int(LMM_SECONDS * LMM_FPS), LMM_FPS, LMM_SOURCE_HW, 100 + i)
+
+
+def lm_loss_samples():
+    """``len(LM_LOSS_CHARS)`` lm_loss rows: a title or the previous
+    transcript as context, a transcript of CLI_VOCAB words of about that
+    many characters."""
+    import numpy as np
+
+    rng = np.random.RandomState(7)
+    rows = []
+    for i, n in enumerate(LM_LOSS_CHARS):
+        words = []
+        while sum(len(w) + 1 for w in words) < n:
+            words.append(str(rng.choice(CLI_VOCAB)))
+        ctx = {"title": f"Match {i}"} if i % 2 else {"previous": "the keeper saves and the"}
+        rows.append({**ctx, "transcript": " ".join(words)})
+    return rows
+
+
+def profiled(fn):
+    """(fn's result, wall seconds, device busy seconds, device seconds by
+    group) of one call under the profiler."""
+    import torch
+
+    from livecc_tpu_torch.tools import profile_stream
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return out, wall, profile_stream.busy_seconds(prof), profile_stream.device_groups(prof)
+
+
+def log_profile(label: str, wall: float, busy: float, groups: dict) -> None:
+    total = sum(groups.values())
+    log(f"  {label} profiled: wall {wall:.3f} s, device busy {busy:.3f} s, idle share "
+        f"{1 - busy / wall:.3f}")
+    for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {g:28s} {t * 1e3:10.2f} ms  {t / total:6.1%} of device time")
+
+
+def phase_produce(cfg, model, words: list) -> tuple[dict, dict, dict]:
+    """The corpus scorers on main's 7B (bf16, full depth) and the Live-CC
+    JSONL: ``TalkingHeadPredictor`` (8 frames of each clip as images at
+    smart_resize(320, 180)) over ``LMM_CLIPS`` seeded clips at batch
+    ``LMM_BATCH``, then at batch 1 on ``LMM_SINGLE`` of them (within
+    ``LMM_LOG_TOL`` of the batched P('Yes') in log space), then the batch
+    again under the profiler (bit-equal); ``lm_loss_scores`` on
+    ``lm_loss_samples()`` (1000-2048 tokens), and again under the profiler
+    (bit-equal). The asr phase's words then go through
+    ``clips_for_pretrain`` -> ``to_conversation`` -> ``write_corpus`` and
+    the port's ``LMMDataset`` reads the first row back (its labelled text
+    holds the clip's words). Last, K3 and K4's forward at these shapes
+    (``produce_kernels``). Returns the predictor's and lm_loss's launch
+    counts, and the kernel results."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from livecc_tpu_torch.data import chat
+    from livecc_tpu_torch.data.lmm_dataset import LMMDataset
+    from livecc_tpu_torch.data.tokenizer import ByteTokenizer
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import filters, lmm4asd, production
+
+    tok = ByteTokenizer.for_config(cfg)
+    videos = [f"clip{i}.mp4" for i in range(LMM_CLIPS)]
+    pred = lmm4asd.TalkingHeadPredictor(model, cfg, tok, batch_size=LMM_BATCH,
+                                        video_loader=lmm_source)
+    flushes = []
+    timed_calls(pred, "_flush", flushes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gib = torch.cuda.memory_allocated() / 2**30
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    probs = pred.predict_probs(videos)
+    wall = time.perf_counter() - t0
+    lmm_counts = dict(build.launch_counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30 - held_gib
+    enc = pred.encode(pred._read(videos[0]))
+    n_real = enc["ids"].shape[1]
+    s = 1 << (n_real - 1).bit_length()
+    grid = enc["grids"][0]
+    log(f"  lmm4asd: {LMM_CLIPS} clips at batch {LMM_BATCH}: wall {wall:.3f} s ({LMM_CLIPS / wall:.2f} "
+        f"clips/s; host {wall - sum(f for f, _ in flushes):.3f} s, forward "
+        f"{sum(f for f, _ in flushes):.3f} s), "
+        f"peak device memory {peak:.2f} GiB above the model's; a row {n_real} tokens in the {s} "
+        f"bucket, {pred.num_frames} images of grid {grid} ({LMM_CLIPS * pred.num_frames} ViT "
+        f"groups of g = {grid[1] * grid[2]}); launches {lmm_counts}")
+    log(f"  P('Yes'): min {probs.min():.3e} median {np.median(probs):.3e} max {probs.max():.3e}")
+    missing = [k for k in PRODUCE_KERNELS if lmm_counts.get(k, 0) <= 0]
+    if missing or lmm_counts.get("train_attention_bwd") or not ((probs > 0) & (probs < 1)).all():
+        raise AssertionError(f"lmm4asd: launches {lmm_counts}, probabilities {probs}")
+    single = lmm4asd.TalkingHeadPredictor(model, cfg, tok, batch_size=1, video_loader=lmm_source)
+    one = single.predict_probs(videos[:LMM_SINGLE])
+    dev = np.abs(np.log(one) - np.log(probs[:LMM_SINGLE]))
+    log(f"  batch 1 against batch {LMM_BATCH} on {LMM_SINGLE} clips: |ln p1 - ln p64| "
+        f"{[round(float(x), 4) for x in dev]} (limit {LMM_LOG_TOL})")
+    if not dev.max() <= LMM_LOG_TOL:
+        raise AssertionError(f"lmm4asd: batch 1 parts from batch {LMM_BATCH}: {dev}")
+    again, p_wall, busy, groups = profiled(lambda: pred.predict_probs(videos))
+    if not np.array_equal(again, probs):
+        raise AssertionError("lmm4asd: a second run of the batch differs")
+    log_profile(f"lmm4asd batch of {LMM_CLIPS}", p_wall, busy, groups)
+
+    samples = lm_loss_samples()
+    lens = [len(tok.encode(chat.render_chat([
+        {"role": "user", "content": [{"type": "text", "text": x.get("previous") or x["title"]}]},
+        {"role": "assistant", "content": [{"type": "text", "text": x["transcript"]}]}])))
+        for x in samples]
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores = filters.lm_loss_scores(model, cfg, tok, samples)
+    wall = time.perf_counter() - t0
+    loss_counts = dict(build.launch_counts)
+    log(f"  lm_loss: {len(samples)} samples of {min(lens)}-{max(lens)} tokens: "
+        f"{wall / len(samples):.3f} s a sample; scores {np.round(scores, 3).tolist()}, keep "
+        f"{filters.lm_loss_keep(scores).tolist()}; launches {loss_counts}")
+    if (not np.isfinite(scores).all() or loss_counts.get("train_attention_fwd", 0) <= 0
+            or not 1000 <= min(lens) <= max(lens) <= 2048):
+        raise AssertionError(f"lm_loss: scores {scores}, lengths {lens}, launches {loss_counts}")
+    again, p_wall, busy, groups = profiled(lambda: filters.lm_loss_scores(model, cfg, tok,
+                                                                          samples))
+    if not np.array_equal(again, scores):
+        raise AssertionError("lm_loss: a second run differs")
+    log_profile(f"lm_loss {len(samples)} samples", p_wall, busy, groups)
+
+    clips = production.clips_for_pretrain(words)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        corpus = os.path.join(tmp, "asr_corpus.jsonl")
+        production.write_corpus([production.to_conversation("match.mp4", c, CLI_QUERY,
+                                                            title="Match") for c in clips], corpus)
+        source = SeededSource(int(ASR_SECONDS * CLI_SOURCE_FPS), CLI_SOURCE_FPS, CLI_SOURCE_HW,
+                              ASR_SEED)
+        ds = LMMDataset(annotation_paths=[corpus], tokenizer=tok, cfg=cfg,
+                        video_loader=lambda path: source)
+        x = ds.getitem(0)
+    labelled = tok.decode(x["input_ids"][0][x["labels"][0] != -100].tolist())
+    first = [w for _, _, w in clips[0]["words"][:5]]
+    log(f"  corpus: {len(words)} words -> {len(clips)} clips "
+        f"{[(c['start'], c['end'], len(c['words'])) for c in clips]}; row 0 read back: "
+        f"{x['input_ids'].shape[1]} tokens, {len(x['video_grid_thw'])} frame groups of "
+        f"{x['video_grid_thw'][-1].tolist()}, labelled text "
+        f"starts {labelled[:60]!r}")
+    if not clips or len(ds) != len(clips) or " ".join(first) not in labelled:
+        raise AssertionError(f"produce corpus: {len(clips)} clips, {len(ds)} rows, words "
+                             f"{first} not in {labelled[:200]!r}")
+    results = produce_kernels(n_real, pred.num_frames * LMM_CLIPS, grid[1] * grid[2],
+                              max(lens))
+    return lmm_counts, loss_counts, results
+
+
+def produce_kernels(n_row: int, ng: int, g: int, n_loss: int) -> dict:
+    """K3 at lmm4asd's shape (``ng`` groups of ``g``, H 16, D 80) and K4's
+    forward at its batch (B ``LMM_BATCH``, rows of ``n_row`` tokens padded to
+    their power-of-two bucket, pads as segment 0) and at lm_loss's longest
+    sample (B 1, ``n_loss`` tokens in their bucket), bf16 random inputs:
+    each against ``kernel_check``'s blocked plain version by ``held``,
+    which a dropped key tile must fail; two launches bit-equal; kernel,
+    blocked plain and SDPA timed (``timed_eval``) beside the bound."""
+    import torch
+
+    from livecc_tpu_torch.core.config import ModelConfig
+    from livecc_tpu_torch.ops.train_attention import train_attention_fwd
+    from livecc_tpu_torch.ops.vit_attention import vit_group_attention
+    from livecc_tpu_torch.tools import kernel_check
+
+    cfg = ModelConfig.qwen2_vl_7b()
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(16)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    def bit_equal(name, fn):
+        a, b = fn(), fn()
+        same = all(torch.equal(x, y) for x, y in zip(a, b)) if isinstance(a, tuple) \
+            else torch.equal(a, b)
+        if not same:
+            raise AssertionError(f"{name}: two launches differ")
+
+    results = {}
+    with torch.inference_mode():
+        h, d = cfg.vision.num_heads, cfg.vision.head_dim
+        q, k, v = (randn(ng, g, h, d) for _ in range(3))
+        shape = f"NG={ng} g={g} H={h} D={d} bf16 (lmm4asd)"
+        err = vit_held(q, k, v, shape, True)
+        bit_equal("vit_group_attention " + shape, lambda: vit_group_attention(q, k, v))
+        results["vit_group_attention"] = timed_eval(
+            "vit_group_attention", shape, err,
+            fns=(lambda: vit_group_attention(q, k, v),
+                 lambda: kernel_check.vit_group_attention_blocked(q, k, v)),
+            library=sdpa_eval(q, k, v, None), flops=4 * ng * g * g * h * d,
+            nbytes=4 * ng * g * h * d * 2)
+        del q, k, v
+        hq, hk, d = (cfg.text.num_attention_heads, cfg.text.num_key_value_heads,
+                     cfg.text.head_dim)
+        rows = []
+        for b, n_real, what in ((LMM_BATCH, n_row, "lmm4asd"), (1, n_loss, "lm_loss")):
+            s = 1 << (n_real - 1).bit_length()
+            qs = randn(b, s, hq, d) * d ** -0.5
+            k, v = randn(b, s, hk, d), randn(b, s, hk, d)
+            seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
+            seg[:, :n_real] = 1
+            shape = (f"B={b} S={s} segment {n_real} + pad {s - n_real} Hq={hq} Hk={hk} D={d} "
+                     f"bf16 ({what})")
+            err = k4_fwd_held(qs, k, v, seg, n_real, shape, True)
+            bit_equal("train_attention_fwd " + shape, lambda: train_attention_fwd(qs, k, v, seg))
+            pairs = causal_pairs((n_real,), s)
+            rows.append(timed_eval(
+                "train_attention_fwd", shape, err,
+                fns=(lambda: train_attention_fwd(qs, k, v, seg),
+                     lambda: kernel_check.train_attention_fwd_blocked(qs, k, v, seg)),
+                library=sdpa_eval(qs[:, :n_real], k[:, :n_real], v[:, :n_real], True),
+                flops=4 * b * pairs * d * hq,
+                nbytes=b * (2 * (2 * s * hq * d + 2 * s * hk * d) + 4 * s * hq + 4 * s)))
+            pad = causal_pairs((), s - n_real)
+            log(f"  {'train_attention_fwd':20s} {what}: causal pairs a row {pairs} (pad {pad}, "
+                f"a {pad / pairs:.3f} share of the work); SDPA is_causal over the real tokens")
+            del qs, k, v, seg
+            torch.cuda.empty_cache()
+        results["train_attention_fwd"] = rows
+    return results
+
+
+def phase_midsize() -> dict:
+    """The port's forward at Qwen2-VL-7B's width (4 LLM layers, 4 ViT
+    blocks, ``tools/midsize.py``) against HF's golden
+    ``tests/goldens/hf_midsize.npz``: text, multimodal (and its M-RoPE
+    positions), the streaming continuation and the vision tower, through
+    K4's forward, K3 (both forms) and K1. fp32 within JAX's limits
+    (``midsize.FP32``); then the same model rounded to bf16 within
+    ``midsize.BF16``. Returns the two runs' launch counts."""
+    import torch
+
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import midsize
+
+    t0 = time.perf_counter()
+    golden, cfg, model = midsize.load("cuda", torch.float32)
+    torch.cuda.synchronize()
+    log(f"  7B width, depth 4 / 4: {sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"params from the recipe, fp32 on the card in {time.perf_counter() - t0:.1f} s")
+    counts = {}
+    for dtype, limits in ((torch.float32, midsize.FP32), (torch.bfloat16, midsize.BF16)):
+        model.to(dtype)      # rounds to nearest even, as convert_state_dict's copy_ does
+        build.reset_launch_counts()
+        out = midsize.run_cases(model, cfg, golden)
+        torch.cuda.synchronize()
+        for k, n in build.launch_counts.items():
+            counts[k] = counts.get(k, 0) + n
+        missing = [k for k in MIDSIZE_KERNELS if build.launch_counts.get(k, 0) <= 0]
+        if missing:
+            raise AssertionError(f"midsize {dtype}: {missing} not launched")
+        try:
+            report = midsize.check(golden, out, limits)
+        finally:
+            for case in ("text", "mm", "cont", "v_out"):
+                ref = golden[f"{case}_tail"] if case != "v_out" else golden["v_out"]
+                got = out[case][-4:] if case != "v_out" else out[case]
+                log(f"  {str(dtype)[6:]:8s} {case:5s}: max_abs_err "
+                    f"{abs(got - ref).max():.3e} (|ref| max {abs(ref).max():.3f})")
+        for case, r in report.items():
+            log(f"  {str(dtype)[6:]:8s} {case:5s}: {r['worst']:.3f} of the limit"
+                + (f"; argmax agrees on {r['argmax_agree']:.3f} of the {r['decided']:.3f} "
+                   f"decided (margin > {limits.argmax_eps})" if "decided" in r else ""))
+    log(f"  launches of the two runs: {counts}")
+    del model
+    return counts
+
+
 def run_phase(name: str, fn):
     log(f"== phase {name}")
     t0 = time.perf_counter()
@@ -3238,6 +3734,7 @@ def main() -> int:
     run_phase("tiny", phase_tiny)
     run_phase("tiny_pool", phase_tiny_pool)
     run_phase("tiny_w8", phase_tiny_w8)
+    run_phase("tiny_asr", phase_tiny_asr)
     t0 = time.perf_counter()
     cfg, model = session.main_model()
     torch.cuda.synchronize()
@@ -3271,6 +3768,13 @@ def main() -> int:
     eval_counts, cc_counts, _ = run_phase("eval", lambda: phase_eval(cfg, model))
     gc.collect()
     torch.cuda.empty_cache()
+    asr_words = run_phase("asr", phase_asr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lmm_counts, loss_counts, produce = run_phase(
+        "produce", lambda: phase_produce(cfg, model, asr_words))
+    gc.collect()
+    torch.cuda.empty_cache()
     models = [model]
     del model                                # checkpoint_live frees the serving 7B
     checkpoint_counts, checkpoint_w8_counts = run_phase(
@@ -3282,6 +3786,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_cli_counts = run_phase("train_cli", phase_train_cli)
+    gc.collect()
+    torch.cuda.empty_cache()
+    midsize_counts = run_phase("midsize", phase_midsize)
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": sum(c.get(name, 0) for c in (main_counts, pool_counts, spec_counts,
@@ -3289,7 +3796,8 @@ def main() -> int:
                                                  main_w8_counts, main_w8_spec_counts,
                                                  pool_w8_counts, eval_counts, cc_counts,
                                                  checkpoint_counts, checkpoint_w8_counts,
-                                                 train_counts, train_cli_counts)),
+                                                 train_counts, train_cli_counts, lmm_counts,
+                                                 loss_counts, midsize_counts)),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"],
         "plain_ms": results[name]["plain_ms"],
@@ -3297,6 +3805,7 @@ def main() -> int:
         "bound_by": results[name]["bound_by"],
         "library_ms": results[name]["library_ms"],
         **({"noncausal": results[name]["noncausal"]} if "noncausal" in results[name] else {}),
+        **({"produce": produce[name]} if name in produce else {}),
     } for name, (src, replaces) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_all:.1f} s")
     log(card)

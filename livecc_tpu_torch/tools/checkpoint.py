@@ -7,6 +7,10 @@ transformers>=4.52 ones (``model.visual.*``, ``model.language_model.*``,
 ``lm_head.weight``), in the model's dtype; the patch embed is written in
 HF's Conv3d shape. Shards of about ``shard_bytes`` come with a
 ``model.safetensors.index.json``. This is not on the load path.
+
+``save_whisper_checkpoint`` writes the port's Whisper the same way (one
+shard, HF's names), for ``chip_smoke.py``'s ``asr`` phase to load back
+through ``tools/asr.py:WhisperTranscriber``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.models.qwen2_vl.convert import PATCH_EMBED, hf_name_map
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL
 from livecc_tpu_torch.models.qwen2_vl.safetensors_io import DTYPES, INDEX_FILE
+from livecc_tpu_torch.models.whisper.model import Whisper, WhisperConfig
 
 DTYPE_NAMES = {dt: name for name, dt in DTYPES.items()}
 
@@ -87,3 +92,33 @@ def save_checkpoint(model: Qwen2VL, cfg: ModelConfig, path: str, config_json: st
     with open(os.path.join(path, INDEX_FILE), "w") as f:
         json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=1)
     return files
+
+
+@torch.no_grad()
+def save_whisper_checkpoint(model: Whisper, cfg: WhisperConfig, path: str) -> str:
+    """Write ``model`` into the new directory ``path`` as an HF Whisper
+    checkpoint: ``model.safetensors`` with HF's names (``model.`` + the
+    port's; no ``proj_out.weight``, which HF ties to the decoder embedding)
+    in the model's dtype, and a ``config.json`` that transformers and
+    ``models/whisper/convert.py:config_from_hf_json`` read. Returns the
+    shard. One tensor on the host at a time."""
+    os.makedirs(path)
+    config = {
+        "architectures": ["WhisperForConditionalGeneration"], "model_type": "whisper",
+        "num_mel_bins": cfg.num_mel_bins, "d_model": cfg.d_model,
+        "encoder_layers": cfg.encoder_layers, "decoder_layers": cfg.decoder_layers,
+        "encoder_attention_heads": cfg.num_heads, "decoder_attention_heads": cfg.num_heads,
+        "encoder_ffn_dim": cfg.ffn_dim, "decoder_ffn_dim": cfg.ffn_dim,
+        "vocab_size": cfg.vocab_size, "max_source_positions": cfg.max_source_positions,
+        "max_target_positions": cfg.max_target_positions,
+        "decoder_start_token_id": cfg.decoder_start_token_id,
+        # HF's Whisper configs set bos and pad to <|endoftext|> as well
+        "eos_token_id": cfg.eos_token_id, "bos_token_id": cfg.eos_token_id,
+        "pad_token_id": cfg.eos_token_id, "tie_word_embeddings": True,
+        "torch_dtype": str(next(model.parameters()).dtype).removeprefix("torch."),
+    }
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    file = os.path.join(path, "model.safetensors")
+    _write_shard(file, [("model." + name, p) for name, p in model.named_parameters()])
+    return file

@@ -4,7 +4,9 @@ Port of ``livecc_tpu/vision_io/video_reader.py`` over the port's own copy of
 the decoder source (``native/video_decoder.cpp``, the same C API): a
 decord-style reader with the PTS table, ``get_batch`` over repeated or
 monotonic indices, the average fps, and native-size or pre-scaled (libswscale
-bicubic) output.
+bicubic) output; ``load_audio`` (mono float32 PCM at a sample rate, through
+libswresample), and the writers ``encode_test_video``, ``encode_test_audio``
+and ``encode_video_with_audio``.
 
 The shared library is compiled with ``g++`` at first use into
 ``build/video/<hash>/`` at the repository root (listed in ``.gitignore``),
@@ -189,3 +191,55 @@ def encode_test_video(path: str, frames: np.ndarray, fps: int = 30) -> None:
         os.fsencode(path), frames.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), t, h, w, fps)
     if rc != 0:
         raise IOError(f"encode failed: {lib.vr_last_error().decode()}")
+
+
+def load_audio(path: str, sample_rate: int = 16000) -> np.ndarray:
+    """Decode a media file's first audio stream -> mono float32 [T] at
+    ``sample_rate`` (decord AudioReader equivalent; reference
+    data/production/distributed_whisperx.py:14-16)."""
+    lib = _load()
+    h = lib.vr_audio_open(os.fsencode(path), sample_rate)
+    if h == 0:
+        raise IOError(f"cannot open audio: {lib.vr_last_error().decode()}")
+    try:
+        n = int(lib.vr_audio_len(h))
+        out = np.empty(n, np.float32)
+        if n and lib.vr_audio_copy(h, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float))):
+            raise IOError("audio copy failed")
+        return out
+    finally:
+        lib.vr_audio_close(h)
+
+
+def encode_test_audio(path: str, samples: np.ndarray, sample_rate: int = 16000) -> None:
+    """Write mono float samples as a 16-bit WAV (tests)."""
+    lib = _load()
+    samples = np.ascontiguousarray(samples, np.float32)
+    rc = lib.vr_encode_test_audio(
+        os.fsencode(path), samples.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        len(samples), sample_rate,
+    )
+    if rc != 0:
+        raise IOError(f"audio encode failed: {lib.vr_last_error().decode()}")
+
+
+def encode_video_with_audio(path: str, frames: np.ndarray, fps: int,
+                            samples: np.ndarray, sample_rate: int) -> None:
+    """One mp4 with an mpeg4 video track AND an AAC audio track (reference
+    demo/render/video.py:186-200 muxes the TTS track into the final mp4).
+    ``samples`` is mono float32 PCM; rates outside AAC's set are resampled
+    in the native layer."""
+    lib = _load()
+    frames = np.ascontiguousarray(frames, np.uint8)
+    samples = np.ascontiguousarray(samples, np.float32)
+    t, h, w, c = frames.shape
+    if c != 3:
+        raise ValueError(f"encode_video_with_audio: frames must be [T, H, W, 3], got "
+                         f"{frames.shape}")
+    rc = lib.vr_encode_video_with_audio(
+        os.fsencode(path), frames.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        t, h, w, fps, samples.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        len(samples), sample_rate,
+    )
+    if rc != 0:
+        raise IOError(f"mux encode failed: {lib.vr_last_error().decode()}")
