@@ -194,6 +194,20 @@ Phases (any failure raises and the script exits non-zero):
                  key tile failing; two launches bit-equal; kernel, plain
                  and SDPA timed beside the bound (the kernels line's
                  ``produce`` key of K3 and K4's forward).
+     asd       — the active-speaker filter (``phase_asd``): a 5-minute
+                 video of 160x288 (H x W) at 25 fps (7,500 seeded frames;
+                 10 windows of 150 every 750, 1,500 detector frames) and
+                 300 s of PCM through ``asd.mfcc``; SCRFD through
+                 ``scrfd.load_onnx_detector`` on the seeded 44-node test
+                 graph (``tools/scrfd_synth.py``) the port's ``onnx_lite``
+                 writes, IoU tracks, Light-ASD (seeded) on each track's
+                 tube and on 10 planted 150-frame tubes. Card against CPU:
+                 the first window's raw outputs, boxes and tracks,
+                 ``make_detector`` at ``ScrfdConfig``'s defaults (raw
+                 outputs, boxes), a tube's logits. The chain's wall split into host and
+                 device calls, detector and Light-ASD times (one call,
+                 CUDA events, device busy), tracks, the ratio, peak
+                 memory, a profiled window. No hand-written kernel.
  10. checkpoint_live — the front door on main's 7B: written as an HF
                  checkpoint (bf16 safetensors shards of ~5 GB with an index,
                  config.json from tests/fixtures/qwen2_vl_7b_config.json)
@@ -372,6 +386,22 @@ LMM_SECONDS, LMM_SOURCE_HW, LMM_FPS = 60, (360, 640), 2.0
 LMM_LOG_TOL = 0.25
 LM_LOSS_CHARS = (940, 1080, 1220, 1360, 1500, 1640, 1780, 1920)
 PRODUCE_KERNELS = ("vit_group_attention", "train_attention_fwd")
+# asd: the active-speaker filter over a 5-minute video at the reference's decode
+# size (160x288, H x W) at 25 fps with 16 kHz audio: a seeded still scene plus
+# per-frame sensor noise of up to ASD_NOISE grey levels; the detector the
+# seeded 44-node test graph (tools/scrfd_synth.py, buffalo_sc's output
+# contract, not det_500m's depth) at ch ASD_GRAPH_CH, and make_detector's
+# seeded Scrfd, each with a score bias that puts ASD_FACES anchors of frame 0
+# above the threshold and a box bias of ASD_BOX_BIAS strides (face-sized
+# boxes); Light-ASD at its one size, seeded. GPU against CPU: the detectors'
+# raw outputs within ASD_RAW_TOL (1 + |CPU|), their scores within
+# ASD_SCORE_TOL (a box whose CPU score lies that near the threshold is
+# reported, not counted), Light-ASD logits within ASD_LOGIT_TOL (fp32, TF32
+# off)
+ASD_SECONDS, ASD_FPS, ASD_HW, ASD_SR = 300, 25, (160, 288), 16000
+ASD_SEED, ASD_NOISE, ASD_GRAPH_CH, ASD_FACES, ASD_BOX_BIAS = 17, 3, 16, 4, 2.0
+ASD_SCORE_TOL, ASD_RAW_TOL, ASD_LOGIT_TOL = 1e-5, 1e-4, 1e-3
+ASD_MAKE_FRAMES = 4            # frames through make_detector at ScrfdConfig's defaults
 MIDSIZE_KERNELS = ("vit_group_attention", "train_attention_fwd", "flash_prefill")
 
 
@@ -3667,6 +3697,358 @@ def produce_kernels(n_row: int, ng: int, g: int, n_loss: int) -> dict:
     return results
 
 
+def asd_video():
+    """The asd phase's 5-minute video and audio: ``ASD_SECONDS`` s of
+    ``ASD_HW`` frames at ``ASD_FPS`` (uint8 [T, H, W, 3]; a seeded still
+    scene, a smooth shading plus texture, and per-frame noise of up to
+    ``ASD_NOISE`` grey levels, each frame one of 64 noise fields drawn at
+    random) and 16 kHz PCM (a voice-band tone under noise)."""
+    import numpy as np
+
+    rng = np.random.default_rng(ASD_SEED)
+    h, w = ASD_HW
+    yy, xx = np.mgrid[:h, :w].astype(np.float32)
+    shade = 110 + 60 * np.sin(xx / 23.0)[..., None] * np.cos(yy / 17.0)[..., None] \
+        * np.asarray([1.0, 0.8, 0.6], np.float32)
+    scene = np.clip(shade + rng.normal(0, 25, (h, w, 3)), 0, 255 - ASD_NOISE).astype(np.uint8)
+    noise = rng.integers(0, ASD_NOISE + 1, (64, h, w, 3), dtype=np.uint8)
+    frames = np.empty((ASD_SECONDS * ASD_FPS, h, w, 3), np.uint8)
+    for i, k in enumerate(rng.integers(0, len(noise), len(frames))):
+        np.add(scene, noise[k], out=frames[i])
+    t = np.arange(ASD_SECONDS * ASD_SR, dtype=np.float32) / ASD_SR
+    audio = (0.3 * np.sin(2 * np.pi * 220 * t) * (1 + np.sin(2 * np.pi * 3 * t))
+             + 0.05 * rng.standard_normal(t.shape)).astype(np.float32)
+    return frames, audio
+
+
+def threshold_bias(scores) -> float:
+    """The score bias that puts about ``ASD_FACES`` of ``scores`` (a
+    frame's anchors' sigmoid scores at bias 0) above the threshold of 0.5:
+    the midpoint of the ``ASD_FACES``-th and next logits, negated (random
+    weights find no face at a plain bias)."""
+    import numpy as np
+
+    s = np.asarray(scores, np.float64)
+    logits = np.sort(np.log(s / (1 - s)))[::-1]
+    return -float(logits[ASD_FACES - 1] + logits[ASD_FACES]) / 2
+
+
+def asd_graph(path: str, frame) -> float:
+    """Write the asd phase's detector graph to ``path``
+    (``scrfd_synth.synth_scrfd_onnx`` at ``ASD_GRAPH_CH``, seed
+    ``ASD_SEED``, box bias ``ASD_BOX_BIAS``) with the score bias
+    ``threshold_bias`` finds for ``frame`` on the CPU; returns the bias."""
+    import numpy as np
+    import torch
+
+    from livecc_tpu_torch.tools import onnx_lite, onnx_torch, scrfd_synth
+
+    def graph(bias):
+        return scrfd_synth.synth_scrfd_onnx(ch=ASD_GRAPH_CH, seed=ASD_SEED, score_bias=bias,
+                                            bbox_bias=ASD_BOX_BIAS)
+
+    fn = onnx_torch.build_fn(graph(0.0), "cpu")
+    x = torch.from_numpy(((frame.astype(np.float32) - 127.5) / 128.0).transpose(2, 0, 1)[None]
+                         .copy())
+    with torch.inference_mode():
+        bias = threshold_bias(np.concatenate([o.numpy().ravel() for o in fn(x)[:3]]))
+    onnx_lite.save_model(path, graph(bias))
+    return bias
+
+
+def asd_tubes(feats, record=None, scorer=None):
+    """``score_track`` for ``asd.talking_ratio`` (after
+    tests/test_aux_tools.py:254-270): each track's 112x112 grayscale face
+    tube, raw 0..255 as ``lightasd.py`` asks, and its MFCC rows from the
+    track's first frame (4 a frame), through ``scorer(faces, mfcc)``
+    (default 0.0). ``record`` gets (frames, boxes, host seconds) of each."""
+    import numpy as np
+
+    def score_track(track, frames):
+        t0 = time.perf_counter()
+        h_f, w_f = frames.shape[1], frames.shape[2]
+        tube = []
+        for fi, box in zip(track.frames, track.boxes):
+            x1, y1, x2, y2 = [int(v) for v in box]
+            x1 = min(max(x1, 0), w_f - 1)
+            y1 = min(max(y1, 0), h_f - 1)
+            x2 = min(max(x2, x1 + 1), w_f)
+            y2 = min(max(y2, y1 + 1), h_f)
+            crop = frames[fi, y1:y2, x1:x2].mean(axis=-1)
+            yy = np.linspace(0, crop.shape[0] - 1, 112).astype(int)
+            xx = np.linspace(0, crop.shape[1] - 1, 112).astype(int)
+            tube.append(crop[np.ix_(yy, xx)])
+        faces = np.stack(tube).astype(np.float32)
+        lo = 4 * track.frames[0]
+        mfcc = feats[lo:lo + 4 * len(faces)]
+        if record is not None:
+            record.append((list(track.frames), np.stack(track.boxes), time.perf_counter() - t0))
+        return scorer(faces, mfcc) if scorer else 0.0
+
+    return score_track
+
+
+def same_detections(label: str, gpu: list, cpu: list, near: list) -> int:
+    """Per frame (boxes, scores) of the card and of the CPU: equal counts,
+    boxes within 1e-3 px and scores within ``ASD_SCORE_TOL``, but on frames
+    where ``near`` (anchors whose CPU score lies within ``ASD_SCORE_TOL`` of
+    the threshold) is non-zero, where a part is reported. Returns the
+    frames reported."""
+    import numpy as np
+
+    reported = 0
+    for i, ((gb, gs), (cb, cs), n) in enumerate(zip(gpu, cpu, near)):
+        same = len(gb) == len(cb) and np.allclose(gb, cb, rtol=0, atol=1e-3) \
+            and np.allclose(gs, cs, rtol=0, atol=ASD_SCORE_TOL)
+        if not same:
+            if not n:
+                raise AssertionError(f"{label} frame {i}: card {len(gb)} boxes {gb} {gs}, CPU "
+                                     f"{len(cb)} boxes {cb} {cs}, no score near the threshold")
+            reported += 1
+            log(f"  {label} frame {i}: the card's boxes part from the CPU's ({len(gb)} against "
+                f"{len(cb)}) with {n} CPU scores within {ASD_SCORE_TOL} of the threshold: "
+                "reported, not counted")
+    return reported
+
+
+def phase_asd() -> None:
+    """The active-speaker filter (``tools/{asd,scrfd,lightasd,onnx_torch}.py``)
+    over a 5-minute video at the reference's decode size (``asd_video``:
+    7,500 frames of 160x288 at 25 fps; 300 s of 16 kHz PCM through
+    ``asd.mfcc``). The detector is ``scrfd.load_onnx_detector`` on the
+    seeded 44-node test graph written by the port's ``onnx_lite``
+    (``asd_graph``) at ``ScrfdConfig``'s threshold; Light-ASD
+    (``lightasd.make_lightasd``, seeded weights) scores the tubes
+    (``asd_tubes``). Checks, GPU against CPU: the first window's raw outputs
+    within ``ASD_RAW_TOL``, its boxes and tracks (``same_detections``); the
+    detector at ``ScrfdConfig``'s defaults through ``make_detector`` on
+    ``ASD_MAKE_FRAMES`` frames (raw outputs within ``ASD_RAW_TOL``, equal
+    boxes, at least one); one planted 150-frame tube's logits within
+    ``ASD_LOGIT_TOL``. Then ``asd.talking_ratio`` over the whole video on
+    the card (wall split into host and device calls through
+    ``detect_faces.levels``, tracks, tubes, the ratio, peak memory), 10
+    planted tubes (one a window: faces [150, 112, 112], MFCC [600, 13])
+    through ``lightasd.track_score``, the detector's and Light-ASD's times
+    by CUDA events and under the profiler, and one window profiled
+    (``profile_stream.report``)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import (asd, kernel_timing, lightasd, onnx_lite, onnx_torch,
+                                        profile_stream, scrfd)
+
+    t0 = time.perf_counter()
+    frames, audio = asd_video()
+    feats = asd.mfcc(audio, ASD_SR).astype(np.float32)
+    windows = asd.window_indices(len(frames))
+    log(f"  video: {frames.shape} uint8 ({frames.nbytes / 2**30:.2f} GiB), {len(windows)} windows "
+        f"of 150 frames every 750 ({sum(b - a for a, b in windows)} detector frames); audio "
+        f"{len(audio) / ASD_SR:.0f} s -> MFCC {feats.shape}; made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if len(windows) != 10 or frames.shape[1:3] != ASD_HW:
+        raise AssertionError(f"asd: windows {windows}, frames {frames.shape}")
+    cfg = scrfd.ScrfdConfig()
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "det_buffalo_sc_layout.onnx")
+        bias = asd_graph(path, frames[0])
+        model = onnx_lite.load_model(path)
+        det_gpu = scrfd.load_onnx_detector(path, cfg)
+        det_cpu = scrfd.load_onnx_detector(path, cfg, "cpu")
+    log(f"  detector graph: {len(model.nodes)} nodes, "
+        f"{sum(a.size for a in model.initializers.values())} initializer values (ch "
+        f"{ASD_GRAPH_CH}), score bias {bias:.4f}, box bias {ASD_BOX_BIAS}")
+    fwd = {d: onnx_torch.build_fn(model, d) for d in ("cuda", "cpu")}
+
+    def raw(d, frame):
+        x = torch.as_tensor(frame).to(d)
+        x = ((x.to(torch.float32) - 127.5) / 128.0).permute(2, 0, 1)[None]
+        with torch.inference_mode():
+            return np.concatenate([o.cpu().numpy().ravel() for o in fwd[d](x)])
+
+    def raw_err(g, c) -> float:
+        return float((np.abs(g - c) / (1 + np.abs(c))).max())
+
+    # GPU = CPU: the first window's raw outputs, its boxes (after threshold
+    # and NMS) and tracks
+    lo, hi = windows[0]
+    n_scores = sum(-(-ASD_HW[0] // s) * -(-ASD_HW[1] // s) * cfg.num_anchors for s in cfg.strides)
+    out_err, near = 0.0, []
+    for f in frames[lo:hi]:
+        g, c = raw("cuda", f), raw("cpu", f)
+        out_err = max(out_err, raw_err(g, c))
+        near.append(int((np.abs(c[:n_scores] - cfg.score_threshold) <= ASD_SCORE_TOL).sum()))
+    if out_err > ASD_RAW_TOL:
+        raise AssertionError(f"asd window 0: raw outputs {out_err} apart (limit {ASD_RAW_TOL})")
+    runs = {}
+    for name, det in (("card", det_gpu), ("cpu", det_cpu)):
+        dets, tracks = [], []
+
+        def recorded(frame, det=det, dets=dets):
+            dets.append(det(frame))
+            return dets[-1]
+
+        asd.talking_ratio(frames[lo:hi], recorded, asd_tubes(feats, tracks), min_track_len=1)
+        runs[name] = (dets, tracks)
+    reported = same_detections("asd window 0", runs["card"][0], runs["cpu"][0], near)
+    (g_tr, c_tr) = runs["card"][1], runs["cpu"][1]
+    if not reported and (len(g_tr) != len(c_tr) or any(
+            a[0] != b[0] or not np.allclose(a[1], b[1], rtol=0, atol=1e-3)
+            for a, b in zip(g_tr, c_tr))):
+        raise AssertionError(f"asd window 0: the card's tracks {[t[0] for t in g_tr]} part "
+                             f"from the CPU's {[t[0] for t in c_tr]}")
+    n_boxes = [len(b) for b, _ in runs["card"][0]]
+    log(f"  window 0, card against CPU: raw outputs (scores and box distances) max |diff| / "
+        f"(1 + |CPU|) {out_err:.2e} (limit {ASD_RAW_TOL}); boxes a frame {min(n_boxes)}-"
+        f"{max(n_boxes)} (sum {sum(n_boxes)}), equal on {hi - lo - reported} of {hi - lo} "
+        f"frames ({reported} reported, {sum(1 for n in near if n)} frames with a CPU score "
+        f"within {ASD_SCORE_TOL} of {cfg.score_threshold}); tracks {len(g_tr)} card, "
+        f"{len(c_tr)} CPU, lengths {sorted(len(t[0]) for t in g_tr)[::-1][:8]}")
+
+    # GPU = CPU: make_detector at ScrfdConfig's defaults; the seeded head's
+    # biases are set as the graph's (box bias ASD_BOX_BIAS, score bias from
+    # threshold_bias on the first frame), as the init's -4 finds no face
+    params = scrfd.init_scrfd_params(cfg, torch.Generator().manual_seed(ASD_SEED))
+    head = params["head"]
+    head["score"]["bias"].zero_()
+    head["bbox"]["bias"].fill_(ASD_BOX_BIAS)
+    with torch.inference_mode():
+        levels = scrfd.Scrfd(params, cfg).eval()(torch.as_tensor(frames[lo])[None])
+    mk_bias = threshold_bias(np.concatenate([sc.numpy().ravel() for sc, _ in levels]))
+    head["score"]["bias"].fill_(mk_bias)
+    mods = {d: scrfd.Scrfd(params, cfg).to(d).eval() for d in ("cuda", "cpu")}
+    make = {d: scrfd.make_detector(params, cfg, d) for d in ("cuda", "cpu")}
+    picks = frames[lo:hi:(hi - lo) // ASD_MAKE_FRAMES][:ASD_MAKE_FRAMES]
+    mk_err, mk_near, mk = 0.0, [], {"cuda": [], "cpu": []}
+    for f in picks:
+        with torch.inference_mode():
+            o = {d: [t.cpu().numpy() for lvl in mods[d](torch.as_tensor(f).to(d)[None])
+                     for t in lvl] for d in mods}
+        mk_err = max(mk_err, max(raw_err(a, b) for a, b in zip(o["cuda"], o["cpu"])))
+        sc = np.concatenate([x.ravel() for x in o["cpu"][0::2]])
+        mk_near.append(int((np.abs(sc - cfg.score_threshold) <= ASD_SCORE_TOL).sum()))
+        for d in mk:
+            mk[d].append(make[d](f))
+    mk_rep = same_detections("make_detector", mk["cuda"], mk["cpu"], mk_near)
+    counts = {d: [len(b) for b, _ in v] for d, v in mk.items()}
+    log(f"  make_detector (ScrfdConfig defaults, seeded init, score bias {mk_bias:.4f}, box "
+        f"bias {ASD_BOX_BIAS}) on {len(picks)} frames: raw max |diff| / (1 + |CPU|) "
+        f"{mk_err:.2e} (limit {ASD_RAW_TOL}); boxes {counts['cuda']} card, {counts['cpu']} "
+        f"CPU; {mk_rep} frames reported")
+    if mk_err > ASD_RAW_TOL or not any(counts["cpu"]):
+        raise AssertionError(f"asd: make_detector raw outputs {mk_err} apart (limit "
+                             f"{ASD_RAW_TOL}), boxes {counts}")
+    del mods, make
+
+    # Light-ASD: GPU = CPU on one planted tube
+    state = lightasd.init_lightasd_params(torch.Generator().manual_seed(ASD_SEED))
+    net = lightasd.make_lightasd(state)
+    net_cpu = lightasd.make_lightasd(state, "cpu")
+    rng = np.random.default_rng(ASD_SEED + 1)
+    tubes = [(rng.integers(0, 256, (150, 112, 112)).astype(np.float32),
+              feats[4 * a:4 * a + 600]) for a, _ in windows]
+    faces, mfcc = tubes[0]
+    t0 = time.perf_counter()
+    ref = lightasd.lightasd_scores(net_cpu, faces[None], mfcc[None]).numpy()
+    cpu_s = time.perf_counter() - t0
+    got = lightasd.lightasd_scores(net, faces[None], mfcc[None]).cpu().numpy()
+    l_err = float(np.abs(got - ref).max())
+    log(f"  Light-ASD, a planted tube (faces {faces.shape}, MFCC {mfcc.shape}): logits card "
+        f"against CPU max |diff| {l_err:.2e} (limit {ASD_LOGIT_TOL}; |logit| max "
+        f"{np.abs(ref).max():.3f}); the CPU took {cpu_s:.2f} s")
+    if not (got.shape == (1, 150) and np.isfinite(got).all() and l_err <= ASD_LOGIT_TOL):
+        raise AssertionError(f"asd: Light-ASD logits {got.shape}, card against CPU {l_err}")
+    del net_cpu
+
+    # the chain over the whole video on the card; detect_faces is its two
+    # parts (levels on the device, decode + NMS on the host), timed apart
+    det_calls, tube_rec, asd_calls = [], [], []
+
+    def detect(frame):
+        t = time.perf_counter()
+        lv = det_gpu.levels(frame)
+        t1 = time.perf_counter()
+        out = scrfd.decode_detections(cfg, lv, *frame.shape[:2])
+        det_calls.append((t1 - t, time.perf_counter() - t1))
+        return out
+
+    def score(faces, mfcc):
+        t = time.perf_counter()
+        p = lightasd.track_score(net, faces, mfcc)
+        asd_calls.append((time.perf_counter() - t, len(faces), p))
+        return p
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ratio = asd.talking_ratio(frames, detect, asd_tubes(feats, tube_rec, score))
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    det_s = sum(a for a, _ in det_calls)
+    decode_s = sum(b for _, b in det_calls)
+    asd_s = sum(t for t, _, _ in asd_calls)
+    probs = [p for _, _, p in asd_calls]
+    log(f"  chain over the video: wall {wall:.3f} s a 5-minute video ({len(frames) / wall:.0f} "
+        f"video frames/s; {len(det_calls)} detector frames, {len(det_calls) / wall:.0f}/s); in "
+        f"the device calls {det_s + asd_s:.3f} s (detector upload + forward + read-back "
+        f"{det_s:.3f} s, Light-ASD {asd_s:.3f} s), host {wall - det_s - asd_s:.3f} s (decode + "
+        f"NMS {decode_s:.3f} s, tubes {sum(t for _, _, t in tube_rec):.3f} s, tracking and the "
+        f"rest); tracks scored {len(asd_calls)} (lengths "
+        f"{sorted(n for _, n, _ in asd_calls)[::-1][:10]}), mean P(talking) "
+        f"{np.mean(probs) if probs else float('nan'):.3f}; ratio {ratio:.2f}, keep "
+        f"{asd.keep_clip(ratio)}; peak device memory {peak:.3f} GiB; kernel launches "
+        f"{dict(build.launch_counts) or 'none'} (no hand-written kernel on this path)")
+    if not (0.0 <= ratio <= 1.0 and len(det_calls) == 1500 and np.isfinite(probs).all()):
+        raise AssertionError(f"asd: ratio {ratio}, {len(det_calls)} detector frames, {probs}")
+
+    # the 10 planted tubes, one a window
+    walls = []
+    for faces, mfcc in tubes:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p = lightasd.track_score(net, faces, mfcc)
+        walls.append(time.perf_counter() - t)
+        if not 0.0 <= p <= 1.0:
+            raise AssertionError(f"asd: planted tube probability {p}")
+    fx = torch.as_tensor(tubes[0][0][None]).to(dev)
+    mx = torch.as_tensor(tubes[0][1][None]).to(dev)
+    asd_ms = kernel_timing.cuda_ms(lambda: lightasd.lightasd_scores(net, fx, mx))
+    _, p_wall, busy, groups = profiled(lambda: lightasd.lightasd_scores(net, fx, mx))
+    log(f"  Light-ASD, {len(tubes)} planted tubes of 150 frames through track_score: "
+        f"{np.median(walls) * 1e3:.2f} ms a tube (median; {min(walls) * 1e3:.2f}-"
+        f"{max(walls) * 1e3:.2f}), forward {asd_ms:.3f} ms by CUDA events, device busy "
+        f"{busy * 1e3:.3f} ms (~60 GFLOP: {60e9 / busy / 1e12:.1f} TFLOP/s fp32)")
+    log_profile("Light-ASD tube", p_wall, busy, groups)
+
+    # the detector alone: one call, CUDA events, device time
+    x = ((torch.as_tensor(frames[lo]).to(dev).to(torch.float32) - 127.5) / 128.0) \
+        .permute(2, 0, 1)[None]
+    fwd_ms = kernel_timing.cuda_ms(lambda: fwd["cuda"](x), iters=50)
+    n_prof = 50
+    _, d_wall, d_busy, d_groups = profiled(lambda: [det_gpu(f) for f in frames[lo:lo + n_prof]])
+    per_frame = [a + b for a, b in det_calls]
+    log(f"  detector: detect_faces {np.median(per_frame) * 1e3:.3f} ms a frame (median of the "
+        f"chain's {len(per_frame)}; {np.percentile(per_frame, 99) * 1e3:.3f} p99), forward "
+        f"{fwd_ms:.3f} ms by CUDA events, device busy {d_busy / n_prof * 1e3:.3f} ms a frame "
+        f"over {n_prof} calls, {len(model.nodes)} graph nodes")
+    log_profile(f"detector, {n_prof} frames", d_wall, d_busy, d_groups)
+
+    # one window of the chain, profiled
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        asd.talking_ratio(frames[lo:hi], det_gpu, asd_tubes(feats, None, score))
+        torch.cuda.synchronize()
+        w_wall = time.perf_counter() - t0
+    log("  window 0 of the chain profiled:")
+    profile_stream.report(prof, w_wall)
+
+
 def phase_midsize() -> dict:
     """The port's forward at Qwen2-VL-7B's width (4 LLM layers, 4 ViT
     blocks, ``tools/midsize.py``) against HF's golden
@@ -3773,6 +4155,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     lmm_counts, loss_counts, produce = run_phase(
         "produce", lambda: phase_produce(cfg, model, asr_words))
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_phase("asd", phase_asd)
     gc.collect()
     torch.cuda.empty_cache()
     models = [model]

@@ -33,10 +33,9 @@ def build_predictor(model_path: str | None, max_frames: int = 64, device: str = 
     from livecc_tpu_torch.eval.mcq import MCQPredictor
     from livecc_tpu_torch.models.qwen2_vl.convert import load_checkpoint
     from livecc_tpu_torch.models.qwen2_vl.model import init_params
+    from livecc_tpu_torch.utils.device import device_for
 
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: CUDA is not available (--device cpu runs the plain "
-                           "versions on the CPU)")
+    device_for(device, "eval.cli", " (--device cpu runs the plain versions on the CPU)")
     if model_path:
         cfg, model = load_checkpoint(model_path, device, torch.bfloat16)
         tokenizer = HFTokenizer(model_path)

@@ -33,6 +33,7 @@ import torch
 from livecc_tpu_torch.core.config import ModelConfig, TextConfig, VisionConfig
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL
 from livecc_tpu_torch.models.qwen2_vl.safetensors_io import Shards
+from livecc_tpu_torch.utils.device import device_for
 
 # port parameter (relative to a vision block / decoder layer) -> HF name
 _VISION_BLOCK = {
@@ -185,8 +186,7 @@ def load_checkpoint(path: str, device="cuda",
     with ``quantize_weights=True`` (or ``ops/quant.py:quantize_model``)
     then quantizes it module by module, so no module is held twice but the
     one being quantized."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("load_checkpoint: device cuda requested and CUDA is not available")
+    device_for(device, "load_checkpoint")
     cfg = config_from_hf_json(path)
     with Shards(path) as shards:
         model = convert_state_dict(shards, cfg, device=device, dtype=dtype)

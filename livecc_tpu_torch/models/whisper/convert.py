@@ -26,6 +26,7 @@ import torch
 
 from livecc_tpu_torch.models.qwen2_vl.safetensors_io import Shards
 from livecc_tpu_torch.models.whisper.model import Whisper, WhisperConfig
+from livecc_tpu_torch.utils.device import device_for
 
 TIED_HEAD = "proj_out.weight"
 
@@ -81,8 +82,6 @@ def load_safetensors_dir(path: str, cfg: WhisperConfig, device="cuda",
     """The model of a checkpoint directory's shards, loaded onto ``device``
     in ``dtype`` (bf16 by default, as JAX's) one tensor at a time; "cuda"
     raises without a card."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("load_safetensors_dir: device cuda requested and CUDA is not "
-                           "available")
+    device_for(device, "load_safetensors_dir")
     with Shards(path) as shards:
         return convert_state_dict(shards, cfg, device=device, dtype=dtype)

@@ -25,8 +25,10 @@ busy time (union of kernel intervals) against the wall time, i.e. the
 device's idle share; and device time by group — the port's kernels (K3 ViT attention, K1 prefill and
 K2 decode attention, and their int8 variants; K5, the int8-weight GEMM
 of ``--w8``; K4 training attention for
-``tools/train_session.py --profile``, which reuses ``report``), matrix
-products, everything else — and the top kernels by name.
+``tools/train_session.py --profile``, which reuses ``report``), copies,
+convolutions, recurrent (GRU) kernels, matrix products, pooling,
+elementwise and reduction kernels, everything else — and the top kernels
+by name. ``chip_smoke.py`` groups its profiles the same way.
 
 Needs a CUDA GPU; it does not run on the CPU. To profile another checkout
 of the port with this script, run it by path with that checkout first on
@@ -68,8 +70,20 @@ def _group(name: str) -> str:
             return "K3 vit_group_attention"
         return "K1-int8 flash_prefill_int8" if quant == "true" else "K1 flash_prefill"
     low = name.lower()
+    if "memcpy" in low or "memset" in low:
+        return "copies"
+    # cuDNN's convolutions are implicit GEMMs ("xmma_fprop_implicit_gemm"):
+    # the pass in their name tells them from the matrix products
+    if re.search(r"fprop|dgrad|wgrad|conv(?!ert)|winograd", low):
+        return "conv"
+    if re.search(r"rnn|gru|lstm", low):
+        return "GRU"
     if any(s in low for s in ("gemm", "cutlass", "xmma", "nvjet", "gemv", "splitk")):
         return "matmul"
+    if "pool" in low:
+        return "pooling"
+    if re.search(r"elementwise|reduce|index|catarray|scatter|gather|softmax", low):
+        return "elementwise"
     return "other"
 
 
@@ -132,7 +146,7 @@ def print_choices(label: str, ctl, choices: list) -> None:
 
 def device_groups(prof) -> dict[str, float]:
     """Device seconds of a profile's kernels by group (the port's kernels,
-    matmul, other)."""
+    copies, conv, GRU, matmul, pooling, elementwise, other)."""
     by_group: dict[str, float] = collections.defaultdict(float)
     for e in _kernels(prof):
         by_group[_group(e.name)] += (e.time_range.end - e.time_range.start) / 1e6

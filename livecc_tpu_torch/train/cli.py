@@ -87,11 +87,10 @@ def main(argv=None, *, tokenizer=None, video_loader=None, on_step=None) -> dict:
     from livecc_tpu_torch.models.qwen2_vl.model import init_params
     from livecc_tpu_torch.train.step import TrainConfig
     from livecc_tpu_torch.train.trainer import Trainer, TrainerConfig
+    from livecc_tpu_torch.utils.device import device_for
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: CUDA is not available (--device cpu runs the plain "
-                           "versions on the CPU)")
+    device = device_for(args.device, "train.cli", " (--device cpu runs the plain versions on "
+                        "the CPU)")
     if args.pretrained:
         cfg, model = load_checkpoint(args.pretrained, device, torch.bfloat16)
         tokenizer = tokenizer or HFTokenizer(args.pretrained)

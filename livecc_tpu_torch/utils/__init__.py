@@ -1,1 +1,2 @@
-"""Serving metrics (``metrics.LatencyTracker``) and FLOP counts (``flops``)."""
+"""Serving metrics (``metrics.LatencyTracker``), FLOP counts (``flops``) and the
+device guard of the entry points (``device.device_for``)."""
