@@ -65,7 +65,12 @@ Phases (any failure raises and the script exits non-zero):
                  fail, two bf16 launches bit-equal, and at S = 8192 kernel,
                  plain version and SDPA with the segment block mask timed
                  beside the bound (the kernels line's ``noncausal`` key of
-                 the two K4 entries). K5 (``phase_k5``) at
+                 the two K4 entries). K4 at one tensor-parallel rank's heads
+                 of the 7B (``phase_k4_tp``: Hq = 14, Hk = 2 for M = 2;
+                 Hq = 7, Hk = 1 for M = 4) on the timed K4 case's packed
+                 rows, held by ``close`` and ``grad_close`` (a dropped tile
+                 pair must fail), timed beside bound and SDPA (the K4
+                 entries' ``tp`` key). K5 (``phase_k5``) at
                  ``kernel_timing.W8_SHAPES`` (decode and verify-window rows
                  on gate_proj, down_proj, k_proj and the fp32 lm_head,
                  prefill rows on gate_proj and down_proj, the ViT's fc1),
@@ -264,6 +269,18 @@ Phases (any failure raises and the script exits non-zero):
                  against ``kernel_check``'s blocked plain versions (the
                  backward by ``grad_close``; a dropped tile must fail each
                  check), timed at 32768.
+     mesh      — multi-device training (``phase_mesh``): ``train.cli``'s
+                 ``main`` with train_cli's first run's flags and checkpoint
+                 plus ``--mesh 1x1``, over NCCL at world size 1 (torchrun's
+                 variables set in the process): the TP layers, the
+                 vocab-parallel CE and the flat ZeRO-2 update with every
+                 collective issued. Steps 1-2's losses those of train_cli's
+                 run within 1e-6 relative, step 3's within ``close``'s bf16
+                 limit; K3 and K4 fwd/bwd launched; NCCL collectives in step 3's
+                 profile (count, device time, idle share); the step-3
+                 state.pt loads in the no-mesh ``Trainer``. With 2 or 4
+                 cards also ``--mesh 2x1`` / ``2x2`` through torchrun (this
+                 script's ``--mesh-worker`` mode), held to the 1x1 losses.
  14. midsize   — the port's forward at the 7B's width (4 LLM layers, 4
                  ViT blocks; weights from ``utils/param_recipe.py``)
                  against HF's golden ``tests/goldens/hf_midsize.npz``
@@ -276,7 +293,7 @@ Phases (any failure raises and the script exits non-zero):
 Launch counts are reset just before each of main, pool, main_spec (and
 its worst case), pool_spec, main_w8 (and its lookahead session), pool_w8,
 eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs,
-train, train_cli's two CLI runs, produce's batch and lm_loss runs and
+train, train_cli's two CLI runs, mesh's run, produce's batch and lm_loss runs and
 midsize's two runs and read just after; every kernel of
 that path must have launched. Every phase always
 runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
@@ -291,6 +308,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -348,6 +366,9 @@ K4_CASES = ((4096, (1500, 1400, 1000), "bf16", True),     # strided q
 # an output; lse is fp32 in both dtypes
 K4_TOL = {"bf16": (1e-2, 2e-2), "fp32": (1e-4, 1e-4), "lse": (1e-4, 1e-4)}
 K4_GRAD_NORM_TOL = 2e-2    # bf16 gradients against the fp32 plain version: ||g - r|| / ||r||
+# K4 at one tensor-parallel rank's heads of the 7B (Hq / M, Hk / M) for M = 2 and 4,
+# on the packed rows of K4_CASES' timed case
+K4_TP_HEADS = ((2, 14, 2), (4, 7, 1))
 # eval: VideoMME items at the 720p budget (EVAL_FRAMES frames of a 720x1280
 # source at 2 fps, served at the budget's 560x1008: 32 groups of g = 2880,
 # the 32768 bucket), the reduced item (8 frames of 560x1008: 4 groups, the
@@ -851,6 +872,8 @@ def phase_kernels() -> dict:
     torch.cuda.empty_cache()
     phase_k4_noncausal(results, randn)
     torch.cuda.empty_cache()
+    phase_k4_tp(results, randn)
+    torch.cuda.empty_cache()
     phase_k5(results)
     torch.cuda.empty_cache()
     return results
@@ -1120,6 +1143,98 @@ def phase_k4_noncausal(results, randn):
                     f"{work[name][0] / 1e9:.3f} GFLOP)")
             del fns
         del qs, k, v, do, o, lse, grads
+        torch.cuda.empty_cache()
+
+
+def phase_k4_tp(results, randn):
+    """K4 at one tensor-parallel rank's heads of the 7B (``K4_TP_HEADS``:
+    Hq = 14, Hk = 2 for M = 2; Hq = 7, Hk = 1 for M = 4) on the packed rows
+    of ``K4_CASES``' timed case (S = 8192, bf16), forward and backward,
+    against the plain version on the same inputs: o and lse by
+    ``kernel_check.close`` in their dtypes, the gradients by
+    ``kernel_check.grad_close`` against the fp32 plain version; each check
+    must fail the reference with one tile pair dropped
+    (``kernel_check.dropped_tile``). Kernel, plain version and SDPA
+    (``sdpa_packed``), one call each (``cuda_ms``), beside the bound. The
+    numbers go under the K4 entries' key ``tp`` of the kernels line,
+    keyed by M."""
+    import torch
+
+    from livecc_tpu_torch.ops.attention import prescaled
+    from livecc_tpu_torch.ops.train_attention import (
+        train_attention_bwd, train_attention_bwd_plain, train_attention_fwd,
+        train_attention_fwd_plain)
+    from livecc_tpu_torch.tools import kernel_check
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms
+
+    dev = torch.device("cuda")
+    s, lengths, _, _ = K4_CASES[-1]
+    d = K4_HEADS[2]
+    bf16 = torch.bfloat16
+    seg = segment_ids(s, lengths, dev)
+    qt = lengths[0] // 64 - 1                        # a query tile at the end of segment 1
+    for m, hq, hk in K4_TP_HEADS:
+        qs, k, v, do = prescaled(randn((1, s, hq, d), bf16)), *(randn((1, s, h, d), bf16)
+                                                              for h in (hk, hk, hq))
+        label = f"S={s} segments {list(lengths)} Hq={hq} Hk={hk} bf16 (TP rank of M={m})"
+        o, lse = train_attention_fwd(qs, k, v, seg)
+        grads = train_attention_bwd(qs, k, v, seg, o, lse, do)
+        ro, rlse = train_attention_fwd_plain(qs, k, v, seg)
+        rgrads = train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
+        f32 = [x.float() for x in (qs, k, v)]
+        r32 = train_attention_bwd_plain(*f32, seg, *train_attention_fwd_plain(*f32, seg),
+                                        do.float())
+        del f32
+        fault = (*kernel_check.dropped_tile(qs, k, v, seg, do, ro, rlse, rgrads, qt, qt // 2,
+                                            min(3, hq - 1))[:2],
+                 *kernel_check.dropped_tile(qs, k, v, seg, do, o, lse, rgrads, qt, qt // 2,
+                                            min(3, hq - 1))[2:])
+        torch.cuda.synchronize()
+        for j, (part, out, ref, bad) in enumerate(zip(("o", "lse", "dq", "dk", "dv"),
+                                                      (o, lse, *grads), (ro, rlse, *rgrads),
+                                                      fault)):
+            name = "train_attention_fwd" if j < 2 else "train_attention_bwd"
+            if j >= 2:
+                w, w_bad = (kernel_check.grad_close(x, ref, r32[j - 2]) for x in (out, bad))
+                limit = "grad_close against the fp32 plain version"
+            else:
+                tol = torch.float32 if part == "lse" else bf16
+                w, w_bad = (kernel_check.close(x, ref, tol) for x in (out, bad))
+                limit = f"close {kernel_check.TOL[tol]}"
+            err = (out.float() - ref.float()).abs().max().item()
+            log(f"  {name:20s} {label} {part}: max_abs_err {err:.3e}, worst {w:.3f} of the "
+                f"limit ({limit}); a dropped tile pair: {w_bad:.1f}x")
+            if not w <= 1.0:
+                raise AssertionError(f"{name} {label} {part}: {w:.3f}x the limit")
+            if not w_bad > 1.0:
+                raise AssertionError(f"{name} {label} {part}: the check passes a dropped tile")
+            if part != "lse":
+                r = results[name].setdefault("tp", {}).setdefault(f"M={m}", {"max_abs_err": 0.0})
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+        del rgrads, r32, fault, ro, rlse
+        torch.cuda.empty_cache()
+        pairs = causal_pairs(lengths, s)
+        io = 2 * (2 * s * hq * d + 2 * s * hk * d)              # q, o, k, v in bf16
+        work = {"train_attention_fwd": (4 * pairs * d * hq, io + 4 * s * hq + 4 * s),
+                "train_attention_bwd": (10 * pairs * d * hq, io + 2 * s * hq * d
+                                        + 3 * (2 * s * hk * d) + 4 * s * hq + 4 * s)}
+        fns = {"train_attention_fwd": (lambda: train_attention_fwd(qs, k, v, seg),
+                                       lambda: train_attention_fwd_plain(qs, k, v, seg),
+                                       sdpa_packed(qs, k, v, seg, None)),
+               "train_attention_bwd": (lambda: train_attention_bwd(qs, k, v, seg, o, lse, do),
+                                       lambda: train_attention_bwd_plain(qs, k, v, seg, o, lse,
+                                                                         do),
+                                       sdpa_packed(qs, k, v, seg, do))}
+        for name, (kernel_fn, plain_fn, library_fn) in fns.items():
+            r = results[name]["tp"][f"M={m}"]
+            r["ms"], r["plain_ms"], r["library_ms"] = (cuda_ms(fn) for fn in
+                                                       (kernel_fn, plain_fn, library_fn))
+            r["bound_ms"], r["bound_by"] = bound(*work[name])
+            r["heads"] = [hq, hk]
+            log(f"  {name:20s} {label}: kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.3f} ms  "
+                f"SDPA {r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                f"{work[name][0] / 1e9:.3f} GFLOP)")
+        del fns, qs, k, v, do, o, lse, grads
         torch.cuda.empty_cache()
 
 
@@ -2870,6 +2985,13 @@ class SeededSource:
             0, 256, (h, w, 3), dtype=np.uint8) for i in indices])
 
 
+def cli_sources(root: str) -> dict:
+    """The train_cli clips under ``root``: path -> ``SeededSource``."""
+    return {os.path.join(root, f"clip_{seconds}s.mp4"): SeededSource(
+                int(seconds * CLI_SOURCE_FPS), CLI_SOURCE_FPS, CLI_SOURCE_HW, CLI_SEED + i)
+            for i, seconds in enumerate(CLI_CLIPS)}
+
+
 def train_cli_corpus(root: str, ffmpeg: bool):
     """The train_cli corpus under ``root``: a JSONL file in the Live-CC-5M
     schema with the port's seek index (``write_seek_index``), one streaming
@@ -2885,11 +3007,8 @@ def train_cli_corpus(root: str, ffmpeg: bool):
     from livecc_tpu_torch.vision_io.video_reader import encode_test_video
 
     rng = np.random.RandomState(CLI_SEED)
-    sources, rows = {}, []
-    for i, seconds in enumerate(CLI_CLIPS):
-        path = os.path.join(root, f"clip_{seconds}s.mp4")
-        sources[path] = SeededSource(int(seconds * CLI_SOURCE_FPS), CLI_SOURCE_FPS,
-                                     CLI_SOURCE_HW, CLI_SEED + i)
+    sources, rows = cli_sources(root), []
+    for path, seconds in zip(sources, CLI_CLIPS):
         n_words = int(seconds * CLI_WORDS_PER_S)
         stream = [[round(j / CLI_WORDS_PER_S, 2), round(j / CLI_WORDS_PER_S + 0.32, 2),
                    str(rng.choice(CLI_VOCAB))] for j in range(n_words)]
@@ -2943,8 +3062,10 @@ def phase_train_cli() -> dict:
     wall, peak memory, load, save and restore seconds), the window's work
     comes through ``cli.main``'s ``on_step``; only ``Trainer.try_restore``,
     a public method, is wrapped, in the resumed run, to hold what it
-    restored. Returns the launch counts of the two
-    CLI runs."""
+    restored. Returns the launch counts of the two CLI runs and what the
+    ``mesh`` phase reuses (the work directory under ``build/``, which the
+    caller removes after that phase; the checkpoint, the corpus, the flags,
+    steps 1-3's records)."""
     import shutil
 
     import numpy as np
@@ -3116,13 +3237,222 @@ def phase_train_cli() -> dict:
 
         remat_ab(cfg, ckpt, longest, checked)
         train_cli_kernels(k4_rows, sorted(vit_shapes))
-    finally:
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
     total = {}
     for c in counts:
         for name, n in c.items():
             total[name] = total.get(name, 0) + n
-    return total
+    at = flags.index("--output_dir")
+    return total, {"work": work, "out": out, "ckpt": ckpt, "flags": flags[:at] + flags[at + 2:],
+                   "tokenizer": tokenizer, "loader": loader, "records": records[:3],
+                   "ffmpeg": ffmpeg}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh(run: dict) -> dict:
+    """Multi-device training (``train.cli --mesh``) on train_cli's
+    checkpoint (the 7B's width, the LLM at 4 layers) and corpus, with
+    train_cli's first run's flags (3 steps, accum 2, the ViT frozen) plus
+    ``--mesh 1x1``: the default process group over NCCL at world size 1
+    from torchrun's variables set in this process (the CLI destroys the
+    group at its end), the TP layers and ``vocab_parallel_ce`` at M = 1 and
+    the flat ZeRO-2 update at D = 1, every collective issued. Checks: steps
+    1 and 2's losses those of train_cli's no-mesh run within 1e-6 relative
+    (the same arithmetic; the first update has learning rate 0), step 3's
+    within ``kernel_check.close``'s bf16 limit (the global norm sums the
+    flat partition in another order); NCCL collectives in the profile; K3 and
+    K4's forward and backward launched; the step-3 ``state.pt`` loads in
+    the no-mesh ``Trainer`` (step, count and tensors equal to the file's).
+    Prints each step's wall and peak memory beside train_cli's, and step 3
+    under the profiler (host and device activity, started after step 2's
+    work): the idle share, the collectives' count (the dispatcher's
+    ``c10d::<op>`` ranges; at least one, the backend NCCL) and the device
+    time under them, device time by group. Where the
+    machine has 2 cards, ``--mesh 2x1`` through torchrun over NCCL (4
+    cards: ``2x2`` too), held to the 1x1 run's losses by the bf16 limit; it
+    prints the world sizes it ran. Returns the 1x1 run's launch counts."""
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from livecc_tpu_torch.models.qwen2_vl.convert import load_checkpoint
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.tools import kernel_check
+    from livecc_tpu_torch.tools.profile_stream import busy_seconds, device_groups
+    from livecc_tpu_torch.train import cli
+    from livecc_tpu_torch.train.step import TrainConfig
+    from livecc_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    shutil.rmtree(os.path.join(run["out"], "ckpt"), ignore_errors=True)   # train_cli's 21.6 GB
+    out = os.path.join(run["work"], "mesh_1x1")
+    window = {}
+
+    def on_step(step, batch, metrics):
+        """Step 3 under the profiler, from the end of step 2's work."""
+        if step in (2, 3):
+            torch.cuda.synchronize()
+        if step == 2:
+            window["backend"] = dist.get_backend()
+            window["prof"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            window["prof"].start()
+            window["t0"] = time.perf_counter()
+        elif step == 3:
+            window["wall"] = time.perf_counter() - window["t0"]
+            window["prof"].stop()
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    build.reset_launch_counts()
+    try:
+        last = cli.main(run["flags"] + ["--output_dir", out, "--total_steps", "3", "--mesh", "1x1"],
+                        tokenizer=run["tokenizer"], video_loader=run["loader"], on_step=on_step)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counts = dict(build.launch_counts)
+    if dist.is_initialized():
+        raise AssertionError("mesh: the CLI left its process group")
+    with open(os.path.join(out, "log.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    log(f"  --mesh 1x1 over NCCL at world size 1: last record {last}; launches {counts}")
+    if [r["step"] for r in records] != [1, 2, 3] or last.get("retries") != 0:
+        raise AssertionError(f"mesh: steps {[r['step'] for r in records]}, {last}")
+    for rec, r in zip(records, run["records"]):
+        a, b = rec["loss"], r["loss"]
+        share = kernel_check.close(torch.tensor([a]), torch.tensor([b]), torch.bfloat16)
+        same = "bit-equal" if a == b else f"rel {abs(a - b) / abs(b):.2e}"
+        log(f"  step {rec['step']}: loss {a:.6f} vs no-mesh {b:.6f} ({same}; {share:.4f} of "
+            f"close's bf16 limit); tokens {rec['tokens']} vs {r['tokens']}; wall "
+            f"{rec['wall_s']:.3f} s vs {r['wall_s']:.3f} s; peak {rec['peak_gib']:.2f} GiB vs "
+            f"{r['peak_gib']:.2f} GiB; window loaded in {rec['load_s']:.2f} s"
+            + (" (under the profiler)" if rec["step"] == 3 else ""))
+        if rec["tokens"] != r["tokens"]:
+            raise AssertionError(f"mesh step {rec['step']}: tokens {rec['tokens']} vs {r['tokens']}")
+        if rec["step"] <= 2 and not abs(a - b) <= 1e-6 * abs(b):
+            raise AssertionError(f"mesh step {rec['step']}: loss {a} is not the no-mesh {b}")
+        if not share <= 1.0:
+            raise AssertionError(f"mesh step {rec['step']}: loss {a} vs {b}: {share:.3f}x the limit")
+    missing = [name for name in TRAIN_KERNELS if counts.get(name, 0) <= 0]
+    if missing:
+        raise AssertionError(f"mesh: the run never launched {missing}")
+
+    # the collectives: the dispatcher's "c10d::<op>" host ranges and the
+    # device work launched inside them (at one rank NCCL launches no kernel:
+    # an out-of-place collective is a device copy, an in-place one nothing)
+    prof = window.pop("prof")
+    events = prof.events()
+    colls = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+             and e.name.startswith("c10d::")]
+    coll_s = sum(getattr(e, "device_time_total", 0.0) for e in colls) / 1e6
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.name.lower().startswith("nccl")]
+    busy, groups = busy_seconds(prof), device_groups(prof)
+    total = sum(groups.values())
+    kinds = {}
+    for e in colls:
+        kinds[e.name] = kinds.get(e.name, 0) + 1
+    log(f"  step 3 profiled (host and device activity): wall {window['wall']:.3f} s, device "
+        f"busy {busy:.3f} s, idle share {1 - busy / window['wall']:.3f}; "
+        f"{window['backend']} collectives "
+        f"{len(colls)} {kinds}, device time under them {coll_s * 1e3:.3f} ms "
+        f"({coll_s / total:.3%} of device time), NCCL kernels {len(kernels)}")
+    for g, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {g:28s} {t * 1e3:10.2f} ms  {t / total:6.1%}")
+    if window["backend"] != "nccl" or not colls:
+        raise AssertionError(f"mesh: backend {window['backend']}, {len(colls)} collectives "
+                             f"in the profiled step")
+    del prof, events
+
+    # the mesh's state.pt in the no-mesh Trainer
+    path = os.path.join(out, "ckpt", "3", "state.pt")
+    t0 = time.perf_counter()
+    cfg, model = load_checkpoint(run["ckpt"], "cuda", torch.bfloat16)
+    trainer = Trainer(model, cfg, TrainConfig(total_steps=3, freeze_modules=("visual",)),
+                      TrainerConfig(output_dir=out, total_steps=3, accum_steps=2, save_steps=None),
+                      dataset=[])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    state = torch.load(path, map_location="cpu", mmap=True)
+    names = ("text.layers.0.q_proj.weight", "text.layers.3.down_proj.weight",
+             "text.lm_head.weight", "text.final_ln.weight")
+    params = dict(model.named_parameters())
+    same = trainer.step == 3 and trainer.opt_state["count"] == 3 and all(
+        torch.equal(params[n].detach().cpu(), state["params"][n])
+        and torch.equal(trainer.opt_state["nu"][n].cpu(), state["opt_state"]["nu"][n])
+        for n in names)
+    log(f"  the mesh's state.pt ({os.path.getsize(path) / 1e9:.1f} GB) in the no-mesh Trainer: "
+        f"step {trainer.step}, count {trainer.opt_state['count']}, {len(names)} tensors and their "
+        f"nu equal to the file's: {same} (model load + restore {load_s:.1f} s)")
+    if not same:
+        raise AssertionError("mesh: the no-mesh Trainer did not restore the mesh's state.pt")
+    del trainer, model, params, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(out, "ckpt"), ignore_errors=True)
+
+    worlds = [1]
+    n_cards = torch.cuda.device_count()
+    for n_data, n_model in ((2, 1), (2, 2)):
+        if n_data * n_model > n_cards:
+            continue
+        spec = f"{n_data}x{n_model}"
+        mout = os.path.join(run["work"], f"mesh_{spec}")
+        job = {"work": run["work"], "ffmpeg": run["ffmpeg"],
+               "argv": run["flags"] + ["--output_dir", mout, "--total_steps", "3",
+                                       "--save_steps", "100", "--mesh", spec]}
+        done = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", str(n_data * n_model),
+                               os.path.abspath(__file__), "--mesh-worker", json.dumps(job)],
+                              capture_output=True, text=True, timeout=300)
+        if done.returncode != 0:
+            raise AssertionError(f"mesh {spec}: torchrun exited {done.returncode}: "
+                                 f"{(done.stdout + done.stderr)[-3000:]}")
+        with open(os.path.join(mout, "log.jsonl")) as f:
+            other = [json.loads(line) for line in f]
+        if [r["step"] for r in other] != [1, 2, 3]:
+            raise AssertionError(f"mesh {spec}: steps {[r['step'] for r in other]}")
+        for rec, r in zip(other, records):
+            share = kernel_check.close(torch.tensor([rec["loss"]]), torch.tensor([r["loss"]]),
+                                       torch.bfloat16)
+            log(f"  --mesh {spec} step {rec['step']}: loss {rec['loss']:.6f} vs 1x1 "
+                f"{r['loss']:.6f} ({share:.4f} of close's bf16 limit); tokens {rec['tokens']}; "
+                f"wall {rec['wall_s']:.3f} s; peak {rec['peak_gib']:.2f} GiB")
+            if rec["tokens"] != r["tokens"] or not share <= 1.0:
+                raise AssertionError(f"mesh {spec} step {rec['step']}: {rec} vs 1x1 {r}")
+        worlds.append(n_data * n_model)
+    log(f"  world sizes run: {worlds} ({n_cards} card(s) here; the multi-rank numbers come "
+        f"from the CPU tests over gloo)")
+    return counts
+
+
+def mesh_worker(spec: str) -> int:
+    """One rank of ``phase_mesh``'s multi-card runs (``torchrun ...
+    chip_smoke.py --mesh-worker SPEC``): train_cli's tokenizer and frames
+    (``SeededSource`` where FFmpeg is absent), then ``cli.main``."""
+    sys.path.insert(0, ROOT)
+    from livecc_tpu_torch.data.tokenizer import ByteTokenizer
+    from livecc_tpu_torch.tools import train_session as ts
+    from livecc_tpu_torch.train import cli
+
+    job = json.loads(spec)
+    loader = None if job["ffmpeg"] else cli_sources(job["work"]).__getitem__
+    cli.main(job["argv"], tokenizer=ByteTokenizer.for_config(ts.train_model_config()),
+             video_loader=loader)
+    return 0
 
 
 def train_cli_kernels(k4_rows: dict, vit_shapes) -> None:
@@ -4170,7 +4500,14 @@ def main() -> int:
     train_counts = run_phase("train", phase_train)
     gc.collect()
     torch.cuda.empty_cache()
-    train_cli_counts = run_phase("train_cli", phase_train_cli)
+    train_cli_counts, cli_run = run_phase("train_cli", phase_train_cli)
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        mesh_counts = run_phase("mesh", lambda: phase_mesh(cli_run))
+    finally:
+        shutil.rmtree(cli_run["work"], ignore_errors=True)
+    del cli_run
     gc.collect()
     torch.cuda.empty_cache()
     midsize_counts = run_phase("midsize", phase_midsize)
@@ -4181,7 +4518,8 @@ def main() -> int:
                                                  main_w8_counts, main_w8_spec_counts,
                                                  pool_w8_counts, eval_counts, cc_counts,
                                                  checkpoint_counts, checkpoint_w8_counts,
-                                                 train_counts, train_cli_counts, lmm_counts,
+                                                 train_counts, train_cli_counts, mesh_counts,
+                                                 lmm_counts,
                                                  loss_counts, midsize_counts)),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"],
@@ -4190,6 +4528,7 @@ def main() -> int:
         "bound_by": results[name]["bound_by"],
         "library_ms": results[name]["library_ms"],
         **({"noncausal": results[name]["noncausal"]} if "noncausal" in results[name] else {}),
+        **({"tp": results[name]["tp"]} if "tp" in results[name] else {}),
         **({"produce": produce[name]} if name in produce else {}),
     } for name, (src, replaces) in KERNELS.items()]
     log(f"total {time.perf_counter() - t_all:.1f} s")
@@ -4202,4 +4541,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(sys.argv[2]))
     sys.exit(main())

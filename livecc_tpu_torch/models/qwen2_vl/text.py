@@ -13,6 +13,14 @@ Without a cache ``text_forward`` is the training forward: every layer
 attends through K4 ``train_flash_attention`` over the whole sequence.
 A layer's linears may be ``ops/quant.py:QuantLinear`` (int8 weights, K5),
 the serving configuration; ``lm_logits`` takes a quantized vocab kernel.
+
+Under tensor parallelism (``parallel/sharding.py:shard_params`` sets
+``tp`` on the tower and its layers) a layer holds its model rank's Hq / M
+query heads, Hk / M KV heads and I / M of the MLP width (Megatron's
+layout): ``copy_to_model`` in front of q / k / v and gate / up,
+``reduce_from_model`` after o and down (``parallel/tp.py``). Only the
+uncached (training) forward runs so; ``model.py:forward`` with a cache
+and ``lm_logits`` raise under M > 1.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from livecc_tpu_torch.ops.attention import train_flash_attention
 from livecc_tpu_torch.ops.flash_attention import flash_decode, flash_prefill
 from livecc_tpu_torch.ops.quant import jax_weight, vocab_kernel, w8a16_gemm
 from livecc_tpu_torch.ops.rope import apply_mrope, mrope_cos_sin
+from livecc_tpu_torch.parallel.tp import TensorParallel, copy_to_model, reduce_from_model
 
 
 @dataclasses.dataclass
@@ -100,7 +109,9 @@ def write_rows(cache_layer: torch.Tensor, rows: torch.Tensor, start: torch.Tenso
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm attention + residual, pre-norm SwiGLU MLP + residual."""
+    """Pre-norm attention + residual, pre-norm SwiGLU MLP + residual.
+    ``tp`` (None: the whole layer) is its model group under tensor
+    parallelism."""
 
     def __init__(self, cfg: TextConfig, device=None, dtype=None):
         super().__init__()
@@ -108,6 +119,7 @@ class DecoderLayer(nn.Module):
         h, i = cfg.hidden_size, cfg.intermediate_size
         kvd = cfg.num_key_value_heads * cfg.head_dim
         self.cfg = cfg
+        self.tp: Optional[TensorParallel] = None
         self.input_ln = RMSNorm(h, cfg.rms_norm_eps, **kw)
         self.post_ln = RMSNorm(h, cfg.rms_norm_eps, **kw)
         self.q_proj = nn.Linear(h, h, **kw)
@@ -118,10 +130,16 @@ class DecoderLayer(nn.Module):
         self.up_proj = nn.Linear(h, i, bias=False, **kw)
         self.down_proj = nn.Linear(i, h, bias=False, **kw)
 
+    def _split_in(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.tp is None else copy_to_model(y, self.tp)
+
+    def _split_out(self, y: torch.Tensor) -> torch.Tensor:
+        return y if self.tp is None else reduce_from_model(y, self.tp)
+
     def qkv(self, x) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Pre-norm q, k, v projections (bias included), [B, S, heads, D]."""
         b, s, _ = x.shape
-        y = self.input_ln(x)
+        y = self._split_in(self.input_ln(x))
         return tuple(proj(y).reshape(b, s, -1, self.cfg.head_dim)
                      for proj in (self.q_proj, self.k_proj, self.v_proj))
 
@@ -129,22 +147,32 @@ class DecoderLayer(nn.Module):
         """M-RoPE, attention and the output projection: [B, S, H]."""
         b, s = q.shape[:2]
         q, k = apply_mrope(q, k, cos, sin)
-        return self.o_proj(attend(q, k, v).reshape(b, s, -1))
+        return self._split_out(self.o_proj(attend(q, k, v).reshape(b, s, -1)))
+
+    def gate_up(self, x) -> tuple[torch.Tensor, torch.Tensor]:
+        """gate and up of the post-norm input: [B, S, I] each."""
+        y = self._split_in(self.post_ln(x))
+        return self.gate_proj(y), self.up_proj(y)
 
     def mlp_in(self, x) -> torch.Tensor:
         """silu(gate) * up of the post-norm input: [B, S, I]."""
-        y = self.post_ln(x)
-        return F.silu(self.gate_proj(y)) * self.up_proj(y)
+        gate, up = self.gate_up(x)
+        return F.silu(gate) * up
+
+    def down(self, h) -> torch.Tensor:
+        """The down projection of silu(gate) * up: [B, S, H]."""
+        return self._split_out(self.down_proj(h))
 
     def forward(self, x, cos, sin, attend) -> torch.Tensor:
         x = x + self.attention(*self.qkv(x), cos, sin, attend)
-        return x + self.down_proj(self.mlp_in(x))
+        return x + self.down(self.mlp_in(x))
 
 
 class TextModel(nn.Module):
     def __init__(self, cfg: TextConfig, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
+        self.tp: Optional[TensorParallel] = None
         self.embed = nn.Embedding(cfg.vocab_size, cfg.hidden_size, device=device, dtype=dtype)
         self.layers = nn.ModuleList(DecoderLayer(cfg, device, dtype)
                                     for _ in range(cfg.num_hidden_layers))
@@ -214,6 +242,14 @@ def text_forward(
     return model.final_ln(x), cache
 
 
+def refuse_tp_serving(model: TextModel, what: str) -> None:
+    """Raise where ``model`` is split over more than one model rank."""
+    if model.tp is not None and model.tp.size > 1:
+        raise NotImplementedError(
+            f"{what} under tensor parallelism (M = {model.tp.size}): TP serving is not ported "
+            f"(ROADMAP Queue 1 item 3); only the training forward runs on a model-split mesh")
+
+
 REMAT_POLICIES = (False, True, "names", "names_mlp", "dots")
 
 
@@ -254,16 +290,11 @@ def remat_layer(layer: DecoderLayer, x, cos, sin, attend, remat) -> torch.Tensor
     q, k, v = _region(layer.qkv, x)
     x = x + _region(layer.attention, q, k, v, cos, sin, attend)
     if remat == "names":
-        return x + _region(lambda x_: layer.down_proj(layer.mlp_in(x_)), x)
+        return x + _region(lambda x_: layer.down(layer.mlp_in(x_)), x)
     if remat == "names_mlp":
-        return x + layer.down_proj(_region(layer.mlp_in, x))
-
-    def gate_up(x_):
-        y = layer.post_ln(x_)
-        return layer.gate_proj(y), layer.up_proj(y)
-
-    gate, up = _region(gate_up, x)
-    return x + _region(lambda g, u: layer.down_proj(F.silu(g) * u), gate, up)
+        return x + layer.down(_region(layer.mlp_in, x))
+    gate, up = _region(layer.gate_up, x)
+    return x + _region(lambda g, u: layer.down(F.silu(g) * u), gate, up)
 
 
 def _uncached_forward(model: TextModel, x, cos, sin, attention_mask, remat) -> torch.Tensor:
@@ -291,7 +322,9 @@ def lm_logits(model: TextModel, cfg: TextConfig, hidden: torch.Tensor) -> torch.
     operands with an fp32 output; on the CPU (the test path, which has no
     such kernel) an fp32 product of the widened operands. An int8 one (tied
     or untied, ``ops/quant.py``): the fp32 sum times the fp32 scale, K5's
-    fp32-output form on its ``[V, H]`` codes."""
+    fp32-output form on its ``[V, H]`` codes. Raises on a vocab-split
+    tower (M > 1)."""
+    refuse_tp_serving(model, "lm_logits")
     if cfg.tie_word_embeddings:
         kernel, scale = vocab_kernel(jax_weight(model.embed), transpose=True)
     else:

@@ -1,9 +1,9 @@
 """Chunked softmax cross-entropy over the vocabulary projection.
 
 Port of ``livecc_tpu/ops/chunked_ce.py`` (``_chunked``, ``chunked_cross_entropy``,
-``cross_entropy_mean``; ``vocab_parallel_ce`` needs more than one card and is
-not ported). The full ``[seq, vocab]`` logits never exist at once; the
-sequence is cut into chunks of ``chunk_size`` positions:
+``cross_entropy_mean``, ``vocab_parallel_ce``). The full ``[seq, vocab]``
+logits never exist at once; the sequence is cut into chunks of
+``chunk_size`` positions:
 
   * ``impl="scan"`` — each chunk's loss runs under
     ``torch.utils.checkpoint``, so the backward recomputes its logits (four
@@ -21,11 +21,17 @@ copied. These are plain matmuls (XLA's in JAX), so ``torch.matmul`` serves.
 Labels: ``IGNORE_INDEX`` (-100) is ignored; the loss returned is the SUM
 over supervised positions, with their count (HF Trainer's per-token mean is
 ``cross_entropy_mean``).
+
+``vocab_parallel_ce`` is the CE over a vocab-split head under tensor
+parallelism: each model rank holds ``[H, V / M]`` columns and the whole
+hidden state; the logsumexp is assembled from per-rank pieces by
+collectives on ``[chunk]`` floats, never a ``[*, V]`` tensor.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 IGNORE_INDEX = -100
@@ -159,3 +165,84 @@ def cross_entropy_mean(hidden, lm_kernel, labels, chunk_size: int = 1024,
     loss, count = chunked_cross_entropy(hidden, lm_kernel, labels, chunk_size=chunk_size,
                                         logit_dtype=logit_dtype)
     return loss / torch.clamp(count, min=1)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """``_FusedCE`` over a vocab-split kernel: per chunk one all-reduce MAX
+    of the row maxima (a shift, no gradient: JAX's ``_pmax_sg``) and one
+    all-reduce SUM of the shifted sums of exponentials and the masked gold
+    logits (JAX's two ``psum`` s, in one call)."""
+
+    @staticmethod
+    def forward(ctx, hidden, kernel, labels, tp, v_total, chunk_size, out_dtype, kernel_grad):
+        b, s, h = hidden.shape
+        v_shard = kernel.shape[1]
+        v0 = tp.rank * v_shard
+        hs, ls = _chunked(hidden, labels, chunk_size)
+        loss = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        dhid = []
+        dw = (torch.zeros(kernel.shape[::-1], dtype=torch.float32, device=hidden.device)
+              if kernel_grad else None)
+        pad_cols = None
+        if v_shard * tp.size != v_total:        # the pad columns of the last shard
+            pad_cols = v0 + torch.arange(v_shard, device=hidden.device) >= v_total
+        for hid, lab in zip(hs, ls):
+            n = hid.shape[0] * hid.shape[1]
+            flat = hid.reshape(n, h)
+            lf = _mm(flat, kernel, out_dtype).float()                    # [n, V / M]
+            if pad_cols is not None:
+                lf = lf.masked_fill(pad_cols, -1e30)
+            lab = lab.reshape(n)
+            mask = lab != IGNORE_INDEX
+            loc = torch.where(mask, lab, torch.zeros_like(lab)).long() - v0
+            inside = (loc >= 0) & (loc < v_shard)
+            loc = loc.clamp(0, v_shard - 1)
+            gmax = lf.amax(dim=-1)
+            dist.all_reduce(gmax, op=dist.ReduceOp.MAX, group=tp.group)
+            parts = torch.stack([(lf - gmax[:, None]).exp().sum(dim=-1),
+                                 torch.where(inside, torch.gather(lf, -1, loc[:, None])[:, 0],
+                                             torch.zeros_like(gmax))])
+            dist.all_reduce(parts, group=tp.group)
+            logz = parts[0].log() + gmax
+            loss = loss + torch.where(mask, logz - parts[1], torch.zeros_like(logz)).sum()
+            # softmax minus one-hot over this rank's columns, as _FusedCE
+            g = torch.exp(lf - logz[:, None])
+            g[torch.arange(n, device=g.device), loc] -= inside.to(g.dtype)
+            g = g.mul_(mask[:, None]).to(hid.dtype)
+            dhid.append(_mm(g, kernel.t(), torch.float32).to(hid.dtype).reshape(hid.shape))
+            if kernel_grad:
+                dw += _mm(g.t(), flat, torch.float32)
+        dhid = torch.stack(dhid).transpose(0, 1).reshape(b, -1, h)[:, :s]
+        ctx.save_for_backward(dhid, dw.to(kernel.dtype) if kernel_grad else None)
+        ctx.kernel_grad = kernel_grad
+        ctx.kernel_meta = (kernel.shape, kernel.dtype)
+        count = (labels != IGNORE_INDEX).sum()
+        ctx.mark_non_differentiable(count)
+        return loss, count
+
+    @staticmethod
+    def backward(ctx, g_loss, _g_count):
+        d_hidden, d_kernel = _FusedCE.backward(ctx, g_loss, _g_count)[:2]
+        return d_hidden, d_kernel, None, None, None, None, None, None
+
+
+def vocab_parallel_ce(
+    hidden: torch.Tensor,        # [B, S, H], the same on every model rank
+    kernel: torch.Tensor,        # [H, V / M]: this rank's columns [m V / M, (m + 1) V / M)
+    labels: torch.Tensor,        # [B, S] int, -100 = ignore
+    *,
+    tp,                          # parallel/tp.py:TensorParallel
+    v_total: int,                # the unpadded vocab; pad columns past it are masked
+    chunk_size: int = 1024,
+    logit_dtype: torch.dtype | None = None,
+    kernel_grad: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(summed loss fp32, supervised count), the same on every model rank:
+    JAX's ``vocab_parallel_ce`` (``ops/chunked_ce.py:214``), with the
+    gradients computed in the forward as ``impl="fused"``. The gradient of
+    ``hidden`` is this rank's partial sum: the caller sums it over the
+    model group (``parallel/tp.py:copy_to_model`` in front of the call);
+    the kernel's stays with its shard."""
+    out_dtype = torch.float32 if logit_dtype is None else logit_dtype
+    return _VocabParallelCE.apply(hidden, kernel, labels, tp, v_total, chunk_size, out_dtype,
+                                  kernel_grad)

@@ -70,6 +70,8 @@ def _group(name: str) -> str:
             return "K3 vit_group_attention"
         return "K1-int8 flash_prefill_int8" if quant == "true" else "K1 flash_prefill"
     low = name.lower()
+    if low.startswith("nccl"):
+        return "NCCL collectives"
     if "memcpy" in low or "memset" in low:
         return "copies"
     # cuDNN's convolutions are implicit GEMMs ("xmma_fprop_implicit_gemm"):

@@ -18,16 +18,26 @@ under ``--output_dir``). Without ``--pretrained`` a tiny random-init config
 (fp32, drawn on the CPU from seed 0) and a byte tokenizer run the whole
 pipeline (smoke mode). The model trains on the card unless ``--device cpu``
 asks for the CPU (the kernels' plain versions); without CUDA, ``--device
-cuda`` raises. ``--mesh`` and ``--seq_shard`` (JAX's data / tensor /
-sequence parallelism) need more than one card and raise here.
+cuda`` raises.
+
+Multi-device training runs one process a card under torchrun:
+
+  torchrun --nproc_per_node N -m livecc_tpu_torch.train.cli --mesh DxM ...
+
+D x M = N ranks: data parallelism over D (ZeRO-2: the AdamW state split
+over it), tensor parallelism over M (Megatron's layout, the vocab-parallel
+CE); NCCL on ``--device cuda`` (rank r on ``cuda:LOCAL_RANK``), gloo on
+``--device cpu``. Rank 0 logs and saves; the checkpoint is the single-card
+``state.pt`` and resumes on any mesh. ``--seq_shard`` (sequence
+parallelism) is not ported and raises.
 """
 
 from __future__ import annotations
 
 import argparse
 
-MULTI_DEVICE = ("multi-device training (JAX's parallel/, --mesh, --seq_shard) is not ported: "
-                "this port trains on one GPU (ROADMAP Queue 1 item 7)")
+SEQ_SHARD = ("--seq_shard: sequence parallelism is not ported (ROADMAP Queue 1 item 3); "
+             "--mesh DATAxMODEL trains with data and tensor parallelism")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -56,12 +66,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--overwrite_output_dir", action="store_true",
                         help="start fresh instead of resuming (train.py:29)")
     parser.add_argument("--seq_shard", action="store_true",
-                        help="sequence parallelism under a TP mesh: not on one GPU (raises)")
+                        help="sequence parallelism under a TP mesh: not ported (raises)")
     parser.add_argument("--pack_seq", type=int, default=None,
                         help="sequence packing: pack variable-length samples into rows of "
                              "this many tokens (segment-id attention)")
     parser.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                        help="device mesh: not on one GPU (raises)")
+                        help="train over DATA x MODEL ranks under torchrun (one process a "
+                             "card): data parallelism with ZeRO-2 over DATA, tensor "
+                             "parallelism over MODEL, e.g. 4x2 on 8 cards")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the kernels; the default) or cpu (their plain versions)")
     return parser.parse_args(argv)
@@ -75,9 +87,25 @@ def main(argv=None, *, tokenizer=None, video_loader=None, on_step=None) -> dict:
     ``video_loader`` the dataset's ``VideoReader``; ``on_step(step, batch,
     metrics)`` is called after every step (``Trainer.train``)."""
     args = parse_args(argv)
-    if args.mesh or args.seq_shard:
-        raise NotImplementedError(MULTI_DEVICE)
+    if args.seq_shard:
+        raise NotImplementedError(SEQ_SHARD)
 
+    from livecc_tpu_torch.core.mesh import close_mesh, init_mesh
+    from livecc_tpu_torch.utils.device import device_for
+
+    device = device_for(args.device, "train.cli", " (--device cpu runs the plain versions on "
+                        "the CPU)")
+    mesh = None
+    if args.mesh:
+        mesh = init_mesh(args.mesh, args.device)
+        device = mesh.device
+    try:
+        return _train(args, device, mesh, tokenizer, video_loader, on_step)
+    finally:
+        close_mesh(mesh)
+
+
+def _train(args, device, mesh, tokenizer, video_loader, on_step) -> dict:
     import torch
 
     from livecc_tpu_torch.core.config import tiny_config
@@ -87,10 +115,7 @@ def main(argv=None, *, tokenizer=None, video_loader=None, on_step=None) -> dict:
     from livecc_tpu_torch.models.qwen2_vl.model import init_params
     from livecc_tpu_torch.train.step import TrainConfig
     from livecc_tpu_torch.train.trainer import Trainer, TrainerConfig
-    from livecc_tpu_torch.utils.device import device_for
 
-    device = device_for(args.device, "train.cli", " (--device cpu runs the plain versions on "
-                        "the CPU)")
     if args.pretrained:
         cfg, model = load_checkpoint(args.pretrained, device, torch.bfloat16)
         tokenizer = tokenizer or HFTokenizer(args.pretrained)
@@ -119,9 +144,10 @@ def main(argv=None, *, tokenizer=None, video_loader=None, on_step=None) -> dict:
         loader_workers=args.dataloader_num_workers,
         pack_seq=args.pack_seq,
     )
-    trainer = Trainer(model, cfg, tcfg, run, dataset)
+    trainer = Trainer(model, cfg, tcfg, run, dataset, mesh=mesh)
     last = {**trainer.train(on_step), "retries": dataset.retries}
-    print(last)
+    if trainer.is_main:
+        print(last)
     return last
 
 

@@ -24,20 +24,34 @@ buffers and no optimizer state; parameters are updated in place.
 The route follows the device: on CUDA the CE runs ``impl="fused"`` with
 bf16 logit rows (the TPU defaults), on the CPU ``impl="scan"`` in fp32;
 ``ce_impl`` and ``ce_logits`` pin them.
+
+On a mesh (``make_mesh_train_step``, JAX's step under its (data, model)
+shardings, ``train/step.py:222-262``): each data rank runs its own batch
+rows through the model-split tower (``parallel/sharding.py:shard_params``)
+and the vocab-parallel CE (``ops/chunked_ce.py:vocab_parallel_ce``, the
+same logit rows), accumulates in the flat fp32 buffer of
+``parallel/sharding.py:Zero2``, sums loss and supervised count over the
+data group, reduce-scatters the gradient, divides it by the global count,
+clips by the norm of the whole logical gradient and updates its own
+partition, then all-gathers the parameters. ``loss`` and ``tokens`` are
+global numbers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, VisionInputs, forward
 from livecc_tpu_torch.models.qwen2_vl.text import check_remat
-from livecc_tpu_torch.ops.chunked_ce import IGNORE_INDEX, chunked_cross_entropy
+from livecc_tpu_torch.ops.chunked_ce import IGNORE_INDEX, chunked_cross_entropy, vocab_parallel_ce
+from livecc_tpu_torch.parallel.tp import copy_to_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,9 +141,11 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, grads: dict[str, torch.Tensor], state: dict,
-               params: dict[str, torch.Tensor]) -> dict:
+               params: dict[str, torch.Tensor],
+               g_norm: Optional[torch.Tensor] = None) -> dict:
         """Apply one update from fp32 ``grads`` (consumed: clipped in place);
-        returns the new state."""
+        returns the new state. ``g_norm`` replaces the global norm of
+        ``grads`` (a ZeRO partition's caller passes the whole gradient's)."""
         cfg = self.cfg
         count = state["count"]
         lr = self.schedule(count)
@@ -139,7 +155,8 @@ class AdamW:
         c2 = float(np.float32(1) - np.float32(cfg.adam_b2) ** t)
         # clip_by_global_norm: g / norm * max_norm where norm >= max_norm (in
         # place on the fp32 grads, which the update consumes)
-        g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
+        if g_norm is None:
+            g_norm = torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
         keep = g_norm < cfg.max_grad_norm
         one = torch.ones_like(g_norm)
         den = torch.where(keep, one, g_norm)
@@ -230,6 +247,11 @@ def loss_fn(model: Qwen2VL, cfg: ModelConfig, tcfg: TrainConfig, micro: Batch):
     # next-token shift: predict labels[t+1] from hidden[t]
     shifted = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1], IGNORE_INDEX)], dim=1)
     kernel_grad = weight.requires_grad
+    if text.tp is None:
+        ce = functools.partial(chunked_cross_entropy, impl=impl)
+    else:           # a vocab-split head: each model rank's gradient of hidden is partial
+        hidden = copy_to_model(hidden, text.tp)
+        ce = functools.partial(vocab_parallel_ce, tp=text.tp, v_total=cfg.text.vocab_size)
     if tcfg.ce_sup_bucket:
         kb = tcfg.ce_sup_bucket
         b, s, h = hidden.shape
@@ -243,16 +265,13 @@ def loss_fn(model: Qwen2VL, cfg: ModelConfig, tcfg: TrainConfig, micro: Batch):
             idx = torch.nn.functional.pad(idx, (0, kb - idx.shape[0]))
         slot = torch.arange(kb, device=idx.device)
         lab = torch.where(slot < n_sup, flat_l[idx], torch.full_like(flat_l[idx], IGNORE_INDEX))
-        loss, count = chunked_cross_entropy(flat_h[idx][None], kernel, lab[None],
-                                            chunk_size=min(tcfg.ce_chunk_size, kb),
-                                            logit_dtype=logit_dtype, impl=impl,
-                                            kernel_grad=kernel_grad)
+        loss, count = ce(flat_h[idx][None], kernel, lab[None],
+                         chunk_size=min(tcfg.ce_chunk_size, kb), logit_dtype=logit_dtype,
+                         kernel_grad=kernel_grad)
         dropped = torch.clamp(n_sup - kb, min=0)
     else:
-        loss, count = chunked_cross_entropy(hidden, kernel, shifted,
-                                            chunk_size=tcfg.ce_chunk_size,
-                                            logit_dtype=logit_dtype, impl=impl,
-                                            kernel_grad=kernel_grad)
+        loss, count = ce(hidden, kernel, shifted, chunk_size=tcfg.ce_chunk_size,
+                         logit_dtype=logit_dtype, kernel_grad=kernel_grad)
         dropped = torch.zeros((), dtype=torch.int64, device=hidden.device)
     return loss, (count, dropped)
 
@@ -289,6 +308,34 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, optimizer: AdamW):
             g.div_(denom)
         opt_state = optimizer.update(acc, opt_state, trainable)
         metrics = {"loss": loss_sum / denom, "tokens": count_sum, "ce_dropped": drop_sum}
+        return model, opt_state, metrics
+
+    return step
+
+
+def make_mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, optimizer: AdamW, zero):
+    """``make_train_step`` on a mesh: ``step(model, opt_state, batch)``
+    over this rank's batch rows, ``model`` sharded by
+    ``parallel/sharding.py:shard_params``, its trainable parameters the
+    views of ``zero`` (a ``Zero2``), ``opt_state`` ``zero.init_state``'s.
+    Every rank of the mesh calls it once a window."""
+    data_group = zero.mesh.data_group
+
+    def step(model: Qwen2VL, opt_state: dict, batch: Batch):
+        dev = batch.input_ids.device
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        ints = torch.zeros((2,), dtype=torch.int64, device=dev)      # count, dropped
+        for i in range(batch.accum):
+            loss, (count, dropped) = loss_fn(model, cfg, tcfg, batch.micro(i))
+            loss.backward()
+            zero.accumulate()
+            loss_sum += loss.detach()
+            ints += torch.stack([count, dropped])
+        dist.all_reduce(loss_sum, group=data_group)
+        dist.all_reduce(ints, group=data_group)
+        denom = torch.clamp(ints[0], min=1).float()
+        opt_state = zero.update(optimizer, opt_state, denom)
+        metrics = {"loss": loss_sum / denom, "tokens": ints[0], "ce_dropped": ints[1]}
         return model, opt_state, metrics
 
     return step

@@ -1,6 +1,6 @@
-"""Training loop on one GPU: dataset -> step -> checkpoints -> resume.
+"""Training loop: dataset -> step -> checkpoints -> resume, on one GPU or a mesh.
 
-Port of ``livecc_tpu/train/trainer.py`` without a mesh:
+Port of ``livecc_tpu/train/trainer.py``:
 
   * each window draws ``accum_steps`` sample indices from a seeded
     ``random.Random``; with ``pack_seq`` the samples are packed into rows of
@@ -23,6 +23,20 @@ Port of ``livecc_tpu/train/trainer.py`` without a mesh:
 The dataset is any sequence of processed samples (``input_ids [1, S]``,
 ``labels``, ``position_ids [3, 1, S]``, ``pixel_patches``,
 ``video_grid_thw``), as ``LMMDataset.__getitem__`` returns them.
+
+With ``mesh`` (``core/mesh.py``; one process a card, every rank runs this
+loop): the model is split over the model axis and its trainable state is
+ZeRO-2's (``parallel/sharding.py``), the step is ``make_mesh_train_step``
+and a window holds ``accum_steps x n_data`` samples. Every rank draws the
+same indices from the same seed (JAX's one host, ``sample_indices``);
+data rank d collates only micro-step a's row d, ``samples[a * n_data +
+d]`` (JAX's collate order), and loads only those samples itself, so the
+model ranks of one data index each load the same ones (with ``pack_seq``
+every rank loads the whole window, which packing reads whole). Rank 0
+alone writes ``log.jsonl`` and ``state.pt``; the state is the single-card
+format, gathered tensor by tensor into rank 0's host memory
+(``gather_state``), and restores on any mesh or on one card by slicing
+(``load_state``, the file mapped from disk).
 """
 
 from __future__ import annotations
@@ -39,9 +53,12 @@ from typing import Any, Sequence
 import torch
 
 from livecc_tpu_torch.core.config import ModelConfig
+from livecc_tpu_torch.core.mesh import Mesh
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL
+from livecc_tpu_torch.parallel.sharding import Zero2, gather_state, load_state, shard_params
 from livecc_tpu_torch.train.data import collate, collate_packed_rows, pack_samples
-from livecc_tpu_torch.train.step import TrainConfig, make_optimizer, make_train_step, split_frozen
+from livecc_tpu_torch.train.step import (TrainConfig, make_mesh_train_step, make_optimizer,
+                                         make_train_step, split_frozen)
 
 
 @dataclasses.dataclass
@@ -59,21 +76,32 @@ class TrainerConfig:
 
 
 class Trainer:
-    """Single-device training loop (batch rows = 1); ``model``'s trainable
-    parameters are updated in place."""
+    """The training loop; ``model``'s trainable parameters are updated in
+    place. Without ``mesh`` one device (batch rows = 1); with it this
+    rank's part of the mesh (batch rows = n_data; ``model`` is sharded
+    here)."""
 
     def __init__(self, model: Qwen2VL, cfg: ModelConfig, tcfg: TrainConfig, run: TrainerConfig,
-                 dataset: Sequence[dict[str, Any]]):
+                 dataset: Sequence[dict[str, Any]], mesh: Mesh | None = None):
         self.model = model
         self.cfg = cfg
         self.tcfg = tcfg
         self.run = run
         self.dataset = dataset
+        self.mesh = mesh
         self.device = next(model.parameters()).device
-        self.batch_rows = 1
         self.optimizer = make_optimizer(tcfg)
-        self.opt_state = self.optimizer.init(split_frozen(model, tcfg.freeze_modules)[0])
-        self.step_fn = make_train_step(cfg, tcfg, self.optimizer)
+        if mesh is None:
+            self.batch_rows = 1
+            self.opt_state = self.optimizer.init(split_frozen(model, tcfg.freeze_modules)[0])
+            self.step_fn = make_train_step(cfg, tcfg, self.optimizer)
+        else:
+            self.batch_rows = mesh.n_data
+            shard_params(model, cfg, mesh)
+            self.zero = Zero2(split_frozen(model, tcfg.freeze_modules)[0], mesh)
+            self.opt_state = self.zero.init_state(tcfg.adam_mu_dtype)
+            self.step_fn = make_mesh_train_step(cfg, tcfg, self.optimizer, self.zero)
+        self.is_main = mesh is None or mesh.rank == 0
         self.step = 0
         self._restored: dict = {}         # restored_step, restore_s: for the next record
         self._pack_buf: list = []
@@ -86,12 +114,18 @@ class Trainer:
     # -- checkpointing -----------------------------------------------------
 
     def save(self) -> float:
-        """Write ``ckpt/<step>/state.pt``; returns the seconds it took."""
+        """Write ``ckpt/<step>/state.pt``; returns the seconds it took. On a
+        mesh every rank takes part and rank 0 writes."""
         t0 = time.perf_counter()
+        if self.mesh is None:
+            state = {"params": self.model.state_dict(), "opt_state": self.opt_state,
+                     "step": self.step}
+        else:
+            state = gather_state(self.model, self.zero, self.opt_state, self.step)
+            if state is None:
+                return time.perf_counter() - t0
         path = os.path.join(self._ckpt_dir, str(self.step))
         os.makedirs(path, exist_ok=True)
-        state = {"params": self.model.state_dict(), "opt_state": self.opt_state,
-                 "step": self.step}
         tmp = os.path.join(path, "state.pt.tmp")
         torch.save(state, tmp)
         os.replace(tmp, os.path.join(path, "state.pt"))
@@ -109,14 +143,18 @@ class Trainer:
         if latest is None:
             return False
         t0 = time.perf_counter()
-        state = torch.load(os.path.join(self._ckpt_dir, str(latest), "state.pt"),
-                           map_location=self.device)
-        self.model.load_state_dict(state["params"])
-        mu, nu = self.opt_state["mu"], self.opt_state["nu"]
-        for name in mu:
-            mu[name].copy_(state["opt_state"]["mu"][name])
-            nu[name].copy_(state["opt_state"]["nu"][name])
-        self.opt_state["count"] = state["opt_state"]["count"]
+        path = os.path.join(self._ckpt_dir, str(latest), "state.pt")
+        if self.mesh is None:
+            state = torch.load(path, map_location=self.device)
+            self.model.load_state_dict(state["params"])
+            mu, nu = self.opt_state["mu"], self.opt_state["nu"]
+            for name in mu:
+                mu[name].copy_(state["opt_state"]["mu"][name])
+                nu[name].copy_(state["opt_state"]["nu"][name])
+            self.opt_state["count"] = state["opt_state"]["count"]
+        else:       # each rank slices its part of the mapped file
+            state = torch.load(path, map_location="cpu", mmap=True)
+            load_state(self.model, self.zero, self.opt_state, state)
         self.step = state["step"]
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -126,6 +164,8 @@ class Trainer:
     # -- loop --------------------------------------------------------------
 
     def _log(self, record: dict) -> None:
+        if not self.is_main:
+            return
         with open(self._log_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
@@ -145,10 +185,20 @@ class Trainer:
         batch = self._load_batch(rng)
         return batch, time.perf_counter() - t0
 
+    def _rows(self, window: list) -> list:
+        """This data rank's rows of a window in collate's order: micro-step
+        a's row d is ``window[a * n_data + d]``."""
+        if self.mesh is None:
+            return window
+        return window[self.mesh.d::self.mesh.n_data]
+
     def _load_batch(self, rng: random.Random):
-        samples = self._fetch(self.sample_indices(rng))
+        indices = self.sample_indices(rng)
         if self.run.pack_seq is None:
-            return collate(samples, self.cfg, rows=self.batch_rows, device=self.device)
+            samples = self._fetch(self._rows(indices))
+            return collate(samples, self.cfg, rows=1 if self.mesh else self.batch_rows,
+                           device=self.device)
+        samples = self._fetch(indices)
         # one window needs more samples than rows: fetch until full (bounded)
         # and carry the unpacked leftovers to the next step
         target = self.run.accum_steps * self.batch_rows
@@ -166,6 +216,9 @@ class Trainer:
                 f"{len(self._pack_buf)} fetched samples; the samples are longer than "
                 "pack_seq, raise it")
         self._pack_buf = left
+        if self.mesh is not None:
+            return collate_packed_rows(self._rows(packed), self.cfg, rows=1,
+                                       accum=self.run.accum_steps, device=self.device)
         return collate_packed_rows(packed, self.cfg, rows=self.batch_rows,
                                    accum=self.run.accum_steps, device=self.device)
 

@@ -10,7 +10,9 @@ by the loader), so nothing needs the native decoder.
     ``ckpt/<step>/state.pt`` and resumes by default: a second call with
     ``--total_steps 2`` continues from step 1 to the parameters and
     optimizer state of an uninterrupted 2-step run, bit for bit.
-  * ``--mesh``, ``--seq_shard`` and ``--device cuda`` without CUDA raise.
+  * ``--mesh`` without torchrun's environment, ``--seq_shard`` and
+    ``--device cuda`` without CUDA raise (``--mesh`` itself:
+    ``tests/test_torch_mesh.py``).
   * On a tiny HF directory (``tools/checkpoint.py`` from ``params_from_jax``
     of JAX's ``init_params(tiny_config(), PRNGKey(0))``, the fixture
     tokenizer as ``tokenizer.json``) both CLIs load bf16 and log the same
@@ -136,17 +138,20 @@ def test_cli_records_time_each_step_save_and_restore(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flags,error", [
-    (["--mesh", "4x2"], NotImplementedError),
+    (["--mesh", "4x2", "--device", "cpu"], RuntimeError),
     (["--seq_shard"], NotImplementedError),
     (["--mesh", "1x1", "--seq_shard"], NotImplementedError),
     (["--device", "cuda"], RuntimeError),
 ])
-def test_cli_refuses_what_one_gpu_cannot_do(corpus, tmp_path, flags, error):
-    """Multi-device flags raise, naming the ROADMAP item; ``--device cuda``
-    (the default) raises without CUDA."""
+def test_cli_refuses_what_one_gpu_cannot_do(corpus, tmp_path, flags, error, monkeypatch):
+    """``--mesh`` outside torchrun raises, naming torchrun; ``--seq_shard``
+    raises, naming the ROADMAP item; ``--device cuda`` (the default) raises
+    without CUDA."""
     if "cuda" in flags and torch.cuda.is_available():
         pytest.skip("CUDA is available here")
-    with pytest.raises(error, match="ROADMAP|CUDA"):
+    for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(error, match="ROADMAP|CUDA|torchrun"):
         run_cli(corpus, tmp_path, "--total_steps", "1", *flags)
     assert not os.path.exists(tmp_path / "ckpt")
 
