@@ -229,6 +229,25 @@ Phases (any failure raises and the script exits non-zero):
                  frames through ``session.new_engine`` on the source model.
                  Then the same through the CLI's ``--quantize-weights``
                  (loaded, quantized, served through K5): text in every chunk.
+     app       — the web demo on that checkpoint (``phase_app``, inside
+                 checkpoint_live): ``vision_io.device_preprocess`` on a
+                 2-frame 720x1280 chunk resized to 308x560, within 1e-4 of
+                 the CPU in fp32, two launches bit-equal, timed; then
+                 ``demo.app.DemoServer`` (``build_engine``,
+                 ``load_checkpoint``; the clip from an .npy file through a
+                 ``video_loader`` where FFmpeg is absent) behind a threaded
+                 HTTP server on 127.0.0.1, twice: bf16, and lookahead with
+                 int8 weights. A client plays the clip as the page does:
+                 ``GET /``, ``GET /video`` (the file's bytes), a ``GET
+                 /tick`` every 0.5 s of wall on a thread of its own
+                 (overlapping) to the clip's end plus 1 s, one ``POST
+                 /qa``. The bubbles and the answer must equal
+                 ``LiveCC.live_cc`` replayed over the admitted t (in the
+                 lock's order; lookahead: the same dispatch choices) and
+                 ``video_qa`` on a fresh session; K3, K1, K2 (and K5 and
+                 verify windows) launched. Tick latency, span lag, lock
+                 waits, QA latency, load seconds; with FFmpeg, the
+                 commentary video rendered with the built-in TTS.
  11. tiny_train — tiny config, fp32: 3 training steps (packed rows, accum 2)
                  on the CPU (plain versions) and on the GPU (kernels, fused
                  CE with fp32 logit rows); the losses agree to 1e-4. Then
@@ -293,10 +312,10 @@ Phases (any failure raises and the script exits non-zero):
 Launch counts are reset just before each of main, pool, main_spec (and
 its worst case), pool_spec, main_w8 (and its lookahead session), pool_w8,
 eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs,
-train, train_cli's two CLI runs, mesh's run, produce's batch and lm_loss runs and
-midsize's two runs and read just after; every kernel of
-that path must have launched. Every phase always
-runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
+app's two playbacks (with their QA turns), train, train_cli's two CLI runs,
+mesh's run, produce's batch and lm_loss runs and midsize's two runs and
+read just after; every kernel of that path must have launched. Every phase
+always runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
 and, as its last line, ``{"ok": true, "device": {...}}``. It imports nothing
 of JAX.
 """
@@ -383,6 +402,12 @@ CC_SECONDS = 10
 # checkpoint_live: a clip of CLIP_SECONDS s at CLIP_FPS frames a second, the CLI's default query
 CLIP_SECONDS, CLIP_FPS = 10, 10
 QUERY = "Please describe the video."
+# app: the web demo on that clip, polled every APP_POLL_S of wall as the page
+# polls (a tick admitted more than APP_WAITED_S after it arrived waited on the
+# lock), one question; device_preprocess on APP_SOURCE_HW frames
+APP_POLL_S, APP_WAITED_S = 0.5, 1e-3
+APP_QUESTION = "What happened in the video?"
+APP_SOURCE_HW = (720, 1280)
 # train_cli: streaming rows of CLI_CLIPS seconds of a CLI_SOURCE_HW source at
 # CLI_SOURCE_FPS, ASR words at CLI_WORDS_PER_S (live speech), and a plain QA
 # row over the first clip; the remat policies of the A/B
@@ -2143,7 +2168,7 @@ def rss_peak(every_s: float = 0.005):
         out["peak"] = max(out["peak"], rss_gb())
 
 
-def phase_checkpoint_live(cfg, models: list) -> dict:
+def phase_checkpoint_live(cfg, models: list, card: str) -> tuple[dict, dict, tuple]:
     """The front door on the 7B that ``main`` ran (``models``' only entry,
     popped and freed here): written as an HF checkpoint (bf16 safetensors
     shards of ~5 GB with an index, >=4.52 names, config.json from
@@ -2155,8 +2180,9 @@ def phase_checkpoint_live(cfg, models: list) -> dict:
     libraries (pkg-config), else ``LiveCC`` over the frames through a
     ``video_loader`` (``FramesVideo``) with the CLI's engine and decoding
     settings. Its greedy tokens must be those of the same frames through
-    ``session.new_engine`` on the source model. Returns the CLI run's launch
-    counts."""
+    ``session.new_engine`` on the source model. Then the web demo on the
+    checkpoint (``phase_app``, the ``app`` phase). Returns the launch counts
+    of the CLI's two runs and of the app's two runs."""
     import shutil
     import tempfile
 
@@ -2286,6 +2312,7 @@ def phase_checkpoint_live(cfg, models: list) -> dict:
         torch.cuda.synchronize()
         wall_w8 = time.perf_counter() - t0
         counts_w8 = dict(build.launch_counts)
+        app_counts = run_phase("app", lambda: phase_app(path, frames, tokenizer, work, card))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"  live session over the {CLIP_SECONDS} s clip, {what}: {wall:.2f} s; "
@@ -2312,8 +2339,260 @@ def phase_checkpoint_live(cfg, models: list) -> dict:
         missing = [name for name in kernels if c.get(name, 0) <= 0]
         if missing:
             raise AssertionError(f"the {label} path never launched {missing}")
-    return counts, counts_w8
+    return counts, counts_w8, app_counts
 
+
+
+def preprocess_on_card(card: str) -> None:
+    """``vision_io.device_preprocess`` on a 2-frame chunk of 720x1280 uint8
+    frames resized to 308x560 (g = 880): the card's output within
+    ``FP32_TOL`` of the same function on the CPU in fp32, two launches
+    bit-equal, and its device time."""
+    import torch
+
+    from livecc_tpu_torch.tools import kernel_timing, session
+    from livecc_tpu_torch.vision_io import device_preprocess
+
+    frames = torch.from_numpy(session.synth_frames(2, *APP_SOURCE_HW, seed=session.SEED))
+    kw = dict(out_h=session.HEIGHT, out_w=session.WIDTH)
+    want = device_preprocess(frames, **kw)
+    x = frames.cuda()
+    got = device_preprocess(x, **kw)
+    err = (got.cpu() - want).abs().max().item()
+    if got.shape != want.shape or err > FP32_TOL:
+        raise AssertionError(f"device_preprocess: {tuple(got.shape)} on the card, max abs diff "
+                             f"{err:.3g} from the CPU (limit {FP32_TOL})")
+    if not torch.equal(got, device_preprocess(x, **kw)):
+        raise AssertionError("device_preprocess: two launches on the card differ")
+    ms = kernel_timing.cuda_ms(lambda: device_preprocess(x, **kw))
+    _, _, busy, groups = profiled(lambda: device_preprocess(x, **kw))
+    log(f"  device_preprocess [2, {APP_SOURCE_HW[0]}, {APP_SOURCE_HW[1]}, 3] uint8 -> "
+        f"{tuple(got.shape)} fp32 (values {want.min().item():.3f} .. {want.max().item():.3f}): "
+        f"max abs diff {err:.3g} from the CPU in fp32, two launches bit-equal; {ms:.3f} ms "
+        f"a call (median of single calls between CUDA events, host work included), device "
+        f"busy {busy * 1e3:.3f} ms ({', '.join(f'{g} {t * 1e3:.3f}' for g, t in groups.items())}"
+        f" ms) on {card}")
+
+
+def http_get(url: str) -> bytes:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=600) as r:
+        return r.read()
+
+
+def http_post(url: str, body: str) -> str:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body.encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return r.read().decode()
+
+
+def phase_app(path: str, frames, tokenizer, work: str, card: str) -> tuple[dict, dict]:
+    """The web demo on the checkpoint at ``path``: ``device_preprocess`` on
+    the card (``preprocess_on_card``), then ``demo.app.DemoServer`` twice
+    (bf16 weights; lookahead decoding with int8 weights), each played as
+    the page plays it (``app_run``). Returns each run's launch counts."""
+    import numpy as np
+
+    from livecc_tpu_torch.vision_io import video_reader
+
+    preprocess_on_card(card)
+    if video_reader.has_ffmpeg():
+        clip, loader = os.path.join(work, "app_clip.mp4"), None
+        video_reader.encode_test_video(clip, frames, fps=CLIP_FPS)
+    else:
+        # the page's /video serves the file the loader reads
+        clip = os.path.join(work, "app_clip.npy")
+        np.save(clip, frames)
+        loader = lambda p: FramesVideo(np.load(p), CLIP_FPS)   # noqa: E731
+        log("  FFmpeg absent: the server reads the clip's frames from an .npy file through a "
+            "video_loader (FramesVideo), and no commentary video is rendered")
+    return tuple(app_run(label, clip, path, tokenizer, loader, kw, kernels, card, work)
+                 for label, kw, kernels in (
+                     ("bf16", {}, MAIN_KERNELS),
+                     ("lookahead, int8 weights", dict(speculative=True, quantize_weights=True),
+                      MAIN_W8_KERNELS)))
+
+
+def app_run(label: str, clip: str, path: str, tokenizer, loader, kw: dict, kernels,
+            card: str, work: str) -> dict:
+    """One ``DemoServer`` (``kw``: its speculative and quantize_weights) on
+    the checkpoint behind a threaded HTTP server on 127.0.0.1, played as
+    the page plays it: ``GET /``, ``GET /video`` (the file's bytes), then
+    every ``APP_POLL_S`` of wall a ``GET /tick?t=<elapsed>`` on a thread of
+    its own (polls overlap and wait on the server's lock) until the clip's
+    end plus 1 s, then one ``POST /qa``. The ``t`` the lock admitted, in
+    its order (and, with lookahead, each dispatch's lookahead/plain choice),
+    replayed through ``LiveCC.live_cc`` on a fresh session of the same
+    engine must give the same bubbles, spans bit-equal, and its
+    ``video_qa`` the same answer. ``kernels`` must have launched during the
+    playback and QA (lookahead: verify windows too). Prints tick latency,
+    span lag, lock waits, QA latency and tokens, load seconds; where FFmpeg
+    is installed, renders the commentary video with the built-in TTS and
+    reads it back. Returns the launch counts."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+    import torch
+
+    from livecc_tpu_torch.demo import app
+    from livecc_tpu_torch.engine.graphs import graphs_for
+    from livecc_tpu_torch.ops import build
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    server = app.DemoServer(clip, path, QUERY, tokenizer=tokenizer, video_loader=loader, **kw)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    engine = server.engine
+    # the lock's order: server.tick notes when a request arrived, live_cc
+    # (called under the lock) when it was admitted
+    admitted, waits, arrived = [], [], threading.local()
+    tick, live_cc = server.tick, server.live.live_cc
+
+    def noted_tick(t):
+        arrived.at = time.perf_counter()
+        return tick(t)
+
+    def admitted_live_cc(session, t, **kw2):
+        waits.append(time.perf_counter() - arrived.at)
+        admitted.append(t)
+        return live_cc(session, t, **kw2)
+
+    server.tick, server.live.live_cc = noted_tick, admitted_live_cc
+    choices = []
+    if engine.spec is not None:
+        spec_on = engine._spec_on
+        engine._spec_on = lambda: choices.append(spec_on()) or choices[-1]
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), app.make_handler(server))
+    serve = threading.Thread(target=httpd.serve_forever, daemon=True)
+    serve.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    polls, polls_lock = [], threading.Lock()
+    try:
+        if http_get(url + "/") != app.PAGE.encode():
+            raise AssertionError(f"app {label}: GET / is not the page")
+        with open(clip, "rb") as f:
+            if http_get(url + "/video") != f.read():
+                raise AssertionError(f"app {label}: GET /video is not the clip's bytes")
+        graphs_for(engine.model, engine.cfg).reset_stats()
+        build.reset_launch_counts()
+        start = time.perf_counter()
+
+        def poll(t):
+            sent = time.perf_counter()
+            body = json.loads(http_get(f"{url}/tick?t={t!r}"))
+            done = time.perf_counter()
+            with polls_lock:
+                polls.append((t, done - sent, body, done - start))
+
+        threads = []
+        while True:
+            time.sleep(max(0.0, start + len(threads) * APP_POLL_S - time.perf_counter()))
+            elapsed = time.perf_counter() - start
+            if elapsed > CLIP_SECONDS + 1:
+                break
+            threads.append(threading.Thread(target=poll, args=(elapsed,)))
+            threads[-1].start()
+        for thread in threads:
+            thread.join(timeout=600)
+        if any(thread.is_alive() for thread in threads) or len(polls) != len(threads):
+            raise AssertionError(f"app {label}: {len(threads)} ticks sent, {len(polls)} answered")
+        t0 = time.perf_counter()
+        answer = http_post(url + "/qa", APP_QUESTION)
+        qa_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts = dict(build.launch_counts)
+        qa_tokens = engine.chunk_log[-1].generated_tokens
+        windows = sum(r.windows for r in engine.chunk_log)
+        graph_stats = graphs_for(engine.model, engine.cfg).stats()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        serve.join(timeout=60)
+    if serve.is_alive():
+        raise AssertionError(f"app {label}: the HTTP server did not stop")
+
+    # the replay: the admitted t, in order, on a fresh session of the engine
+    if engine.spec is not None:
+        engine._spec_on = iter(list(choices)).__next__
+    session = server.live.open(clip)
+    t0 = time.perf_counter()
+    want = [[[t_a, t_b], text] for t in admitted
+            for (t_a, t_b), text in live_cc(session, t, query=QUERY)]
+    want_answer = server.live.video_qa(session, APP_QUESTION)
+    replay_s = time.perf_counter() - t0
+    body_of = {t: body for t, _, body, _ in polls}
+    got = [bubble for t in admitted for bubble in body_of[t]]
+    if sorted(admitted) != sorted(body_of) or got != want:
+        raise AssertionError(f"app {label}: the served bubbles differ from LiveCC.live_cc "
+                             f"replayed over the admitted t: {got} != {want}")
+    if answer != want_answer:
+        raise AssertionError(f"app {label}: the QA answer differs from the replay's video_qa")
+    spans = [tuple(span) for span, _ in got]
+    if spans[0] != (0.0, 3.0) or any(b0 != a1 for (_, a1), (b0, _) in zip(spans, spans[1:])) \
+            or spans[-1][1] != CLIP_SECONDS or not all(text for _, text in got) or not answer:
+        raise AssertionError(f"app {label}: spans {spans} not contiguous from the 3 s init "
+                             f"window to {CLIP_SECONDS} s, or a bubble or the answer empty")
+    missing = [name for name in kernels if counts.get(name, 0) <= 0]
+    if missing or (engine.spec is not None and windows <= 0):
+        raise AssertionError(f"app {label}: never launched {missing} (verify windows: {windows})")
+
+    lat = np.array([latency for _, latency, _, _ in polls]) * 1e3
+    carried = np.array([latency for _, latency, body, _ in polls if body]) * 1e3
+    lag = np.array([done - span[1] for _, _, body, done in polls for span, _ in body])
+    log(f"  app {label}: load (DemoServer: build_engine, load_checkpoint"
+        f"{', quantize' if kw.get('quantize_weights') else ''}, LiveCC.open) {load_s:.2f} s; "
+        f"{len(polls)} ticks every {APP_POLL_S} s of wall over {CLIP_SECONDS} s + 1 s; "
+        f"tick latency (send to parsed JSON) p50 {np.percentile(lat, 50):.1f} ms, "
+        f"p99 {np.percentile(lat, 99):.1f} ms, max {lat.max():.1f} ms (the {len(carried)} "
+        f"that carried a chunk: p50 {np.percentile(carried, 50):.1f} ms, max "
+        f"{carried.max():.1f} ms); "
+        f"{sum(w > APP_WAITED_S for w in waits)} ticks waited on the lock (over "
+        f"{APP_WAITED_S * 1e3:.0f} ms; longest {max(waits) * 1e3:.1f} ms); "
+        f"span lag (arrival minus t1 on the playback clock) p50 {np.percentile(lag, 50):.3f} "
+        f"s, max {lag.max():.3f} s over {len(lag)} spans; QA {qa_s:.2f} s for {qa_tokens} tokens "
+        f"({qa_s / max(qa_tokens, 1) * 1e3:.2f} ms a token); on {card}")
+    chosen = f"; lookahead chosen in {sum(choices)} of {len(choices)} dispatches" if choices else ""
+    log(f"  app {label}: first tick (init chunk, graph captures) {min(polls)[1]:.3f} s; "
+        f"decode graphs {graph_stats}; verify windows {windows}{chosen}; launches {counts}")
+    log(f"  app {label}: {len(got)} bubbles and the answer equal LiveCC.live_cc replayed over the "
+        f"{len(admitted)} admitted t and video_qa on a fresh session ({replay_s:.2f} s)")
+    for (t_a, t_b), text in got:
+        log(f"  app [{t_a:4.1f}-{t_b:4.1f}s] {text!r}"[:160])
+    log(f"  app QA: {answer!r}"[:160])
+    if loader is None:
+        render_check(label, clip, got, work)
+    del server, engine, session
+    return counts
+
+
+def render_check(label: str, clip: str, bubbles: list, work: str) -> None:
+    """The run's result JSON through ``demo.render.render_commentary_video``
+    with the built-in TTS: 1 + fps * seconds frames and an audio track."""
+    from livecc_tpu_torch.demo.render import render_commentary_video
+    from livecc_tpu_torch.vision_io import video_reader
+
+    result = os.path.join(work, "app_result.json")
+    with open(result, "w") as f:
+        json.dump({"video_path": clip, "query": QUERY,
+                   "commentaries": [[t_a, t_b, text] for (t_a, t_b), text in bubbles]}, f)
+    out = os.path.join(work, "app_render.mp4")
+    t0 = time.perf_counter()
+    render_commentary_video(result, out, fps=CLIP_FPS)
+    seconds = time.perf_counter() - t0
+    end = float(video_reader.VideoReader(clip).pts_seconds[-1])
+    n, audio = len(video_reader.VideoReader(out)), video_reader.load_audio(out, 16000)
+    if n != 1 + round(end * CLIP_FPS) or len(audio) == 0:
+        raise AssertionError(f"app {label}: the render has {n} frames (want "
+                             f"{1 + round(end * CLIP_FPS)}) and {len(audio)} audio samples")
+    log(f"  app {label}: rendered {n} frames with the built-in TTS's track ({len(audio)} "
+        f"samples at 16 kHz) in {seconds:.2f} s")
 
 def eval_items(n_frames: int, hw, questions):
     """VideoMME rows over ``len(questions)`` synthetic clips of ``n_frames``
@@ -4492,8 +4771,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     models = [model]
     del model                                # checkpoint_live frees the serving 7B
-    checkpoint_counts, checkpoint_w8_counts = run_phase(
-        "checkpoint_live", lambda: phase_checkpoint_live(cfg, models))
+    checkpoint_counts, checkpoint_w8_counts, app_counts = run_phase(
+        "checkpoint_live", lambda: phase_checkpoint_live(cfg, models, card))
     gc.collect()
     torch.cuda.empty_cache()
     run_phase("tiny_train", phase_tiny_train)
@@ -4518,9 +4797,9 @@ def main() -> int:
                                                  main_w8_counts, main_w8_spec_counts,
                                                  pool_w8_counts, eval_counts, cc_counts,
                                                  checkpoint_counts, checkpoint_w8_counts,
-                                                 train_counts, train_cli_counts, mesh_counts,
-                                                 lmm_counts,
-                                                 loss_counts, midsize_counts)),
+                                                 *app_counts, train_counts, train_cli_counts,
+                                                 mesh_counts, lmm_counts, loss_counts,
+                                                 midsize_counts)),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"],
         "plain_ms": results[name]["plain_ms"],

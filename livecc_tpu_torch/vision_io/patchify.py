@@ -7,16 +7,19 @@ CLIP-normalised and flattened by the same 9-D transpose to
 
   * ``patchify_video``: numpy in and out, on the host (the data pipeline);
   * ``device_patchify``: the streaming path. uint8 frames go to the device
-    (a quarter of the bytes of fp32 patches) and are prepared there.
-
-``device_preprocess`` (JAX's fused bicubic resize) is not ported: the native
-decoder scales the frames it decodes.
+    (a quarter of the bytes of fp32 patches) and are prepared there;
+  * ``device_preprocess``: the same from unscaled frames, resized on their
+    device first by JAX's antialiased bicubic (``ops/resize.py``). The
+    streaming engine does not call it: the native decoder scales the frames
+    it decodes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from livecc_tpu_torch.ops.resize import resize
 
 # CLIP normalization constants (Qwen2VLImageProcessor defaults).
 IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -99,4 +102,28 @@ def device_patchify(
     flat, _ = _patchify(x, patch_size, temporal_patch_size, merge_size)
     if n_pad:
         flat = torch.nn.functional.pad(flat, (0, 0, 0, n_pad))
+    return flat
+
+
+def device_preprocess(
+    frames: torch.Tensor,      # [T, H, W, C] uint8, on the device
+    *,
+    out_h: int,
+    out_w: int,
+    patch_size: int = PATCH_SIZE,
+    temporal_patch_size: int = TEMPORAL_PATCH_SIZE,
+    merge_size: int = MERGE_SIZE,
+) -> torch.Tensor:
+    """Raw uint8 frames -> flatten_patches on their device (JAX's
+    ``device_preprocess``): ``jax.image.resize``'s antialiased bicubic
+    (Keys, a = -0.5; torch's ``bicubic`` computes other values) to
+    ``out_h`` x ``out_w``, CLIP normalization and the 3D patchify. T must
+    be a multiple of ``temporal_patch_size``."""
+    t = frames.shape[0]
+    if t % temporal_patch_size:
+        raise ValueError(f"device_preprocess: T = {t} frames is not a multiple of "
+                         f"temporal_patch_size = {temporal_patch_size}")
+    x = resize(frames.float(), (t, out_h, out_w, frames.shape[-1]), "bicubic")
+    x = normalize_frames(x.permute(0, 3, 1, 2))                 # TCHW
+    flat, _ = _patchify(x, patch_size, temporal_patch_size, merge_size)
     return flat
