@@ -80,6 +80,15 @@ Phases (any failure raises and the script exits non-zero):
                  ``quant.large_plan``'s tiling (large form) must fail; two
                  launches bit-equal; kernel, plain version and torch.mm on
                  the bf16 weight timed both ways beside the bound.
+     kernels_tp — the serving kernels at one tensor-parallel rank's shapes
+                 of the 7B (``phase_kernels_tp``; Hq = 14, Hk = 2 for M = 2,
+                 Hq = 7, Hk = 1 for M = 4): K1 at Sq = 256 and 9, K2 at
+                 B = 1 and 8, K1-int8 and K2-int8 on the pool's int8 cache
+                 at Hk / M, K5 on a rank's share of q / k / gate (N / M),
+                 o / down (K / M) and the lm_head (V / M) at 1 and 256
+                 tokens; each held by ``close`` with its planted fault
+                 failing, two launches bit-equal, timed both ways beside
+                 the bound and SDPA / torch.mm (the entries' ``tp`` key).
   4. tiny      — tiny config, fp32, seeded random weights: the engine on the
                  CPU (plain versions, the eager decode loop) and on the GPU
                  (kernels, the decode step replayed as a CUDA graph) give
@@ -144,6 +153,16 @@ Phases (any failure raises and the script exits non-zero):
                  int8 KV cache, JAX's TPU serving configuration; graphs
                  against the eager plain loop, ticks, busy and the B = 8
                  step replay beside pool's.
+     tp_serve  — tensor-parallel serving (``phase_tp_serve``): one rank's
+                 ``shard_params`` of a fresh bf16 7B at M = 2 and 4 (bytes
+                 freed, peak); then ``init_mesh("1x1", "cuda")`` over NCCL
+                 and ``shard_params`` on main's and pool_w8's models: main's
+                 session and pool_w8's pool through the decode graphs,
+                 tokens identical to theirs, the collectives captured into
+                 the graphs, walls and each rank's weight and KV bytes
+                 beside theirs, one steady chunk profiled. With 2 or 4
+                 cards also 1x2 / 1x4 through torchrun (``--tp-worker``),
+                 held to the no-mesh tokens up to a near-tie.
      eval      — the benchmark harnesses (``livecc_tpu_torch/eval``) on
                  main's 7B (bf16, full depth): two VideoMME items at the 720p
                  budget (64 frames of a 720x1280 source at 2 fps, served by
@@ -311,7 +330,7 @@ Phases (any failure raises and the script exits non-zero):
 
 Launch counts are reset just before each of main, pool, main_spec (and
 its worst case), pool_spec, main_w8 (and its lookahead session), pool_w8,
-eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs,
+tp_serve's session and pool, eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs,
 app's two playbacks (with their QA turns), train, train_cli's two CLI runs,
 mesh's run, produce's batch and lm_loss runs and midsize's two runs and
 read just after; every kernel of that path must have launched. Every phase
@@ -1347,6 +1366,186 @@ def k5_shapes(r: dict, gen) -> None:
         torch.cuda.empty_cache()
 
 
+# K5 at one TP rank of the 7B: projection -> (N, K, fp32 output) of rank m's
+# share (q / k / gate split on N, o / down on K, the vocab rows on N), at
+# TP_W8_ROWS tokens (a decode step, a steady chunk)
+def tp_w8_proj(m: int) -> dict:
+    return {"q_proj": (3584 // m, 3584, False), "k_proj": (512 // m, 3584, False),
+            "gate_proj": (18944 // m, 3584, False), "o_proj": (3584, 3584 // m, False),
+            "down_proj": (3584, 18944 // m, False), "lm_head": (152064 // m, 3584, True)}
+
+
+TP_W8_ROWS = (1, 256)
+
+
+def phase_kernels_tp(results) -> None:
+    """The serving kernels at one tensor-parallel rank's shapes of the 7B
+    (``K4_TP_HEADS``: Hq = 14, Hk = 2 for M = 2; Hq = 7, Hk = 1 for M = 4),
+    the shapes a rank of ``shard_params``' split runs them at: K1 at a
+    steady chunk (Sq = 256, offset 1500) and a verify window (Sq = 9) on a
+    bf16 cache; K2 at B = 1 (777 keys) and B = 8 (``POOL_LIMITS``); K1-int8
+    (Sq = 256 at ``INT8_STEADY_OFFSETS``, and Sq = 9) and K2-int8 (B = 8) on
+    the pool's int8 cache ``[28, 8, Hk, 8192, 128]``; K5 on rank m's share
+    of q / k / gate (N / M), o / down (K / M) and the fp32 lm_head (V / M)
+    at 1 and 256 tokens. Each case is held to its plain version on the
+    same inputs by ``kernel_check.close`` in the output's dtype, a limit
+    that the planted fault of that kernel must fail (``drop_key_tile``,
+    ``drop_split``, ``w8_drop_split`` / ``w8_drop_k_tile``); two launches
+    must be bit-equal; kernel, plain version and library call (SDPA, or
+    torch.mm on the bf16 weight; none on an int8 cache) are timed one call
+    (``cuda_ms``) and on the device (``graph_ms``) beside the bound. The
+    numbers go under each entry's ``tp`` key of the kernels line, keyed by
+    M: the first case's as the entry's, every case under ``cases``."""
+    import torch
+    import torch.nn.functional as F
+
+    from livecc_tpu_torch.models.qwen2_vl.text import quantize_kv
+    from livecc_tpu_torch.ops import quant
+    from livecc_tpu_torch.ops.flash_attention import (
+        DECODE_SPLIT, flash_decode, flash_decode_plain, flash_prefill, flash_prefill_plain)
+    from livecc_tpu_torch.tools import kernel_check, kernel_timing
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms, graph_ms
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16 = torch.bfloat16
+    layers, d, smax, li = 28, 128, 8192, 27
+
+    def randn(shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def case(name, m, label, fns, fault, flops, nbytes, dtype=bf16):
+        """One case: held, faulted, repeated, timed; recorded under
+        ``results[name]["tp"]["M=m"]``."""
+        out, ref, again = fns[0](), fns[1](), fns[0]()
+        torch.cuda.synchronize()
+        worst, w_bad = kernel_check.close(out, ref, dtype), kernel_check.close(fault, ref, dtype)
+        err = (out.float() - ref.float()).abs().max().item()
+        if not worst <= 1.0:
+            raise AssertionError(f"{name} {label}: {worst:.3f}x the limit")
+        if not w_bad > 1.0:
+            raise AssertionError(f"{name} {label}: the check passes the planted fault")
+        if not torch.equal(out, again):
+            raise AssertionError(f"{name} {label}: two launches differ")
+        del out, ref, again, fault
+        one = [None if fn is None else cuda_ms(fn) for fn in fns]
+        dev_t = [None if fn is None else graph_ms(fn) for fn in fns]
+        b_ms, b_by = bound(flops, nbytes)
+        lib = lambda t: "none" if t is None else f"{t:.4f}"
+        log(f"  {name:20s} {label:56s} max_abs_err {err:.3e}, worst {worst:.3f} of the limit "
+            f"{kernel_check.TOL[dtype]}; the fault {w_bad:.1f}x; bit-equal; one call: kernel "
+            f"{one[0]:.4f}  plain {one[1]:.4f}  library {lib(one[2])} ms; device: kernel "
+            f"{dev_t[0]:.4f}  plain {dev_t[1]:.4f}  library {lib(dev_t[2])} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        r = results[name].setdefault("tp", {}).setdefault(f"M={m}", {"max_abs_err": 0.0,
+                                                                     "cases": []})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        row = {"case": label, "ms": one[0], "plain_ms": one[1], "library_ms": one[2],
+               "bound_ms": b_ms, "bound_by": b_by, "device_ms": dev_t[0],
+               "device_plain_ms": dev_t[1], "device_library_ms": dev_t[2]}
+        r["cases"].append(row)
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"):
+            r.setdefault(key, row[key])
+
+    def int8_cache(shape):
+        codes, scale = quantize_kv(randn(shape))
+        return codes, scale.transpose(-1, -2).contiguous()
+
+    for m, hq, hk in K4_TP_HEADS:
+        heads = f"Hq={hq} Hk={hk} (M={m})"
+        # K1 / K2 on a bf16 cache
+        for b in (1, 8):
+            k, v = (randn((layers, b, hk, smax, d)) for _ in range(2))
+            if b == 1:
+                for sq in (256, kernel_timing.WINDOW_SQ):
+                    q = randn((1, sq, hq, d)).transpose(1, 2)
+                    off, lim = 1500, 1500 + sq
+                    off_t, lim_t = (torch.tensor([x], dtype=torch.int32, device=dev)
+                                    for x in (off, lim))
+                    kq, vq = k[li][:, :, :lim], v[li][:, :, :lim]
+                    mask = (torch.arange(lim, device=dev)[None, :]
+                            <= off + torch.arange(sq, device=dev)[:, None])
+                    fns = (lambda: flash_prefill(q, k, v, off_t, lim_t, layer_index=li),
+                           lambda: flash_prefill_plain(q, k[li], v[li], off_t, lim_t),
+                           lambda: F.scaled_dot_product_attention(q, kq, vq, attn_mask=mask,
+                                                                  enable_gqa=True))
+                    qt = (sq - 1) // 64
+                    fault = kernel_check.drop_key_tile(fns[1](), q, k[li], v[li], off_t, lim_t,
+                                                       qt, (off + 64 * qt + 1) // 64 // 2,
+                                                       head=hq - 1)
+                    pairs = sum(off + i + 1 for i in range(sq))
+                    case("flash_prefill", m, f"B=1 Sq={sq} offset={off} {heads} bf16", fns,
+                         fault, 4 * pairs * d * hq, 2 * q.numel() * 2 + 2 * hk * lim * d * 2)
+            lims = [777] if b == 1 else kernel_timing.POOL_LIMITS
+            q = randn((b, 1, hq, d)).transpose(1, 2)
+            lim_t = torch.tensor(lims, dtype=torch.int32, device=dev)
+            valid = (torch.arange(smax, device=dev)[None, :] < lim_t[:, None])[:, None, None]
+            fns = (lambda: flash_decode(q, k, v, lim_t, layer_index=li),
+                   lambda: flash_decode_plain(q, k[li], v[li], lim_t),
+                   lambda: F.scaled_dot_product_attention(q, k[li], v[li], attn_mask=valid,
+                                                          enable_gqa=True))
+            fault = kernel_check.drop_split(q, k[li], v[li], lim_t, DECODE_SPLIT)
+            case("flash_decode", m, f"B={b} kv_limit={lims} {heads} bf16", fns, fault,
+                 4 * sum(lims) * d * hq, 2 * q.numel() * 2 + 2 * hk * sum(lims) * d * 2)
+            del k, v
+            torch.cuda.empty_cache()
+        # K1-int8 / K2-int8 on the pool's int8 cache
+        b = 8
+        (k8, ks8), (v8, vs8) = (int8_cache((layers, b, hk, smax, d)) for _ in range(2))
+        one = (k8[li], v8[li], ks8[li], vs8[li])
+        offs = kernel_timing.INT8_STEADY_OFFSETS
+        for sq in (kernel_timing.INT8_SQ, kernel_timing.WINDOW_SQ):
+            q = randn((b, sq, hq, d)).transpose(1, 2)
+            lims = [o + sq for o in offs]
+            off_t, lim_t = (torch.tensor(x, dtype=torch.int32, device=dev) for x in (offs, lims))
+            fns = (lambda: flash_prefill(q, k8, v8, off_t, lim_t, layer_index=li, k_scale=ks8,
+                                         v_scale=vs8),
+                   lambda: flash_prefill_plain(q, *one[:2], off_t, lim_t, *one[2:]), None)
+            row = max(range(b), key=lambda i: lims[i])
+            qt = (sq - 1) // 64
+            fault = kernel_check.drop_key_tile(fns[1](), q, *one[:2], off_t, lim_t, qt,
+                                               (offs[row] + 64 * qt + 1) // 64 // 2,
+                                               head=hq - 1, row=row, k_scale=one[2],
+                                               v_scale=one[3])
+            pairs = sum(sq * o + sq * (sq + 1) // 2 for o in offs)
+            case("flash_prefill_int8", m, f"B=8 Sq={sq} offsets={list(offs)} {heads} bf16", fns,
+                 fault, 4 * pairs * d * hq, 2 * q.numel() * 2 + 2 * hk * sum(lims) * (d + 2))
+        lims = kernel_timing.POOL_LIMITS
+        q = randn((b, 1, hq, d)).transpose(1, 2)
+        lim_t = torch.tensor(lims, dtype=torch.int32, device=dev)
+        fns = (lambda: flash_decode(q, k8, v8, lim_t, layer_index=li, k_scale=ks8, v_scale=vs8),
+               lambda: flash_decode_plain(q, *one[:2], lim_t, *one[2:]), None)
+        fault = kernel_check.drop_split(q, *one[:2], lim_t, DECODE_SPLIT, *one[2:])
+        case("flash_decode_int8", m, f"B=8 kv_limit={lims} {heads} bf16", fns, fault,
+             4 * sum(lims) * d * hq, 2 * q.numel() * 2 + 2 * hk * sum(lims) * (d + 2))
+        del k8, v8, ks8, vs8, one
+        torch.cuda.empty_cache()
+        # K5 on rank m's share of each projection
+        reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        try:
+            for proj, (n, kk, fp32_out) in tp_w8_proj(m).items():
+                node = quant.quantize_weight(randn((n, kk)) * kk ** -0.5, scale_axis=-1)
+                wq, scale = node["q"], node["scale"].reshape(-1)
+                w = wq.to(bf16) * scale[:, None]
+                out_dtype = torch.float32 if fp32_out else None
+                for rows in TP_W8_ROWS:
+                    x = randn((rows, kk))
+                    fault = (kernel_check.w8_drop_split(x, wq, scale, out_dtype)
+                             if rows <= quant.SMALL_M else
+                             kernel_check.w8_drop_k_tile(x, wq, scale, out_dtype))
+                    fns = (lambda: quant.w8a16_gemm(x, wq, scale, out_dtype),
+                           lambda: quant.w8a16_gemm_plain(x, wq, scale, out_dtype),
+                           (lambda: torch.mm(x, w.t())) if out_dtype is None
+                           else (lambda: torch.mm(x, w.t(), out_dtype=out_dtype)))
+                    case("w8a16_gemm", m, f"{proj} M={rows} N={n} K={kk} "
+                         f"{'fp32' if fp32_out else 'bf16'} out (TP M={m})", fns, fault,
+                         *kernel_timing.w8_work(rows, n, kk, fp32_out), out_dtype or bf16)
+                del node, wq, scale, w
+        finally:
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = reduced
+        torch.cuda.empty_cache()
+
 def sdpa_packed(qs, k, v, seg, do, causal=True):
     """The one PyTorch call that computes K4's function on these inputs:
     SDPA with the packed rows' block-causal mask (the segment block mask
@@ -1758,7 +1957,8 @@ def single_stream(label: str, cfg, model, kernels) -> tuple[dict, list, dict]:
     unless every kernel of ``kernels`` launched. Returns the graph run's
     launch counts, the eager plain loop's record and {"step_ms": that time,
     "wall", "busy": the profiled session's, "tokens": the graph run's
-    tokens of each decode}."""
+    tokens of each decode, "chunks": its chunk walls, "logits": its last
+    prefill's logits}."""
     import torch
 
     from livecc_tpu_torch.engine.generation import DecodeState
@@ -1795,7 +1995,8 @@ def single_stream(label: str, cfg, model, kernels) -> tuple[dict, list, dict]:
     step_ms = step_replay_ms(model, state.cache, DecodeState)
     log(f"  decode step replay at depth {int(state.cache.offset[0])}, B=1: {step_ms:.3f} ms "
         f"device time")
-    return counts, record, dict(prof, step_ms=step_ms, tokens=[t for t, *_ in record])
+    return counts, record, dict(prof, step_ms=step_ms, tokens=[t for t, *_ in record],
+                                chunks=[c.seconds for c in eng.chunk_log], logits=state.logits)
 
 
 def phase_pool(cfg, model) -> tuple[dict, list, dict]:
@@ -2093,21 +2294,347 @@ def phase_main_w8(cfg, model, main_record: list, main: dict, init: dict) -> tupl
     return counts, spec_counts
 
 
-def phase_pool_w8(cfg, model, pool: dict) -> dict:
+def phase_pool_w8(cfg, model, pool: dict) -> tuple[dict, list, dict]:
     """JAX's TPU serving configuration: ``pool``'s 8 streams on the 7B with
     int8 weights and the int8 KV cache, through the decode graphs and the
     eager plain loop (``pool_phase``: identical tokens, K5 launched). Prints
     the steady ticks, the profiled tick's busy time and one B = 8 decode-step
-    replay beside ``pool``'s. Returns the graph run's launch counts."""
-    counts, _, w8 = pool_phase("pool_w8", cfg, model, POOL_W8_KERNELS)
+    replay beside ``pool``'s. Returns ``pool_phase``'s launch counts, record
+    and summary."""
+    counts, record, w8 = pool_phase("pool_w8", cfg, model, POOL_W8_KERNELS)
     ticks = lambda d: ", ".join(f"{t * 1e3:.1f}" for t in d["ticks"][1:])
     log(f"  pool_w8 against pool (bf16 weights): steady ticks {ticks(w8)} against {ticks(pool)} "
         f"ms; profiled steady tick wall {w8['wall'] * 1e3:.1f} against {pool['wall'] * 1e3:.1f} "
         f"ms, device busy {w8['busy'] * 1e3:.1f} against {pool['busy'] * 1e3:.1f} ms; decode "
         f"step replay B=8 {w8['step_ms']:.3f} against {pool['step_ms']:.3f} ms "
         f"({w8['step_ms'] / pool['step_ms']:.3f}x)")
-    return counts
+    return counts, record, w8
 
+
+@contextlib.contextmanager
+def torchrun_vars():
+    """torchrun's variables for a world of one started in this process (a
+    free localhost port), restored after."""
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def counted_collectives(issued):
+    """Count each all-reduce and all-gather the port issues by (name, whether
+    a CUDA graph capture was under way)."""
+    import torch
+    import torch.distributed as dist
+
+    saved = {name: getattr(dist, name) for name in ("all_reduce", "all_gather_into_tensor")}
+
+    def counted(name, fn):
+        def run(*args, **kw):
+            issued[(name, torch.cuda.is_current_stream_capturing())] += 1
+            return fn(*args, **kw)
+        return run
+
+    for name, fn in saved.items():
+        setattr(dist, name, counted(name, fn))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def unsplit(model) -> None:
+    """Take a tower split at M = 1 off its model group (its tensors are whole)."""
+    model.text.tp = None
+    for layer in model.text.layers:
+        layer.tp = None
+
+
+def tp_storage(cfg) -> None:
+    """One rank's ``shard_params`` of a fresh bf16 7B at M = 2 and 4 (rank 0's
+    slices; no collective, so one card shows what each rank keeps): the
+    allocated bytes before and after and the peak while it slices. Fails
+    unless every split tensor owns storage of its shard's size, the rank's
+    weights are the replicated tensors plus 1 / M of the split ones, and
+    the allocator freed at least 99% of the split tensors' (1 - 1 / M)
+    (its blocks round the sizes)."""
+    import torch
+
+    from livecc_tpu_torch.core.mesh import Mesh
+    from livecc_tpu_torch.parallel.sharding import shard_params, split_dim
+    from livecc_tpu_torch.tools import session
+
+    for m in (2, 4):
+        _, fresh = session.main_model()
+        total = session.model_bytes(fresh)
+        split = sum(p.numel() * p.element_size() for n, p in fresh.named_parameters()
+                    if split_dim(n) is not None)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        shard_params(fresh, cfg, Mesh(1, m, 0, None, None, torch.device("cuda")))
+        torch.cuda.synchronize()
+        after, peak = torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated()
+        weights = session.model_bytes(fresh)
+        want = split - split // m
+        whole = [n for n, p in fresh.named_parameters() if split_dim(n) is not None
+                 and p.untyped_storage().nbytes() != p.numel() * p.element_size()]
+        log(f"  shard_params of the bf16 7B at M={m}, rank 0: allocated {before / 2**30:.2f} -> "
+            f"{after / 2**30:.2f} GiB (freed {(before - after) / 2**30:.3f} GiB; the split "
+            f"tensors' (1 - 1/M) {want / 2**30:.3f} GiB), peak while slicing "
+            f"{peak / 2**30:.2f} GiB; the rank's weights {weights / 2**30:.3f} GiB")
+        if whole or weights != total - want or not before - after >= 0.99 * want:
+            raise AssertionError(f"tp_serve: shard_params at M={m}: weights {weights} of "
+                                 f"{total - want}, freed {before - after} of {want}, "
+                                 f"whole storages {whole[:4]}")
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_tp_serve(cfg, models, main_record: list, main: dict, pool_record: list,
+                   pool: dict) -> dict:
+    """Tensor-parallel serving (``phase_tp_serve``): first the storage of
+    ``shard_params`` at M = 2 and 4 (``tp_storage``). Then, with torchrun's
+    variables set in the process, ``init_mesh("1x1", "cuda")`` over NCCL and
+    ``shard_params`` on main's bf16 7B and on pool_w8's int8 one (M = 1:
+    nothing is sliced, every collective of the split tower is issued):
+    main's single-stream session (bf16 KV of 8192, the 6-frame chunk and
+    the steady ones) and pool_w8's int8-KV pool (8 streams, the warmup and
+    every tick), each through the decode graphs. Checks: tokens identical
+    to main's and pool_w8's runs without a mesh (their eager plain loops'
+    records, which equal their graph runs); the last prefill's logits
+    compared with main's (bit-equal expected at M = 1; the difference is
+    printed); every kernel of ``MAIN_KERNELS`` / ``POOL_W8_KERNELS``
+    launched; decode-graph replays; all-reduces and all-gathers issued
+    inside the captures. Prints chunk and tick walls beside the no-mesh
+    runs', each rank's weight and KV bytes, and one steady chunk under the
+    profiler (replays, collectives, NCCL kernels, busy and idle share).
+    Where the machine has 2 or 4 cards, the same sessions at 1x2 / 1x4
+    through torchrun (this script's ``--tp-worker`` mode), held to the
+    no-mesh tokens up to each stream's first near-tie parting
+    (``near_ties``); it prints the world sizes it ran. Returns the 1x1
+    runs' launch counts."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from livecc_tpu_torch.core.mesh import close_mesh, init_mesh
+    from livecc_tpu_torch.engine.generation import DecodeState, GenerationParams
+    from livecc_tpu_torch.engine.graphs import graphs_for
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.parallel.sharding import shard_params
+    from livecc_tpu_torch.parallel.tp import reduce_from_model
+    from livecc_tpu_torch.tools import session
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms
+    from livecc_tpu_torch.tools.profile_stream import busy_seconds
+
+    tp_storage(cfg)
+    model, model_w8 = models
+    issued: collections.Counter = collections.Counter()
+    counts: collections.Counter = collections.Counter()
+    frames = session.main_frames()
+    with torchrun_vars(), counted_collectives(issued):
+        mesh = init_mesh("1x1", "cuda")
+        try:
+            if dist.get_backend() != "nccl":
+                raise AssertionError(f"tp_serve: backend {dist.get_backend()}")
+            for mod in models:
+                shard_params(mod, cfg, mesh)
+            torch.cuda.synchronize()
+            log(f"  init_mesh('1x1', 'cuda') over {dist.get_backend()}; the rank's weights: "
+                f"bf16 7B {session.model_bytes(model) / 2**30:.3f} GiB, int8 7B "
+                f"{session.model_bytes(model_w8) / 2**30:.3f} GiB; allocated "
+                f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+            # main's session
+            graphs = graphs_for(model, cfg)
+            graphs.reset_stats()
+            record: list = []
+            build.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with decoding(False, record):
+                eng = session.new_engine(cfg, model)
+                state = eng.new_stream()
+                out = session.run_session(eng, frames, state=state)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(build.launch_counts)
+            counts.update(got)
+            stats = graphs.stats()
+            walls = ", ".join(f"{c.seconds * 1e3:.1f}" for c in eng.chunk_log)
+            log(f"  main at 1x1: wall {wall:.3f} s (chunks {walls} ms; no mesh: "
+                f"{', '.join(f'{s * 1e3:.1f}' for s in main['chunks'])} ms), {stats['captures']} "
+                f"captures, {stats['replays']} replays; launches {got}; KV "
+                f"{(state.cache.k.nbytes + state.cache.v.nbytes) / 2**30:.3f} GiB "
+                f"(bf16, {state.cache.max_len} positions, {state.cache.k.shape[2]} KV heads)")
+            same_tokens("tp_serve main", record, main_record, "the 1x1 mesh and the no-mesh run")
+            diff = (state.logits - main["logits"]).abs().max().item()
+            log(f"  main at 1x1: the last prefill's logits "
+                + ("bit-equal to the no-mesh run's" if torch.equal(state.logits, main["logits"])
+                   else f"differ from the no-mesh run's by up to {diff:.3e}"))
+            missing = [k for k in MAIN_KERNELS if got.get(k, 0) <= 0]
+            if missing or stats["replays"] <= 0:
+                raise AssertionError(f"tp_serve main: never launched {missing}, or "
+                                     f"{stats['replays']} replays")
+            # one steady chunk under the profiler
+            before = dict(issued)
+            graphs.reset_stats()
+            gen = GenerationParams(max_new_tokens=session.NEW_TOKENS,
+                                   eos_token_id=cfg.eos_token_id, pad_token_id=cfg.pad_token_id,
+                                   repetition_penalty=session.REPETITION_PENALTY)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.chunk_step(state, frames[-2:], 7.0, 8.0, None, gen)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            events = prof.events()
+            colls = collections.Counter(e.name for e in events if e.device_type ==
+                                        torch.autograd.DeviceType.CPU
+                                        and e.name.startswith("c10d::"))
+            nccl = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.name.lower().startswith("nccl")]
+            busy = busy_seconds(prof)
+            host = sum(e.cpu_time_total for e in events if e.device_type ==
+                       torch.autograd.DeviceType.CPU and e.name.startswith("c10d::")) / 1e3
+            eager = {k[0]: v - before.get(k, 0) for k, v in issued.items() if not k[1]}
+            log(f"  one steady chunk profiled: wall {wall:.3f} s, device busy {busy:.3f} s, idle "
+                f"share {1 - busy / wall:.3f}; {graphs.stats()['replays']} decode-step replays, "
+                f"each replaying the all-reduces and the all-gather captured into it; eager "
+                f"collectives (prefill) {eager}, c10d ranges {dict(colls)} holding "
+                f"{host:.2f} ms of host time; NCCL kernels {len(nccl)} "
+                f"{sorted({e.name for e in nccl})}")
+            step_ms = step_replay_ms(model, state.cache, DecodeState)
+            x = torch.randn((1, 256, cfg.text.hidden_size), device="cuda").bfloat16()
+            tp = model.text.tp
+            eager_ms = [cuda_ms(lambda: [fn(x) for _ in range(57)]) for fn in (
+                lambda y: reduce_from_model(y, tp), lambda y: y.contiguous().clone())]
+            log(f"  main at 1x1: decode step replay {step_ms:.3f} ms device time (no mesh "
+                f"{main['step_ms']:.3f} ms); a prefill's 57 all-reduces of [1, 256, "
+                f"{cfg.text.hidden_size}] bf16, eagerly: {eager_ms[0]:.3f} ms (57 clones alone "
+                f"{eager_ms[1]:.3f} ms; one call, host included)")
+            del prof, events, eng, state, x
+            # pool_w8's pool
+            graphs = graphs_for(model_w8, cfg)
+            graphs.reset_stats()
+            record = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with decoding(False, record):
+                server = session.pool_server(cfg, model_w8)
+                server.warmup([(session.HEIGHT, session.WIDTH)])
+                build.reset_launch_counts()
+                _, ticks = session.run_pool(server)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = dict(build.launch_counts)
+            counts.update(got)
+            stats = graphs.stats()
+            kv = server.pool_caches
+            log(f"  pool_w8 at 1x1: wall {wall:.3f} s (ticks "
+                f"{', '.join(f'{t * 1e3:.1f}' for t in ticks)} ms; no mesh: "
+                f"{', '.join(f'{t * 1e3:.1f}' for t in pool['ticks'])} ms), {stats['captures']} "
+                f"captures, {stats['replays']} replays; launches {got}; KV "
+                f"{(kv.k.nbytes + kv.v.nbytes) / 2**30:.3f} GiB int8 + "
+                f"{(kv.k_scale.nbytes + kv.v_scale.nbytes) / 2**20:.1f} MiB scales "
+                f"({kv.k.shape[2]} KV heads)")
+            same_tokens("tp_serve pool_w8", record, pool_record,
+                        "the 1x1 mesh and the no-mesh run")
+            missing = [k for k in POOL_W8_KERNELS if got.get(k, 0) <= 0]
+            if missing or stats["replays"] <= 0:
+                raise AssertionError(f"tp_serve pool_w8: never launched {missing}, or "
+                                     f"{stats['replays']} replays")
+            stream_of = pool_streams(server)
+            del server, kv
+        finally:
+            close_mesh(mesh)
+            for mod in models:
+                unsplit(mod)
+    captured = {k[0]: v for k, v in issued.items() if k[1]}
+    log(f"  collectives issued inside the decode graphs' captures: {captured}; eagerly: "
+        f"{ {k[0]: v for k, v in issued.items() if not k[1]} }")
+    if not all(captured.get(k, 0) > 0 for k in ("all_reduce", "all_gather_into_tensor")):
+        raise AssertionError(f"tp_serve: no collective captured into a decode graph ({issued})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    worlds = [1]
+    n_cards = torch.cuda.device_count()
+    for n in (2, 4):
+        if n > n_cards:
+            continue
+        path = os.path.join(ROOT, "build", f"tp_serve_1x{n}.pt")
+        done = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", str(n), os.path.abspath(__file__),
+                               "--tp-worker", json.dumps({"out": path})],
+                              capture_output=True, text=True, timeout=600)
+        if done.returncode != 0:
+            raise AssertionError(f"tp_serve 1x{n}: torchrun exited {done.returncode}: "
+                                 f"{(done.stdout + done.stderr)[-3000:]}")
+        other = torch.load(path)
+        os.remove(path)
+        near_ties(f"tp_serve 1x{n} main", [(t, g, None) for t, g in other["main"]], main_record,
+                  lambda d, r: 0)
+        near_ties(f"tp_serve 1x{n} pool_w8", [(t, g, None) for t, g in other["pool"]],
+                  pool_record, stream_of)
+        worlds.append(n)
+    log(f"  world sizes run: {worlds} ({n_cards} card(s) here; the multi-rank parity comes "
+        f"from the CPU tests over gloo)")
+    return dict(counts)
+
+
+def tp_worker(spec: str) -> int:
+    """One rank of ``phase_tp_serve``'s multi-card runs (``torchrun ...
+    chip_smoke.py --tp-worker JOB``): ``init_mesh("1xN", "cuda")``, main's
+    bf16 7B and the int8 7B, each whole from the seed and then split by
+    ``shard_params``, main's session and the int8 pool through the decode
+    graphs; rank 0 saves each decode's tokens to the job's ``out``."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    from livecc_tpu_torch.core.mesh import close_mesh, init_mesh
+    from livecc_tpu_torch.parallel.sharding import shard_params
+    from livecc_tpu_torch.tools import session
+
+    job = json.loads(spec)
+    mesh = init_mesh(f"1x{os.environ['WORLD_SIZE']}", "cuda")
+    out = {}
+    try:
+        for key, w8 in (("main", False), ("pool", True)):
+            cfg, model = session.main_model(w8=w8)
+            shard_params(model, cfg, mesh)
+            record: list = []
+            with decoding(False, record):
+                if w8:
+                    server = session.pool_server(cfg, model)
+                    server.warmup([(session.HEIGHT, session.WIDTH)])
+                    session.run_pool(server)
+                    del server
+                else:
+                    session.run_session(session.new_engine(cfg, model), session.main_frames())
+            out[key] = [(t.cpu(), g.cpu()) for t, g, _ in record]
+            del model, record
+            torch.cuda.empty_cache()
+    finally:
+        dist.barrier()
+        close_mesh(mesh)
+    if mesh.rank == 0:
+        torch.save(out, job["out"])
+    return 0
 
 class FramesVideo:
     """``VideoReader``'s API over frames in memory (``LiveCC``'s and
@@ -3588,20 +4115,10 @@ def phase_mesh(run: dict) -> dict:
             window["wall"] = time.perf_counter() - window["t0"]
             window["prof"].stop()
 
-    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
-           "MASTER_PORT": str(free_port())}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     build.reset_launch_counts()
-    try:
+    with torchrun_vars():
         last = cli.main(run["flags"] + ["--output_dir", out, "--total_steps", "3", "--mesh", "1x1"],
                         tokenizer=run["tokenizer"], video_loader=run["loader"], on_step=on_step)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
     counts = dict(build.launch_counts)
     if dist.is_initialized():
         raise AssertionError("mesh: the CLI left its process group")
@@ -4722,6 +5239,7 @@ def main() -> int:
     t_all = time.perf_counter()
     run_phase("build", phase_build)
     results = run_phase("kernels", phase_kernels)
+    run_phase("kernels_tp", lambda: phase_kernels_tp(results))
     run_phase("tiny", phase_tiny)
     run_phase("tiny_pool", phase_tiny_pool)
     run_phase("tiny_w8", phase_tiny_w8)
@@ -4752,8 +5270,11 @@ def main() -> int:
                "bf16_gib": session.model_bytes(model) / 2**30}
     main_w8_counts, main_w8_spec_counts = run_phase(
         "main_w8", lambda: phase_main_w8(cfg, model_w8, main_record, main_sum, w8_init))
-    pool_w8_counts = run_phase("pool_w8", lambda: phase_pool_w8(cfg, model_w8, pool_sum))
-    del main_record, model_w8
+    pool_w8_counts, pool_w8_record, pool_w8_sum = run_phase(
+        "pool_w8", lambda: phase_pool_w8(cfg, model_w8, pool_sum))
+    tp_counts = run_phase("tp_serve", lambda: phase_tp_serve(
+        cfg, (model, model_w8), main_record, main_sum, pool_w8_record, pool_w8_sum))
+    del main_record, model_w8, pool_w8_record
     gc.collect()
     torch.cuda.empty_cache()
     eval_counts, cc_counts, _ = run_phase("eval", lambda: phase_eval(cfg, model))
@@ -4795,7 +5316,8 @@ def main() -> int:
         "launches": sum(c.get(name, 0) for c in (main_counts, pool_counts, spec_counts,
                                                  adversarial_counts, pool_spec_counts,
                                                  main_w8_counts, main_w8_spec_counts,
-                                                 pool_w8_counts, eval_counts, cc_counts,
+                                                 pool_w8_counts, tp_counts, eval_counts,
+                                                 cc_counts,
                                                  checkpoint_counts, checkpoint_w8_counts,
                                                  *app_counts, train_counts, train_cli_counts,
                                                  mesh_counts, lmm_counts, loss_counts,
@@ -4822,4 +5344,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-worker"]:
         sys.exit(mesh_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2]))
     sys.exit(main())

@@ -42,6 +42,15 @@ graph holds a weak reference to its cache's K buffer, and a lookahead graph
 also to its ``hist``. A compaction writes the cache and ``hist`` in place
 (``compact_cache_row``, ``compact_token_row``), so its graph stays valid.
 There is no fallback: a capture or a replay that fails raises.
+
+On a model split over the mesh's model axis (``parallel/sharding.py:
+shard_params``) the captured steps hold the layers' all-reduces and the
+logits' all-gather, issued by NCCL into the graph. NCCL cannot create a
+communicator inside a capture, so one eager all-reduce over the model
+group runs before the first capture. Every model rank takes the same
+decisions from the same tokens and stop flags, so all capture and replay
+the same steps in the same order; the key holds the group's size and
+this rank's index.
 """
 
 from __future__ import annotations
@@ -53,6 +62,7 @@ import weakref
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.engine.generation import (
@@ -72,13 +82,15 @@ def graph_key(model: Qwen2VL, gen: GenerationParams, cache: KVCache, batch: int,
     addresses of the cache's buffers and of the weights (parameters and
     buffers: int8 weights are buffers, ``ops/quant.py``), and the mode: a
     plain decode step, or (``spec`` given) a lookahead step with its
-    settings and the address of its ``hist``."""
+    settings and the address of its ``hist``; and the model group's size
+    and this rank's index under tensor parallelism."""
+    tp = model.text.tp
     buffers = tuple(0 if t is None else t.data_ptr()
                     for t in (cache.k, cache.v, cache.k_scale, cache.v_scale))
     weights = hash(tuple(t.data_ptr() for t in (*model.parameters(), *model.buffers())))
     mode = ("decode",) if spec is None else ("lookahead", spec, hist.data_ptr())
     return (batch, cache.max_len, cache.k.dtype, gen, generator if gen.do_sample else None,
-            buffers, weights, mode)
+            buffers, weights, mode, None if tp is None else (tp.size, tp.rank))
 
 
 def run_steps(n_steps: int, step, all_stopped) -> int:
@@ -123,6 +135,7 @@ class DecodeGraphs:
         self._side: Optional[torch.cuda.Stream] = None
         self._flag: Optional[torch.Tensor] = None
         self._event: Optional[torch.cuda.Event] = None
+        self._warm = False                    # the model group's communicator (TP only)
         self.reset_stats()
 
     def reset_stats(self) -> None:
@@ -173,6 +186,15 @@ class DecodeGraphs:
         self.host_reads += 1
         return bool(self._flag)
 
+    def _warm_up(self, model: Qwen2VL, dev: torch.device) -> None:
+        """One eager all-reduce over a split model's group before its first
+        capture, so that the communicator exists before any capture."""
+        tp = model.text.tp
+        if tp is None or self._warm:
+            return
+        dist.all_reduce(torch.zeros(1, device=dev), group=tp.group)
+        self._warm = True
+
     def _capture(self, entry: StepGraph, step, dev: torch.device, gen: GenerationParams,
                  generator) -> None:
         """``step()`` eagerly on a side stream (the warm-up), then captured there."""
@@ -218,6 +240,7 @@ class DecodeGraphs:
 
         def step(_i: int) -> None:
             if entry.graph is None:
+                self._warm_up(model, cache.k.device)
                 self._capture(entry, lambda: decode_step(model, self.cfg, gen, st, cache,
                                                          generator),
                               cache.k.device, gen, generator)
@@ -241,6 +264,7 @@ class DecodeGraphs:
 
         def step(_i: int) -> None:
             if entry.graph is None:
+                self._warm_up(model, cache.k.device)
                 self._capture(entry, lambda: lookahead_step(model, self.cfg, gen, spec, st,
                                                             cache, hist, generator),
                               cache.k.device, gen, generator)

@@ -47,6 +47,7 @@ from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.engine.generation import GenerationParams, adjust_logits, select_token
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, forward
 from livecc_tpu_torch.models.qwen2_vl.text import KVCache, lm_logits
+from livecc_tpu_torch.parallel.tp import TensorParallel, agree_max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,10 +76,18 @@ class SpecController:
     probes the slower one every ``probe_every`` dispatches. Bootstrap order:
     lookahead first, then one plain dispatch, then the data. A 3x-of-EMA
     clip keeps one stall from poisoning an estimate; ``force`` pins the
-    decision."""
+    decision.
 
-    def __init__(self, spec: Optional[SpecConfig]):
+    On a model split over the model axis (``tp``) every rank must choose
+    alike: a lookahead step and a decode step issue different collectives,
+    so two ranks that chose apart would hang the group. Each wall is
+    replaced by the largest of the model ranks' (``parallel/tp.py:
+    agree_max``) before it enters the EMA, so every rank holds the same
+    estimates and makes the same choices."""
+
+    def __init__(self, spec: Optional[SpecConfig], tp: Optional[TensorParallel] = None):
         self.spec = spec
+        self.tp = tp
         self.spt: dict[bool, float | None] = {True: None, False: None}
         self.ema: float | None = None        # accepted tokens per window (metric)
         self._dispatch_n = 0
@@ -117,7 +126,11 @@ class SpecController:
 
     def observe_wall(self, used_spec: bool, wall_s: float, tokens: int) -> None:
         """Feed one dispatch's wall and emitted tokens."""
-        if self.spec is None or not self.spec.adaptive or tokens <= 0 or wall_s <= 0:
+        if self.spec is None or not self.spec.adaptive or tokens <= 0:
+            return
+        if self.tp is not None:
+            wall_s = agree_max(wall_s, self.tp)
+        if wall_s <= 0:
             return
         v = wall_s / tokens
         cur = self.spt[used_spec]

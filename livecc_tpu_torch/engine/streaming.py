@@ -21,6 +21,15 @@ decoding, whose greedy output is the same: fused lookahead
 adaptive controller choosing it or plain ``decode_chunk`` per chunk, or the
 host-drafted window loop (``fused=False``, draft source
 ``spec_draft_source``, n-gram lookup by default).
+
+Tensor-parallel serving is the same class on a model split by
+``parallel/sharding.py:shard_params`` over the mesh's model axis, one
+process a rank (as JAX's ``README.md`` runs the same engine on sharded
+params): each rank's cache holds its Hk / M heads (``KVCache.zeros(tp=)``,
+growth copies them as they are), every rank gets the whole logits
+(``lm_logits``' all-gather), so every rank selects, samples (its generator
+seeded alike) and schedules the same tokens. Quantize before sharding:
+``quantize_model`` refuses a split model.
 """
 
 from __future__ import annotations
@@ -154,7 +163,7 @@ class LiveCCEngine:
     def _spec_on(self) -> bool:
         """The adaptive lookahead gate for this chunk (True: run lookahead)."""
         if self._spec_ctl is None:
-            self._spec_ctl = SpecController(self.spec)
+            self._spec_ctl = SpecController(self.spec, self.model.text.tp)
         return self._spec_ctl.use_spec()
 
     # ------------------------------------------------------------------
@@ -166,7 +175,8 @@ class LiveCCEngine:
         cache (it doubles on demand); the serving pool starts joining streams
         small so that N of them never hold N full-length caches beside it."""
         n = cache_len or self.cache_len
-        cache = KVCache.zeros(self.cfg.text, 1, n, self.cache_dtype, self.device)
+        cache = KVCache.zeros(self.cfg.text, 1, n, self.cache_dtype, self.device,
+                              self.model.text.tp)
         counts = torch.zeros((1, self.cfg.text.vocab_size), dtype=torch.int32, device=self.device)
         hist = None
         if self.spec is not None and self.spec.fused:

@@ -30,8 +30,7 @@ import torch
 from torch import nn
 
 from livecc_tpu_torch.core.config import ModelConfig
-from livecc_tpu_torch.models.qwen2_vl.text import (KVCache, TextModel, lm_logits,
-                                                   refuse_tp_serving, text_forward)
+from livecc_tpu_torch.models.qwen2_vl.text import KVCache, TextModel, lm_logits, text_forward
 from livecc_tpu_torch.models.qwen2_vl.vision import VisionTower
 from livecc_tpu_torch.ops.quant import embed_lookup, jax_weight
 from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
@@ -263,13 +262,14 @@ def forward(
     hidden states when ``compute_logits`` is False, and the cache). Without
     a cache it is the training forward (JAX ``model.py:197-255``): the text
     tower runs uncached through K4 with ``attention_mask`` and ``remat``.
-    On a tensor-parallel model the embedding is vocab-parallel."""
-    if cache is not None:
-        refuse_tp_serving(model.text, "the cached forward")
+    On a tensor-parallel model the embedding is vocab-parallel, the ViT and
+    the scatter of its embeddings run whole on every rank, and the logits
+    are gathered whole on every rank."""
     if model.text.tp is None:
         embeds = embed_lookup(jax_weight(model.text.embed), input_ids.long())
     else:               # a vocab-split table (parallel/sharding.py:shard_params)
-        embeds = vocab_parallel_embed(model.text.embed.weight, input_ids.long(), model.text.tp)
+        embeds = vocab_parallel_embed(jax_weight(model.text.embed), input_ids.long(),
+                                      model.text.tp)
     if vision is not None:
         embeds = scatter_video_embeds(cfg, embeds, input_ids, _visual(model, vision))
     if vision_images is not None:

@@ -18,9 +18,10 @@ Under tensor parallelism (``parallel/sharding.py:shard_params`` sets
 ``tp`` on the tower and its layers) a layer holds its model rank's Hq / M
 query heads, Hk / M KV heads and I / M of the MLP width (Megatron's
 layout): ``copy_to_model`` in front of q / k / v and gate / up,
-``reduce_from_model`` after o and down (``parallel/tp.py``). Only the
-uncached (training) forward runs so; ``model.py:forward`` with a cache
-and ``lm_logits`` raise under M > 1.
+``reduce_from_model`` after o and down (``parallel/tp.py``). Serving runs
+so too: the cache holds the rank's Hk / M heads (``KVCache.zeros(tp=)``),
+K1 / K2 attend on its Hq / M query heads, and ``lm_logits`` gathers the
+rank's vocab columns into the whole logits on every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ from livecc_tpu_torch.ops.attention import train_flash_attention
 from livecc_tpu_torch.ops.flash_attention import flash_decode, flash_prefill
 from livecc_tpu_torch.ops.quant import jax_weight, vocab_kernel, w8a16_gemm
 from livecc_tpu_torch.ops.rope import apply_mrope, mrope_cos_sin
-from livecc_tpu_torch.parallel.tp import TensorParallel, copy_to_model, reduce_from_model
+from livecc_tpu_torch.parallel.tp import (
+    TensorParallel, copy_to_model, gather_from_model, reduce_from_model)
 
 
 @dataclasses.dataclass
@@ -52,7 +54,9 @@ class KVCache:
     ``zeros(dtype=torch.int8)`` makes a QUANTIZED cache: symmetric int8 per
     (position, head) with bf16 scales, half the KV bytes of bf16. The scales
     are lane-major ``[L, B, Hk, 1, Smax]`` as in JAX (positions on the last
-    axis), so the int8 kernels read one contiguous scale row per key tile."""
+    axis), so the int8 kernels read one contiguous scale row per key tile.
+    A tower split over the model axis (``tp``) caches its rank's Hk / M
+    heads."""
 
     k: torch.Tensor         # [L, B, Hk, Smax, D]
     v: torch.Tensor         # [L, B, Hk, Smax, D]
@@ -70,8 +74,9 @@ class KVCache:
 
     @staticmethod
     def zeros(cfg: TextConfig, batch: int, max_len: int, dtype=torch.float32,
-              device=None) -> "KVCache":
-        shape = (cfg.num_hidden_layers, batch, cfg.num_key_value_heads, max_len, cfg.head_dim)
+              device=None, tp: Optional[TensorParallel] = None) -> "KVCache":
+        heads = cfg.num_key_value_heads // (1 if tp is None else tp.size)
+        shape = (cfg.num_hidden_layers, batch, heads, max_len, cfg.head_dim)
         offset = torch.zeros((batch,), dtype=torch.int32, device=device)
         kv = [torch.zeros(shape, dtype=dtype, device=device) for _ in range(2)]
         if dtype == torch.int8:
@@ -242,14 +247,6 @@ def text_forward(
     return model.final_ln(x), cache
 
 
-def refuse_tp_serving(model: TextModel, what: str) -> None:
-    """Raise where ``model`` is split over more than one model rank."""
-    if model.tp is not None and model.tp.size > 1:
-        raise NotImplementedError(
-            f"{what} under tensor parallelism (M = {model.tp.size}): TP serving is not ported "
-            f"(ROADMAP Queue 1 item 3); only the training forward runs on a model-split mesh")
-
-
 REMAT_POLICIES = (False, True, "names", "names_mlp", "dots")
 
 
@@ -322,9 +319,9 @@ def lm_logits(model: TextModel, cfg: TextConfig, hidden: torch.Tensor) -> torch.
     operands with an fp32 output; on the CPU (the test path, which has no
     such kernel) an fp32 product of the widened operands. An int8 one (tied
     or untied, ``ops/quant.py``): the fp32 sum times the fp32 scale, K5's
-    fp32-output form on its ``[V, H]`` codes. Raises on a vocab-split
-    tower (M > 1)."""
-    refuse_tp_serving(model, "lm_logits")
+    fp32-output form on its ``[V, H]`` codes. On a vocab-split tower each
+    model rank computes its ``[.., V / M]`` columns by the same route and
+    the all-gather gives every rank the whole ``[.., V]``."""
     if cfg.tie_word_embeddings:
         kernel, scale = vocab_kernel(jax_weight(model.embed), transpose=True)
     else:
@@ -337,4 +334,6 @@ def lm_logits(model: TextModel, cfg: TextConfig, hidden: torch.Tensor) -> torch.
         out = torch.mm(flat, kernel, out_dtype=torch.float32)
     else:
         out = torch.mm(flat.float(), kernel.float())
-    return out.reshape(*hidden.shape[:-1], kernel.shape[1])
+    if model.tp is not None:
+        out = gather_from_model(out, model.tp)
+    return out.reshape(*hidden.shape[:-1], out.shape[-1])

@@ -295,7 +295,19 @@ def quantize_model(model: nn.Module) -> nn.Module:
     """Quantize a ``Qwen2VL``'s matmul weights in place (``quantized_sites``)
     and return it. One module at a time: each bf16 weight is freed once its
     codes exist, so the device holds the model plus one module's
-    temporaries, never both models. Modules already quantized are kept."""
+    temporaries, never both models. Modules already quantized are kept.
+
+    A model split over more than one model rank
+    (``parallel/sharding.py:shard_params``) raises: o and down hold a slice
+    of their input channels there, whose amax is not the whole channel's,
+    so their codes would differ from the unsplit model's. Quantize first,
+    then shard, as JAX does."""
+    tp = model.text.tp
+    plain = any(isinstance(getattr(p, n), (nn.Linear, nn.Embedding))
+                for p, n in quantized_sites(model))
+    if tp is not None and tp.size > 1 and plain:
+        raise ValueError(f"quantize_model on a model split over {tp.size} model ranks: quantize "
+                         f"the whole model, then shard_params")
     for parent, name in quantized_sites(model):
         mod = getattr(parent, name)
         if isinstance(mod, nn.Linear):

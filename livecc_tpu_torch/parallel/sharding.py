@@ -46,22 +46,25 @@ _reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) or dist.redu
 # elements of the partition one AdamW call updates: bounds its fp32 temporaries to ~256 MB
 ADAM_CHUNK = 1 << 26
 
-# decoder-layer parameter -> the dim of the port's [out, in] weight split over the model axis
+# decoder-layer tensor -> the dim of the port's [out, in] weight split over
+# the model axis; an int8 module's codes ``q`` split as its weight, its
+# per-output ``scale`` with the output (q / k / v, gate / up) or not at all
+# (o, down: JAX replicates it)
+_COLUMN, _ROW = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"), ("o_proj", "down_proj")
 _LAYER_SPLIT = {
-    "q_proj.weight": 0, "k_proj.weight": 0, "v_proj.weight": 0,
-    "q_proj.bias": 0, "k_proj.bias": 0, "v_proj.bias": 0,
-    "gate_proj.weight": 0, "up_proj.weight": 0,
-    "o_proj.weight": 1, "down_proj.weight": 1,
+    **{f"{m}.{leaf}": 0 for m in _COLUMN for leaf in ("weight", "bias", "q", "scale")},
+    **{f"{m}.{leaf}": 1 for m in _ROW for leaf in ("weight", "q")},
 }
+_VOCAB = {f"text.{m}.{leaf}" for m in ("embed", "lm_head") for leaf in ("weight", "q", "scale")}
 
 
 def split_dim(name: str) -> Optional[int]:
-    """The dim of parameter ``name`` (the port's names) that the model
-    axis splits, or None where it is replicated."""
+    """The dim of parameter or int8 buffer ``name`` (the port's names) that
+    the model axis splits, or None where it is replicated."""
     if name.startswith("visual."):
         return None
-    if name in ("text.embed.weight", "text.lm_head.weight"):
-        return 0                                    # vocab rows
+    if name in _VOCAB:
+        return 0                                    # vocab rows (and their scales)
     if name.startswith("text.layers."):
         return _LAYER_SPLIT.get(name.split(".", 3)[3])
     return None                                     # norms
@@ -79,18 +82,15 @@ def local_slice(full: torch.Tensor, dim: Optional[int], m: int, m_size: int) -> 
     return full.chunk(m_size, dim=dim)[m]
 
 
-def check_tp(cfg: ModelConfig, model: nn.Module, m_size: int) -> None:
-    """Raise where the model cannot be split over ``m_size`` model ranks."""
+def check_tp(cfg: ModelConfig, model: nn.Module, m_size: int, training: bool = False) -> None:
+    """Raise where the model cannot be split over ``m_size`` model ranks,
+    or where a model for ``training`` holds int8 weights."""
     t = cfg.text
     quantized = [n for n, mod in model.named_modules()
                  if isinstance(mod, (QuantLinear, QuantEmbedding))]
-    if quantized and m_size > 1:
-        raise NotImplementedError(
-            f"int8 weights under tensor parallelism ({quantized[0]}, ...): the int8 scales' "
-            f"rule belongs to TP serving, which is not ported (ROADMAP Queue 1 item 3)")
-    if quantized:
-        raise NotImplementedError("int8 weights do not train (build the model without "
-                                  "quantize_weights)")
+    if quantized and training:
+        raise NotImplementedError(f"int8 weights do not train ({quantized[0]}, ...; build the "
+                                  f"model without quantize_weights)")
     for what, n in (("num_key_value_heads", t.num_key_value_heads),
                     ("num_attention_heads", t.num_attention_heads),
                     ("intermediate_size", t.intermediate_size),
@@ -100,15 +100,28 @@ def check_tp(cfg: ModelConfig, model: nn.Module, m_size: int) -> None:
 
 
 @torch.no_grad()
-def shard_params(model: nn.Module, cfg: ModelConfig, mesh: Mesh) -> None:
-    """Slice ``model``'s split parameters to this rank's shard, in place,
-    and give the text tower and its layers the model group (which switches
-    on their collectives, ``parallel/tp.py``)."""
-    check_tp(cfg, model, mesh.n_model)
-    for name, p in model.named_parameters():
-        dim = split_dim(name)
-        if dim is not None and mesh.n_model > 1:
-            p.data = local_slice(p.data, dim, mesh.m, mesh.n_model).contiguous()
+def shard_params(model: nn.Module, cfg: ModelConfig, mesh: Mesh, training: bool = False) -> None:
+    """Slice ``model``'s split parameters and int8 buffers to this rank's
+    shard, in place, and give the text tower and its layers the model
+    group (which switches on their collectives, ``parallel/tp.py``). Each
+    split tensor gets storage of its shard's size: a chunk on dim 0 is a
+    view of the whole tensor, which would keep the whole storage alive, so
+    every shard is cloned and the whole tensor dropped. An int8 model
+    (``ops/quant.py:quantize_model``) is quantized whole before it is
+    sharded, as JAX does; ``training`` refuses one."""
+    check_tp(cfg, model, mesh.n_model, training)
+    if mesh.n_model > 1:
+        for name, mod in model.named_modules():
+            for leaf, t in [*mod._parameters.items(), *mod._buffers.items()]:
+                dim = None if t is None else split_dim(f"{name}.{leaf}")
+                if dim is None:
+                    continue
+                part = local_slice(t.data, dim, mesh.m, mesh.n_model).clone(
+                    memory_format=torch.contiguous_format)
+                if leaf in mod._parameters:
+                    t.data = part
+                else:
+                    mod._buffers[leaf] = part
     tp = TensorParallel(mesh.model_group, mesh.m, mesh.n_model)
     model.text.tp = tp
     for layer in model.text.layers:

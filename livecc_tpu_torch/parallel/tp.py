@@ -11,6 +11,12 @@ functions, Megatron's conjugate pair:
     the row-split products (o, down) and the vocab-split embedding, whose
     outputs are partial sums.
 
+Serving adds two forward-only collectives: ``gather_from_model``, the
+all-gather of the vocab-split logits (``text.py:lm_logits``), and
+``agree_max``, which gives every model rank the same host number (the
+lookahead controller's walls, ``engine/speculative.py``), so that host
+decisions cannot part the ranks' collectives.
+
 Every model rank issues the same collectives in the same order, the
 recompute of a ``torch.utils.checkpoint`` region included (its forward
 runs again in the backward, all-reduce and all).
@@ -22,6 +28,8 @@ import dataclasses
 
 import torch
 import torch.distributed as dist
+
+from livecc_tpu_torch.ops.quant import Weight, embed_lookup, is_quantized
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,13 +76,36 @@ def reduce_from_model(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     return _ReduceFromModel.apply(x, tp)
 
 
-def vocab_parallel_embed(weight: torch.Tensor, ids: torch.Tensor,
-                         tp: TensorParallel) -> torch.Tensor:
-    """Rows of a vocab-split ``[V / M, H]`` table (this rank's rows ``[m *
-    V / M, (m + 1) * V / M)``): ids outside the shard give zero rows, and
-    the sum over the model group is the whole lookup."""
-    loc = ids - tp.rank * weight.shape[0]
-    inside = (loc >= 0) & (loc < weight.shape[0])
-    rows = weight[torch.where(inside, loc, torch.zeros_like(loc))]
+def gather_from_model(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """``[..., N / M]`` on every model rank -> ``[..., N]``, rank m's part
+    at columns ``[m * N / M, (m + 1) * N / M)`` (forward only: one
+    all-gather into a buffer of the whole, then the parts moved beside each
+    other)."""
+    x = x.contiguous()
+    parts = x.new_empty((tp.size * x.shape[0], *x.shape[1:]))      # the ranks' x, stacked
+    dist.all_gather_into_tensor(parts, x, group=tp.group)
+    parts = parts.view(tp.size, *x.shape)
+    return parts.movedim(0, -2).reshape(*x.shape[:-1], tp.size * x.shape[-1])
+
+
+def agree_max(value: float, tp: TensorParallel) -> float:
+    """The largest of the model ranks' ``value`` (one all-reduce of a
+    tensor on the group's device: this rank's card for NCCL, else the CPU)."""
+    nccl = dist.get_backend(tp.group) == "nccl"
+    t = torch.tensor([value], dtype=torch.float64, device="cuda" if nccl else "cpu")
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=tp.group)
+    return float(t.item())
+
+
+def vocab_parallel_embed(weight: Weight, ids: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Rows of a vocab-split ``[V / M, H]`` table, plain or int8
+    (``ops/quant.py:embed_lookup``: codes and per-row scales split
+    together), this rank's rows ``[m * V / M, (m + 1) * V / M)``: ids
+    outside the shard give zero rows, and the sum over the model group is
+    the whole lookup."""
+    n = (weight["q"] if is_quantized(weight) else weight).shape[0]
+    loc = ids - tp.rank * n
+    inside = (loc >= 0) & (loc < n)
+    rows = embed_lookup(weight, torch.where(inside, loc, torch.zeros_like(loc)))
     rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
     return reduce_from_model(rows, tp)

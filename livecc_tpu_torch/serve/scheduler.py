@@ -32,6 +32,15 @@ so when a tick's pool step returns its tokens are done; the
 tick copies them to the host at once and stamps each chunk's text with the
 moment it reached the host (``drain_timed``). Nothing is in flight between
 ticks, so ``flush`` and ``drain(sync=...)`` have nothing to wait for.
+
+On a model split over the mesh's model axis every model rank runs the
+same server (one process a rank): the pool's caches hold the rank's
+Hk / M heads, and every host decision (adoption, growth, compaction,
+ticks, the controller's mode) reads state that every rank holds alike
+(tokens and offsets from the gathered logits, walls agreed by
+``SpecController``), so the ranks issue the same collectives in the same
+order. ``snapshot`` gathers the heads into one card's layout, ``restore``
+takes each rank's back.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.data import chat
@@ -53,6 +63,7 @@ from livecc_tpu_torch.engine.streaming import LiveCCEngine, StreamState, _bucket
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, VisionInputs
 from livecc_tpu_torch.models.qwen2_vl.text import KVCache
 from livecc_tpu_torch.ops import build
+from livecc_tpu_torch.parallel.tp import gather_from_model
 from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
 
 # Initial solo-cache length for joining streams (an init chunk is ~1k tokens;
@@ -187,7 +198,7 @@ class StreamServer:
 
     def _ctl(self) -> SpecController:
         if self._spec_ctl is None:
-            self._spec_ctl = SpecController(self._spec())
+            self._spec_ctl = SpecController(self._spec(), self.engine.model.text.tp)
         return self._spec_ctl
 
     def _get_step(self, use_spec: bool):
@@ -259,9 +270,17 @@ class StreamServer:
         to one .npz in the JAX
         package's format: the same keys, floats as fp32 (npz has no bf16),
         and the cache dtype's numpy name in the meta. Streams still in their
-        init chunk and pending (submitted, un-ticked) chunks are not saved."""
+        init chunk and pending (submitted, un-ticked) chunks are not saved.
 
-        def as_np(t: torch.Tensor) -> np.ndarray:
+        On a model split over the model axis every model rank calls it: the
+        cache rows' heads are gathered over the group, so the file holds
+        one card's layout (as JAX's ``np.asarray`` of a sharded cache),
+        model rank 0 writes it, and the group waits for the write."""
+        tp = self.engine.model.text.tp
+
+        def as_np(t: torch.Tensor, heads: bool = False) -> np.ndarray:
+            if heads and tp is not None:          # [L, Hk / M, ...] -> [L, Hk, ...]
+                t = gather_from_model(t.movedim(1, -1), tp).movedim(-1, 1)
             t = t.detach().cpu()
             return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
@@ -272,11 +291,11 @@ class StreamServer:
             if s.slot is None:
                 continue
             slot = s.slot
-            arrays[f"k_{s.sid}"] = as_np(pool.k[:, slot])
-            arrays[f"v_{s.sid}"] = as_np(pool.v[:, slot])
+            arrays[f"k_{s.sid}"] = as_np(pool.k[:, slot], heads=True)
+            arrays[f"v_{s.sid}"] = as_np(pool.v[:, slot], heads=True)
             if pool.quantized:
-                arrays[f"ks_{s.sid}"] = as_np(pool.k_scale[:, slot])
-                arrays[f"vs_{s.sid}"] = as_np(pool.v_scale[:, slot])
+                arrays[f"ks_{s.sid}"] = as_np(pool.k_scale[:, slot], heads=True)
+                arrays[f"vs_{s.sid}"] = as_np(pool.v_scale[:, slot], heads=True)
             arrays[f"counts_{s.sid}"] = as_np(self.pool_counts[slot])
             if self.pool_hist is not None:
                 arrays[f"hist_{s.sid}"] = as_np(self.pool_hist[slot])
@@ -293,12 +312,16 @@ class StreamServer:
                         "dtype": _dtype_name(self.engine.cache_dtype)}).encode(),
             np.uint8,
         )
-        np.savez(path, **arrays)
+        if tp is None or tp.rank == 0:
+            np.savez(path, **arrays)
+        if tp is not None:
+            dist.barrier(group=tp.group)
 
     def restore(self, path: str) -> list[int]:
         """Re-adopt snapshotted sessions (from this port or the JAX package)
         into this server's pool; returns the restored stream ids
-        (renumbered). A cache row longer than this pool raises."""
+        (renumbered). A cache row longer than this pool raises. On a split
+        model each model rank takes its own heads of every row."""
         data = np.load(path)
         meta = json.loads(bytes(data["__meta__"].tobytes()).decode())
         want = _dtype_name(self.engine.cache_dtype)
@@ -309,6 +332,9 @@ class StreamServer:
         self._ensure_pool()
         pool = self.pool_caches
         dev = self.engine.device
+        tp = self.engine.model.text.tp
+        hk = pool.k.shape[2]                     # this rank's heads
+        heads = slice(0, hk) if tp is None else slice(tp.rank * hk, (tp.rank + 1) * hk)
         restored = []
         for m in meta["streams"]:
             if not self._free:
@@ -322,9 +348,9 @@ class StreamServer:
             slot = self._free.pop(0)
 
             def put(pool_arr: torch.Tensor, arr: np.ndarray, pos_axis: int) -> None:
-                # arr is one slot's row: the pool's layout without the slot
-                # axis, so positions sit on pos_axis - 1
-                a = torch.from_numpy(arr).to(device=dev, dtype=pool_arr.dtype)  # fp32 -> bf16
+                # arr is one slot's row of every head: the pool's layout
+                # without the slot axis, so positions sit on pos_axis - 1
+                a = torch.from_numpy(arr[:, heads]).to(device=dev, dtype=pool_arr.dtype)
                 n = min(a.shape[pos_axis - 1], pool_arr.shape[pos_axis])
                 pool_arr[:, slot].narrow(pos_axis - 1, 0, n).copy_(a.narrow(pos_axis - 1, 0, n))
 
@@ -380,7 +406,8 @@ class StreamServer:
         adopt_scratch = self.pool_caches is None
         c = self.capacity
         dev = engine.device
-        scratch = KVCache.zeros(engine.cfg.text, c, engine.cache_len, engine.cache_dtype, dev)
+        scratch = KVCache.zeros(engine.cfg.text, c, engine.cache_len, engine.cache_dtype, dev,
+                                engine.model.text.tp)
         counts = torch.zeros((c, engine.cfg.text.vocab_size), dtype=torch.int32, device=dev)
         last = torch.full((c,), -1, dtype=torch.int32, device=dev)
         spec = self._spec()
@@ -429,7 +456,7 @@ class StreamServer:
         engine = self.engine
         dev = engine.device
         self.pool_caches = KVCache.zeros(engine.cfg.text, self.capacity, engine.cache_len,
-                                         engine.cache_dtype, dev)
+                                         engine.cache_dtype, dev, engine.model.text.tp)
         self.pool_counts = torch.zeros((self.capacity, engine.cfg.text.vocab_size),
                                        dtype=torch.int32, device=dev)
         self.pool_last = torch.full((self.capacity,), -1, dtype=torch.int32, device=dev)

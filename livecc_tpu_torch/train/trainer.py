@@ -97,7 +97,7 @@ class Trainer:
             self.step_fn = make_train_step(cfg, tcfg, self.optimizer)
         else:
             self.batch_rows = mesh.n_data
-            shard_params(model, cfg, mesh)
+            shard_params(model, cfg, mesh, training=True)
             self.zero = Zero2(split_frozen(model, tcfg.freeze_modules)[0], mesh)
             self.opt_state = self.zero.init_state(tcfg.adam_mu_dtype)
             self.step_fn = make_mesh_train_step(cfg, tcfg, self.optimizer, self.zero)

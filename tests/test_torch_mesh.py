@@ -29,9 +29,10 @@ each case under its own timeout. The JAX references run here, on the
     corpus and seed;
   * a checkpoint saved at 2x1 resumes at 1x1 and 1x2 (and in the
     single-card ``Trainer``) to the step that continues at 2x1;
-  * the refusals: M not dividing the KV heads, the cached forward and
-    ``lm_logits`` under M > 1, DATA x MODEL != WORLD_SIZE, torchrun's
-    environment missing, ``--seq_shard``, int8 weights under TP.
+  * the refusals: M not dividing the KV heads, DATA x MODEL != WORLD_SIZE,
+    torchrun's environment missing, ``--seq_shard``. Serving on a split
+    model, int8 weights under TP and the training path's refusal of them
+    are ``tests/test_torch_tp_serving.py``'s.
 """
 
 import json
@@ -65,10 +66,7 @@ from livecc_tpu_torch.core.config import tiny_config
 from livecc_tpu_torch.data.lmm_dataset import write_seek_index
 from livecc_tpu_torch.models import qwen2_vl as pm
 from livecc_tpu_torch.models.qwen2_vl.bridge import _jax_name_map
-from livecc_tpu_torch.models.qwen2_vl.text import KVCache
-from livecc_tpu_torch.ops.quant import quantize_model
 from livecc_tpu_torch.parallel.sharding import shard_params, split_dim
-from livecc_tpu_torch.parallel.tp import TensorParallel
 from livecc_tpu_torch.train import cli
 from livecc_tpu_torch.train import data as pdata
 from livecc_tpu_torch.train import step as pstep
@@ -451,27 +449,6 @@ def test_model_axis_must_divide_the_kv_heads():
     model = pm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(ValueError, match="num_key_value_heads"):
         shard_params(model, cfg, fake_mesh(1, 4))
-
-
-@pytest.mark.parametrize("what", ["cached_forward", "lm_logits"])
-def test_serving_refuses_a_model_split_tower(what):
-    cfg = tiny_config()
-    model = pm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    model.text.tp = TensorParallel(None, 0, 2)
-    ids = torch.zeros((1, 4), dtype=torch.int64)
-    pos = torch.zeros((3, 1, 4), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="TP serving"):
-        if what == "cached_forward":
-            pm.forward(model, cfg, ids, pos, cache=KVCache.zeros(cfg.text, 1, 16))
-        else:
-            pm.lm_logits(model.text, cfg.text, torch.zeros((1, 4, cfg.text.hidden_size)))
-
-
-def test_int8_weights_refuse_tensor_parallelism():
-    cfg = tiny_config()
-    model = quantize_model(pm.init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
-    with pytest.raises(NotImplementedError, match="int8 weights under tensor parallelism"):
-        shard_params(model, cfg, fake_mesh(1, 2))
 
 
 @pytest.mark.parametrize("env,error,match", [

@@ -55,7 +55,7 @@ SMOKE = os.path.join(ROOT, "chip_smoke.py")
 LIBRARY_ATTENTION = r"scaled_dot_product_attention|torch\.compile|flash_attn"
 # chip_smoke.py times one PyTorch call beside each kernel as its yardstick
 # (library_ms), in these functions only; the port itself never calls one
-SMOKE_YARDSTICKS = {"phase_kernels", "phase_k4", "sdpa_packed", "sdpa_eval"}
+SMOKE_YARDSTICKS = {"phase_kernels", "phase_k4", "phase_kernels_tp", "sdpa_packed", "sdpa_eval"}
 
 
 def _sources(smoke: bool = True):
