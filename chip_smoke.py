@@ -319,6 +319,19 @@ Phases (any failure raises and the script exits non-zero):
                  state.pt loads in the no-mesh ``Trainer``. With 2 or 4
                  cards also ``--mesh 2x1`` / ``2x2`` through torchrun (this
                  script's ``--mesh-worker`` mode), held to the 1x1 losses.
+     sp_pp     — sequence and pipeline parallelism (``phase_sp_pp``) on
+                 train_cli's checkpoint over NCCL at world size 1: ``Trainer``
+                 with ``TrainConfig(seq_shard=True)`` at 1x1 for 3 steps of
+                 train_cli's corpus (steps 1-2's losses ``mesh``'s within
+                 1e-6, step 3's within ``close``'s bf16 limit; K3 and K4
+                 fwd/bwd launched; step 3 profiled, its all-gathers and
+                 reduce-scatters those the code implies); then
+                 ``make_pp_train_step`` at 1 stage for 2 steps of a text
+                 window of 4 x 8192 tokens against ``make_mesh_train_step``
+                 at 1x1 on the same window (losses within 1e-6, no
+                 point-to-point call, K4 launched); walls, peaks and idle
+                 shares beside the runs they are held to. With 2 cards also
+                 SP at 1x2 and PP at 2 stages through torchrun.
  14. midsize   — the port's forward at the 7B's width (4 LLM layers, 4
                  ViT blocks; weights from ``utils/param_recipe.py``)
                  against HF's golden ``tests/goldens/hf_midsize.npz``
@@ -332,8 +345,8 @@ Launch counts are reset just before each of main, pool, main_spec (and
 its worst case), pool_spec, main_w8 (and its lookahead session), pool_w8,
 tp_serve's session and pool, eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs,
 app's two playbacks (with their QA turns), train, train_cli's two CLI runs,
-mesh's run, produce's batch and lm_loss runs and midsize's two runs and
-read just after; every kernel of that path must have launched. Every phase
+mesh's run, sp_pp's SP and PP runs, produce's batch and lm_loss runs and
+midsize's two runs and read just after; every kernel of that path must have launched. Every phase
 always runs. After all of them passed it prints one JSON line ``{"kernels": [...]}``
 and, as its last line, ``{"ok": true, "device": {...}}``. It imports nothing
 of JAX.
@@ -4085,7 +4098,8 @@ def phase_mesh(run: dict) -> dict:
     time under them, device time by group. Where the
     machine has 2 cards, ``--mesh 2x1`` through torchrun over NCCL (4
     cards: ``2x2`` too), held to the 1x1 run's losses by the bf16 limit; it
-    prints the world sizes it ran. Returns the 1x1 run's launch counts."""
+    prints the world sizes it ran. Returns the 1x1 run's launch counts and
+    its log records (``sp_pp`` holds SP to them)."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
@@ -4232,7 +4246,333 @@ def phase_mesh(run: dict) -> dict:
         worlds.append(n_data * n_model)
     log(f"  world sizes run: {worlds} ({n_cards} card(s) here; the multi-rank numbers come "
         f"from the CPU tests over gloo)")
+    return counts, records
+
+
+SP_PP_WINDOW = (4, 8192)        # PP's text window: A microbatches of S tokens
+
+
+def seq_calls(issued):
+    """Count the all-gathers and reduce-scatters the port issues (``parallel/
+    tp.py``'s flat collectives look their torch function up at each call)."""
+    import torch.distributed as dist
+
+    names = {"all_gather": "all_gather_single" if hasattr(dist, "all_gather_single")
+             else "all_gather_into_tensor",
+             "reduce_scatter": "reduce_scatter_single" if hasattr(dist, "reduce_scatter_single")
+             else "reduce_scatter_tensor", "send": "send", "recv": "recv"}
+    saved = {name: getattr(dist, name) for name in names.values()}
+
+    def counted(op, fn):
+        def run(*args, **kw):
+            issued[op] += 1
+            return fn(*args, **kw)
+        return run
+
+    @contextlib.contextmanager
+    def on():
+        for op, name in names.items():
+            setattr(dist, name, counted(op, saved[name]))
+        try:
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(dist, name, fn)
+    return on()
+
+
+def pp_window(cfg, dev):
+    """PP's text window: ``SP_PP_WINDOW`` rows of seeded ids, the tail half
+    supervised, positions 0..S-1, every key valid."""
+    import torch
+
+    from livecc_tpu_torch.train.step import Batch
+
+    a, s = SP_PP_WINDOW
+    gen = torch.Generator().manual_seed(CLI_SEED)
+    ids = torch.randint(8, cfg.text.vocab_size, (a, 1, s), generator=gen)
+    labels = ids.clone()
+    labels[..., :s // 2] = -100
+    pos = torch.arange(s).expand(a, 3, 1, s).contiguous()
+    return Batch(input_ids=ids.to(dev), labels=labels.to(dev), position_ids=pos.to(dev),
+                 attention_mask=torch.ones((a, 1, s), dtype=torch.bool, device=dev))
+
+
+def profiled_steps(label, step, model, state, batch, n):
+    """``n`` steps of ``step``, the last under the profiler: each step's
+    loss, tokens, wall and peak memory, and the last one's idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from livecc_tpu_torch.tools.profile_stream import busy_seconds
+
+    rows = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        prof = None
+        if i == n - 1:
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.start()
+        t0 = time.perf_counter()
+        model, state, m = step(model, state, batch)
+        loss, tokens = float(m["loss"]), int(m["tokens"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = {"loss": loss, "tokens": tokens, "wall_s": wall,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if prof is not None:
+            prof.stop()
+            row["idle"] = 1 - busy_seconds(prof) / wall
+            del prof
+        rows.append(row)
+        log(f"  {label} step {i + 1}: loss {loss:.6f} tokens {tokens} wall {wall:.3f} s peak "
+            f"{row['peak_gib']:.2f} GiB" + (f" idle {row['idle']:.3f} (under the profiler)"
+                                             if "idle" in row else ""))
+    return rows
+
+
+def phase_sp_pp(run: dict, mesh_records: list) -> dict:
+    """Sequence and pipeline parallelism on train_cli's checkpoint (the 7B's
+    width, the LLM at 4 layers), over NCCL at world size 1 (torchrun's
+    variables set in this process). (a) SP: ``Trainer`` with
+    ``TrainConfig(seq_shard=True)`` on ``init_mesh("1x1", "cuda")`` over
+    3 steps of train_cli's corpus with the CLI's settings (called directly:
+    the CLI refuses ``--seq_shard`` below MODEL = 2, as JAX's does); steps
+    1-2's losses ``mesh``'s within 1e-6 relative, step 3's within
+    ``kernel_check.close``'s bf16 limit, tokens equal; K3 and K4's forward
+    and backward launched; step 3 profiled: its all-gathers and
+    reduce-scatters (the dispatcher's ``c10d::`` ranges and the port's
+    calls) what the code implies, (6L + 2, 5L) a micro-step and ZeRO-2's
+    one each. (b) PP: ``make_pp_train_step`` at 1 stage (``shard_params_pp``,
+    ``Zero2(split=pp_split)``) for 2 steps of a text window of
+    ``SP_PP_WINDOW`` rows, then ``make_mesh_train_step`` at 1x1 on a fresh
+    load of the same checkpoint and the same window: losses within 1e-6
+    relative, tokens equal, no point-to-point call, K4 launched. Each run
+    prints its steps' walls and peaks and its last step's idle share
+    (profiled) beside the run it is held to. With 2 cards also SP at 1x2
+    (``train.cli --mesh 1x2 --seq_shard`` under torchrun, this script's
+    ``--mesh-worker``) and PP at 2 stages (``--pp-worker``), held to the
+    1x1 runs by the bf16 limit. Returns the SP and PP runs' launch counts."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from livecc_tpu_torch.core.mesh import close_mesh, init_mesh
+    from livecc_tpu_torch.data.lmm_dataset import LMMDataset
+    from livecc_tpu_torch.models.qwen2_vl.convert import load_checkpoint
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.parallel.pipeline import make_pp_train_step, pp_split, shard_params_pp
+    from livecc_tpu_torch.parallel.sharding import Zero2, shard_params
+    from livecc_tpu_torch.tools import kernel_check
+    from livecc_tpu_torch.tools.profile_stream import busy_seconds
+    from livecc_tpu_torch.train.step import (TrainConfig, make_mesh_train_step, make_optimizer,
+                                             split_frozen)
+    from livecc_tpu_torch.train.trainer import Trainer, TrainerConfig
+
+    flags = run["flags"]
+    corpus = flags[flags.index("--annotation_paths") + 1]
+    counts = {}
+    with torchrun_vars():
+        mesh = init_mesh("1x1", "cuda")
+        try:
+            # (a) SP through the Trainer, with the CLI's settings
+            cfg, model = load_checkpoint(run["ckpt"], mesh.device, torch.bfloat16)
+            n_layers = cfg.text.num_hidden_layers
+            dataset = LMMDataset(annotation_paths=[corpus], tokenizer=run["tokenizer"], cfg=cfg,
+                                 video_loader=run["loader"])
+            trainer = Trainer(model, cfg, TrainConfig(total_steps=3, freeze_modules=("visual",),
+                                                      seq_shard=True),
+                              TrainerConfig(output_dir=os.path.join(run["work"], "sp_1x1"),
+                                            total_steps=3, accum_steps=2, save_steps=None,
+                                            log_steps=1, resume=False),
+                              dataset, mesh=mesh)
+            window, calls = {}, collections.Counter()
+            issued = seq_calls(calls)
+
+            def on_step(step, batch, metrics):
+                """Step 3 under the profiler and counted, from the end of step 2."""
+                if step in (2, 3):
+                    torch.cuda.synchronize()
+                if step == 2:
+                    window["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                         ProfilerActivity.CUDA])
+                    window["prof"].start()
+                    issued.__enter__()
+                    window["t0"] = time.perf_counter()
+                elif step == 3:
+                    window["wall"] = time.perf_counter() - window["t0"]
+                    issued.__exit__(None, None, None)
+                    window["prof"].stop()
+                    window["micro"] = batch.accum
+
+            build.reset_launch_counts()
+            trainer.train(on_step)
+            counts["sp"] = dict(build.launch_counts)
+            with open(os.path.join(run["work"], "sp_1x1", "log.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            del trainer, model, dataset
+            gc.collect()
+            torch.cuda.empty_cache()
+            for rec, r in zip(records, mesh_records):
+                a, b = rec["loss"], r["loss"]
+                share = kernel_check.close(torch.tensor([a]), torch.tensor([b]), torch.bfloat16)
+                same = "bit-equal" if a == b else f"rel {abs(a - b) / abs(b):.2e}"
+                log(f"  SP 1x1 step {rec['step']}: loss {a:.6f} vs mesh {b:.6f} ({same}; "
+                    f"{share:.4f} of close's bf16 limit); tokens {rec['tokens']} vs "
+                    f"{r['tokens']}; wall {rec['wall_s']:.3f} s vs {r['wall_s']:.3f} s; peak "
+                    f"{rec['peak_gib']:.2f} GiB vs {r['peak_gib']:.2f} GiB"
+                    + (" (under the profiler, both)" if rec["step"] == 3 else ""))
+                if rec["tokens"] != r["tokens"]:
+                    raise AssertionError(f"sp step {rec['step']}: tokens {rec['tokens']} vs "
+                                         f"{r['tokens']}")
+                if rec["step"] <= 2 and not abs(a - b) <= 1e-6 * abs(b):
+                    raise AssertionError(f"sp step {rec['step']}: loss {a} is not mesh's {b}")
+                if not share <= 1.0:
+                    raise AssertionError(f"sp step {rec['step']}: loss {a} vs {b}: {share:.3f}x")
+            if [r["step"] for r in records] != [1, 2, 3]:
+                raise AssertionError(f"sp: steps {[r['step'] for r in records]}")
+            missing = [n for n in TRAIN_KERNELS if counts["sp"].get(n, 0) <= 0]
+            if missing:
+                raise AssertionError(f"sp: the run never launched {missing}")
+            prof = window.pop("prof")
+            kinds = collections.Counter()
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CPU and e.name.startswith("c10d::"):
+                    kinds["all_gather" if re.search("all_?gather", e.name) else
+                          "reduce_scatter" if "reduce_scatter" in e.name else e.name] += 1
+            busy = busy_seconds(prof)
+            del prof
+            micro = window["micro"]
+            want = {"all_gather": (6 * n_layers + 2) * micro + 1,
+                    "reduce_scatter": 5 * n_layers * micro + 1}
+            log(f"  SP step 3 profiled: wall {window['wall']:.3f} s, busy {busy:.3f} s, idle "
+                f"share {1 - busy / window['wall']:.3f}; {micro} micro-steps; port calls "
+                f"{dict(calls)}, c10d ranges {dict(kinds)}; implied {want}; launches "
+                f"{counts['sp']}")
+            for op, n in want.items():
+                if calls[op] != n or kinds[op] != n:
+                    raise AssertionError(f"sp: {op} {calls[op]} calls, {kinds[op]} c10d ranges "
+                                         f"in step 3, the code implies {n}")
+
+            # (b) PP at 1 stage, then the mesh step on the same window
+            pp = {}
+            for label in ("pp", "mesh_step"):
+                cfg, model = load_checkpoint(run["ckpt"], mesh.device, torch.bfloat16)
+                tcfg = TrainConfig(total_steps=3, freeze_modules=("visual",))
+                if label == "pp":
+                    shard_params_pp(model, cfg, mesh)
+                    zero = Zero2(split_frozen(model, tcfg.freeze_modules)[0], mesh, split=pp_split)
+                    step = make_pp_train_step(cfg, tcfg, make_optimizer(tcfg), mesh, zero)
+                else:
+                    shard_params(model, cfg, mesh, training=True)
+                    zero = Zero2(split_frozen(model, tcfg.freeze_modules)[0], mesh)
+                    step = make_mesh_train_step(cfg, tcfg, make_optimizer(tcfg), zero)
+                batch = pp_window(cfg, mesh.device)
+                p2p = collections.Counter()
+                build.reset_launch_counts()
+                with seq_calls(p2p):
+                    pp[label] = profiled_steps(label, step, model, zero.init_state(None), batch, 2)
+                launched = dict(build.launch_counts)
+                log(f"  {label}: launches {launched}; point-to-point calls "
+                    f"{p2p['send'] + p2p['recv']}")
+                if label == "pp":
+                    counts["pp"] = launched
+                    if p2p["send"] or p2p["recv"]:
+                        raise AssertionError(f"pp at 1 stage issued point-to-point calls {p2p}")
+                if launched.get("train_attention_fwd", 0) <= 0 or \
+                        launched.get("train_attention_bwd", 0) <= 0:
+                    raise AssertionError(f"{label}: K4 did not launch: {launched}")
+                del model, zero, step, batch
+                gc.collect()
+                torch.cuda.empty_cache()
+            for i, (a, b) in enumerate(zip(pp["pp"], pp["mesh_step"])):
+                rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                log(f"  PP step {i + 1}: loss {a['loss']:.6f} vs mesh step {b['loss']:.6f} (rel "
+                    f"{rel:.2e}); tokens {a['tokens']} vs {b['tokens']}; wall {a['wall_s']:.3f} s "
+                    f"vs {b['wall_s']:.3f} s; peak {a['peak_gib']:.2f} GiB vs "
+                    f"{b['peak_gib']:.2f} GiB")
+                if a["tokens"] != b["tokens"] or not rel <= 1e-6:
+                    raise AssertionError(f"pp step {i + 1}: {a} vs the mesh step's {b}")
+            log(f"  last steps' idle share (profiled): PP {pp['pp'][-1]['idle']:.3f}, mesh "
+                f"step {pp['mesh_step'][-1]['idle']:.3f}")
+        finally:
+            close_mesh(mesh)
+    if dist.is_initialized():
+        raise AssertionError("sp_pp: the process group is still up")
+
+    worlds = [1]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        sout = os.path.join(run["work"], "sp_1x2")
+        job = {"work": run["work"], "ffmpeg": run["ffmpeg"],
+               "argv": flags + ["--output_dir", sout, "--total_steps", "3", "--save_steps",
+                                "100", "--mesh", "1x2", "--seq_shard"]}
+        done = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", "2", os.path.abspath(__file__),
+                               "--mesh-worker", json.dumps(job)],
+                              capture_output=True, text=True, timeout=300)
+        if done.returncode != 0:
+            raise AssertionError(f"sp 1x2: torchrun exited {done.returncode}: "
+                                 f"{(done.stdout + done.stderr)[-3000:]}")
+        with open(os.path.join(sout, "log.jsonl")) as f:
+            other = [json.loads(line) for line in f]
+        pjob = {"ckpt": run["ckpt"], "out": os.path.join(run["work"], "pp_2.json")}
+        done = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                               "--nproc_per_node", "2", os.path.abspath(__file__),
+                               "--pp-worker", json.dumps(pjob)],
+                              capture_output=True, text=True, timeout=300)
+        if done.returncode != 0:
+            raise AssertionError(f"pp 2 stages: torchrun exited {done.returncode}: "
+                                 f"{(done.stdout + done.stderr)[-3000:]}")
+        with open(pjob["out"]) as f:
+            other_pp = json.load(f)
+        for label, got, ref in (("sp 1x2", other, records), ("pp 2 stages", other_pp, pp["pp"])):
+            for i, (rec, r) in enumerate(zip(got, ref)):
+                share = kernel_check.close(torch.tensor([rec["loss"]]), torch.tensor([r["loss"]]),
+                                           torch.bfloat16)
+                log(f"  {label} step {i + 1}: loss {rec['loss']:.6f} vs 1x1 {r['loss']:.6f} "
+                    f"({share:.4f} of close's bf16 limit); wall {rec['wall_s']:.3f} s; peak "
+                    f"{rec['peak_gib']:.2f} GiB")
+                if rec["tokens"] != r["tokens"] or not share <= 1.0:
+                    raise AssertionError(f"{label} step {i + 1}: {rec} vs 1x1 {r}")
+        worlds.append(2)
+    log(f"  world sizes run: {worlds} ({n_cards} card(s) here; the multi-rank numbers come "
+        f"from the CPU tests over gloo)")
     return counts
+
+
+def pp_worker(spec: str) -> int:
+    """One rank of ``phase_sp_pp``'s 2-stage run (``torchrun ...
+    chip_smoke.py --pp-worker SPEC``): PP's window for 2 steps; rank 0
+    writes the steps' records."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from livecc_tpu_torch.core.mesh import close_mesh, init_mesh
+    from livecc_tpu_torch.models.qwen2_vl.convert import load_checkpoint
+    from livecc_tpu_torch.parallel.pipeline import make_pp_train_step, pp_split, shard_params_pp
+    from livecc_tpu_torch.parallel.sharding import Zero2
+    from livecc_tpu_torch.train.step import TrainConfig, make_optimizer, split_frozen
+
+    job = json.loads(spec)
+    mesh = init_mesh("1x2", "cuda")
+    try:
+        cfg, model = load_checkpoint(job["ckpt"], mesh.device, torch.bfloat16)
+        tcfg = TrainConfig(total_steps=3, freeze_modules=("visual",))
+        shard_params_pp(model, cfg, mesh)
+        zero = Zero2(split_frozen(model, tcfg.freeze_modules)[0], mesh, split=pp_split)
+        step = make_pp_train_step(cfg, tcfg, make_optimizer(tcfg), mesh, zero)
+        rows = profiled_steps(f"pp stage {mesh.m}", step, model, zero.init_state(None),
+                              pp_window(cfg, mesh.device), 2)
+    finally:
+        close_mesh(mesh)
+    if mesh.rank == 0:
+        with open(job["out"], "w") as f:
+            json.dump(rows, f)
+    return 0
 
 
 def mesh_worker(spec: str) -> int:
@@ -5304,7 +5644,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     try:
-        mesh_counts = run_phase("mesh", lambda: phase_mesh(cli_run))
+        mesh_counts, mesh_records = run_phase("mesh", lambda: phase_mesh(cli_run))
+        sp_pp_counts = run_phase("sp_pp", lambda: phase_sp_pp(cli_run, mesh_records))
     finally:
         shutil.rmtree(cli_run["work"], ignore_errors=True)
     del cli_run
@@ -5320,7 +5661,8 @@ def main() -> int:
                                                  cc_counts,
                                                  checkpoint_counts, checkpoint_w8_counts,
                                                  *app_counts, train_counts, train_cli_counts,
-                                                 mesh_counts, lmm_counts, loss_counts,
+                                                 mesh_counts, *sp_pp_counts.values(),
+                                                 lmm_counts, loss_counts,
                                                  midsize_counts)),
         "max_abs_err": results[name]["max_abs_err"],
         "ms": results[name]["ms"],
@@ -5346,4 +5688,6 @@ if __name__ == "__main__":
         sys.exit(mesh_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--pp-worker"]:
+        sys.exit(pp_worker(sys.argv[2]))
     sys.exit(main())

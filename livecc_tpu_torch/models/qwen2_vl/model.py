@@ -257,6 +257,7 @@ def forward(
     attention_mask: Optional[torch.Tensor] = None,   # uncached: bool [B, S] or int32 segments
     vision_images: Optional[VisionInputs] = None,    # image clips -> image_token_id slots
     remat: bool | str = False,
+    seq_shard: bool = False,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """Multimodal forward. Returns (fp32 logits [B, S, V], or the final
     hidden states when ``compute_logits`` is False, and the cache). Without
@@ -264,7 +265,9 @@ def forward(
     tower runs uncached through K4 with ``attention_mask`` and ``remat``.
     On a tensor-parallel model the embedding is vocab-parallel, the ViT and
     the scatter of its embeddings run whole on every rank, and the logits
-    are gathered whole on every rank."""
+    are gathered whole on every rank. ``seq_shard`` (training on a split
+    tower) runs the text tower sequence-parallel (``text.py``) after the
+    embeddings and the scatter of the visual ones."""
     if model.text.tp is None:
         embeds = embed_lookup(jax_weight(model.text.embed), input_ids.long())
     else:               # a vocab-split table (parallel/sharding.py:shard_params)
@@ -276,7 +279,8 @@ def forward(
         embeds = scatter_video_embeds(cfg, embeds, input_ids, _visual(model, vision_images),
                                       token_id=cfg.image_token_id)
     hidden, cache = text_forward(model.text, cfg.text, embeds, position_ids, cache,
-                                 kv_limit=kv_limit, attention_mask=attention_mask, remat=remat)
+                                 kv_limit=kv_limit, attention_mask=attention_mask, remat=remat,
+                                 seq_shard=seq_shard)
     if not compute_logits:
         return hidden, cache
     return lm_logits(model.text, cfg.text, hidden), cache

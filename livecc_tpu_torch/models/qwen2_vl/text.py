@@ -22,6 +22,20 @@ layout): ``copy_to_model`` in front of q / k / v and gate / up,
 so too: the cache holds the rank's Hk / M heads (``KVCache.zeros(tp=)``),
 K1 / K2 attend on its Hq / M query heads, and ``lm_logits`` gathers the
 rank's vocab columns into the whole logits on every rank.
+
+Sequence parallelism (``text_forward(seq_shard=True)``, training on a
+split tower; JAX's ``seq_shard``) shards the residual stream along the
+sequence over the model group at every layer boundary: the tower splits
+the sequence after the embeddings (``split_to_sequence``), each layer
+gathers in front of q / k / v and gate / up and reduce-scatters after o
+and down (``parallel/tp.py``), and the last layer's output is gathered
+whole (``gather_sequence_exit``) in front of the final norm. The norms and
+the residual adds hold S / M rows; attention sees the whole sequence on
+the rank's heads, and M-RoPE's cos / sin stay whole. Where M does not
+divide S the sequence is padded inside the forward (masked keys, segment
+0) and cut after the exit gather. A norm weight's gradient on a rank is
+then its block's part: the step sums them over the model group
+(``train/step.py:make_mesh_train_step``).
 """
 
 from __future__ import annotations
@@ -41,7 +55,8 @@ from livecc_tpu_torch.ops.flash_attention import flash_decode, flash_prefill
 from livecc_tpu_torch.ops.quant import jax_weight, vocab_kernel, w8a16_gemm
 from livecc_tpu_torch.ops.rope import apply_mrope, mrope_cos_sin
 from livecc_tpu_torch.parallel.tp import (
-    TensorParallel, copy_to_model, gather_from_model, reduce_from_model)
+    TensorParallel, copy_to_model, gather_from_model, gather_from_sequence, gather_sequence_exit,
+    reduce_from_model, reduce_scatter_to_sequence, split_to_sequence)
 
 
 @dataclasses.dataclass
@@ -116,7 +131,11 @@ def write_rows(cache_layer: torch.Tensor, rows: torch.Tensor, start: torch.Tenso
 class DecoderLayer(nn.Module):
     """Pre-norm attention + residual, pre-norm SwiGLU MLP + residual.
     ``tp`` (None: the whole layer) is its model group under tensor
-    parallelism."""
+    parallelism. ``seq`` (sequence parallelism, training only) says that
+    ``x`` is this model rank's block of the sequence: the norms and the
+    residual adds run on the block, the column-split products on the
+    gathered sequence, and the row-split products' partial sums are
+    reduce-scattered back to the block."""
 
     def __init__(self, cfg: TextConfig, device=None, dtype=None):
         super().__init__()
@@ -135,42 +154,46 @@ class DecoderLayer(nn.Module):
         self.up_proj = nn.Linear(h, i, bias=False, **kw)
         self.down_proj = nn.Linear(i, h, bias=False, **kw)
 
-    def _split_in(self, y: torch.Tensor) -> torch.Tensor:
-        return y if self.tp is None else copy_to_model(y, self.tp)
+    def _split_in(self, y: torch.Tensor, seq: bool) -> torch.Tensor:
+        if self.tp is None:
+            return y
+        return gather_from_sequence(y, self.tp) if seq else copy_to_model(y, self.tp)
 
-    def _split_out(self, y: torch.Tensor) -> torch.Tensor:
-        return y if self.tp is None else reduce_from_model(y, self.tp)
+    def _split_out(self, y: torch.Tensor, seq: bool) -> torch.Tensor:
+        if self.tp is None:
+            return y
+        return reduce_scatter_to_sequence(y, self.tp) if seq else reduce_from_model(y, self.tp)
 
-    def qkv(self, x) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def qkv(self, x, seq: bool = False) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Pre-norm q, k, v projections (bias included), [B, S, heads, D]."""
-        b, s, _ = x.shape
-        y = self._split_in(self.input_ln(x))
+        y = self._split_in(self.input_ln(x), seq)
+        b, s, _ = y.shape
         return tuple(proj(y).reshape(b, s, -1, self.cfg.head_dim)
                      for proj in (self.q_proj, self.k_proj, self.v_proj))
 
-    def attention(self, q, k, v, cos, sin, attend) -> torch.Tensor:
+    def attention(self, q, k, v, cos, sin, attend, seq: bool = False) -> torch.Tensor:
         """M-RoPE, attention and the output projection: [B, S, H]."""
         b, s = q.shape[:2]
         q, k = apply_mrope(q, k, cos, sin)
-        return self._split_out(self.o_proj(attend(q, k, v).reshape(b, s, -1)))
+        return self._split_out(self.o_proj(attend(q, k, v).reshape(b, s, -1)), seq)
 
-    def gate_up(self, x) -> tuple[torch.Tensor, torch.Tensor]:
+    def gate_up(self, x, seq: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
         """gate and up of the post-norm input: [B, S, I] each."""
-        y = self._split_in(self.post_ln(x))
+        y = self._split_in(self.post_ln(x), seq)
         return self.gate_proj(y), self.up_proj(y)
 
-    def mlp_in(self, x) -> torch.Tensor:
+    def mlp_in(self, x, seq: bool = False) -> torch.Tensor:
         """silu(gate) * up of the post-norm input: [B, S, I]."""
-        gate, up = self.gate_up(x)
+        gate, up = self.gate_up(x, seq)
         return F.silu(gate) * up
 
-    def down(self, h) -> torch.Tensor:
+    def down(self, h, seq: bool = False) -> torch.Tensor:
         """The down projection of silu(gate) * up: [B, S, H]."""
-        return self._split_out(self.down_proj(h))
+        return self._split_out(self.down_proj(h), seq)
 
-    def forward(self, x, cos, sin, attend) -> torch.Tensor:
-        x = x + self.attention(*self.qkv(x), cos, sin, attend)
-        return x + self.down(self.mlp_in(x))
+    def forward(self, x, cos, sin, attend, seq: bool = False) -> torch.Tensor:
+        x = x + self.attention(*self.qkv(x, seq), cos, sin, attend, seq)
+        return x + self.down(self.mlp_in(x, seq), seq)
 
 
 class TextModel(nn.Module):
@@ -197,6 +220,7 @@ def text_forward(
     kv_limit: torch.Tensor | None = None,   # int32 [B]: keys < kv_limit valid
     attention_mask: torch.Tensor | None = None,   # uncached: bool [B, S] or int32 segment ids
     remat: bool | str = False,
+    seq_shard: bool = False,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Returns (final hidden states [B, S, H], the cache with offset + S).
 
@@ -209,13 +233,17 @@ def text_forward(
     returned is None. ``remat=True`` checkpoints each layer
     (``torch.utils.checkpoint``, JAX's ``nothing_saveable``): the backward
     re-runs the layer, K4's forward included. The named policies "names",
-    "names_mlp" and "dots" keep some products' outputs (``remat_layer``)."""
+    "names_mlp" and "dots" keep some products' outputs (``remat_layer``).
+    ``seq_shard`` (uncached, on a tower split by ``shard_params``) runs
+    sequence parallelism over its model group; without a model group it
+    raises."""
     b, s, _ = inputs_embeds.shape
     cos, sin = mrope_cos_sin(position_ids, cfg.head_dim, cfg.rope_theta, cfg.mrope_section)
     cos = cos.to(inputs_embeds.dtype)
     sin = sin.to(inputs_embeds.dtype)
     if cache is None:
-        return _uncached_forward(model, inputs_embeds, cos, sin, attention_mask, remat), None
+        return _uncached_forward(model, inputs_embeds, cos, sin, attention_mask, remat,
+                                 seq_shard), None
     if kv_limit is None:
         kv_limit = cache.offset + s
     # a slab that would run past the end lands at Smax - s, as JAX's
@@ -264,7 +292,7 @@ def _region(fn, *args):
     return checkpoint(fn, *args, use_reentrant=False)
 
 
-def remat_layer(layer: DecoderLayer, x, cos, sin, attend, remat) -> torch.Tensor:
+def remat_layer(layer: DecoderLayer, x, cos, sin, attend, remat, seq=False) -> torch.Tensor:
     """One decoder layer under a named remat policy (JAX ``remat_policy``
     and ``decoder_block``'s tags, ``text.py:143-205``), as explicit
     checkpoint regions between the tensors the policy keeps: what a policy
@@ -284,31 +312,64 @@ def remat_layer(layer: DecoderLayer, x, cos, sin, attend, remat) -> torch.Tensor
     for bit on deterministic kernels. That costs recomputed products JAX
     skips: the q / k / v region reruns q and k (v is its last), "dots"'s
     gate / up region reruns gate."""
-    q, k, v = _region(layer.qkv, x)
-    x = x + _region(layer.attention, q, k, v, cos, sin, attend)
+    q, k, v = _region(layer.qkv, x, seq)
+    x = x + _region(layer.attention, q, k, v, cos, sin, attend, seq)
     if remat == "names":
-        return x + _region(lambda x_: layer.down(layer.mlp_in(x_)), x)
+        return x + _region(lambda x_: layer.down(layer.mlp_in(x_, seq), seq), x)
     if remat == "names_mlp":
-        return x + layer.down(_region(layer.mlp_in, x))
-    gate, up = _region(layer.gate_up, x)
-    return x + _region(lambda g, u: layer.down(F.silu(g) * u), gate, up)
+        return x + layer.down(_region(layer.mlp_in, x, seq), seq)
+    gate, up = _region(layer.gate_up, x, seq)
+    return x + _region(lambda g, u: layer.down(F.silu(g) * u, seq), gate, up)
 
 
-def _uncached_forward(model: TextModel, x, cos, sin, attention_mask, remat) -> torch.Tensor:
+def run_layers(layers, x, cos, sin, attend, remat, seq: bool = False) -> torch.Tensor:
+    """``layers`` in order over ``x`` under the remat policy ``remat``
+    (``REMAT_POLICIES``) while gradients are on; ``seq``: ``x`` is this
+    model rank's sequence block (``DecoderLayer``)."""
+    for layer in layers:
+        if not remat or not torch.is_grad_enabled():
+            x = layer(x, cos, sin, attend, seq)
+        elif remat is True:
+            x = checkpoint(layer, x, cos, sin, attend, seq, use_reentrant=False)
+        else:
+            x = remat_layer(layer, x, cos, sin, attend, remat, seq)
+    return x
+
+
+def _pad_sequence(x, cos, sin, attention_mask, m: int):
+    """Pad dim 1 of the residual stream, cos / sin and the mask to a
+    multiple of ``m``: the pad rows are masked keys (False) or segment 0,
+    so no real row attends to them; they are cut after the exit gather."""
+    pad = -x.shape[1] % m
+    if not pad:
+        return x, cos, sin, attention_mask
+    b, s = x.shape[:2]
+    if attention_mask is None:
+        attention_mask = torch.ones((b, s), dtype=torch.bool, device=x.device)
+    return (F.pad(x, (0, 0, 0, pad)), F.pad(cos, (0, 0, 0, pad)), F.pad(sin, (0, 0, 0, pad)),
+            F.pad(attention_mask, (0, pad)))
+
+
+def _uncached_forward(model: TextModel, x, cos, sin, attention_mask, remat,
+                      seq_shard: bool = False) -> torch.Tensor:
     """Every layer over the whole sequence, attention through K4, under the
-    remat policy ``remat`` (``REMAT_POLICIES``) while gradients are on."""
+    remat policy ``remat`` (``REMAT_POLICIES``) while gradients are on;
+    ``seq_shard``: sequence parallelism over the tower's model group."""
     check_remat(remat)
+    s = x.shape[1]
+    if seq_shard:
+        if model.tp is None:
+            raise ValueError("seq_shard: sequence parallelism needs a tower split over a model "
+                             "group (parallel/sharding.py:shard_params on a mesh)")
+        x, cos, sin, attention_mask = _pad_sequence(x, cos, sin, attention_mask, model.tp.size)
+        x = split_to_sequence(x, model.tp)
 
     def attend(q, k, v):
         return train_flash_attention(q, k, v, attention_mask)
 
-    for layer in model.layers:
-        if not remat or not torch.is_grad_enabled():
-            x = layer(x, cos, sin, attend)
-        elif remat is True:
-            x = checkpoint(layer, x, cos, sin, attend, use_reentrant=False)
-        else:
-            x = remat_layer(layer, x, cos, sin, attend, remat)
+    x = run_layers(model.layers, x, cos, sin, attend, remat, seq_shard)
+    if seq_shard:
+        x = gather_sequence_exit(x, model.tp)[:, :s]
     return model.final_ln(x)
 
 

@@ -38,10 +38,8 @@ from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.core.mesh import Mesh
 from livecc_tpu_torch.ops.quant import QuantEmbedding, QuantLinear
 from livecc_tpu_torch.parallel.tp import TensorParallel
-
-# the flat collectives under their newer names where torch has them (same signatures)
-_all_gather_flat = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-_reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+from livecc_tpu_torch.parallel.tp import all_gather_flat as _all_gather_flat
+from livecc_tpu_torch.parallel.tp import reduce_scatter_flat as _reduce_scatter_flat
 
 # elements of the partition one AdamW call updates: bounds its fp32 temporaries to ~256 MB
 ADAM_CHUNK = 1 << 26
@@ -68,6 +66,15 @@ def split_dim(name: str) -> Optional[int]:
     if name.startswith("text.layers."):
         return _LAYER_SPLIT.get(name.split(".", 3)[3])
     return None                                     # norms
+
+
+def is_sequence_partial(name: str) -> bool:
+    """Whether parameter ``name``'s gradient on a model rank is only its
+    sequence block's part under sequence parallelism: the decoder layers'
+    norms, which run on the block (the final norm runs on the gathered
+    sequence)."""
+    return name.startswith("text.layers.") and name.endswith(("input_ln.weight",
+                                                              "post_ln.weight"))
 
 
 def shard_size(n: int, parts: int) -> int:
@@ -145,16 +152,18 @@ class Zero2:
     ``{name: parameter}``): the replicated parameters first, then the split
     ones, each in model order, padded to a multiple of ``n_data``;
     partition ``d`` is ``[d * P, (d + 1) * P)``. ``grad`` is the fp32
-    accumulator in the same layout, ``views`` its per-parameter views."""
+    accumulator in the same layout, ``views`` its per-parameter views.
+    ``split(name)`` is None for a parameter every model rank holds alike
+    (TP's ``split_dim``; pipeline parallelism's ``pipeline.pp_split``)."""
 
-    def __init__(self, params: dict[str, nn.Parameter], mesh: Mesh):
+    def __init__(self, params: dict[str, nn.Parameter], mesh: Mesh, split=split_dim):
         dtypes = {p.dtype for p in params.values()}
         if len(dtypes) != 1:
             raise ValueError(f"ZeRO-2: the trainable parameters mix dtypes {dtypes}")
         self.mesh = mesh
-        names = sorted(params, key=lambda n: split_dim(n) is not None)    # stable: model order
+        names = sorted(params, key=lambda n: split(n) is not None)      # stable: model order
         self.names = names
-        self.replicated = sum(params[n].numel() for n in names if split_dim(n) is None)
+        self.replicated = sum(params[n].numel() for n in names if split(n) is None)
         n = sum(p.numel() for p in params.values())
         self.part = shard_size(n, mesh.n_data)
         dev = next(iter(params.values())).device
@@ -187,6 +196,22 @@ class Zero2:
             if p.grad is not None:
                 self.views[name].add_(p.grad)
                 p.grad = None
+
+    def sum_over_model(self, names) -> None:
+        """Sum the accumulated gradients of ``names`` over the model group,
+        in place: one all-reduce for each run of adjacent parameters in the
+        flat buffer (for parameters whose model ranks each hold a part of
+        the gradient)."""
+        if self.mesh.n_model == 1:
+            return
+        runs: list[list[int]] = []
+        for lo, n in sorted((self.offsets[n], self.params[n].numel()) for n in names):
+            if runs and runs[-1][1] == lo:
+                runs[-1][1] = lo + n
+            else:
+                runs.append([lo, lo + n])
+        for lo, hi in runs:
+            dist.all_reduce(self.grad[lo:hi], group=self.mesh.model_group)
 
     def global_norm(self, g: torch.Tensor) -> torch.Tensor:
         """The norm of the whole logical gradient from this partition's

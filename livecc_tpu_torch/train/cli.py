@@ -28,16 +28,17 @@ D x M = N ranks: data parallelism over D (ZeRO-2: the AdamW state split
 over it), tensor parallelism over M (Megatron's layout, the vocab-parallel
 CE); NCCL on ``--device cuda`` (rank r on ``cuda:LOCAL_RANK``), gloo on
 ``--device cpu``. Rank 0 logs and saves; the checkpoint is the single-card
-``state.pt`` and resumes on any mesh. ``--seq_shard`` (sequence
-parallelism) is not ported and raises.
+``state.pt`` and resumes on any mesh. ``--seq_shard`` adds sequence
+parallelism over the model axis (Megatron SP: the residual stream sharded
+along the sequence, ``models/qwen2_vl/text.py``); as in JAX it needs
+``--mesh DATAxMODEL`` with MODEL >= 2 and exits with code 2 otherwise.
+Pipeline parallelism has no flag, as in JAX: a script calls
+``parallel/pipeline.py:make_pp_train_step``.
 """
 
 from __future__ import annotations
 
 import argparse
-
-SEQ_SHARD = ("--seq_shard: sequence parallelism is not ported (ROADMAP Queue 1 item 3); "
-             "--mesh DATAxMODEL trains with data and tensor parallelism")
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -66,7 +67,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--overwrite_output_dir", action="store_true",
                         help="start fresh instead of resuming (train.py:29)")
     parser.add_argument("--seq_shard", action="store_true",
-                        help="sequence parallelism under a TP mesh: not ported (raises)")
+                        help="sequence parallelism under a TP mesh (Megatron SP over the "
+                             "model axis; needs --mesh DATAxMODEL with MODEL >= 2)")
     parser.add_argument("--pack_seq", type=int, default=None,
                         help="sequence packing: pack variable-length samples into rows of "
                              "this many tokens (segment-id attention)")
@@ -76,7 +78,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                              "parallelism over MODEL, e.g. 4x2 on 8 cards")
     parser.add_argument("--device", default="cuda",
                         help="cuda (the kernels; the default) or cpu (their plain versions)")
-    return parser.parse_args(argv)
+    args = parser.parse_args(argv)
+    if args.seq_shard:
+        model_ax = int(args.mesh.lower().split("x")[1]) if args.mesh else 0
+        if model_ax < 2:
+            parser.error("--seq_shard requires --mesh DATAxMODEL with MODEL >= 2 (sequence "
+                         "parallelism shards activations over the model axis)")
+    return args
 
 
 def main(argv=None, *, tokenizer=None, video_loader=None, on_step=None) -> dict:
@@ -87,9 +95,6 @@ def main(argv=None, *, tokenizer=None, video_loader=None, on_step=None) -> dict:
     ``video_loader`` the dataset's ``VideoReader``; ``on_step(step, batch,
     metrics)`` is called after every step (``Trainer.train``)."""
     args = parse_args(argv)
-    if args.seq_shard:
-        raise NotImplementedError(SEQ_SHARD)
-
     from livecc_tpu_torch.core.mesh import close_mesh, init_mesh
     from livecc_tpu_torch.utils.device import device_for
 
@@ -133,6 +138,7 @@ def _train(args, device, mesh, tokenizer, video_loader, on_step) -> dict:
         freeze_modules=tuple(args.freeze_modules),
         ce_sup_bucket=args.ce_sup_bucket,
         adam_mu_dtype=torch.bfloat16 if args.adam_mu_dtype == "bf16" else None,
+        seq_shard=args.seq_shard,
     )
     run = TrainerConfig(
         output_dir=args.output_dir,

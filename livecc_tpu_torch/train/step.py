@@ -34,7 +34,9 @@ same logit rows), accumulates in the flat fp32 buffer of
 data group, reduce-scatters the gradient, divides it by the global count,
 clips by the norm of the whole logical gradient and updates its own
 partition, then all-gathers the parameters. ``loss`` and ``tokens`` are
-global numbers.
+global numbers. Under ``seq_shard`` each model rank's norm-weight
+gradients are its sequence block's part; the step sums them over the model
+group once a window (``Zero2.sum_over_model``), before the reduce-scatter.
 """
 
 from __future__ import annotations
@@ -51,6 +53,7 @@ from livecc_tpu_torch.core.config import ModelConfig
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, VisionInputs, forward
 from livecc_tpu_torch.models.qwen2_vl.text import check_remat
 from livecc_tpu_torch.ops.chunked_ce import IGNORE_INDEX, chunked_cross_entropy, vocab_parallel_ce
+from livecc_tpu_torch.parallel.sharding import is_sequence_partial
 from livecc_tpu_torch.parallel.tp import copy_to_model
 
 
@@ -80,6 +83,10 @@ class TrainConfig:
     # True (full recompute), False, or JAX's named policies "names",
     # "names_mlp", "dots" (models/qwen2_vl/text.py:remat_layer)
     remat: bool | str = True
+    # sequence parallelism on a mesh with a model axis (Megatron SP, JAX's
+    # seq_shard): the residual stream sharded along the sequence over the
+    # model group (models/qwen2_vl/text.py); the same numbers as without it
+    seq_shard: bool = False
 
     def __post_init__(self):
         check_remat(self.remat)
@@ -238,7 +245,7 @@ def loss_fn(model: Qwen2VL, cfg: ModelConfig, tcfg: TrainConfig, micro: Batch):
                                      micro.image_seg_ids, group=micro.image_group)
     hidden, _ = forward(model, cfg, micro.input_ids, micro.position_ids, vision=vision,
                         vision_images=vision_images, attention_mask=micro.attention_mask,
-                        compute_logits=False, remat=tcfg.remat)
+                        compute_logits=False, remat=tcfg.remat, seq_shard=tcfg.seq_shard)
     impl, logit_dtype = _ce_route(tcfg, hidden.device)
     text = model.text
     weight = text.embed.weight if cfg.text.tie_word_embeddings else text.lm_head.weight
@@ -320,6 +327,7 @@ def make_mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, optimizer: AdamW, 
     views of ``zero`` (a ``Zero2``), ``opt_state`` ``zero.init_state``'s.
     Every rank of the mesh calls it once a window."""
     data_group = zero.mesh.data_group
+    seq_partial = [n for n in zero.names if is_sequence_partial(n)] if tcfg.seq_shard else []
 
     def step(model: Qwen2VL, opt_state: dict, batch: Batch):
         dev = batch.input_ids.device
@@ -331,6 +339,7 @@ def make_mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, optimizer: AdamW, 
             zero.accumulate()
             loss_sum += loss.detach()
             ints += torch.stack([count, dropped])
+        zero.sum_over_model(seq_partial)
         dist.all_reduce(loss_sum, group=data_group)
         dist.all_reduce(ints, group=data_group)
         denom = torch.clamp(ints[0], min=1).float()

@@ -30,7 +30,8 @@ each case under its own timeout. The JAX references run here, on the
   * a checkpoint saved at 2x1 resumes at 1x1 and 1x2 (and in the
     single-card ``Trainer``) to the step that continues at 2x1;
   * the refusals: M not dividing the KV heads, DATA x MODEL != WORLD_SIZE,
-    torchrun's environment missing, ``--seq_shard``. Serving on a split
+    torchrun's environment missing (also with ``--seq_shard``, which
+    ``tests/test_torch_seq_shard.py`` holds). Serving on a split
     model, int8 weights under TP and the training path's refusal of them
     are ``tests/test_torch_tp_serving.py``'s.
 """
@@ -468,7 +469,11 @@ def test_init_mesh_refuses(monkeypatch, env, error, match):
     assert not torch.distributed.is_initialized()
 
 
-def test_cli_seq_shard_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
+def test_cli_seq_shard_raises(tmp_path, monkeypatch):
+    """``--mesh 1x2 --seq_shard`` passes the CLI's own check (MODEL >= 2)
+    and, outside torchrun, raises torchrun's error as ``--mesh`` does."""
+    for name in TORCHRUN_ENV:
+        monkeypatch.delenv(name, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
         cli.main(["--annotation_paths", "none.jsonl", "--output_dir", str(tmp_path),
                   "--mesh", "1x2", "--seq_shard", "--device", "cpu"])

@@ -10,8 +10,9 @@ by the loader), so nothing needs the native decoder.
     ``ckpt/<step>/state.pt`` and resumes by default: a second call with
     ``--total_steps 2`` continues from step 1 to the parameters and
     optimizer state of an uninterrupted 2-step run, bit for bit.
-  * ``--mesh`` without torchrun's environment, ``--seq_shard`` and
-    ``--device cuda`` without CUDA raise (``--mesh`` itself:
+  * ``--mesh`` without torchrun's environment and ``--device cuda``
+    without CUDA raise, ``--seq_shard`` without ``--mesh DATAxMODEL`` of
+    MODEL >= 2 exits with code 2 as JAX's CLI (``--mesh`` itself:
     ``tests/test_torch_mesh.py``).
   * On a tiny HF directory (``tools/checkpoint.py`` from ``params_from_jax``
     of JAX's ``init_params(tiny_config(), PRNGKey(0))``, the fixture
@@ -139,20 +140,25 @@ def test_cli_records_time_each_step_save_and_restore(corpus, tmp_path):
 
 @pytest.mark.parametrize("flags,error", [
     (["--mesh", "4x2", "--device", "cpu"], RuntimeError),
-    (["--seq_shard"], NotImplementedError),
-    (["--mesh", "1x1", "--seq_shard"], NotImplementedError),
+    (["--seq_shard"], SystemExit),
+    (["--mesh", "1x1", "--seq_shard"], SystemExit),
     (["--device", "cuda"], RuntimeError),
 ])
-def test_cli_refuses_what_one_gpu_cannot_do(corpus, tmp_path, flags, error, monkeypatch):
+def test_cli_refuses_what_one_gpu_cannot_do(corpus, tmp_path, flags, error, monkeypatch, capsys):
     """``--mesh`` outside torchrun raises, naming torchrun; ``--seq_shard``
-    raises, naming the ROADMAP item; ``--device cuda`` (the default) raises
-    without CUDA."""
+    without a model axis of at least 2 exits with code 2 naming MODEL >= 2,
+    as JAX's CLI does (``livecc_tpu/train/cli.py:58-63``); ``--device
+    cuda`` (the default) raises without CUDA."""
     if "cuda" in flags and torch.cuda.is_available():
         pytest.skip("CUDA is available here")
     for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(name, raising=False)
-    with pytest.raises(error, match="ROADMAP|CUDA|torchrun"):
+    with pytest.raises(error) as raised:
         run_cli(corpus, tmp_path, "--total_steps", "1", *flags)
+    if error is SystemExit:
+        assert raised.value.code == 2 and "MODEL >= 2" in capsys.readouterr().err
+    else:
+        assert raised.match("CUDA|torchrun")
     assert not os.path.exists(tmp_path / "ckpt")
 
 
