@@ -163,6 +163,17 @@ Phases (any failure raises and the script exits non-zero):
                  beside theirs, one steady chunk profiled. With 2 or 4
                  cards also 1x2 / 1x4 through torchrun (``--tp-worker``),
                  held to the no-mesh tokens up to a near-tie.
+     memory_plan — ``parallel/memory.py``'s plans against the bytes on the
+                 card (``phase_memory_plan``): weights bf16 at TP = 1 and
+                 one rank at M = 2 and 4 exactly, int8 within 1%; main's
+                 bf16 KV exactly and the pool's int8 KV as plan plus
+                 scales exactly; a one-process ``Zero2``'s state exactly;
+                 the 7B's plans on this card with the streams that fit (a
+                 memory bound); then ``tools/layer_costs.py``'s probes
+                 (decode, prefill, training; K1, K2, K4) with the
+                 calibration before and after, the 28-layer decode
+                 projection beside main's step replay and the training
+                 linearity check logged as findings.
      eval      — the benchmark harnesses (``livecc_tpu_torch/eval``) on
                  main's 7B (bf16, full depth): two VideoMME items at the 720p
                  budget (64 frames of a 720x1280 source at 2 fps, served by
@@ -343,7 +354,7 @@ Phases (any failure raises and the script exits non-zero):
 
 Launch counts are reset just before each of main, pool, main_spec (and
 its worst case), pool_spec, main_w8 (and its lookahead session), pool_w8,
-tp_serve's session and pool, eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs,
+tp_serve's session and pool, memory_plan's probes, eval's two VideoMME runs and its CC event, checkpoint_live's two CLI runs,
 app's two playbacks (with their QA turns), train, train_cli's two CLI runs,
 mesh's run, sp_pp's SP and PP runs, produce's batch and lm_loss runs and
 midsize's two runs and read just after; every kernel of that path must have launched. Every phase
@@ -1937,27 +1948,6 @@ def run_spec_twice(label: str, model, session, walls_of, plain_record: list,
     return runs[False][0], runs[False][2]
 
 
-def step_replay_ms(model, cache, state_type) -> float:
-    """Device time of one replay of the captured step of ``model`` over
-    ``cache`` whose state is a ``state_type``, after its chunk ended (no row
-    advances, so every replay does the same work at the same depth):
-    ``kernel_timing.replay_ms`` over 14 replays from step index 0, since a
-    decode step writes its token column at the index, which ends at
-    max_new_tokens (16)."""
-    from livecc_tpu_torch.engine.generation import DecodeState
-    from livecc_tpu_torch.engine.graphs import graphs_for
-    from livecc_tpu_torch.tools.kernel_timing import replay_ms
-
-    found = [g for g in graphs_for(model, model.cfg).graphs.values()
-             if g.owner() is cache.k and isinstance(g.state, state_type) and g.graph is not None]
-    if len(found) != 1:
-        raise AssertionError(f"expected one captured {state_type.__name__} step on the cache, "
-                             f"found {len(found)}")
-    if isinstance(found[0].state, DecodeState):
-        found[0].state.step.zero_()
-    return replay_ms(found[0].graph, replays=12, warmup=2)
-
-
 def phase_main(cfg, model) -> tuple[dict, list, dict]:
     """The 7B single stream (``single_stream``) on the bf16 model."""
     return single_stream("main", cfg, model, MAIN_KERNELS)
@@ -1971,12 +1961,13 @@ def single_stream(label: str, cfg, model, kernels) -> tuple[dict, list, dict]:
     launch counts, the eager plain loop's record and {"step_ms": that time,
     "wall", "busy": the profiled session's, "tokens": the graph run's
     tokens of each decode, "chunks": its chunk walls, "logits": its last
-    prefill's logits}."""
+    prefill's logits, "kv": its cache's K + V bytes, rows and length}."""
     import torch
 
     from livecc_tpu_torch.engine.generation import DecodeState
     from livecc_tpu_torch.ops import build
     from livecc_tpu_torch.tools import session
+    from livecc_tpu_torch.tools.layer_costs import step_replay_ms
 
     frames = session.main_frames()
 
@@ -2008,8 +1999,11 @@ def single_stream(label: str, cfg, model, kernels) -> tuple[dict, list, dict]:
     step_ms = step_replay_ms(model, state.cache, DecodeState)
     log(f"  decode step replay at depth {int(state.cache.offset[0])}, B=1: {step_ms:.3f} ms "
         f"device time")
+    cache = state.cache
     return counts, record, dict(prof, step_ms=step_ms, tokens=[t for t, *_ in record],
-                                chunks=[c.seconds for c in eng.chunk_log], logits=state.logits)
+                                chunks=[c.seconds for c in eng.chunk_log], logits=state.logits,
+                                kv={"bytes": cache.k.nbytes + cache.v.nbytes,
+                                    "rows": cache.k.shape[1], "len": cache.max_len})
 
 
 def phase_pool(cfg, model) -> tuple[dict, list, dict]:
@@ -2048,12 +2042,14 @@ def pool_phase(label: str, cfg, model, kernels) -> tuple[dict, list, dict]:
     every kernel of ``kernels`` launched. Returns the graph run's launch
     counts, the eager plain loop's record and {"step_ms": that time,
     "ticks": the graph run's tick walls, "wall", "busy": the profiled
-    tick's}."""
+    tick's, "kv": the pool cache's K + V bytes, scale bytes, rows and
+    length}."""
     import torch
 
     from livecc_tpu_torch.engine.generation import DecodeState
     from livecc_tpu_torch.ops import build
     from livecc_tpu_torch.tools import session
+    from livecc_tpu_torch.tools.layer_costs import step_replay_ms
 
     def run(plain):
         server = session.pool_server(cfg, model)
@@ -2101,7 +2097,10 @@ def pool_phase(label: str, cfg, model, kernels) -> tuple[dict, list, dict]:
         raise AssertionError(f"the {label} path never launched {missing}")
     step_ms = step_replay_ms(model, pool, DecodeState)
     log(f"  decode step replay at depths {pool.offset.tolist()}, B=8: {step_ms:.3f} ms device time")
-    return counts, record, dict(prof, step_ms=step_ms, ticks=walls)
+    return counts, record, dict(prof, step_ms=step_ms, ticks=walls,
+                                kv={"bytes": pool.k.nbytes + pool.v.nbytes,
+                                    "scales": pool.k_scale.nbytes + pool.v_scale.nbytes,
+                                    "rows": pool.k.shape[1], "len": pool.max_len})
 
 
 def pool_streams(server):
@@ -2147,6 +2146,7 @@ def phase_main_spec(cfg, model, plain_record: list, decode_ms: float) -> tuple[d
     from livecc_tpu_torch.engine.speculative import LookaheadState
     from livecc_tpu_torch.ops import build
     from livecc_tpu_torch.tools import session
+    from livecc_tpu_torch.tools.layer_costs import step_replay_ms
 
     frames = session.main_frames()
 
@@ -2220,6 +2220,7 @@ def phase_pool_spec(cfg, model, plain_record: list, decode_ms: float) -> dict:
     from livecc_tpu_torch.engine.speculative import LookaheadState
     from livecc_tpu_torch.ops import build
     from livecc_tpu_torch.tools import session
+    from livecc_tpu_torch.tools.layer_costs import step_replay_ms
 
     def run():
         server = session.pool_server(cfg, model, spec=session.SPEC)
@@ -2373,20 +2374,21 @@ def unsplit(model) -> None:
         layer.tp = None
 
 
-def tp_storage(cfg) -> None:
+def tp_storage(cfg) -> dict:
     """One rank's ``shard_params`` of a fresh bf16 7B at M = 2 and 4 (rank 0's
     slices; no collective, so one card shows what each rank keeps): the
     allocated bytes before and after and the peak while it slices. Fails
     unless every split tensor owns storage of its shard's size, the rank's
     weights are the replicated tensors plus 1 / M of the split ones, and
     the allocator freed at least 99% of the split tensors' (1 - 1 / M)
-    (its blocks round the sizes)."""
+    (its blocks round the sizes). Returns {M: the rank's weight bytes}."""
     import torch
 
     from livecc_tpu_torch.core.mesh import Mesh
     from livecc_tpu_torch.parallel.sharding import shard_params, split_dim
     from livecc_tpu_torch.tools import session
 
+    rank_bytes = {}
     for m in (2, 4):
         _, fresh = session.main_model()
         total = session.model_bytes(fresh)
@@ -2410,9 +2412,11 @@ def tp_storage(cfg) -> None:
             raise AssertionError(f"tp_serve: shard_params at M={m}: weights {weights} of "
                                  f"{total - want}, freed {before - after} of {want}, "
                                  f"whole storages {whole[:4]}")
+        rank_bytes[m] = weights
         del fresh
         gc.collect()
         torch.cuda.empty_cache()
+    return rank_bytes
 
 
 def phase_tp_serve(cfg, models, main_record: list, main: dict, pool_record: list,
@@ -2437,7 +2441,7 @@ def phase_tp_serve(cfg, models, main_record: list, main: dict, pool_record: list
     through torchrun (this script's ``--tp-worker`` mode), held to the
     no-mesh tokens up to each stream's first near-tie parting
     (``near_ties``); it prints the world sizes it ran. Returns the 1x1
-    runs' launch counts."""
+    runs' launch counts and ``tp_storage``'s rank bytes."""
     import collections
 
     import torch
@@ -2452,9 +2456,10 @@ def phase_tp_serve(cfg, models, main_record: list, main: dict, pool_record: list
     from livecc_tpu_torch.parallel.tp import reduce_from_model
     from livecc_tpu_torch.tools import session
     from livecc_tpu_torch.tools.kernel_timing import cuda_ms
+    from livecc_tpu_torch.tools.layer_costs import step_replay_ms
     from livecc_tpu_torch.tools.profile_stream import busy_seconds
 
-    tp_storage(cfg)
+    rank_bytes = tp_storage(cfg)
     model, model_w8 = models
     issued: collections.Counter = collections.Counter()
     counts: collections.Counter = collections.Counter()
@@ -2606,7 +2611,7 @@ def phase_tp_serve(cfg, models, main_record: list, main: dict, pool_record: list
         worlds.append(n)
     log(f"  world sizes run: {worlds} ({n_cards} card(s) here; the multi-rank parity comes "
         f"from the CPU tests over gloo)")
-    return dict(counts)
+    return dict(counts), rank_bytes
 
 
 def tp_worker(spec: str) -> int:
@@ -2648,6 +2653,170 @@ def tp_worker(spec: str) -> int:
     if mesh.rank == 0:
         torch.save(out, job["out"])
     return 0
+
+
+def smi_clocks() -> str:
+    """The card's name, SM clock, power draw and power limit (nvidia-smi)."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,clocks.sm,power.draw,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def w8_parts(model) -> dict:
+    """Bytes of an int8 model by kind: "codes" (int8), "scales" (the bf16
+    per-output scales), "other" (every other tensor: norms, biases, the
+    patch embedding, in bf16), and their sum "bytes"."""
+    import torch
+
+    parts = {"codes": 0, "scales": 0, "other": 0}
+    for mod in model.modules():
+        for name, t in [*mod._parameters.items(), *mod._buffers.items()]:
+            if t is not None:
+                kind = ("codes" if t.dtype == torch.int8 else "scales" if name == "scale"
+                        else "other")
+                parts[kind] += t.numel() * t.element_size()
+    return dict(parts, bytes=sum(parts.values()))
+
+
+def memory_bound_streams(plan) -> int:
+    """The most streams ``plan``'s card holds beside its weights and its
+    reserve: a memory bound, not a serving rate."""
+    free = plan.hbm_bytes - plan.weights_bytes - plan.activation_reserve_bytes
+    return free // plan.kv_bytes_per_stream
+
+
+def phase_memory_plan(cfg, model, main: dict, pool: dict, w8: dict, rank_bytes: dict,
+                      card: str) -> dict:
+    """``parallel/memory.py``'s plans held to the bytes on the card, then
+    ``tools/layer_costs.py``'s probes. Fails unless the plan's weight bytes
+    equal main's bf16 7B (``session.model_bytes``) and ``tp_storage``'s
+    rank at M = 2 and 4 exactly, and the int8 7B's (``w8_parts``) within
+    1%, the gap being its scales plus one byte for each element kept in
+    bf16; the KV plan equals main's bf16 cache exactly, and the pool's int8
+    cache plus its bf16 scales (2 * L * Hk * Smax * 2 bytes a stream, which
+    the plan does not count, as JAX's does not) exactly; and a ``Zero2`` on
+    one process over ``layer_costs.width7b(4)`` with the ViT frozen, with
+    its ``init_state``, holds the training plan's weights, grads, adam_m and
+    adam_v exactly. Logs the 7B's plans on this card with the most streams
+    that fit (a memory bound), then runs the probes (``layer_costs.measure``,
+    training also at depth 2), each a finding, never a gate: the 28-layer
+    decode token at B = 1 projected from the (2, 4) difference beside
+    main's replayed step, depth 2's step beside the (1, 3) line, and the
+    depth-3 step's peak above its state beside the plan's activation
+    reserve. The calibration runs at the start and the end, each beside
+    the card's clocks and power. Fails unless the probes launched K1, K2
+    and K4's forward and backward. Returns their launch counts."""
+    import torch
+
+    from livecc_tpu_torch.core.config import ModelConfig
+    from livecc_tpu_torch.core.mesh import Mesh
+    from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.parallel import memory
+    from livecc_tpu_torch.parallel.sharding import Zero2
+    from livecc_tpu_torch.tools import layer_costs, session
+    from livecc_tpu_torch.train.step import split_frozen
+    from livecc_tpu_torch.utils.calibrate import calibrate_matmul
+
+    cal = calibrate_matmul()
+    log(f"  calibration {cal} ({smi_clocks()})")
+    gib = lambda n: f"{n / 2**30:.3f} GiB"
+    # weights: bf16 at TP = 1, one rank at M = 2 and 4, int8
+    for m, nbytes in {1: session.model_bytes(model), **rank_bytes}.items():
+        want = memory.weights_bytes_per_chip(cfg, m)
+        log(f"  bf16 weights at TP={m}: plan {want} B ({gib(want)}), on the card {nbytes} B")
+        if nbytes != want:
+            raise AssertionError(f"memory_plan: bf16 weights at TP={m}: {nbytes} on the card, "
+                                 f"{want} planned")
+    want = memory.weights_bytes_per_chip(cfg, 1, 1)
+    gap = w8["bytes"] - want
+    log(f"  int8 weights: plan {want} B ({gib(want)}), on the card {w8['bytes']} B "
+        f"({gib(w8['bytes'])}), {gap / want:+.4%}: bf16 scales {w8['scales']} B and one more "
+        f"byte for each of the {w8['other'] // 2} elements kept in bf16 (norms, biases, the "
+        f"patch embedding)")
+    if abs(gap) > 0.01 * want or gap != w8["scales"] + w8["other"] // 2:
+        raise AssertionError(f"memory_plan: int8 weights {w8} against {want} planned")
+    # KV: main's bf16 cache; the pool's int8 cache and its scales
+    t = cfg.text
+    kv = main["kv"]
+    want = kv["rows"] * memory.kv_bytes_per_chip(cfg, 1, kv["len"])
+    log(f"  bf16 KV of main ({kv['rows']} x {kv['len']}): plan {want} B, on the card "
+        f"{kv['bytes']} B")
+    if kv["bytes"] != want:
+        raise AssertionError(f"memory_plan: main's KV {kv} against {want} planned")
+    kv = pool["kv"]
+    plan = memory.serving_plan(cfg, n_model=1, streams=kv["rows"], cache_len=kv["len"],
+                               kv_dtype_bytes=1)
+    want = plan.streams * plan.kv_bytes_per_stream
+    scales = kv["rows"] * 2 * t.num_hidden_layers * t.num_key_value_heads * kv["len"] * 2
+    log(f"  int8 KV of the pool ({kv['rows']} x {kv['len']}): plan {want} B + bf16 scales "
+        f"{scales} B ({scales / kv['rows'] / 1e6:.2f} MB a stream, not in the plan), on the "
+        f"card {kv['bytes']} + {kv['scales']} B")
+    if kv["bytes"] != want or kv["scales"] != scales:
+        raise AssertionError(f"memory_plan: the pool's KV {kv} against {want} + {scales}")
+    # training state: one process's Zero2 over the 7B's width at depth 4
+    cfg4 = layer_costs.width7b(4)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    model4 = layer_costs.new_model(cfg4)
+    trainable, frozen = split_frozen(model4, ("visual",))
+    zero = Zero2(trainable, Mesh(1, 1, 0, None, None, torch.device("cuda")))
+    state = zero.init_state(None)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    plan = memory.training_plan(cfg4, n_data=1)
+    on_card = {"weights": sum(p.nbytes for p in frozen.values()) + zero.flat.nbytes,
+               "grads": zero.grad.nbytes, "adam_m": state["mu"].nbytes,
+               "adam_v": state["nu"].nbytes}
+    planned = {"weights": plan.weights_bytes, "grads": plan.grads_bytes,
+               "adam_m": plan.adam_m_bytes, "adam_v": plan.adam_v_bytes}
+    log(f"  Zero2 on one process over {cfg4.name}, ViT frozen: on the card {on_card}, plan "
+        f"{planned}; allocated {gib(held)} against the plan's {gib(sum(planned.values()))}")
+    if on_card != planned:
+        raise AssertionError(f"memory_plan: Zero2's state {on_card} against {planned}")
+    del model4, trainable, frozen, zero, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the card's plans for the 7B at TP = 1
+    for w_bytes, kv_bytes in ((2, 2), (2, 1), (1, 1)):
+        for cache_len in (8192, 32768):
+            plan = memory.serving_plan(cfg, n_model=1, streams=8, cache_len=cache_len,
+                                       param_dtype_bytes=w_bytes, kv_dtype_bytes=kv_bytes)
+            log(f"  plan: {plan.describe()}; {('int8', 'bf16')[w_bytes - 1]} weights, "
+                f"{('int8', 'bf16')[kv_bytes - 1]} KV: at most {memory_bound_streams(plan)} "
+                f"streams (a memory bound)")
+    full = ModelConfig.qwen2_vl_7b()
+    for n_data in (1, 8):
+        log(f"  plan: {memory.training_plan(full, n_data=n_data).describe()}")
+    # the probes
+    build.reset_launch_counts()
+    res = layer_costs.measure(f"chip_smoke memory_plan on {card}, {time.strftime('%Y-%m-%d')}",
+                              emit=lambda line: log(f"  {line}"), train_depths=(1, 3, 2))
+    counts = dict(build.launch_counts)
+    proj = memory.serving_latency(cfg, res["costs"], n_model=1)
+    off = proj.decode_ms_per_token / main["step_ms"] - 1
+    log(f"  the 28-layer decode token at B=1 from the (2, 4) difference: "
+        f"{proj.decode_ms_per_token:.3f} ms against main's replayed step {main['step_ms']:.3f} "
+        f"ms, {off:+.2%} ({'hit' if abs(off) <= 0.10 else 'miss'} of the predicted +-10%)")
+    tr = res["train"]
+    line = (tr[1]["median_ms"] + tr[3]["median_ms"]) / 2
+    off = tr[2]["median_ms"] / line - 1
+    log(f"  training step at depth 2: {tr[2]['median_ms']:.2f} ms against the (1, 3) line's "
+        f"{line:.2f} ms, {off:+.2%} ({'hit' if abs(off) <= 0.05 else 'miss'} of the predicted "
+        f"+-5%)")
+    act = tr[3]["peak_bytes"] - tr[3]["state_bytes"]
+    log(f"  training at depth 3: peak {gib(tr[3]['peak_bytes'])} - state "
+        f"{gib(tr[3]['state_bytes'])} = {gib(act)} against the plan's activation reserve "
+        f"{gib(memory.training_plan(full, n_data=1).activation_reserve_bytes)}")
+    log(f"  projection: {memory.serving_latency(full, res['costs'], n_model=1).describe()}")
+    log(f"  projection: {memory.training_latency(full, res['train_costs']).describe()}")
+    log(f"  calibration at the end {calibrate_matmul()} ({smi_clocks()})")
+    missing = [k for k in ("flash_prefill", "flash_decode", "train_attention_fwd",
+                           "train_attention_bwd") if counts.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"memory_plan: the probes never launched {missing} ({counts})")
+    log(f"  the probes' launches {counts}")
+    return counts
+
 
 class FramesVideo:
     """``VideoReader``'s API over frames in memory (``LiveCC``'s and
@@ -5607,14 +5776,18 @@ def main() -> int:
                "gib": (torch.cuda.memory_allocated() - held) / 2**30,
                "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
                "bytes_gib": session.model_bytes(model_w8) / 2**30,
-               "bf16_gib": session.model_bytes(model) / 2**30}
+               "bf16_gib": session.model_bytes(model) / 2**30, "parts": w8_parts(model_w8)}
     main_w8_counts, main_w8_spec_counts = run_phase(
         "main_w8", lambda: phase_main_w8(cfg, model_w8, main_record, main_sum, w8_init))
     pool_w8_counts, pool_w8_record, pool_w8_sum = run_phase(
         "pool_w8", lambda: phase_pool_w8(cfg, model_w8, pool_sum))
-    tp_counts = run_phase("tp_serve", lambda: phase_tp_serve(
+    tp_counts, rank_bytes = run_phase("tp_serve", lambda: phase_tp_serve(
         cfg, (model, model_w8), main_record, main_sum, pool_w8_record, pool_w8_sum))
     del main_record, model_w8, pool_w8_record
+    gc.collect()
+    torch.cuda.empty_cache()
+    memory_counts = run_phase("memory_plan", lambda: phase_memory_plan(
+        cfg, model, main_sum, pool_sum, w8_init["parts"], rank_bytes, card))
     gc.collect()
     torch.cuda.empty_cache()
     eval_counts, cc_counts, _ = run_phase("eval", lambda: phase_eval(cfg, model))
@@ -5657,7 +5830,8 @@ def main() -> int:
         "launches": sum(c.get(name, 0) for c in (main_counts, pool_counts, spec_counts,
                                                  adversarial_counts, pool_spec_counts,
                                                  main_w8_counts, main_w8_spec_counts,
-                                                 pool_w8_counts, tp_counts, eval_counts,
+                                                 pool_w8_counts, tp_counts, memory_counts,
+                                                 eval_counts,
                                                  cc_counts,
                                                  checkpoint_counts, checkpoint_w8_counts,
                                                  *app_counts, train_counts, train_cli_counts,
