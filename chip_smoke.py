@@ -167,7 +167,9 @@ Phases (any failure raises and the script exits non-zero):
                  card (``phase_memory_plan``): weights bf16 at TP = 1 and
                  one rank at M = 2 and 4 exactly, int8 within 1%; main's
                  bf16 KV exactly and the pool's int8 KV as plan plus
-                 scales exactly; a one-process ``Zero2``'s state exactly;
+                 scales exactly; a one-process ``Zero2``'s state exactly,
+                 and at n_data = 8 its fp32 gradient (the partition and
+                 the staging bucket) as the bytes the allocator gives back;
                  the 7B's plans on this card with the streams that fit (a
                  memory bound); then ``tools/layer_costs.py``'s probes
                  (decode, prefill, training; K1, K2, K4) with the
@@ -326,10 +328,13 @@ Phases (any failure raises and the script exits non-zero):
                  collective issued. Steps 1-2's losses those of train_cli's
                  run within 1e-6 relative, step 3's within ``close``'s bf16
                  limit; K3 and K4 fwd/bwd launched; NCCL collectives in step 3's
-                 profile (count, device time, idle share); the step-3
-                 state.pt loads in the no-mesh ``Trainer``. With 2 or 4
-                 cards also ``--mesh 2x1`` / ``2x2`` through torchrun (this
-                 script's ``--mesh-worker`` mode), held to the 1x1 losses.
+                 profile (count, device time, idle share); no bf16 .grad
+                 alive after any backward (ZeRO-2's hooks take each one),
+                 each step's peak and where it lies;
+                 the step-3 state.pt loads in the no-mesh ``Trainer``.
+                 With 2 or 4 cards also ``--mesh 2x1`` / ``2x2`` through
+                 torchrun (this script's ``--mesh-worker`` mode), held to
+                 the 1x1 losses, each rank printing its partition's bytes.
      sp_pp     — sequence and pipeline parallelism (``phase_sp_pp``) on
                  train_cli's checkpoint over NCCL at world size 1: ``Trainer``
                  with ``TrainConfig(seq_shard=True)`` at 1x1 for 3 steps of
@@ -2685,6 +2690,49 @@ def memory_bound_streams(plan) -> int:
     return free // plan.kv_bytes_per_stream
 
 
+def zero2_partition(cfg4) -> None:
+    """A one-process ``Zero2`` at ``Mesh(8, 1, 0, None, None, cuda)`` (no
+    collective at n_model = 1) over a fresh ``layer_costs.new_model(cfg4)``,
+    the ViT frozen: the bytes the card's allocator gives back when its fp32
+    gradient buffers (this data rank's partition and the staging bucket)
+    are dropped, requested and as allocated (512-byte blocks), against the
+    training plan's ``grads_bytes`` at n_data = 8. Fails unless the
+    requested bytes and the buffers' sizes equal the plan exactly."""
+    import torch
+
+    from livecc_tpu_torch.core.mesh import Mesh
+    from livecc_tpu_torch.parallel import memory
+    from livecc_tpu_torch.parallel.sharding import Zero2
+    from livecc_tpu_torch.tools import layer_costs
+    from livecc_tpu_torch.train.step import split_frozen
+
+    model = layer_costs.new_model(cfg4)
+    zero = Zero2(split_frozen(model, ("visual",))[0], Mesh(8, 1, 0, None, None,
+                                                          torch.device("cuda")))
+    plan = memory.training_plan(cfg4, n_data=8)
+    buffers = {"partition": zero.grad.nbytes, "bucket": zero.bucket.nbytes}
+    torch.cuda.synchronize()
+
+    def held():
+        stats = torch.cuda.memory_stats()
+        return stats["requested_bytes.all.current"], stats["allocated_bytes.all.current"]
+
+    before = held()
+    zero.grad = zero.bucket = None
+    after = held()
+    requested, allocated = (a - b for a, b in zip(before, after))
+    log(f"  Zero2 on one process at n_data = 8 over {cfg4.name} ({zero.part} of "
+        f"{zero.flat.numel()} elements): fp32 gradient buffers {buffers}, the allocator gave "
+        f"back {requested} B requested ({allocated} B allocated) on dropping them; the plan's "
+        f"grads_bytes {plan.grads_bytes} (the parent held the whole {4 * zero.flat.numel()})")
+    if requested != plan.grads_bytes or sum(buffers.values()) != plan.grads_bytes:
+        raise AssertionError(f"memory_plan: Zero2 at n_data = 8 held {requested} B of fp32 "
+                             f"gradient ({buffers}), {plan.grads_bytes} planned")
+    del model, zero
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def phase_memory_plan(cfg, model, main: dict, pool: dict, w8: dict, rank_bytes: dict,
                       card: str) -> dict:
     """``parallel/memory.py``'s plans held to the bytes on the card, then
@@ -2697,7 +2745,8 @@ def phase_memory_plan(cfg, model, main: dict, pool: dict, w8: dict, rank_bytes: 
     the plan does not count, as JAX's does not) exactly; and a ``Zero2`` on
     one process over ``layer_costs.width7b(4)`` with the ViT frozen, with
     its ``init_state``, holds the training plan's weights, grads, adam_m and
-    adam_v exactly. Logs the 7B's plans on this card with the most streams
+    adam_v exactly, and at n_data = 8 holds the plan's fp32 gradient bytes
+    (``zero2_partition``). Logs the 7B's plans on this card with the most streams
     that fit (a memory bound), then runs the probes (``layer_costs.measure``,
     training also at depth 2), each a finding, never a gate: the 28-layer
     decode token at B = 1 projected from the (2, 4) difference beside
@@ -2776,6 +2825,7 @@ def phase_memory_plan(cfg, model, main: dict, pool: dict, w8: dict, rank_bytes: 
     del model4, trainable, frozen, zero, state
     gc.collect()
     torch.cuda.empty_cache()
+    zero2_partition(cfg4)
     # the card's plans for the 7B at TP = 1
     for w_bytes, kv_bytes in ((2, 2), (2, 1), (1, 1)):
         for cache_len in (8192, 32768):
@@ -4264,17 +4314,24 @@ def phase_mesh(run: dict) -> dict:
     under the profiler (host and device activity, started after step 2's
     work): the idle share, the collectives' count (the dispatcher's
     ``c10d::<op>`` ranges; at least one, the backend NCCL) and the device
-    time under them, device time by group. Where the
-    machine has 2 cards, ``--mesh 2x1`` through torchrun over NCCL (4
-    cards: ``2x2`` too), held to the 1x1 run's losses by the bf16 limit; it
-    prints the world sizes it ran. Returns the 1x1 run's launch counts and
-    its log records (``sp_pp`` holds SP to them)."""
+    time under them, device time by group. After each backward (at each
+    ``Zero2.accumulate``) it reads the bf16 ``.grad`` bytes still alive,
+    the allocation and the step's peak so far: ZeRO-2's hooks take every
+    ``.grad`` during the backward, so it fails unless they are 0 (the
+    parent held every trainable parameter's), and it prints each step's
+    peak and where it lies (PERF.md compares them with the parent's). Where
+    the machine has 2 cards, ``--mesh 2x1`` through torchrun over NCCL (4
+    cards: ``2x2`` too), held to the 1x1 run's losses by the bf16 limit,
+    each rank printing its ZeRO-2 partition's bytes; it prints the world
+    sizes it ran. Returns the 1x1 run's launch counts and its log records
+    (``sp_pp`` holds SP to them)."""
     import torch
     import torch.distributed as dist
     from torch.profiler import ProfilerActivity, profile
 
     from livecc_tpu_torch.models.qwen2_vl.convert import load_checkpoint
     from livecc_tpu_torch.ops import build
+    from livecc_tpu_torch.parallel.sharding import Zero2
     from livecc_tpu_torch.tools import kernel_check
     from livecc_tpu_torch.tools.profile_stream import busy_seconds, device_groups
     from livecc_tpu_torch.train import cli
@@ -4284,6 +4341,21 @@ def phase_mesh(run: dict) -> dict:
     shutil.rmtree(os.path.join(run["out"], "ckpt"), ignore_errors=True)   # train_cli's 21.6 GB
     out = os.path.join(run["work"], "mesh_1x1")
     window = {}
+    probes = []                                 # one a backward
+    real_accumulate = Zero2.accumulate
+
+    def accumulate(zero):
+        """Right after a backward: the bf16 gradient bytes alive (``.grad``s
+        and any ``Zero2`` holds for its buckets), the trainable bytes (what
+        the parent held there), the allocation and
+        the step's peak so far (the Trainer resets it after each step)."""
+        probes.append({
+            "grad_bytes": sum(p.grad.nbytes for p in zero.params.values() if p.grad is not None)
+            + sum(g.nbytes for g in zero._held.values()),
+            "trainable_bytes": sum(p.nbytes for p in zero.params.values()),
+            "allocated": torch.cuda.memory_allocated(),
+            "peak": torch.cuda.max_memory_allocated()})
+        real_accumulate(zero)
 
     def on_step(step, batch, metrics):
         """Step 3 under the profiler, from the end of step 2's work."""
@@ -4299,9 +4371,15 @@ def phase_mesh(run: dict) -> dict:
             window["prof"].stop()
 
     build.reset_launch_counts()
-    with torchrun_vars():
-        last = cli.main(run["flags"] + ["--output_dir", out, "--total_steps", "3", "--mesh", "1x1"],
-                        tokenizer=run["tokenizer"], video_loader=run["loader"], on_step=on_step)
+    Zero2.accumulate = accumulate
+    try:
+        with torchrun_vars():
+            last = cli.main(run["flags"] + ["--output_dir", out, "--total_steps", "3", "--mesh",
+                                            "1x1"],
+                            tokenizer=run["tokenizer"], video_loader=run["loader"],
+                            on_step=on_step)
+    finally:
+        Zero2.accumulate = real_accumulate
     counts = dict(build.launch_counts)
     if dist.is_initialized():
         raise AssertionError("mesh: the CLI left its process group")
@@ -4325,6 +4403,23 @@ def phase_mesh(run: dict) -> dict:
             raise AssertionError(f"mesh step {rec['step']}: loss {a} is not the no-mesh {b}")
         if not share <= 1.0:
             raise AssertionError(f"mesh step {rec['step']}: loss {a} vs {b}: {share:.3f}x the limit")
+    # the gradients: no bf16 .grad alive after any backward, and where each
+    # step's peak lies (by the end of its backwards, or after: the update)
+    per = len(probes) // len(records)
+    gib = lambda n: f"{n / 2**30:.2f}"
+    for i, rec in enumerate(records):
+        step = probes[i * per:(i + 1) * per]
+        by_backward = max(p["peak"] for p in step)
+        where = ("in the forward / backward" if by_backward >= rec["peak_gib"] * 2**30
+                 else "after the backwards (the update)")
+        log(f"  step {rec['step']}: bf16 .grad bytes alive after each backward "
+            f"{[p['grad_bytes'] for p in step]} (the parent: {step[0]['trainable_bytes']} each, "
+            f"every trainable parameter's); allocated {[gib(p['allocated']) for p in step]} GiB, "
+            f"peak so far {[gib(p['peak']) for p in step]} GiB; the step's peak "
+            f"{rec['peak_gib']:.2f} GiB, {where}")
+    left = [p["grad_bytes"] for p in probes if p["grad_bytes"]]
+    if len(probes) != per * len(records) or per < 1 or left:
+        raise AssertionError(f"mesh: bf16 .grad bytes alive after the backwards: {probes}")
     missing = [name for name in TRAIN_KERNELS if counts.get(name, 0) <= 0]
     if missing:
         raise AssertionError(f"mesh: the run never launched {missing}")
@@ -4400,6 +4495,9 @@ def phase_mesh(run: dict) -> dict:
         if done.returncode != 0:
             raise AssertionError(f"mesh {spec}: torchrun exited {done.returncode}: "
                                  f"{(done.stdout + done.stderr)[-3000:]}")
+        for line in done.stdout.splitlines():
+            if "ZeRO-2 partition" in line:
+                log(f"  --mesh {spec} {line.strip()}")
         with open(os.path.join(mout, "log.jsonl")) as f:
             other = [json.loads(line) for line in f]
         if [r["step"] for r in other] != [1, 2, 3]:
@@ -4513,7 +4611,8 @@ def phase_sp_pp(run: dict, mesh_records: list) -> dict:
     and backward launched; step 3 profiled: its all-gathers and
     reduce-scatters (the dispatcher's ``c10d::`` ranges and the port's
     calls) what the code implies, (6L + 2, 5L) a micro-step and ZeRO-2's
-    one each. (b) PP: ``make_pp_train_step`` at 1 stage (``shard_params_pp``,
+    one all-gather (its gradient reaches the partition during the
+    backward, with no reduce-scatter). (b) PP: ``make_pp_train_step`` at 1 stage (``shard_params_pp``,
     ``Zero2(split=pp_split)``) for 2 steps of a text window of
     ``SP_PP_WINDOW`` rows, then ``make_mesh_train_step`` at 1x1 on a fresh
     load of the same checkpoint and the same window: losses within 1e-6
@@ -4616,7 +4715,7 @@ def phase_sp_pp(run: dict, mesh_records: list) -> dict:
             del prof
             micro = window["micro"]
             want = {"all_gather": (6 * n_layers + 2) * micro + 1,
-                    "reduce_scatter": 5 * n_layers * micro + 1}
+                    "reduce_scatter": 5 * n_layers * micro}
             log(f"  SP step 3 profiled: wall {window['wall']:.3f} s, busy {busy:.3f} s, idle "
                 f"share {1 - busy / window['wall']:.3f}; {micro} micro-steps; port calls "
                 f"{dict(calls)}, c10d ranges {dict(kinds)}; implied {want}; launches "
@@ -4753,8 +4852,18 @@ def mesh_worker(spec: str) -> int:
     from livecc_tpu_torch.tools import train_session as ts
     from livecc_tpu_torch.train import cli
 
+    from livecc_tpu_torch.parallel.sharding import Zero2
+
     job = json.loads(spec)
     loader = None if job["ffmpeg"] else cli_sources(job["work"]).__getitem__
+    real_init = Zero2.__init__
+
+    def init(zero, *args, **kw):
+        real_init(zero, *args, **kw)
+        print(f"rank {zero.mesh.rank}: ZeRO-2 partition {zero.grad.nbytes} B fp32 ({zero.part} of "
+              f"{zero.flat.numel()} elements), bucket {zero.bucket.nbytes} B", flush=True)
+
+    Zero2.__init__ = init
     cli.main(job["argv"], tokenizer=ByteTokenizer.for_config(ts.train_model_config()),
              video_loader=loader)
     return 0

@@ -9,6 +9,7 @@ the JAX one with ``dataclasses.asdict``.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,3 +154,14 @@ def tiny_config(vocab_size: int = 1024) -> ModelConfig:
         video_token_id=7,
         name="tiny",
     )
+
+
+def env_switch(name: str, default: str, choices: tuple[str, ...]) -> str:
+    """Environment variable ``name`` (``default`` where unset), one of
+    ``choices``: the JAX package's experiment switches (``TRAIN_ATTN``,
+    ``CE_LOGITS``, ``CE_IMPL``), read once at import as JAX reads them.
+    Raises on any other value."""
+    value = os.environ.get(name, default)
+    if value not in choices:
+        raise ValueError(f"{name}={value!r}: expected one of {', '.join(choices)}")
+    return value

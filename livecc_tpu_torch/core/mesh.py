@@ -6,8 +6,8 @@ process a card (``torchrun``) and issues them itself over two families of
 process groups:
 
   * ``data`` -- data parallelism: each data rank takes its own batch rows,
-    gradients are reduce-scattered and the AdamW state is partitioned over
-    it (ZeRO-2, ``parallel/sharding.py``);
+    and the fp32 gradient and the AdamW state are partitioned over it
+    (ZeRO-2, ``parallel/sharding.py``);
   * ``model`` -- tensor parallelism (Megatron): attention heads, the MLP
     width and the vocabulary are split over it
     (``models/qwen2_vl/text.py``, ``ops/chunked_ce.py:vocab_parallel_ce``).

@@ -14,16 +14,28 @@ The serving kernels live in ``ops/flash_attention.py`` (K1, K2) and
 attention's contract (JAX ``ops/attention.py:39``): both impls, "splash" and
 "flash", go to the K4 kernels of ``ops/train_attention.py``;
 ``train_attention_plain`` is its plain version with splash's semantics,
-differentiated by autograd.
+differentiated by autograd. JAX's ``TRAIN_ATTN`` switch is read at import
+and must name one of those impls; as both run K4, it selects nothing.
 """
 
 from __future__ import annotations
 
 import torch
 
+from livecc_tpu_torch.core.config import env_switch
 from livecc_tpu_torch.ops.train_attention import TrainAttention, train_attention_fwd_plain
 
 NEG_INF = torch.finfo(torch.float32).min
+TRAIN_IMPLS = ("splash", "flash")
+
+
+def train_attn_switch() -> str:
+    """JAX's ``TRAIN_ATTN`` (``ops/attention.py:36``), checked against
+    ``TRAIN_IMPLS``."""
+    return env_switch("TRAIN_ATTN", "splash", TRAIN_IMPLS)
+
+
+TRAIN_ATTN = train_attn_switch()            # read at import, as JAX reads it
 
 
 def segment_ids(q: torch.Tensor, attention_mask: torch.Tensor | None) -> torch.Tensor:
@@ -52,7 +64,7 @@ def train_flash_attention(
     ``causal`` (JAX's default and every training caller's), j <= i:
     splash's ``CausalMask``, or its ``FullMask`` without the causal term.
     Pads (id 0) attend among themselves. No [S, S] array on CUDA."""
-    if impl not in (None, "splash", "flash"):
+    if impl not in (None, *TRAIN_IMPLS):
         raise ValueError(f"train_flash_attention: unknown impl {impl!r}")
     return TrainAttention.apply(prescaled(q), k, v, segment_ids(q, attention_mask), causal)
 

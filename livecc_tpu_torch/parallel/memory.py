@@ -16,9 +16,9 @@ The names and the arithmetic are JAX's, with three deliberate differences:
   * **Training bytes follow the port's ZeRO-2 layout**
     (``parallel/sharding.py:Zero2``), not JAX's sharded leaves: a model
     rank's trainable shard in one flat buffer padded to a multiple of
-    ``n_data``, a WHOLE fp32 gradient accumulator of that size on every
-    data rank, and AdamW's moments over the rank's partition only. See
-    ``training_plan``.
+    ``n_data``, the fp32 gradient and AdamW's moments over the rank's
+    partition only, and at ``n_data > 1`` the fp32 staging bucket the
+    gradient is reduced through. See ``training_plan``.
   * **No TPU figure.** The card's memory is read from the card
     (``hbm_gib=None``); the measured rows are the H100's
     (``tools/layer_costs.py``); the lm-head term is the head's bytes over
@@ -38,7 +38,8 @@ from typing import Optional
 import torch
 
 from livecc_tpu_torch.core.config import ModelConfig
-from livecc_tpu_torch.parallel.sharding import shard_size, split_dim
+from livecc_tpu_torch.parallel.pipeline import stage_layers
+from livecc_tpu_torch.parallel.sharding import grad_bucket_elements, shard_size, split_dim
 from livecc_tpu_torch.utils.device import device_for
 
 GIB = 1024**3
@@ -75,6 +76,15 @@ def count_params(cfg: ModelConfig) -> int:
 def _rank_elements(name: str, n: int, n_model: int) -> int:
     """Elements of parameter ``name`` on one model rank (``shard_params``)."""
     return n if split_dim(name) is None else shard_size(n, n_model)
+
+
+def _stage_elements(name: str, n: int, own: range) -> int:
+    """Elements of parameter ``name`` on the pipeline stage that owns the
+    layers ``own`` (``parallel/pipeline.py:shard_params_pp``: every stage
+    owns as many layers of one shape, and the rest is whole)."""
+    if not name.startswith("text.layers."):
+        return n
+    return n if int(name.split(".")[2]) in own else 0
 
 
 def weights_bytes_per_chip(cfg: ModelConfig, n_model: int, dtype_bytes: int = 2) -> int:
@@ -175,13 +185,20 @@ def trainable_param_shapes(cfg: ModelConfig, freeze_modules=("visual",)):
                  if name.split(".")[0] not in freeze_modules)
 
 
+def _local_elements(cfg: ModelConfig, name: str, n: int, n_model: int, pipeline: bool) -> int:
+    if pipeline:
+        return _stage_elements(name, n, stage_layers(cfg, n_model, 0))
+    return _rank_elements(name, n, n_model)
+
+
 def _zero2_elements(cfg: ModelConfig, *, n_data: int, n_model: int = 1,
-                    freeze_modules: tuple = ("visual",)) -> tuple[int, int]:
+                    freeze_modules: tuple = ("visual",),
+                    pipeline: bool = False) -> tuple[int, int]:
     """(flat, partition) elements of one rank's ``Zero2``: ``flat`` the
     padded buffer of the model rank's trainable shard (each split tensor
-    counted exactly through ``split_dim``), ``partition`` one data rank's
-    ``flat / n_data``."""
-    local = sum(_rank_elements(name, n, n_model)
+    counted exactly through ``split_dim``, or a pipeline stage's layers),
+    ``partition`` one data rank's ``flat / n_data``."""
+    local = sum(_local_elements(cfg, name, n, n_model, pipeline)
                 for name, n in trainable_param_shapes(cfg, freeze_modules))
     part = shard_size(local, n_data)
     return part * n_data, part
@@ -196,26 +213,30 @@ class TrainingPlan:
         flat buffer of its trainable shard (the trainable parameters are
         views of it), so JAX's figure plus at most ``n_data - 1`` padding
         elements;
-      * ``grads_bytes``: the WHOLE fp32 accumulator on every data rank
-        (``Zero2.grad``, the flat buffer's size), reduce-scattered in place
-        into the partition at the update. JAX counts fp32 grads sharded
-        1 / n_data; the port's figure is ``n_data`` times that;
+      * ``grads_bytes``: the fp32 gradient of the data rank's partition
+        (``Zero2.grad``), JAX's figure (fp32 grads sharded 1 / n_data) up
+        to the padding, plus at ``n_data > 1`` the fp32 staging bucket
+        (``Zero2.bucket``, ``GRAD_BUCKET`` elements at most) through which
+        each micro-step's gradients are reduced; the bf16 ``.grad`` of a
+        parameter lives only until autograd completes it;
       * ``adam_m_bytes`` / ``adam_v_bytes``: the moments of the partition
         only (``Zero2.init_state``).
 
     At TP > 1 every term counts the rank's shard exactly (``split_dim``),
-    where JAX divides the ZeRO bytes by the TP degree."""
+    where JAX divides the ZeRO bytes by the TP degree; with ``pipeline``
+    the model axis holds stages, and every term counts one stage's."""
 
     cfg_name: str
     n_data: int
     n_model: int
     trainable_params: int
     weights_bytes: int            # frozen params + the flat trainable buffer, per card
-    grads_bytes: int              # fp32 accumulator, whole on every data rank
+    grads_bytes: int              # fp32 partition (+ the staging bucket at n_data > 1)
     adam_m_bytes: int             # first moment (mu dtype), the partition
     adam_v_bytes: int             # second moment fp32, the partition
     activation_reserve_bytes: int
     hbm_bytes: int
+    pipeline: bool = False        # n_model counts pipeline stages, not TP shards
 
     @property
     def total_bytes(self) -> int:
@@ -233,7 +254,8 @@ class TrainingPlan:
     def describe(self) -> str:
         g = lambda n: f"{n / GIB:.2f} GiB"
         return (
-            f"{self.cfg_name} train DP={self.n_data} TP={self.n_model}: "
+            f"{self.cfg_name} train DP={self.n_data} {'PP' if self.pipeline else 'TP'}="
+            f"{self.n_model}: "
             f"weights/chip {g(self.weights_bytes)} + grads {g(self.grads_bytes)} "
             f"+ adam_m {g(self.adam_m_bytes)} + adam_v {g(self.adam_v_bytes)} "
             f"+ reserve {g(self.activation_reserve_bytes)} = {g(self.total_bytes)} "
@@ -252,18 +274,23 @@ def training_plan(
     mu_dtype_bytes: int = 4,            # 2 with TrainConfig.adam_mu_dtype=bf16
     hbm_gib: Optional[float] = None,
     activation_reserve_gib: float = 2.0,
+    pipeline: bool = False,             # the model axis holds pipeline stages, not TP shards
 ) -> TrainingPlan:
     """Checked ZeRO-2 training budget of one card (``TrainingPlan``).
-    Frozen modules carry no gradients or moments (``split_frozen``)."""
+    Frozen modules carry no gradients or moments (``split_frozen``). With
+    ``pipeline`` the stages must divide the layers (``stage_layers``
+    raises), else TP must divide the heads."""
     t = cfg.text
-    if t.num_attention_heads % n_model != 0:
+    if pipeline:
+        stage_layers(cfg, n_model, 0)
+    elif t.num_attention_heads % n_model != 0:
         raise ValueError(
             f"TP={n_model} does not divide {t.num_attention_heads} attention heads"
         )
     flat, part = _zero2_elements(cfg, n_data=n_data, n_model=n_model,
-                                freeze_modules=freeze_modules)
+                                freeze_modules=freeze_modules, pipeline=pipeline)
     trainable = {name for name, _ in trainable_param_shapes(cfg, freeze_modules)}
-    frozen = sum(_rank_elements(name, n, n_model) for name, n in param_shapes(cfg)
+    frozen = sum(_local_elements(cfg, name, n, n_model, pipeline) for name, n in param_shapes(cfg)
                  if name not in trainable)
     return TrainingPlan(
         cfg_name=cfg.name,
@@ -271,11 +298,12 @@ def training_plan(
         n_model=n_model,
         trainable_params=sum(n for _, n in trainable_param_shapes(cfg, freeze_modules)),
         weights_bytes=(frozen + flat) * param_dtype_bytes,
-        grads_bytes=flat * 4,
+        grads_bytes=(part + grad_bucket_elements(part, n_data)) * 4,
         adam_m_bytes=part * mu_dtype_bytes,
         adam_v_bytes=part * 4,
         activation_reserve_bytes=int(activation_reserve_gib * GIB),
         hbm_bytes=_hbm_bytes(hbm_gib),
+        pipeline=pipeline,
     )
 
 
@@ -574,8 +602,10 @@ def training_latency(
     link terms are estimates at ``link_algo_gbps`` (the data sheet's
     NVLink rate by default, unmeasured): TP adds 4 all-reduces a layer of
     [seq, hidden] bf16 (2 forward, 2 backward), ZeRO-2 one reduce-scatter
-    of the trainable bf16 gradients a step. Valid at the measured seq only
-    (attention is quadratic in it)."""
+    of the trainable bf16 gradients a step (JAX's term; the port's
+    ``Zero2`` reduces fp32 gradients once a micro-step, twice the bytes
+    each time). Valid at the measured seq only (attention is quadratic in
+    it)."""
     costs = MEASURED_7B_TRAIN if costs is None else costs
     layers = cfg.text.num_hidden_layers
     compute_s = (costs.remainder_ms + layers * costs.per_layer_step_ms / n_model) / 1e3

@@ -31,13 +31,16 @@ one process a stage:
     summed onto the last stage (the ``psum``'s transpose), then the
     microbatches run backward in reverse order, gradients hopping stage
     s + 1 -> s;
-  * the replicated leaves' gradients (the embedding, the final norm, the
+  * each backward's gradients leave for ZeRO-2's partition as autograd
+    completes them (``parallel/sharding.py:Zero2`` with ``pp_split``,
+    per stage over the data group; ``Zero2.grad_hooks``, naming the
+    parameters the CE's backwards reach and those the layers' backwards
+    reach, so each reduces only its own buckets); after the window
+    the partition's replicated leaves (the embedding, the final norm, the
     head, tied or not) are summed over the model group, which is JAX's
     shard_map transpose: the tied embedding collects stage 0's lookup
-    gradient and every stage's CE slice; then ZeRO-2 per stage over the
-    data group (``parallel/sharding.py:Zero2`` with ``pp_split``), whose
-    global norm counts the layers of every stage and the replicated
-    leaves once.
+    gradient and every stage's CE slice. The global norm counts the layers
+    of every stage and the replicated leaves once.
 
 Every rank issues the same collectives in the same order, and the
 point-to-point calls pair up along the chain of stages; at P = 1 none is
@@ -155,11 +158,31 @@ def make_pp_train_step(cfg: ModelConfig, tcfg, optimizer, mesh: Mesh, zero):
     tp = TensorParallel(group, stage, n_stage)      # the CE's vocab split over the stages
     replicated = [n for n in zero.names if pp_split(n) is None]
     t = cfg.text
+    # the parameters each kind of backward reaches on this stage, which
+    # ZeRO-2's buckets of that backward hold (the same on every data rank)
+    head = "text.embed.weight" if t.tie_word_embeddings else "text.lm_head.weight"
+    ce_names = [n for n in zero.names if n in ("text.final_ln.weight", head)]
+    layer_names = [n for n in zero.names
+                   if (n.startswith("text.layers.") and int(n.split(".")[2]) in own)
+                   or (stage == 0 and n == "text.embed.weight")]
 
     def step(model: nn.Module, opt_state: dict, batch):
         if batch.vision_patches is not None or batch.image_patches is not None:
             raise ValueError("make_pp_train_step is text-only (the frozen-ViT recipe): the "
                              "batch carries vision fields")
+        loss_sum, count = schedule(model, batch)
+        zero.sum_over_model(replicated)
+        ints = torch.stack([count, torch.zeros_like(count)])                # count, dropped
+        dist.all_reduce(loss_sum, group=mesh.data_group)
+        dist.all_reduce(ints, group=mesh.data_group)
+        denom = torch.clamp(ints[0], min=1).float()
+        opt_state = zero.update(optimizer, opt_state, denom)
+        metrics = {"loss": loss_sum / denom, "tokens": ints[0], "ce_dropped": ints[1]}
+        return model, opt_state, metrics
+
+    def schedule(model: nn.Module, batch):
+        """The window's forwards and backwards (fill, drain, CE, backward);
+        returns this rank's loss sum and supervised count."""
         text = model.text
         layers = [text.layers[i] for i in own]
         a_n, b, s = batch.input_ids.shape
@@ -201,39 +224,34 @@ def make_pp_train_step(cfg: ModelConfig, tcfg, optimizer, mesh: Mesh, zero):
         logit_dtype = _ce_route(tcfg, dev)[1]
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         count = torch.zeros((), dtype=torch.int64, device=dev)
-        for a in range(a_n):
-            kernel = _vocab_columns(model, cfg, stage, n_stage)
-            loss, n = vocab_parallel_ce(text.final_ln(outs[a]), kernel, shifted[a], tp=tp,
-                                        v_total=t.vocab_size, chunk_size=tcfg.ce_chunk_size,
-                                        logit_dtype=logit_dtype, kernel_grad=kernel.requires_grad)
-            loss.backward()
-            zero.accumulate()
-            loss_sum += loss.detach()
-            count += n
+        with zero.grad_hooks(ce_names):
+            for a in range(a_n):
+                kernel = _vocab_columns(model, cfg, stage, n_stage)
+                loss, n = vocab_parallel_ce(text.final_ln(outs[a]), kernel, shifted[a], tp=tp,
+                                            v_total=t.vocab_size, chunk_size=tcfg.ce_chunk_size,
+                                            logit_dtype=logit_dtype,
+                                            kernel_grad=kernel.requires_grad)
+                loss.backward()
+                zero.accumulate()
+                loss_sum += loss.detach()
+                count += n
         d_outs = outs.grad
         if n_stage > 1:
             dist.reduce(d_outs, dst=last, group=group)
 
-        for a in reversed(range(a_n)):
-            x, y = stash[a]
-            if stage == n_stage - 1:
-                g = d_outs[a]
-            else:
-                g = torch.empty_like(y)
-                dist.recv(g, src=mesh.rank + 1, group=group)
-            torch.autograd.backward(y, g)
-            zero.accumulate()
-            if stage > 0:
-                dist.send(x.grad.contiguous(), dst=mesh.rank - 1, group=group)
-            stash[a] = None
-
-        zero.sum_over_model(replicated)
-        ints = torch.stack([count, torch.zeros_like(count)])                # count, dropped
-        dist.all_reduce(loss_sum, group=mesh.data_group)
-        dist.all_reduce(ints, group=mesh.data_group)
-        denom = torch.clamp(ints[0], min=1).float()
-        opt_state = zero.update(optimizer, opt_state, denom)
-        metrics = {"loss": loss_sum / denom, "tokens": ints[0], "ce_dropped": ints[1]}
-        return model, opt_state, metrics
+        with zero.grad_hooks(layer_names):
+            for a in reversed(range(a_n)):
+                x, y = stash[a]
+                if stage == n_stage - 1:
+                    g = d_outs[a]
+                else:
+                    g = torch.empty_like(y)
+                    dist.recv(g, src=mesh.rank + 1, group=group)
+                torch.autograd.backward(y, g)
+                zero.accumulate()
+                if stage > 0:
+                    dist.send(x.grad.contiguous(), dst=mesh.rank - 1, group=group)
+                stash[a] = None
+        return loss_sum, count
 
     return step

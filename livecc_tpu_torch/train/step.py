@@ -22,21 +22,28 @@ The frozen modules (``freeze_modules``, the ViT by default) get no grad
 buffers and no optimizer state; parameters are updated in place.
 
 The route follows the device: on CUDA the CE runs ``impl="fused"`` with
-bf16 logit rows (the TPU defaults), on the CPU ``impl="scan"`` in fp32;
-``ce_impl`` and ``ce_logits`` pin them.
+bf16 logit rows (the TPU defaults, or ``CE_IMPL`` / ``CE_LOGITS``), on the
+CPU ``impl="scan"`` in fp32; ``ce_impl`` and ``ce_logits`` pin them.
 
 On a mesh (``make_mesh_train_step``, JAX's step under its (data, model)
 shardings, ``train/step.py:222-262``): each data rank runs its own batch
 rows through the model-split tower (``parallel/sharding.py:shard_params``)
 and the vocab-parallel CE (``ops/chunked_ce.py:vocab_parallel_ce``, the
-same logit rows), accumulates in the flat fp32 buffer of
-``parallel/sharding.py:Zero2``, sums loss and supervised count over the
-data group, reduce-scatters the gradient, divides it by the global count,
-clips by the norm of the whole logical gradient and updates its own
-partition, then all-gathers the parameters. ``loss`` and ``tokens`` are
-global numbers. Under ``seq_shard`` each model rank's norm-weight
-gradients are its sequence block's part; the step sums them over the model
-group once a window (``Zero2.sum_over_model``), before the reduce-scatter.
+same logit rows); inside ``Zero2.grad_hooks`` each ``.grad`` leaves for
+the data rank's fp32 partition during the backward (reduced over the data
+group once a micro-step), then the step sums loss and supervised count
+over the data group, divides the gradient by the global count, clips by
+the norm of the whole logical gradient and updates its own partition, then
+all-gathers the parameters. ``loss`` and ``tokens`` are global numbers.
+Under ``seq_shard`` each model rank's norm-weight gradients are its
+sequence block's part; the step sums them over the model group once a
+window (``Zero2.sum_over_model``, on the partition).
+
+JAX's training switches are read at import as JAX reads them: ``CE_LOGITS``
+(``bf16`` | ``f32``) and ``CE_IMPL`` (``fused`` | ``scan``) set the CUDA
+route where ``TrainConfig`` leaves ``ce_logits`` / ``ce_impl`` None (the
+CPU stays ``scan`` in fp32); ``TRAIN_ATTN`` is ``ops/attention.py``'s.
+An unknown value raises.
 """
 
 from __future__ import annotations
@@ -49,12 +56,23 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from livecc_tpu_torch.core.config import ModelConfig
+from livecc_tpu_torch.core.config import ModelConfig, env_switch
 from livecc_tpu_torch.models.qwen2_vl.model import Qwen2VL, VisionInputs, forward
 from livecc_tpu_torch.models.qwen2_vl.text import check_remat
 from livecc_tpu_torch.ops.chunked_ce import IGNORE_INDEX, chunked_cross_entropy, vocab_parallel_ce
 from livecc_tpu_torch.parallel.sharding import is_sequence_partial
 from livecc_tpu_torch.parallel.tp import copy_to_model
+
+
+def ce_switches() -> tuple[str, str]:
+    """JAX's ``CE_LOGITS`` and ``CE_IMPL`` (``train/step.py:37,42``): the
+    CE's logit rows and autodiff strategy on CUDA where ``TrainConfig``
+    leaves them None."""
+    return (env_switch("CE_LOGITS", "bf16", ("bf16", "f32")),
+            env_switch("CE_IMPL", "fused", ("fused", "scan")))
+
+
+CE_LOGITS, CE_IMPL = ce_switches()          # read at import, as JAX reads them
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,9 +90,10 @@ class TrainConfig:
     max_grad_norm: float = 1.0
     freeze_modules: tuple[str, ...] = ("visual",)
     ce_chunk_size: int = 1024
-    # CE autodiff strategy: None = by device (CUDA "fused", CPU "scan")
+    # CE autodiff strategy: None = by device (CUDA CE_IMPL, "fused" by default; CPU "scan")
     ce_impl: Optional[str] = None
-    # CE logit rows: None = by device (CUDA "bf16", CPU "f32"), or "bf16"/"f32"
+    # CE logit rows: None = by device (CUDA CE_LOGITS, "bf16" by default; CPU "f32"),
+    # or "bf16"/"f32"
     ce_logits: Optional[str] = None
     # gather only the supervised positions into a [ce_sup_bucket] buffer
     # before the vocab projection; overflow is dropped and counted
@@ -224,8 +243,8 @@ class Batch:
 
 def _ce_route(tcfg: TrainConfig, device: torch.device) -> tuple[str, Optional[torch.dtype]]:
     on_cuda = device.type == "cuda"
-    impl = tcfg.ce_impl or ("fused" if on_cuda else "scan")
-    logits = tcfg.ce_logits or ("bf16" if on_cuda else "f32")
+    impl = tcfg.ce_impl or (CE_IMPL if on_cuda else "scan")
+    logits = tcfg.ce_logits or (CE_LOGITS if on_cuda else "f32")
     if logits not in ("bf16", "f32"):
         raise ValueError(f"ce_logits must be 'bf16' or 'f32', got {logits!r}")
     return impl, (torch.bfloat16 if logits == "bf16" else None)
@@ -333,12 +352,13 @@ def make_mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, optimizer: AdamW, 
         dev = batch.input_ids.device
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         ints = torch.zeros((2,), dtype=torch.int64, device=dev)      # count, dropped
-        for i in range(batch.accum):
-            loss, (count, dropped) = loss_fn(model, cfg, tcfg, batch.micro(i))
-            loss.backward()
-            zero.accumulate()
-            loss_sum += loss.detach()
-            ints += torch.stack([count, dropped])
+        with zero.grad_hooks():
+            for i in range(batch.accum):
+                loss, (count, dropped) = loss_fn(model, cfg, tcfg, batch.micro(i))
+                loss.backward()
+                zero.accumulate()
+                loss_sum += loss.detach()
+                ints += torch.stack([count, dropped])
         zero.sum_over_model(seq_partial)
         dist.all_reduce(loss_sum, group=data_group)
         dist.all_reduce(ints, group=data_group)

@@ -15,14 +15,24 @@ each case under its own timeout. The JAX references run here, on the
   * ``vocab_parallel_ce`` over 2 ranks against JAX's under ``shard_map`` at
     V = 64 and V = 61 (pad columns): loss within 1e-6, count equal, both
     gradients within 1e-5 norm-relative, the pad columns' gradient 0;
-  * two windows (accum 2) at 2x2 against JAX's ``make_train_step`` jitted
-    on a 2x2 mesh in ``Trainer``'s layout (``trainer.py:92-112``), clipping
-    firing (JAX's first-window mu holds a gradient of norm
-    ``max_grad_norm``): losses within 1e-5, tokens equal, every parameter
-    and both moments within 1e-5 relative + 1e-6 (mu) / 1e-9 (nu) absolute,
-    the replicated parameters bit-equal across the model ranks; 2x1 and
-    1x2 (also with ``ce_sup_bucket``) against the port's single-device
-    step the same way;
+  * two windows (accum 2) at 2x2 and 2x1 against JAX's ``make_train_step``
+    jitted on a mesh of that shape in ``Trainer``'s layout
+    (``trainer.py:92-112``), clipping firing (JAX's first-window mu holds a
+    gradient of norm ``max_grad_norm``): losses within 1e-5, tokens equal,
+    every parameter and both moments within 1e-5 relative + 1e-6 (mu) /
+    1e-9 (nu) absolute, the replicated parameters bit-equal across the
+    model ranks; 2x1 and 1x2 (also with ``ce_sup_bucket``) against the
+    port's single-device step the same way. The ranks' ``Zero2`` stages
+    its gradients through a bucket of ``BUCKET`` elements (each partition
+    cut into several buckets, each reduced once a micro-step); 2x1 also
+    with the ViT trained and video in data rank 0's rows only (rank 1's
+    forward skips the ViT) against the single-device step;
+  * ZeRO-2 holds only the partition: on every rank at 2x1 and 2x2 the fp32
+    gradient is ``part`` elements, ``Zero2``'s fp32 gradient buffers total
+    the plan's ``grads_bytes`` exactly, no trainable parameter holds a
+    ``.grad`` after a backward, and no hook is left after the steps; the
+    same runs with one bucket's reduction skipped (a planted fault) fail
+    the parameter and moment limits;
   * ``torchrun -m livecc_tpu_torch.train.cli --mesh 2x1 --device cpu`` for
     3 steps on a text corpus: ``log.jsonl``'s losses within 1e-5 and tokens
     equal to JAX ``Trainer(mesh=make_mesh(2, 1))`` on the same weights,
@@ -176,6 +186,76 @@ def window_samples():
     return [make_sample(tiny_config(), n, rng, with_video=True) for n in (30, 44, 26, 36)]
 
 
+def mixed_samples():
+    """``window_samples``' lengths with video in the even rows only: at 2x1
+    data rank 1's rows carry none, so its steps skip the ViT."""
+    rng = np.random.RandomState(7)
+    return [make_sample(tiny_config(), n, rng, with_video=i % 2 == 0)
+            for i, n in enumerate((30, 44, 26, 36))]
+
+
+# the ViT trained too (``--freeze_modules`` with no module)
+VIT_KW = dict(STEP_KW, freeze_modules=())
+
+# Zero2's staging bucket in the ranks: smaller than a data rank's partition of
+# the tiny model (about 51k-103k elements), so each partition is cut into
+# several buckets and a micro-step reduces several
+BUCKET = 30_000
+
+
+@pytest.fixture(scope="module")
+def step_runs(tmp_path_factory, jax_params):
+    """``(n_data, n_model, ce_sup_bucket) -> `` rank 0's results of the
+    ``step`` case over two windows of ``window_samples`` (each mesh
+    launched once; at n_data > 1 with the planted run too, and at 2x1 with
+    a run of ``mixed_samples`` under ``VIT_KW`` in ``also``)."""
+    cache = {}
+
+    def run(n_data, n_model, ce_bucket=None):
+        key = (n_data, n_model, ce_bucket)
+        if key not in cache:
+            also = [dict(samples=mixed_samples(), tcfg=VIT_KW)] if key == (2, 1, None) else []
+            cache[key], = run_ranks(tmp_path_factory.mktemp("step"), ("step", n_data, n_model, dict(
+                params=numpy_tree(jax_params), samples=window_samples(),
+                tcfg=dict(STEP_KW, ce_sup_bucket=ce_bucket), windows=2, bucket=BUCKET,
+                plant=n_data > 1, also=also)))
+        return cache[key]
+
+    return run
+
+
+@pytest.fixture(scope="module")
+def jax_sharded(tmp_path_factory, jax_params):
+    """``(n_data, n_model) ->`` two windows of JAX's step jitted on its
+    mesh with ``Trainer``'s shardings (the same batch each window): (the
+    metrics, parameters, mu, nu in the port's names)."""
+    cache = {}
+
+    def run(n_data, n_model):
+        if (n_data, n_model) in cache:
+            return cache[n_data, n_model]
+        cfg, jcfg = tiny_config(), jax_tiny_config()
+        jc = jstep.TrainConfig(**STEP_KW)
+        mesh = jax_make_mesh(n_data=n_data, n_model=n_model,
+                             devices=jax.devices()[:n_data * n_model])
+        jt = jtrainer.Trainer(jax_params, jcfg, jc, jtrainer.TrainerConfig(
+            output_dir=str(tmp_path_factory.mktemp("jax")), resume=False), dataset=[], mesh=mesh)
+        batch = jt._place_batch(jdata.collate(window_samples(), jcfg, rows=2))
+        params, state, jmetrics = jt.params, jt.opt_state, []
+        for w in range(2):
+            params, state, m = jt.step_fn(params, state, batch)
+            jmetrics.append(m)
+            if w == 0:  # mu = (1 - b1) * clipped g: clipping fired iff its norm is the max
+                g = jnp.sqrt(sum(jnp.sum(x.astype(jnp.float32) ** 2)
+                                 for x in jax.tree_util.tree_leaves(state[1][0].mu)))
+                assert abs(float(g) / (1 - jc.adam_b1) - jc.max_grad_norm) < 1e-6
+        cache[n_data, n_model] = (jmetrics, *(port_names(numpy_tree(t), cfg) for t in (
+            params, state[1][0].mu, state[1][0].nu)))
+        return cache[n_data, n_model]
+
+    return run
+
+
 # ---------------------------------------------------------------------------
 # layout and split rules (no processes)
 # ---------------------------------------------------------------------------
@@ -285,62 +365,122 @@ def check_state(out, params, mu, nu, cfg):
     assert out["replicated_in_sync"]
 
 
-def test_mesh_step_2x2_matches_jax_sharded_step(tmp_path, jax_params):
+def hold_jax(out, ref, cfg):
+    """A run's losses, tokens and gathered state against ``jax_sharded``'s."""
+    jmetrics, params, mu, nu = ref
+    for mine, m in zip(out["metrics"], jmetrics):
+        np.testing.assert_allclose(mine["loss"], float(m["loss"]), rtol=1e-5)
+        assert mine["tokens"] == int(m["tokens"]) > 0
+    check_state(out, params, mu, nu, cfg)
+
+
+def test_mesh_step_2x2_matches_jax_sharded_step(step_runs, jax_sharded):
     """Two windows of accum 2 on a 2x2 mesh against JAX's step jitted on its
     2x2 mesh with ``Trainer``'s shardings (the same batch each window)."""
-    cfg, jcfg = tiny_config(), jax_tiny_config()
-    xs = window_samples()
-    jc = jstep.TrainConfig(**STEP_KW)
-    mesh = jax_make_mesh(n_data=2, n_model=2, devices=jax.devices()[:4])
-    jt = jtrainer.Trainer(jax_params, jcfg, jc, jtrainer.TrainerConfig(
-        output_dir=str(tmp_path / "jax"), resume=False), dataset=[], mesh=mesh)
-    batch = jt._place_batch(jdata.collate(xs, jcfg, rows=2))
-    params, state, jmetrics = jt.params, jt.opt_state, []
-    for w in range(2):
-        params, state, m = jt.step_fn(params, state, batch)
-        jmetrics.append(m)
-        if w == 0:      # mu = (1 - b1) * clipped g: clipping fired iff its norm is the max
-            g = jnp.sqrt(sum(jnp.sum(x.astype(jnp.float32) ** 2)
-                             for x in jax.tree_util.tree_leaves(state[1][0].mu)))
-            assert abs(float(g) / (1 - jc.adam_b1) - jc.max_grad_norm) < 1e-6
-    out, = run_ranks(tmp_path, ("step", 2, 2, dict(
-        params=numpy_tree(jax_params), samples=xs, tcfg=STEP_KW, windows=2)))
-    for mine, ref in zip(out["metrics"], jmetrics):
-        np.testing.assert_allclose(mine["loss"], float(ref["loss"]), rtol=1e-5)
-        assert mine["tokens"] == int(ref["tokens"]) > 0
-    check_state(out, port_names(numpy_tree(params), cfg),
-                port_names(numpy_tree(state[1][0].mu), cfg),
-                port_names(numpy_tree(state[1][0].nu), cfg), cfg)
+    hold_jax(step_runs(2, 2), jax_sharded(2, 2), tiny_config())
 
 
-@pytest.mark.parametrize("n_data,n_model,bucket", [(2, 1, None), (1, 2, None), (1, 2, 48)])
-def test_mesh_step_matches_single_device_step(tmp_path, jax_params, n_data, n_model, bucket):
-    """2x1 (2 rows a micro-step over 2 data ranks) and 1x2 (the model split
-    in two), the latter also with ``ce_sup_bucket`` (each model rank
-    gathers the same supervised rows), against the port's single-device
-    step on the same window."""
+def test_mesh_step_2x1_matches_jax_sharded_step(step_runs, jax_sharded):
+    """The same at 2x1: ZeRO-2 over two data ranks, the model whole."""
+    hold_jax(step_runs(2, 1), jax_sharded(2, 1), tiny_config())
+
+
+def single_device_windows(jax_params, n_data, ce_bucket=None, samples=None, kw=STEP_KW):
+    """Two windows of the port's single-device step under ``kw`` on
+    ``samples`` (``window_samples`` by default) collated as a mesh of
+    ``n_data`` data ranks takes them: (metrics, parameters, mu, nu)."""
     cfg = tiny_config()
-    xs = window_samples()
-    kw = dict(STEP_KW, ce_sup_bucket=bucket)
-    tcfg = pstep.TrainConfig(**kw)
+    tcfg = pstep.TrainConfig(**dict(kw, ce_sup_bucket=ce_bucket))
     model = pm.params_from_jax(numpy_tree(jax_params), cfg)
     opt = pstep.make_optimizer(tcfg)
     state = opt.init(pstep.split_frozen(model, tcfg.freeze_modules)[0])
     step = pstep.make_train_step(cfg, tcfg, opt)
-    batch = pdata.collate(xs, cfg, rows=n_data, device="cpu")
+    batch = pdata.collate(samples or window_samples(), cfg, rows=n_data, device="cpu")
     ref = []
     for _ in range(2):
         model, state, m = step(model, state, batch)
         ref.append(m)
-    out, = run_ranks(tmp_path, ("step", n_data, n_model, dict(
-        params=numpy_tree(jax_params), samples=xs, tcfg=kw, windows=2)))
+    return (ref, {n: p.detach().numpy() for n, p in model.named_parameters()},
+            {n: t.numpy() for n, t in state["mu"].items()},
+            {n: t.numpy() for n, t in state["nu"].items()})
+
+
+@pytest.mark.parametrize("n_data,n_model,bucket", [(2, 1, None), (1, 2, None), (1, 2, 48)])
+def test_mesh_step_matches_single_device_step(step_runs, jax_params, n_data, n_model, bucket):
+    """2x1 (2 rows a micro-step over 2 data ranks) and 1x2 (the model split
+    in two), the latter also with ``ce_sup_bucket`` (each model rank
+    gathers the same supervised rows), against the port's single-device
+    step on the same window."""
+    ref, params, mu, nu = single_device_windows(jax_params, n_data, bucket)
+    out = step_runs(n_data, n_model, bucket)
     for mine, m in zip(out["metrics"], ref):
         np.testing.assert_allclose(mine["loss"], float(m["loss"]), rtol=1e-5)
         assert mine["tokens"] == int(m["tokens"]) > 0
         assert mine["ce_dropped"] == int(m["ce_dropped"]) == 0
-    check_state(out, {n: p.detach().numpy() for n, p in model.named_parameters()},
-                {n: t.numpy() for n, t in state["mu"].items()},
-                {n: t.numpy() for n, t in state["nu"].items()}, cfg)
+    check_state(out, params, mu, nu, tiny_config())
+
+
+def test_mesh_step_trains_a_vit_one_data_rank_skips(step_runs, jax_params):
+    """At 2x1 with the ViT trained, data rank 0's rows carry video and rank
+    1's none (its forward skips the ViT, so the ViT's parameters get no
+    gradient there): both ranks still reduce the same buckets, rank 1's ViT
+    part as zeros, and the two windows match the port's single-device step
+    on the same rows, with the ViT's moments nonzero."""
+    ref, params, mu, nu = single_device_windows(jax_params, 2, samples=mixed_samples(),
+                                                kw=VIT_KW)
+    out, = step_runs(2, 1)["also"]
+    for mine, m in zip(out["metrics"], ref):
+        np.testing.assert_allclose(mine["loss"], float(m["loss"]), rtol=1e-5)
+        assert mine["tokens"] == int(m["tokens"]) > 0
+    assert any(name.startswith("visual.") for name in mu)
+    assert max(np.abs(t).max() for name, t in mu.items() if name.startswith("visual.")) > 0
+    check_state(out, params, mu, nu, tiny_config())
+    check_partition(out["zero"], 4)
+    assert len({f["reduces"] for f in out["zero"]}) == 1
+
+
+def check_partition(facts, micro_steps):
+    """Every rank's ``torch_mesh_worker.zero_facts``: the fp32 gradient is
+    the partition, its buffers and the parameters are the plan's bytes, no
+    ``.grad`` after any backward, no hook after the steps."""
+    assert sorted(f["rank"] for f in facts) == list(range(len(facts)))
+    for f in facts:
+        assert f["grad_numel"] == f["part"] and f["flat"] % f["part"] == 0, f
+        assert f["fp32_grad_bytes"] == f["plan_grads_bytes"], f
+        assert f["weights_bytes"] == f["plan_weights_bytes"], f
+        assert f["grads_left"] == [0] * micro_steps, f
+        assert f["hooked"] == 0, f
+
+
+@pytest.mark.parametrize("n_data,n_model", [(2, 1), (2, 2)])
+def test_zero2_holds_only_the_partition(step_runs, n_data, n_model):
+    """At 2x1 and 2x2, on every rank: ``zero.grad`` is ``part`` elements
+    (half the flat buffer), its fp32 buffers (partition and bucket) are the
+    plan's ``grads_bytes``, no ``.grad`` survives a backward (2 windows x
+    accum 2), the hooks are gone after the step, and the bucket, smaller
+    than the flat buffer, was reduced several times a micro-step."""
+    facts = step_runs(n_data, n_model)["zero"]
+    check_partition(facts, 4)
+    for f in facts:
+        assert f["flat"] == n_data * f["part"] and 0 < f["bucket"] == BUCKET < f["flat"]
+        assert f["reduces"] >= 4 * -(-f["flat"] // BUCKET), f
+    assert len({f["reduces"] for f in facts}) == 1
+
+
+@pytest.mark.parametrize("n_data,n_model", [(2, 1), (2, 2)])
+def test_a_skipped_bucket_reduction_fails(step_runs, jax_sharded, jax_params, n_data, n_model):
+    """The same windows with the first bucket run's ``dist.reduce`` skipped
+    on every rank (its owner keeps only its own gradient there) fail the
+    parameter and moment limits that the real run meets, against JAX's
+    sharded step (2x2) and the port's single-device step (2x1)."""
+    planted = step_runs(n_data, n_model)["planted"]
+    cfg = tiny_config()
+    if n_model == 2:
+        ref = jax_sharded(2, 2)[1:]
+    else:
+        ref = single_device_windows(jax_params, n_data)[1:]
+    with pytest.raises(AssertionError):
+        check_state(planted, *ref, cfg)
 
 
 # ---------------------------------------------------------------------------

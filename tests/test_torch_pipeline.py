@@ -20,6 +20,11 @@ parameters):
   * a packed batch (int32 segment ids, S = 45) at (1, 2) against JAX's
     single-device step.
 
+``Zero2`` stages its gradients through ``test_torch_mesh.BUCKET`` elements;
+on every rank it holds only the data rank's partition of its stage's fp32
+gradient (``test_torch_mesh.check_partition`` against the plan with
+``pipeline=True``).
+
 Limits, ``tests/test_pipeline.py``'s: loss within 1e-5 relative, tokens
 equal, parameters and the AdamW moments within 2e-4 relative + 1e-6 (nu:
 1e-9) absolute. Besides: ``pp_split`` against JAX ``pp_param_pspecs``
@@ -53,7 +58,7 @@ from livecc_tpu_torch.parallel.pipeline import (
     OtherStage, make_pp_train_step, pp_split, shard_params_pp)
 from livecc_tpu_torch.parallel.sharding import Zero2
 from livecc_tpu_torch.train import step as pstep
-from test_torch_mesh import STEP_KW, close, numpy_tree, port_names
+from test_torch_mesh import BUCKET, STEP_KW, check_partition, close, numpy_tree, port_names
 from test_torch_seq_shard import collect, launch, packed_batch
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -94,7 +99,7 @@ def jax_init(layers, tied):
 def worker_case(name):
     layers, tied, batch = CASES[name]
     return dict(kind="pp", params=numpy_tree(jax_init(layers, tied)), layers=layers, tied=tied,
-                batch=BATCHES[batch], tcfg=STEP_KW, windows=2)
+                batch=BATCHES[batch], tcfg=STEP_KW, windows=2, bucket=BUCKET)
 
 
 @pytest.fixture(scope="module")
@@ -207,6 +212,19 @@ def test_pp_point_to_point_calls(results, mesh):
         edges = (r["stage"] > 0) + (r["stage"] < n_stage - 1)
         want = edges * r["accum"] * len(r["metrics"])
         assert r["calls"].get("send", 0) == r["calls"].get("recv", 0) == want
+
+
+@pytest.mark.parametrize("mesh", [(1, 2), (2, 2)], ids=lambda m: f"{m[0]}x{m[1]}")
+def test_zero2_holds_only_the_partition(results, mesh):
+    """On every rank (each stage at each data index): the fp32 gradient is
+    the data rank's partition of its stage's flat buffer, ``Zero2``'s fp32
+    buffers the plan's ``grads_bytes`` (``pipeline=True``), no ``.grad``
+    after any of the window's backwards (A for the CE, A for the layers),
+    no hook after the steps."""
+    ranks = results[mesh]["text"]
+    for r in ranks:
+        check_partition(r["zero"], 2 * r["accum"] * len(r["metrics"]))
+        assert all(f["flat"] == mesh[0] * f["part"] for f in r["zero"])
 
 
 @pytest.mark.parametrize("tied", [False, True])

@@ -23,6 +23,11 @@ remat=True unless it says otherwise:
     planted fault: the gradient that reaches the exit is already the whole
     sum on every model rank, so a reduce-scatter doubles it at M = 2).
 
+``Zero2`` stages its gradients through ``test_torch_mesh.BUCKET`` elements.
+On every rank of both meshes it holds only the data rank's partition of
+the fp32 gradient (``test_torch_mesh.check_partition``: the plan's
+``grads_bytes``, no ``.grad`` after a backward, no hook after the steps).
+
 Limits: against JAX (2x2 ``video``, 1x2 ``packed``): losses within 1e-5,
 tokens equal, parameters and both moments within 1e-5 relative + 1e-6
 (nu: 1e-9) absolute, as ``tests/test_torch_mesh.py``; against the port's
@@ -52,7 +57,8 @@ from livecc_tpu.train import trainer as jtrainer
 from livecc_tpu_torch.core.config import tiny_config
 from livecc_tpu_torch.models import qwen2_vl as pm
 from livecc_tpu_torch.models.qwen2_vl.text import text_forward
-from test_torch_mesh import STEP_KW, close, numpy_tree, port_names, window_samples
+from test_torch_mesh import (BUCKET, STEP_KW, check_partition, close, numpy_tree, port_names,
+                             window_samples)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -139,7 +145,7 @@ def masked_batch(seed, accum, rows, s=37):
 
 
 def cases_for(params, n_data, names):
-    base = dict(kind="sp", params=params, tcfg=STEP_KW, windows=2)
+    base = dict(kind="sp", params=params, tcfg=STEP_KW, windows=2, bucket=BUCKET)
     table = {"video": dict(samples=window_samples()),
              "packed": dict(batch=packed_batch(3, 2, n_data)),
              "masked": dict(batch=masked_batch(4, 2, n_data), tcfg=dict(STEP_KW, remat=False)),
@@ -266,20 +272,38 @@ def test_seq_shard_collectives_per_micro_step(results, mesh, case):
     and the entry's); reduce-scatters 2L forward and 2L backward; under
     remat=True the recompute of each layer re-issues its two gathers and
     o's reduce-scatter (torch's checkpoint stops once down_proj has saved
-    its input, before down's reduce-scatter); plus ZeRO-2's one
-    reduce-scatter and one all-gather a window. The TP step issues only
-    ZeRO-2's."""
+    its input, before down's reduce-scatter); plus ZeRO-2's one all-gather
+    a window (its gradient is reduced into the partition during the
+    backward, with no reduce-scatter at the update). The TP step issues
+    only ZeRO-2's."""
     r = results[mesh][case]
     n_layers = tiny_config().text.num_hidden_layers
     remat = case != "masked"
     micro = r["sp"]["micro_steps"]
     windows = len(r["sp"]["metrics"])
     gathers = (4 * n_layers + 2 + (2 * n_layers if remat else 0)) * micro + windows
-    scatters = (4 * n_layers + (n_layers if remat else 0)) * micro + windows
+    scatters = (4 * n_layers + (n_layers if remat else 0)) * micro
     assert r["sp"]["calls"].get("all_gather", 0) == gathers
     assert r["sp"]["calls"].get("reduce_scatter", 0) == scatters
-    assert r["tp"]["calls"].get("all_gather", 0) == r["tp"]["calls"].get("reduce_scatter", 0) \
-        == windows
+    assert r["tp"]["calls"].get("all_gather", 0) == windows
+    assert r["tp"]["calls"].get("reduce_scatter", 0) == 0
+
+
+@pytest.mark.parametrize("mesh,case", [("1x2", "video"), ("2x2", "video"), ("2x2", "packed")])
+def test_zero2_holds_only_the_partition(results, mesh, case):
+    """On every rank, in both the SP and the TP run: the fp32 gradient is
+    the data rank's partition and the plan's bytes, no ``.grad`` after a
+    backward, no hook after the steps; at 2x2 the bucket was reduced at
+    least once a micro-step, the same number of times on every rank, and
+    at 1x2 (one data rank) never."""
+    for run in (results[mesh][case]["sp"], results[mesh][case]["tp"]):
+        facts = run["zero"]
+        check_partition(facts, run["micro_steps"])
+        reduces = {f["reduces"] for f in facts}
+        if mesh == "1x2":
+            assert reduces == {0} and all(f["bucket"] == 0 for f in facts)
+        else:
+            assert len(reduces) == 1 and min(reduces) >= run["micro_steps"]
 
 
 def test_seq_shard_needs_a_model_group():

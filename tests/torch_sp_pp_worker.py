@@ -16,12 +16,16 @@ Kinds of case:
     by ``shard_params``, with ``seq_shard`` on and then off (the port's TP
     step on the same inputs), from the same weights; the gathered state
     after each, the replicated parameters' agreement across the model
-    ranks and the all-gathers / reduce-scatters each run issued.
+    ranks, the all-gathers / reduce-scatters each run issued and every
+    rank's ZeRO-2 facts (``torch_mesh_worker.zero_facts``).
     ``exit_doubled`` reduce-scatters the gradient at the tower's exit (a
     planted fault: it multiplies that gradient by M).
   * ``pp``: ``windows`` steps of ``make_pp_train_step`` on a model cut by
-    ``shard_params_pp``; this stage's parameters and AdamW moments and the
-    point-to-point calls it issued.
+    ``shard_params_pp``; this stage's parameters and AdamW moments, the
+    point-to-point calls it issued and every rank's ZeRO-2 facts.
+
+``bucket`` sets ``parallel/sharding.py``'s ``GRAD_BUCKET`` for the case
+(``Zero2``'s staging bucket and the plan's count of it).
 
 A case's batch is either ``samples`` (processed samples, collated into
 micro-step a's row d = ``samples[a * n_data + d]``) or ``batch`` (whole
@@ -46,10 +50,14 @@ from livecc_tpu_torch.models.qwen2_vl.bridge import params_from_jax  # noqa: E40
 from livecc_tpu_torch.parallel import tp as ptp  # noqa: E402
 from livecc_tpu_torch.parallel.pipeline import (  # noqa: E402
     make_pp_train_step, pp_split, shard_params_pp)
+from livecc_tpu_torch.parallel import sharding  # noqa: E402
 from livecc_tpu_torch.parallel.sharding import (  # noqa: E402
     Zero2, gather_state, shard_params, split_dim)
 from livecc_tpu_torch.train import data as pdata  # noqa: E402
 from livecc_tpu_torch.train import step as pstep  # noqa: E402
+from torch_mesh_worker import Reductions, plan_for, watch, zero_facts  # noqa: E402
+
+GRAD_BUCKET = sharding.GRAD_BUCKET
 
 # op -> the torch function the port calls for it (``parallel/tp.py``'s flat
 # collectives take torch's newer name where it has one)
@@ -114,12 +122,13 @@ def sp_run(case, mesh, seq_shard):
     zero = Zero2(pstep.split_frozen(model, tcfg.freeze_modules)[0], mesh)
     state = zero.init_state(tcfg.adam_mu_dtype)
     step = pstep.make_mesh_train_step(cfg, tcfg, pstep.make_optimizer(tcfg), zero)
+    left = watch(zero)
     metrics = []
     real = ptp._GatherSequenceExit.backward
     if case.get("exit_doubled") and seq_shard:
         ptp._GatherSequenceExit.backward = staticmethod(doubled_exit)
     try:
-        with Counted() as counted:
+        with Counted() as counted, Reductions() as reduces:
             for _ in range(case["windows"]):
                 model, state, m = step(model, state, batch)
                 metrics.append({k: float(v) for k, v in m.items()})
@@ -131,9 +140,11 @@ def sp_run(case, mesh, seq_shard):
             parts = [torch.empty_like(p) for _ in range(mesh.n_model)]
             dist.all_gather(parts, p.detach(), group=mesh.model_group)
             in_sync &= all(torch.equal(parts[0], x) for x in parts)
+    plan = plan_for(cfg, mesh, tcfg, zero)
     return {"metrics": metrics, "state": gather_state(model, zero, state, case["windows"]),
             "replicated_in_sync": in_sync, "calls": dict(counted.calls),
-            "micro_steps": batch.accum * case["windows"]}
+            "micro_steps": batch.accum * case["windows"],
+            "zero": zero_facts(model, zero, plan, left, reduces.calls)}
 
 
 def case_sp(case, mesh):
@@ -149,6 +160,7 @@ def case_pp(case, mesh):
     zero = Zero2(pstep.split_frozen(model, tcfg.freeze_modules)[0], mesh, split=pp_split)
     state = zero.init_state(tcfg.adam_mu_dtype)
     step = make_pp_train_step(cfg, tcfg, pstep.make_optimizer(tcfg), mesh, zero)
+    left = watch(zero)
     metrics = []
     with Counted() as counted:
         for _ in range(case["windows"]):
@@ -157,9 +169,11 @@ def case_pp(case, mesh):
     params = {n: p.detach().clone() for n, p in model.named_parameters()}
     moments = {key: {n: zero.gather_moment(state[key], n) for n in zero.names}
                for key in ("mu", "nu")}
+    plan = plan_for(cfg, mesh, tcfg, zero, pipeline=True)
     return {"metrics": metrics, "params": params, "moments": moments, "stage": mesh.m,
             "data": mesh.d, "calls": dict(counted.calls),
-            "accum": batch.accum}
+            "accum": batch.accum,
+            "zero": zero_facts(model, zero, plan, left, 0)}
 
 
 def main():
@@ -172,7 +186,10 @@ def main():
     with open(os.path.join(io_dir, "args.pkl"), "rb") as f:
         cases = pickle.load(f)
     kinds = {"sp": case_sp, "pp": case_pp}
-    out = [kinds[case["kind"]](case, mesh) for case in cases]
+    out = []
+    for case in cases:
+        sharding.GRAD_BUCKET = case.get("bucket", GRAD_BUCKET)
+        out.append(kinds[case["kind"]](case, mesh))
     dist.barrier()
     dist.destroy_process_group()
     if "jax" in sys.modules:
