@@ -436,6 +436,9 @@ K4_GRAD_NORM_TOL = 2e-2    # bf16 gradients against the fp32 plain version: ||g 
 # K4 at one tensor-parallel rank's heads of the 7B (Hq / M, Hk / M) for M = 2 and 4,
 # on the packed rows of K4_CASES' timed case
 K4_TP_HEADS = ((2, 14, 2), (4, 7, 1))
+# and the one-segment yardstick's long form: the forward alone at the eval and
+# train_cli rows' bucket
+K4_LONG_S = 32768
 # eval: VideoMME items at the 720p budget (EVAL_FRAMES frames of a 720x1280
 # source at 2 fps, served at the budget's 560x1008: 32 groups of g = 2880,
 # the 32768 bucket), the reduced item (8 frames of 560x1008: 4 groups, the
@@ -956,7 +959,8 @@ def phase_k4(results, check, times, yardsticks, randn):
     """K4 forward and backward against the plain version at the training
     shape: packed rows of 4096 (bf16, strided q), 1000 (fp32) and 8192
     (bf16, timed, with the bound and the library call on the same inputs);
-    then the one-segment yardstick against SDPA's causal kernel.
+    then the one-segment yardstick against SDPA's causal kernel (fwd and
+    fwd+bwd at 8192, the forward at ``K4_LONG_S``).
 
     o and lse, and fp32 gradients, are held to the plain version on the
     same inputs in the same dtype, which rounds p and ds as the kernels do,
@@ -979,7 +983,9 @@ def phase_k4(results, check, times, yardsticks, randn):
     within ``K4_GRAD_NORM_TOL`` norm-relative) and must give the same bits
     in a second launch. The timed case gives one-call times (``cuda_ms``)
     of kernel, plain version and SDPA, and the kernel's device time
-    (``graph_ms``)."""
+    (``graph_ms``). The one-segment yardstick's forward is held to the
+    blocked plain version (``kernel_check.train_attention_fwd_blocked``) by
+    ``close``, which a dropped tile pair must fail."""
     import torch
     import torch.nn.functional as F
 
@@ -1092,12 +1098,36 @@ def phase_k4(results, check, times, yardsticks, randn):
         del qs, k, v, do, o, lse, grads
         torch.cuda.empty_cache()
 
-    # the one-segment yardstick: K4 and SDPA's causal kernel, fwd and fwd+bwd
+    # the one-segment yardstick: K4 and SDPA's causal kernel, fwd and fwd+bwd;
+    # the forward held to the blocked plain version in its dtypes (o bf16,
+    # lse fp32) by close, which must fail a dropped tile pair (key tile 7 of
+    # query tile 15: rows of ~1000 keys, so one tile moves them past the limit)
     s = K4_CASES[-1][0]
     qs, k, v, do = inputs(s, torch.bfloat16, False)
     seg = segment_ids(s, (s,), dev)
     fwd = cuda_ms(lambda: train_attention_fwd(qs, k, v, seg))
     o, lse = train_attention_fwd(qs, k, v, seg)
+    ro, rlse = kernel_check.train_attention_fwd_blocked(qs, k, v, seg)
+    fault = kernel_check.dropped_fwd_tile(qs, k, v, seg, ro, rlse, 15, 7, 3)
+    torch.cuda.synchronize()
+    label = f"one segment S={s} bf16"
+    for part, out, ref, bad, tol in (("o", o, ro, fault[0], torch.bfloat16),
+                                     ("lse", lse, rlse, fault[1], torch.float32)):
+        w, w_bad = kernel_check.close(out, ref, tol), kernel_check.close(bad, ref, tol)
+        err = (out.float() - ref.float()).abs().max().item()
+        log(f"  {'train_attention_fwd':20s} {label} {part}: max_abs_err {err:.3e}, worst {w:.3f} "
+            f"of the limit (close {kernel_check.TOL[tol]} against the blocked plain version); a "
+            f"dropped tile pair: {w_bad:.1f}x")
+        if not w <= 1.0:
+            raise AssertionError(f"train_attention_fwd {label} {part}: {w:.3f}x the limit")
+        if not w_bad > 1.0:
+            raise AssertionError(f"train_attention_fwd {label} {part}: the check passes a dropped "
+                                 f"tile")
+        if part == "o":
+            r = results["train_attention_fwd"]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+    del ro, rlse, fault
+    torch.cuda.empty_cache()
     both = fwd + cuda_ms(lambda: train_attention_bwd(qs, k, v, seg, o, lse, do))
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (qs, k, v, do))
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0,
@@ -1115,6 +1145,30 @@ def phase_k4(results, check, times, yardsticks, randn):
         f"{flops / PEAK_FLOPS * 1e3:.4f} ms, fwd+bwd {3.5 * flops / PEAK_FLOPS * 1e3:.4f} ms")
     results["train_attention_fwd"]["one_segment"] = {"ms": fwd, "library_ms": lib_fwd}
     results["train_attention_bwd"]["one_segment"] = {"fwd_bwd_ms": both, "library_fwd_bwd_ms": lib}
+    del qs, k, v, do, o, lse, qt, kt, vt, dot, leaves
+    torch.cuda.empty_cache()
+
+    # and the forward alone at one segment of 32768 (the eval and train_cli
+    # rows' bucket; held at those rows by phase_eval and phase_train_cli)
+    s = K4_LONG_S
+    qs, k, v, _ = inputs(s, torch.bfloat16, False)
+    seg = segment_ids(s, (s,), dev)
+    qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
+
+    def fwd_fn():
+        return train_attention_fwd(qs, k, v, seg)
+
+    r = {"ms": cuda_ms(fwd_fn), "graph_ms": graph_ms(fwd_fn),
+         "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+             qt, kt, vt, is_causal=True, scale=1.0, enable_gqa=True))}
+    flops = 4 * (s * (s + 1) // 2) * d * hq
+    r["bound_ms"], r["bound_by"] = bound(flops, 2 * (2 * s * hq * d + 2 * s * hk * d))
+    log(f"  {'train_attention_fwd':20s} one segment S={s}: K4 one call {r['ms']:.3f} ms, device "
+        f"{r['graph_ms']:.3f} ms; SDPA causal {r['library_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}; {flops / 1e12:.3f} TFLOP)")
+    results["train_attention_fwd"]["one_segment_long"] = r
+    del qs, k, v, qt, kt, vt, fwd_fn
+    torch.cuda.empty_cache()
 
 
 def phase_k4_noncausal(results, randn):

@@ -1,83 +1,71 @@
 // K4 training attention (splash semantics) for bf16 operands on the tensor
-// cores: the forward with log-sum-exp, and the backward's dK/dV and dQ
-// kernels. fp32 operands stay on the FMA kernels of train_attention.cuh,
-// whose contract and numerics these kernels keep (see there): query i
-// attends key j iff seg[i] == seg[j] and, in the causal form, j <= i (the
-// kCausal template flag; without it, splash's FullMask), q pre-scaled and rounded,
-// masked scores at kSplashMask with p = 0, lse = m + log l in fp32, and
-// di = rowsum(o * do) computed outside the kernels.
+// cores: the backward's dK/dV and dQ kernels, and the live-tile walk that
+// they and the forward (train_wgmma_attention.cuh) share. fp32 operands
+// stay on the FMA kernels of train_attention.cuh, whose contract and
+// numerics these kernels keep (see there): query i attends key j iff
+// seg[i] == seg[j] and, in the causal form, j <= i (the kCausal template
+// flag; without it, splash's FullMask), q pre-scaled and rounded, masked
+// scores at kSplashMask with p = 0, lse = m + log l in fp32 (the forward's),
+// and di = rowsum(o * do) computed outside the kernels.
 //
-// Replaces, for bf16: livecc_tpu/ops/attention.py:_train_splash (JAX's
-// Pallas splash MQA kernels, forward and fused backward; :126) and
-// _train_flash_stock (:65), which share the contract of
+// Replaces, for bf16: the backward of livecc_tpu/ops/attention.py:
+// _train_splash (JAX's Pallas splash MQA kernels' fused backward; :126) and
+// of _train_flash_stock (:65), which share the contract of
 // train_flash_attention (:39).
 //
 // What bounds it on the H100: compute. At the timed training shape (S =
 // 8192 packed [2900, 2700, 2300] + 292 pad, Hq = 28, Hk = 4, D = 128) the
-// forward needs 151 GFLOP against 135 MB and the backward 378 GFLOP against
-// 219 MB, far above the card's ~295 FLOP/byte ridge: the products have to
-// run on the tensor cores. The design (FlashAttention-2 style, written by
-// hand on mma_common.cuh's primitives):
+// backward needs 378 GFLOP against 219 MB, far above the card's ~295
+// FLOP/byte ridge: the products have to run on the tensor cores. The
+// design (FlashAttention-2 style, written by hand on mma_common.cuh's
+// primitives):
 //
 //   * Tiles of 64 queries x 64 keys (kTrainMmaTileQ, kTrainMmaTileK); a
 //     block is 4 warps, each owning 16 rows of its tile; every product is
 //     mma.sync.m16n8k16 with bf16 operands and an fp32 accumulator.
 //   * The streamed tiles go through a double-buffered shared ring of
 //     16-byte cp.async copies (rows padded by 16 bytes, so an ldmatrix hits
-//     8 distinct bank groups), with their segment ids (and, in dK/dV, their
-//     lse and di) beside them in 4-byte copies: the next tile's copy is in
-//     flight while this tile's products run. Rows past S are zero-filled
-//     (src-size 0) and masked.
+//     8 distinct bank groups), with their segment ids, lse and di beside
+//     them in 4-byte copies: the next tile's copy is in flight while this
+//     tile's products run. Rows past S are zero-filled (src-size 0) and
+//     masked.
 //   * Work the data makes zero is never copied or computed. Each block first
 //     reads the segment ids of its own tile and of the tiles it could walk,
-//     on the device, and compacts the live ones into a list in shared memory:
-//     a tile is live if it holds an id of the block's tile (exact when the
-//     block's tile holds at most two ids, else any id in their range). The
-//     ring then walks the list, so it never waits on, or computes over, a
-//     skipped tile; a skipped tile's p would be 0 everywhere, so skipping
-//     changes no bit. At the timed shape about two thirds of the causal
-//     tile pairs are skipped.
-//   * Forward: Q is held as A fragments; S = Q K^T; the masks and the online
-//     softmax run in registers (row max and sum reduced across each quad),
-//     the output is normalised at the end. P V keeps splash's fp32 p
-//     (splash_attention_kernel.py: dot(s_curr, v.astype(float32))): p is
-//     split into kPTerms = 3 bf16 parts, each the rounding of what the
-//     earlier ones left (hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi
-//     - mid)), and all go through mma_bf16 into the same fp32 accumulator.
-//     Three 8-bit parts hold the 24 bits of an fp32 p exactly, and V is
-//     exact in bf16, so every product is splash's and only the order of the
-//     fp32 sums differs. That is 2x the tensor work of a bf16 p. Two parts
-//     (16 bits of p, 1.5x) flip the rounding of many more bf16 outputs
-//     against the plain version, and the backward's dq, whose di = rowsum(o
-//     do) cancels in rows of few keys, carries such a flip past the check's
-//     limit.
-//   * Backward dK/dV in transposed form: one block per (64-key tile, KV
-//     head, row) walks the G q heads of its group and the live query tiles
-//     from its diagonal on, so each dK/dV row is summed in one block (no
-//     atomics, no K/V repeat). S^T = K Q^T and dP^T = V dO^T; P^T = exp(S^T
-//     - lse) is the bf16 A fragment of dV += P^T dO (splash's
-//     p.astype(do.dtype)) and dS^T = P^T (dP^T - di) that of dK += dS^T Q
-//     (ds.astype(do.dtype)): the accumulator of one product is the A
-//     fragment of the next, so P and dS never leave registers. Registers
-//     are the limit at D = 128: dK and dV alone take 128 fp32 registers a
-//     thread, so K and V are re-read from shared memory at each use, and a
-//     query tile is taken in two passes of 32 queries, S^T and dP^T 16
-//     registers each (with 64 at once, ptxas spilled).
-//   * Backward dQ: one block per (64-query tile, q head, row): S = Q K^T,
-//     dP = dO V^T, dS = P (dP - di) as the bf16 A fragment of dQ += dS K
+//     on the device, and compacts the live ones into a list in shared memory
+//     (live_tiles): a tile is live if it holds an id of the block's tile
+//     (exact when the block's tile holds at most two ids, else any id in
+//     their range). The ring then walks the list, so it never waits on, or
+//     computes over, a skipped tile; a skipped tile's p would be 0
+//     everywhere, so skipping changes no bit. At the timed shape about two
+//     thirds of the causal tile pairs are skipped.
+//   * dK/dV in transposed form: one block per (64-key tile, KV head, row)
+//     walks the G q heads of its group and the live query tiles from its
+//     diagonal on, so each dK/dV row is summed in one block (no atomics, no
+//     K/V repeat). S^T = K Q^T and dP^T = V dO^T; P^T = exp(S^T - lse) is
+//     the bf16 A fragment of dV += P^T dO (splash's p.astype(do.dtype)) and
+//     dS^T = P^T (dP^T - di) that of dK += dS^T Q (ds.astype(do.dtype)):
+//     the accumulator of one product is the A fragment of the next, so P
+//     and dS never leave registers. Registers are the limit at D = 128: dK
+//     and dV alone take 128 fp32 registers a thread, so K and V are re-read
+//     from shared memory at each use, and a query tile is taken in two
+//     passes of 32 queries, S^T and dP^T 16 registers each (with 64 at
+//     once, ptxas spilled).
+//   * dQ: one block per (64-query tile, q head, row): S = Q K^T, dP = dO
+//     V^T, dS = P (dP - di) as the bf16 A fragment of dQ += dS K
 //     (ds.astype(k.dtype)). It stays its own launch: a fused dQ would need
 //     fp32 atomics across key-tile blocks (launches would differ in their
 //     bits) or a second pass.
-//   * Launch order: the forward's and dQ's query tiles are launched from the
-//     last one down, dK/dV's key tiles from the first up, so the blocks with
-//     the longest causal walks start first.
-//   * The non-causal form (kCausal = false): the forward's and dQ's walks
-//     cover every live key tile instead of stopping at the diagonal, dK/dV's
-//     every live query tile instead of starting at it, and the masks test
-//     the segments alone. The launch order stays; it means nothing there: a
-//     block's walk is as long as the tiles its ids cover, wherever it sits.
+//   * Launch order: dQ's query tiles are launched from the last one down,
+//     dK/dV's key tiles from the first up, so the blocks with the longest
+//     causal walks start first.
+//   * The non-causal form (kCausal = false): dQ's walks cover every live
+//     key tile instead of stopping at the diagonal, dK/dV's every live
+//     query tile instead of starting at it, and the masks test the segments
+//     alone. The launch order stays; it means nothing there: a block's walk
+//     is as long as the tiles its ids cover, wherever it sits.
 //
-// wgmma fed by TMA, with a producer warp and a deeper ring, is later work.
+// wgmma fed by TMA, as the forward has it, is later work here: dK / dV
+// need P^T and dS^T as operands, which would go through shared memory.
 
 #pragma once
 
@@ -88,19 +76,14 @@
 
 namespace livecc {
 
-constexpr int kTrainMmaTileQ = 64;     // queries per tile (16 per warp in the forward and dQ)
+constexpr int kTrainMmaTileQ = 64;     // queries per tile (16 per warp in dQ)
 constexpr int kTrainMmaTileK = 64;     // keys per tile (16 per warp in dK/dV)
 constexpr int kTrainMmaThreads = 128;  // 4 warps
-constexpr int kPTerms = 3;             // bf16 parts of the forward's fp32 p: all 24 bits
 
 inline int train_mma_tiles(int s) { return (s + kTrainMmaTileQ - 1) / kTrainMmaTileQ; }
 
 // Dynamic shared memory of each kernel at head dim d for sequence length s:
 // bf16 tiles of 64 padded rows, then fp32 (lse, di) and int (ids, list).
-inline size_t train_mma_fwd_smem(int d, int s) {     // Q, 2 K, 2 V | ids 64 + 2 x 64, list
-  return sizeof(__nv_bfloat16) * 5 * 64 * (size_t)(d + kMmaPad) +
-         sizeof(int) * (3 * 64 + (size_t)train_mma_tiles(s));
-}
 inline size_t train_mma_dkv_smem(int d, int s) {     // K, V, 2 Q, 2 dO | 2 lse, 2 di | ids
   return sizeof(__nv_bfloat16) * 6 * 64 * (size_t)(d + kMmaPad) + sizeof(float) * 4 * 64 +
          sizeof(int) * (3 * 64 + (size_t)train_mma_tiles(s));
@@ -118,243 +101,73 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
                :: "r"(smem_addr(dst)), "l"(src), "r"(valid ? 4 : 0));
 }
 
-// Which tiles a block walks: its own tile's segment ids (rows [r0, r0 + 64)
-// below s) into ids[64] (`pad` past s), then the tiles t in [t0, t1) that
-// hold one of those ids, compacted in order into list[] (t1 - t0 ints).
-// Exact when the block's tile holds at most two ids; otherwise a tile is
-// kept when it holds any id in their range (a superset: the masks decide).
+// Which tiles a block walks: its own ROWS rows' segment ids (rows [r0, r0 +
+// ROWS) below s) into ids[ROWS] (`pad` past s), then the KT-row tiles t in
+// [t0, t1) that hold one of those ids, compacted in order into list[] (t1 -
+// t0 ints), by the block's THREADS threads; scratch holds ROWS / 32 + 1
+// ints. Exact when the block's rows hold at most two ids; otherwise a tile
+// is kept when it holds any id in their range (a superset: the masks
+// decide). With `uni` (t1 - t0 ints), each listed tile's one id where all
+// its KT rows lie below s and hold that id, else INT_MIN, beside it.
 // Returns the number of live tiles, the same in every thread.
-__device__ int live_tiles(int* ids, int* list, int* shared3, const int* segb, int s, int r0,
-                          int pad, int t0, int t1) {
+template <int ROWS, int KT, int THREADS>
+__device__ int live_tiles(int* ids, int* list, int* scratch, const int* segb, int s, int r0,
+                          int pad, int t0, int t1, int* uni = nullptr) {
+  constexpr int kWarps = ROWS / 32;         // warps w < kWarps hold rows 32 w .. 32 w + 31
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const bool in = tid < 64 && r0 + tid < s;
+  const bool in = tid < ROWS && r0 + tid < s;
   const int id = in ? segb[r0 + tid] : 0;
-  if (tid < 64) ids[tid] = in ? id : pad;
+  if (tid < ROWS) ids[tid] = in ? id : pad;
   int lo = in ? id : INT_MAX, hi = in ? id : INT_MIN;
 #pragma unroll
   for (int o = 16; o > 0; o /= 2) {
     lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
     hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
   }
-  if (warp < 2 && lane == 0) shared3[warp] = lo;    // warps 0 and 1 hold rows 0-31, 32-63
+  if (warp < kWarps && lane == 0) scratch[warp] = lo;
   __syncthreads();
-  lo = min(shared3[0], shared3[1]);
+  lo = scratch[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) lo = min(lo, scratch[w]);
   __syncthreads();
-  if (warp < 2 && lane == 0) shared3[warp] = hi;
+  if (warp < kWarps && lane == 0) scratch[warp] = hi;
   __syncthreads();
-  hi = max(shared3[0], shared3[1]);
+  hi = scratch[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) hi = max(hi, scratch[w]);
   const bool three = __syncthreads_or(in && id != lo && id != hi);   // 3+ distinct ids
 
   const int n = t1 - t0;
-  for (int i = tid; i < n; i += kTrainMmaThreads) {
-    const int a = (t0 + i) * kTrainMmaTileK, e = min(a + kTrainMmaTileK, s);
-    bool hit = false;
+  for (int i = tid; i < n; i += THREADS) {
+    const int a = (t0 + i) * KT, e = min(a + KT, s);
+    const int first = segb[a];
+    bool hit = false, same = e - a == KT;
 #pragma unroll 16
     for (int r = a; r < e; ++r) {
       const int x = segb[r];
       hit |= three ? (x >= lo && x <= hi) : (x == lo || x == hi);
+      same &= x == first;
     }
     list[i] = hit;
+    if (uni) uni[i] = same ? first : INT_MIN;
   }
   __syncthreads();
   if (warp == 0) {
     int count = 0;
     for (int base = 0; base < n; base += 32) {
       const bool f = base + lane < n && list[base + lane];
+      const int u = f && uni ? uni[base + lane] : 0;
       const unsigned m = __ballot_sync(0xffffffffu, f);
-      if (f) list[count + __popc(m & ((1u << lane) - 1u))] = t0 + base + lane;
+      const int at = count + __popc(m & ((1u << lane) - 1u));
+      if (f) list[at] = t0 + base + lane;
+      if (f && uni) uni[at] = u;
       count += __popc(m);
       __syncwarp();
     }
-    if (lane == 0) shared3[2] = count;
+    if (lane == 0) scratch[kWarps] = count;
   }
   __syncthreads();
-  return shared3[2];
-}
-
-// ---------------------------------------------------------------------------
-// Forward: block = (q head, row, 64-query tile from the last down).
-// ---------------------------------------------------------------------------
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kTrainMmaThreads, 1) train_fwd_mma_kernel(TrainAttnParams p) {
-  static_assert(D % 16 == 0 && D <= kMaxHeadDim, "head dim: a multiple of 16 up to 128");
-  constexpr int kLd = D + kMmaPad;
-  constexpr int kT = kTrainMmaTileK;
-  constexpr int kKSteps = D / 16;           // k16 steps of Q K^T
-  constexpr int kNt = kT / 8;               // n8 score tiles of a warp's 16 rows
-  constexpr int kDt = D / 8;                // n8 output tiles
-  extern __shared__ __align__(16) unsigned char train_smem[];
-  __shared__ int shared3[3];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(train_smem);   // [64][kLd]
-  __nv_bfloat16* sK = sQ + kTrainMmaTileQ * kLd;                       // [2][64][kLd]
-  __nv_bfloat16* sV = sK + 2 * kT * kLd;                               // [2][64][kLd]
-  int* sSegQ = reinterpret_cast<int*>(sV + 2 * kT * kLd);              // [64]
-  int* sSegK = sSegQ + kTrainMmaTileQ;                                 // [2][64]
-  int* sList = sSegK + 2 * kT;                                         // [tiles]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int qt = gridDim.z - 1 - blockIdx.z;
-  const int q0 = qt * kTrainMmaTileQ;
-  const int s = p.s;
-  const int kvh = h / (p.hq / p.hk);
-  const int* segb = p.seg + (long long)b * s;
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  cp_tile<D, kTrainMmaThreads>(sQ, qb + (long long)q0 * p.q_ss, p.q_ss, kTrainMmaTileQ, s - q0);
-  const int n_live = live_tiles(sSegQ, sList, shared3, segb, s, q0, INT_MIN, 0,
-                                kCausal ? qt + 1 : (int)gridDim.z);
-
-  auto fetch = [&](int i, int buf) {        // key tile list[i] into ring slot buf
-    const int k0 = sList[i] * kT;
-    cp_tile<D, kTrainMmaThreads>(sK + buf * kT * kLd, kb + (long long)k0 * p.k_ss, p.k_ss, kT,
-                                 s - k0);
-    cp_tile<D, kTrainMmaThreads>(sV + buf * kT * kLd, vb + (long long)k0 * p.v_ss, p.v_ss, kT,
-                                 s - k0);
-    if (tid < kT) cp_async4(sSegK + buf * kT + tid, segb + min(k0 + tid, s - 1), k0 + tid < s);
-  };
-  fetch(0, 0);                              // n_live >= 1: the diagonal tile holds own ids
-  cp_async_commit();
-
-  float m[2] = {kSplashMask, kSplashMask};  // running max of the thread's rows gid, gid + 8
-  float l[2] = {0.f, 0.f};                  // this thread's share of the running sum
-  float acc[kDt][4];
-#pragma unroll
-  for (int j = 0; j < kDt; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  uint32_t qf[kKSteps][4];
-  const int rl_a = warp * 16 + gid;         // the two rows in the tile
-  const int row_a = q0 + rl_a, row_b = row_a + 8;
-  const int seg_a = sSegQ[rl_a], seg_b = sSegQ[rl_a + 8];
-
-  for (int i = 0; i < n_live; ++i) {
-    const int buf = i & 1;
-    if (i + 1 < n_live) {
-      fetch(i + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (i == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        ldmatrix_x4(qf[kk], sQ + (warp * 16 + lane % 16) * kLd + kk * 16 + (lane / 16) * 8);
-    }
-    const int k0 = sList[i] * kT;
-    const __nv_bfloat16* tK = sK + buf * kT * kLd;
-    const __nv_bfloat16* tV = sV + buf * kT * kLd;
-    const int* tSeg = sSegK + buf * kT;
-
-    float sc[kNt][4];
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKSteps; ++kk) {
-#pragma unroll
-      for (int j = 0; j < kNt; j += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, tK + (j * 8 + lane % 8 + (lane / 16) * 8) * kLd + kk * 16 +
-                            ((lane / 8) % 2) * 8);
-        mma_bf16(sc[j], qf[kk], bk[0], bk[1]);
-        mma_bf16(sc[j + 1], qf[kk], bk[2], bk[3]);
-      }
-    }
-
-    // masks: past S, causal (kCausal), segments; a masked score is kSplashMask
-    float mx[2] = {kSplashMask, kSplashMask};
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kl = j * 8 + 2 * tig + (e & 1);
-        const int key = k0 + kl;
-        const bool ok = key < s && (!kCausal || key <= (e < 2 ? row_a : row_b)) &&
-                        tSeg[kl] == (e < 2 ? seg_a : seg_b);
-        sc[j][e] = ok ? sc[j][e] : kSplashMask;
-        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r]);
-      alpha[r] = __expf(m[r] - m_new);      // 0 once a real score replaces the mask value
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < kNt; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pv = sc[j][e] == kSplashMask ? 0.f : __expf(sc[j][e] - m[e >> 1]);
-        l[e >> 1] += pv;
-        sc[j][e] = pv;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kDt; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-    // O += P V with p split into kPTerms bf16 parts: k16 steps over the 64 keys
-#pragma unroll
-    for (int kk = 0; kk < kNt / 2; ++kk) {
-      uint32_t pt[kPTerms][4];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {         // n8 tiles 2 kk (a0, a1) and 2 kk + 1 (a2, a3)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          float p0 = sc[2 * kk + t][2 * r], p1 = sc[2 * kk + t][2 * r + 1];
-#pragma unroll
-          for (int term = 0; term < kPTerms; ++term) {   // each part rounds what is left
-            const __nv_bfloat162 b2 = __floats2bfloat162_rn(p0, p1);
-            pt[term][2 * t + r] = *reinterpret_cast<const uint32_t*>(&b2);
-            p0 -= __low2float(b2);
-            p1 -= __high2float(b2);
-          }
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kDt; j += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(bv, tV + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * kLd + j * 8 +
-                                  (lane / 16) * 8);
-#pragma unroll
-        for (int term = 0; term < kPTerms; ++term) {
-          mma_bf16(acc[j], pt[term], bv[0], bv[1]);
-          mma_bf16(acc[j + 1], pt[term], bv[2], bv[3]);
-        }
-      }
-    }
-    __syncthreads();                        // all warps are done with this slot
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.o) + ((long long)b * s * p.hq + h) * D;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r ? row_b : row_a;
-    if (row >= s) continue;
-    const float safe = l[r] > 0.f ? l[r] : 1.f;
-    __nv_bfloat16* orow = ob + (long long)row * p.hq * D + 2 * tig;
-#pragma unroll
-    for (int j = 0; j < kDt; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-          __floats2bfloat162_rn(acc[j][2 * r] / safe, acc[j][2 * r + 1] / safe);
-    if (tig == 0) p.lse[((long long)b * p.hq + h) * s + row] = m[r] + logf(l[r]);
-  }
+  return scratch[kWarps];
 }
 
 // ---------------------------------------------------------------------------
@@ -395,8 +208,8 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_dkv_mma_kernel(Trai
 
   cp_tile<D, kTrainMmaThreads>(sK, kb + (long long)k0 * p.k_ss, p.k_ss, kTrainMmaTileK, s - k0);
   cp_tile<D, kTrainMmaThreads>(sV, vb + (long long)k0 * p.v_ss, p.v_ss, kTrainMmaTileK, s - k0);
-  const int n_live = live_tiles(sSegK, sList, shared3, segb, s, k0, INT_MAX, kCausal ? kt : 0,
-                                (int)gridDim.z);
+  const int n_live = live_tiles<kTrainMmaTileK, kTrainMmaTileQ, kTrainMmaThreads>(
+      sSegK, sList, shared3, segb, s, k0, INT_MAX, kCausal ? kt : 0, (int)gridDim.z);
   const int total = groups * n_live;
 
   auto fetch = [&](int i, int buf) {        // (q head i / n_live, query tile list[i % n_live])
@@ -594,8 +407,8 @@ __global__ void __launch_bounds__(kTrainMmaThreads, 1) train_dq_mma_kernel(Train
   cp_tile<D, kTrainMmaThreads>(sQ, qb + (long long)q0 * p.q_ss, p.q_ss, kTrainMmaTileQ, s - q0);
   cp_tile<D, kTrainMmaThreads>(sDO, dob + (long long)q0 * p.do_ss, p.do_ss, kTrainMmaTileQ,
                                s - q0);
-  const int n_live = live_tiles(sSegQ, sList, shared3, segb, s, q0, INT_MIN, 0,
-                                kCausal ? qt + 1 : (int)gridDim.z);
+  const int n_live = live_tiles<kTrainMmaTileQ, kTrainMmaTileK, kTrainMmaThreads>(
+      sSegQ, sList, shared3, segb, s, q0, INT_MIN, 0, kCausal ? qt + 1 : (int)gridDim.z);
 
   auto fetch = [&](int i, int buf) {
     const int k0 = sList[i] * kT;
@@ -712,14 +525,6 @@ int launch_train_mma(Kernel kernel, dim3 grid, size_t smem, const TrainAttnParam
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kTrainMmaThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
-}
-
-// The forward of bf16 operands: grid (Hq, B, query tiles).
-template <int D, bool kCausal>
-int launch_train_fwd_mma(const TrainAttnParams& p, int batch, cudaStream_t stream) {
-  return launch_train_mma(train_fwd_mma_kernel<D, kCausal>,
-                          dim3(p.hq, batch, train_mma_tiles(p.s)), train_mma_fwd_smem(D, p.s), p,
-                          stream);
 }
 
 // The backward of bf16 operands: dK/dV over (Hk, B, key tiles), then dQ over

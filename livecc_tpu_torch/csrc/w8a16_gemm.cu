@@ -86,10 +86,7 @@
 
 #include <cstdint>
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
-
-#include "mma_common.cuh"
+#include "hopper_common.cuh"
 
 namespace livecc {
 
@@ -253,138 +250,6 @@ __global__ void w8_merge_kernel(W8Params p) {
   store_out<T>(p, (int)(i / p.n), (int)(i % p.n), sum);
 }
 
-// The large form's primitives: mbarriers, TMA, wgmma (PTX ISA 8.0, sm_90a).
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count));
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-// an arrival on the barrier at `bar`'s place in the shared memory of the
-// cluster's block `rank`
-__device__ __forceinline__ void mbar_arrive_at(uint64_t* bar, uint32_t rank) {
-  asm volatile("{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
-               "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
-               :: "r"(smem_addr(bar)), "r"(rank) : "memory");
-}
-// until the phase of parity `parity` has completed (a fresh barrier counts
-// the phase before its first as completed: parity 1 passes at once)
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
-}
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-// the cluster barrier: every thread of the cluster's blocks that has not
-// exited arrives; a wait returns once all have
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-// a 2-d TMA load of the box at (c0 inner, c1 outer) into `dst`, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c0, int c1,
-                                         uint64_t* bar) {
-  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-               "[%0], [%1, {%2, %3}], [%4];\n"
-               :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-                  "r"(smem_addr(bar))
-               : "memory");
-}
-// the same into `dst` of every block of the cluster in `mask`, completing on
-// the barrier at `bar`'s place in each
-__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map, int c0,
-                                                   int c1, uint64_t* bar, uint16_t mask) {
-  asm volatile("cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-               ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n"
-               :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-                  "r"(smem_addr(bar)), "h"(mask)
-               : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator accesses across wgmma's
-template <int R> __device__ __forceinline__ void fence_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-// wgmma's shared-memory descriptor of a K-major tile with 128-byte rows in
-// the 128-byte swizzle (8-row groups 1024 bytes apart; 1024-byte aligned)
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
-  return (uint64_t)((smem_addr(tile) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
-
-#define W8_ACC8(b) "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), \
-                   "+f"(d[b + 4]), "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
-
-// d[40] += A (64 x 16, bf16 fragments a) * B (16 x 80, K-major shared, descriptor b)
-__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39"
-      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 0;\n}\n"
-      : W8_ACC8(0), W8_ACC8(8), W8_ACC8(16), W8_ACC8(24),
-        W8_ACC8(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// d[128] += A (64 x 16, bf16 fragments a) * B (16 x 256, K-major shared, descriptor b)
-__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, "
-      "%104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, "
-      "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-      : W8_ACC8(0), W8_ACC8(8), W8_ACC8(16), W8_ACC8(24),
-        W8_ACC8(32), W8_ACC8(40), W8_ACC8(48), W8_ACC8(56),
-        W8_ACC8(64), W8_ACC8(72), W8_ACC8(80), W8_ACC8(88),
-        W8_ACC8(96), W8_ACC8(104), W8_ACC8(112), W8_ACC8(120)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-
 template <int NT>
 __device__ __forceinline__ void wgmma_rs(float (&d)[NT / 2], const uint32_t (&a)[4], uint64_t b) {
   if constexpr (NT == 80) wgmma_rs_n80(d, a, b);
@@ -463,14 +328,14 @@ __global__ void __cluster_dims__(1, kW8Cluster, 1) __launch_bounds__(kW8Threads,
       mbar_init(&full[s], 1);               // the producer's expect_tx, then TMA's bytes
       mbar_init(&empty[s], 8 * kW8Cluster);  // one arrival per consumer warp of the cluster
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   cluster_arrive();                         // the peer's barriers exist before any copy
   cluster_wait();
   const uint32_t rank = cluster_rank(), peer = rank ^ 1;
 
   if (wg == 2) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    regs_dec<40>();
     if (threadIdx.x == 256) {
       for (int t = 0; t < tiles; ++t) {
         const int s = t % S;
@@ -484,7 +349,7 @@ __global__ void __cluster_dims__(1, kW8Cluster, 1) __launch_bounds__(kW8Threads,
     }
     return;
   }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  regs_inc<232>();
   const int lane = threadIdx.x % 32, gid = lane / 4, tig = lane % 4;
   const int r0 = wg * 64 + (threadIdx.x / 32 % 4) * 16 + gid;   // rows r0, r0 + 8 of the tile
   // the scales of rows r0 and r0 + 8, loaded while the main loop runs (1
@@ -579,34 +444,14 @@ __global__ void __launch_bounds__(kW8FmaThreads) w8_fma_kernel(W8Params p) {
   store_out<float>(p, m, n, sum);
 }
 
-// cuTensorMapEncodeTiled from the CUDA driver API, looked up once through
-// the runtime (null where it has none)
-using W8Encode = PFN_cuTensorMapEncodeTiled_v12000;
-W8Encode w8_encoder() {
-  static const W8Encode fn = []() -> W8Encode {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    return reinterpret_cast<W8Encode>(ptr);
-  }();
-  return fn;
-}
-
 // A 2-d tensor map over `rows` rows of `inner` elements (row stride
 // `ld_bytes`), boxes of box_inner x box_rows; out-of-range elements read 0.
 bool w8_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
             uint64_t rows, uint64_t ld_bytes, uint32_t box_inner, uint32_t box_rows,
             CUtensorMapSwizzle swizzle) {
-  const W8Encode encode = w8_encoder();
   const cuuint64_t dims[2] = {inner, rows}, strides[1] = {ld_bytes};
-  const cuuint32_t box[2] = {box_inner, box_rows}, unit[2] = {1, 1};
-  return encode != nullptr &&
-         encode(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const cuuint32_t box[2] = {box_inner, box_rows};
+  return tensor_map(map, type, 2, base, dims, strides, box, swizzle);
 }
 
 // The splits' partials summed in split order, rounded and scaled.

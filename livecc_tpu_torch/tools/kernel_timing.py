@@ -18,7 +18,8 @@ Run as a script, by path, with the checkout to time first on
 ``PYTHONPATH``, it times that checkout's ``flash_decode`` (K2 and K2-int8),
 ``vit_group_attention`` (K3), ``flash_prefill`` (K1 and, with scales,
 K1-int8), ``train_attention_fwd`` / ``train_attention_bwd`` (K4, causal and,
-where the checkout has it, non-causal) and
+where the checkout has it, non-causal; and the forward at the other shapes
+of its paths, ``TRAIN_FWD_SHAPES``) and
 ``w8a16_gemm`` (K5) both
 ways at ``chip_smoke.py``'s timed shapes and prints one JSON line, so two
 versions of the kernels compare on one card in one call:
@@ -241,28 +242,52 @@ def prefill_int8_cases():
 # (chip_smoke.py's K4_CASES[-1]), segments of TRAIN_LENGTHS then pad
 TRAIN_S, TRAIN_LENGTHS = 8192, (2900, 2700, 2300)
 TRAIN_HEADS = (28, 4, 128)
+# K4's forward at the other shapes of its paths, bf16: (label, B, S, Hq, Hk,
+# segment lengths of each row, then pad as segment 0): one causal segment of
+# 8192 and of 32768 (chip_smoke's yardstick), train_cli's 120 s row, the
+# MCQ item's last layer, lmm4asd's batch, lm_loss's longest sample, and the
+# packed row at one tensor-parallel rank's heads (M = 2, 4)
+TRAIN_FWD_SHAPES = (
+    ("one segment", 1, 8192, 28, 4, (8192,)),
+    ("one segment", 1, 32768, 28, 4, (32768,)),
+    ("train_cli's 120 s row", 1, 32768, 28, 4, (29422,)),
+    ("the MCQ item", 1, 32768, 28, 4, (23284,)),
+    ("lmm4asd's batch", 64, 1024, 28, 4, (731,)),
+    ("lm_loss's longest sample", 1, 2048, 28, 4, (1985,)),
+    ("TP rank M=2", 1, TRAIN_S, 14, 2, TRAIN_LENGTHS),
+    ("TP rank M=4", 1, TRAIN_S, 7, 1, TRAIN_LENGTHS),
+)
+
+
+def train_operands(b: int, s: int, hq: int, hk: int, lengths, gen: torch.Generator):
+    """(qs, k, v, do, seg) of K4 in bf16: x ~ N(0, 1), q pre-scaled; every
+    row's segments 1.. of ``lengths``, then pad as segment 0."""
+    from livecc_tpu_torch.ops.attention import prescaled
+
+    d = TRAIN_HEADS[2]
+    dev = gen.device
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev).bfloat16()
+                   for h in (hq, hk, hk, hq))
+    seg = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    at = 0
+    for i, n in enumerate(lengths):
+        seg[:, at:at + n] = i + 1
+        at += n
+    return prescaled(q), k, v, do, seg
 
 
 def train_cases():
     """(label, call) of K4's forward and backward at the timed shape, fp32
     and bf16, then of its non-causal form (``causal=False``, bf16) where
-    the checkout has one."""
+    the checkout has one, then of its bf16 forward at ``TRAIN_FWD_SHAPES``."""
     import inspect
 
-    from livecc_tpu_torch.ops.attention import prescaled
     from livecc_tpu_torch.ops.train_attention import train_attention_bwd, train_attention_fwd
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     hq, hk, d = TRAIN_HEADS
-    q, k, v, do = (torch.randn((1, TRAIN_S, h, d), generator=gen, device=dev).bfloat16()
-                   for h in (hq, hk, hk, hq))
-    qs = prescaled(q)
-    seg = torch.zeros((1, TRAIN_S), dtype=torch.int32, device=dev)
-    at = 0
-    for i, n in enumerate(TRAIN_LENGTHS):
-        seg[0, at:at + n] = i + 1
-        at += n
+    qs, k, v, do, seg = train_operands(1, TRAIN_S, hq, hk, TRAIN_LENGTHS, gen)
     label = f"S={TRAIN_S} segments {list(TRAIN_LENGTHS)} + pad Hq={hq} Hk={hk} D={d}"
     for dtype in (torch.float32, torch.bfloat16):
         q_, k_, v_, do_ = (x.to(dtype) for x in (qs, k, v, do))
@@ -273,13 +298,19 @@ def train_cases():
         yield (f"K4 bwd {kind}",
                lambda a=(q_, k_, v_, seg, o, lse, do_): train_attention_bwd(*a))
     label += " bfloat16"
-    if "causal" not in inspect.signature(train_attention_fwd).parameters:
-        return
-    yield (f"K4 fwd non-causal {label}",
-           lambda: train_attention_fwd(qs, k, v, seg, causal=False))
-    o, lse = train_attention_fwd(qs, k, v, seg, causal=False)
-    yield (f"K4 bwd non-causal {label}",
-           lambda: train_attention_bwd(qs, k, v, seg, o, lse, do, causal=False))
+    if "causal" in inspect.signature(train_attention_fwd).parameters:
+        yield (f"K4 fwd non-causal {label}",
+               lambda: train_attention_fwd(qs, k, v, seg, causal=False))
+        o, lse = train_attention_fwd(qs, k, v, seg, causal=False)
+        yield (f"K4 bwd non-causal {label}",
+               lambda: train_attention_bwd(qs, k, v, seg, o, lse, do, causal=False))
+    del qs, k, v, do, seg, o, lse
+    for name, b, s, hq, hk, lengths in TRAIN_FWD_SHAPES:
+        qs, k, v, _, seg = train_operands(b, s, hq, hk, lengths, gen)
+        yield (f"K4 fwd {name} B={b} S={s} segments {list(lengths)} + pad Hq={hq} Hk={hk} "
+               f"D={d} bfloat16",
+               lambda a=(qs, k, v, seg): train_attention_fwd(*a))
+        del qs, k, v, seg
 
 
 # K5's shapes at the 7B: projection -> (N, K, fp32 output); decode rows M = 1

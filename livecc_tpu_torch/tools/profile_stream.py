@@ -49,7 +49,7 @@ UNPROFILED_SESSIONS = 3
 
 
 def _group(name: str) -> str:
-    if re.search(r"train_fwd(_mma)?_kernel", name):            # fp32 and bf16 K4
+    if re.search(r"train_fwd(_mma|_wgmma)?_kernel", name):    # fp32 and bf16 K4
         return "K4 train_attention_fwd"
     if re.search(r"train_(dkv|dq)(_mma)?_kernel", name):
         return "K4 train_attention_bwd"

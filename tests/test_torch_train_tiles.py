@@ -1,17 +1,18 @@
-"""K4's bf16 tensor-core kernels (``csrc/train_mma_attention.cuh``), their
-tile-wise arithmetic emulated in PyTorch on the CPU.
+"""K4's bf16 tensor-core kernels, their tile-wise arithmetic emulated in
+PyTorch on the CPU: the forward (``csrc/train_wgmma_attention.cuh``) and the
+backward (``csrc/train_mma_attention.cuh``).
 
 The kernels run only on the card; what they compute is written out here
 tile by tile and held to the references in bf16 by ``kernel_check.close``:
 
-  * the forward walks 64-key tiles with a running max, masked scores at
-    splash's mask value giving p = 0, and P·V as three bf16 products of p
-    split into hi = bf16(p), mid = bf16(p - hi), lo = bf16(p - hi - mid)
-    (``kPTerms``) into one fp32 accumulator;
+  * the forward's blocks of 128 queries walk 64-key tiles with a running
+    max, masked scores at splash's mask value giving p = 0, and P·V as
+    three bf16 products of p split into hi = bf16(p), mid = bf16(p - hi),
+    lo = bf16(p - hi - mid) (``kPTerms``) into one fp32 accumulator;
   * the backward's dK/dV kernel works in the transposed form, P^T and
     dS^T rounded to bf16 as the A operands of dV += P^T dO and dK += dS^T
-    Q, walking the group's q heads and the query tiles; the dQ kernel
-    rounds dS to bf16 for dQ += dS K;
+    Q, walking the group's q heads and the 64-query tiles; the dQ kernel
+    rounds dS to bf16 for dQ += dS K over 64-key tiles;
   * every kernel walks only its live tiles (``live_tiles``: the tiles that
     hold one of the block's ids), the forward's and dQ's up to the
     diagonal and dK/dV's from it on in the causal form, all of them in the
@@ -19,7 +20,8 @@ tile by tile and held to the references in bf16 by ``kernel_check.close``:
 
 The references: JAX ``_train_splash`` in interpret mode (the Pallas splash
 kernels on the CPU) and the port's plain versions, causal and not; the
-planted fault of the non-causal form, ``kernel_check.causal_walk`` (the
+planted faults, ``kernel_check.dropped_tile`` (one 64 x 64 tile pair
+dropped) and, for the non-causal form, ``kernel_check.causal_walk`` (the
 causal walk and mask kept), must fail.
 """
 
@@ -42,10 +44,12 @@ from livecc_tpu_torch.ops.train_attention import (
 from livecc_tpu_torch.tools import kernel_check
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-TILE = kernel_check.TILE
+TILE = kernel_check.TILE        # the backward's query and key tiles
 BF16 = torch.bfloat16
-HEADER = Path(livecc_tpu_torch.__file__).parent / "csrc" / "train_mma_attention.cuh"
-P_TERMS = 3         # bf16 parts of the forward's p: kPTerms of HEADER
+CSRC = Path(livecc_tpu_torch.__file__).parent / "csrc"
+FWD_HEADER, BWD_HEADER = CSRC / "train_wgmma_attention.cuh", CSRC / "train_mma_attention.cuh"
+FWD_ROWS, FWD_KEYS = 128, 64    # the forward's query block and key tile (FWD_HEADER)
+P_TERMS = 3         # bf16 parts of the forward's p: kPTerms of FWD_HEADER
 # the card's shape cut to S = 1000 (not a multiple of 64): the 7B's group of
 # 7 q heads on one KV head at D = 128, three packed segments and a pad tail
 S, HQ, HK, D = 1000, 7, 1, 128
@@ -86,60 +90,68 @@ def split_bf16(p, terms):
     return parts
 
 
-def live_tiles(seg, r0, t0, t1):
-    """The kernels' ``live_tiles`` (batch row 0): the tiles t in [t0, t1)
-    that hold an id of rows [r0, r0 + TILE), exactly when those rows hold
-    at most two ids, else any id in their range."""
-    ids = seg[0, r0:r0 + TILE]
+def live_tiles(seg, r0, t0, t1, rows=TILE, keys=TILE):
+    """The kernels' ``live_tiles`` (batch row 0): the ``keys``-row tiles t
+    in [t0, t1) that hold an id of the block's rows [r0, r0 + rows),
+    exactly when those rows hold at most two ids, else any id in their
+    range."""
+    ids = seg[0, r0:r0 + rows]
     lo, hi = ids.min(), ids.max()
     three = bool(((ids != lo) & (ids != hi)).any())
     out = []
     for t in range(t0, t1):
-        x = seg[0, t * TILE:(t + 1) * TILE]
+        x = seg[0, t * keys:(t + 1) * keys]
         if bool((((x >= lo) & (x <= hi)) if three else ((x == lo) | (x == hi))).any()):
             out.append(t)
     return out
 
 
-def walked(seg, causal, by_keys=False):
+def walked(seg, causal, by_keys=False, rows=TILE, keys=TILE):
     """bool [1, 1, S, S] (queries, keys): the tile pairs the kernels walk.
-    The forward and dQ: each query tile's live key tiles up to its diagonal
-    (all of them when not ``causal``); dK/dV (``by_keys``): each key
-    tile's live query tiles from its diagonal on (all when not ``causal``)."""
+    The forward (blocks of ``rows`` queries over tiles of ``keys`` keys:
+    ``FWD_ROWS``, ``FWD_KEYS``) and dQ (64 x 64): each query block's live
+    key tiles up to its diagonal (all of them when not ``causal``); dK/dV
+    (``by_keys``, 64 x 64): each key tile's live query tiles from its
+    diagonal on (all when not ``causal``)."""
     s = seg.shape[1]
-    n = -(-s // TILE)
     mask = torch.zeros((s, s), dtype=torch.bool)
-    for own in range(n):
-        if by_keys:
-            span = (own if causal else 0, n)
-        else:
-            span = (0, own + 1 if causal else n)
-        for other in live_tiles(seg, own * TILE, *span):
-            qt, kt = (other, own) if by_keys else (own, other)
-            mask[qt * TILE:(qt + 1) * TILE, kt * TILE:(kt + 1) * TILE] = True
+    if by_keys:
+        n = -(-s // TILE)
+        for own in range(n):
+            for other in live_tiles(seg, own * TILE, own if causal else 0, n):
+                mask[other * TILE:(other + 1) * TILE, own * TILE:(own + 1) * TILE] = True
+        return mask[None, None]
+    n_keys = -(-s // keys)
+    for own in range(-(-s // rows)):
+        r0 = own * rows
+        end = min(n_keys, (r0 + rows - 1) // keys + 1) if causal else n_keys
+        for other in live_tiles(seg, r0, 0, end, rows, keys):
+            mask[r0:r0 + rows, other * keys:(other + 1) * keys] = True
     return mask[None, None]
 
 
 def fwd_tiles(qs, k, v, seg, terms=P_TERMS, causal=True):
     """The forward kernel's arithmetic: (o in fp32 before its rounding, lse).
-    p meets V as ``terms`` bf16 parts (``split_bf16``; 1 is K1's
-    p.astype(v.dtype)), or as exact fp32 p with ``terms=None``. A tile pair
-    the kernel does not walk takes no part (``walked``)."""
+    Each block of ``FWD_ROWS`` queries takes its live ``FWD_KEYS``-key tiles
+    in order (``walked``; a tile pair it does not walk takes no part), a
+    running max and sum updated tile by tile. p meets V as ``terms`` bf16
+    parts (``split_bf16``; 1 is K1's p.astype(v.dtype)), or as exact fp32 p
+    with ``terms=None``."""
     g = qs.shape[2] // k.shape[2]
     q, kk, vv = heads(qs, 1), heads(k, g), heads(v, g)
-    allowed = _allowed(seg, causal) & walked(seg, causal)
+    allowed = _allowed(seg, causal) & walked(seg, causal, rows=FWD_ROWS, keys=FWD_KEYS)
     m = torch.full(q.shape[:-1] + (1,), MASK_VALUE)
     l = torch.zeros_like(m)
     acc = torch.zeros_like(q)
-    for k0 in range(0, q.shape[2], TILE):
-        ok = allowed[..., k0:k0 + TILE]
-        sc = torch.where(ok, q @ kk[:, :, k0:k0 + TILE].transpose(-1, -2),
+    for k0 in range(0, q.shape[2], FWD_KEYS):
+        ok = allowed[..., k0:k0 + FWD_KEYS]
+        sc = torch.where(ok, q @ kk[:, :, k0:k0 + FWD_KEYS].transpose(-1, -2),
                          torch.full((), MASK_VALUE))
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.where(ok, torch.exp(sc - m_new), torch.zeros(()))
         l = l * alpha + p.sum(-1, keepdim=True)
-        vt = vv[:, :, k0:k0 + TILE]
+        vt = vv[:, :, k0:k0 + FWD_KEYS]
         acc = acc * alpha + (p @ vt if terms is None else
                              sum(part @ vt for part in split_bf16(p, terms)))
         m = m_new
@@ -317,12 +329,69 @@ def test_gradient_check_holds_the_tiles_and_fails_a_dropped_tile(tiles, qt, kt, 
 
 
 def test_train_tiles_are_the_kernels_constants():
-    """``kernel_check.TILE`` is the K4 tensor-core kernels' query and key
-    tile, and ``P_TERMS`` the forward's number of bf16 parts of p."""
-    text = HEADER.read_text()
-    for name, value in (("kTrainMmaTileQ", TILE), ("kTrainMmaTileK", TILE),
-                        ("kPTerms", P_TERMS)):
-        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [str(value)]
+    """``kernel_check.TILE`` is the K4 backward kernels' query and key tile;
+    ``FWD_ROWS`` and ``FWD_KEYS`` the forward's query block and key tile,
+    and ``P_TERMS`` its number of bf16 parts of p."""
+    for header, constants in ((BWD_HEADER, (("kTrainMmaTileQ", TILE), ("kTrainMmaTileK", TILE))),
+                              (FWD_HEADER, (("kTrainFwdRows", FWD_ROWS),
+                                            ("kTrainFwdKeys", FWD_KEYS), ("kPTerms", P_TERMS)))):
+        text = header.read_text()
+        for name, value in constants:
+            assert re.findall(rf"constexpr int {name} = (\d+);", text) == [str(value)]
+
+
+# segment layouts beside the case's: short segments, so that a 128-row block
+# holds three or more ids (the walk's range test), and ids that recur along
+# the row (runs of 37 tokens cycling through 0, 1, 2)
+WALK_LAYOUTS = {"packed": None, "short": (100, 20, 90, 33, 150, 60, 200, 47),
+                "recurring": "runs"}
+
+
+def layout(name):
+    """int32 [1, S] segment ids of ``WALK_LAYOUTS[name]``."""
+    kind = WALK_LAYOUTS[name]
+    if kind is None:
+        return case()[5]
+    if kind == "runs":
+        return ((torch.arange(S) // 37) % 3).to(torch.int32)[None]
+    return torch.from_numpy(segments(S, kind))
+
+
+@pytest.mark.parametrize("name", list(WALK_LAYOUTS))
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_walk_covers_what_the_masks_allow(name, causal):
+    """The forward's walk (128-query blocks over 64-key tiles) reaches
+    every pair the mask allows, on layouts where a block holds one, two or
+    three and more ids (the range test), and skips tiles whose ids cannot
+    meet the block's; in the causal form no walk passes the block's
+    diagonal."""
+    seg = layout(name)
+    walk = walked(seg, causal, rows=FWD_ROWS, keys=FWD_KEYS)
+    assert not (_allowed(seg, causal) & ~walk).any()
+    if name != "recurring":                            # recurring ids meet everywhere
+        assert walk.sum() < (_allowed(seg, True) if causal else torch.ones(S, S)).numel()
+        assert (~_allowed(seg, causal) & ~walk).any()
+    if causal:
+        q = torch.arange(S)
+        beyond = (q[None, :] // FWD_KEYS) > (q[:, None] // FWD_ROWS * FWD_ROWS + FWD_ROWS - 1
+                                            ) // FWD_KEYS
+        assert not (walk[0, 0] & beyond).any()
+    ids = [seg[0, r0:r0 + FWD_ROWS] for r0 in range(0, S, FWD_ROWS)]
+    if name == "short":
+        assert max(len(set(x.tolist())) for x in ids) >= 3
+
+
+@pytest.mark.parametrize("name", ["short", "recurring"])
+def test_forward_tiles_on_other_layouts(name):
+    """The forward's arithmetic on the other segment layouts (three and
+    more ids a block; recurring ids) against the plain version, o within
+    ``kernel_check.close`` in bf16 and lse in fp32."""
+    _, qs, k, v, _, _ = case(3)
+    seg = layout(name)
+    o32, lse = fwd_tiles(qs, k, v, seg)
+    ro, rlse = train_attention_fwd_plain(qs, k, v, seg)
+    assert kernel_check.close(o32.to(BF16), ro, BF16) <= 1.0
+    assert kernel_check.close(lse, rlse, torch.float32) <= 1.0
 
 
 @pytest.fixture(scope="module")
