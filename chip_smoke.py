@@ -436,8 +436,8 @@ K4_GRAD_NORM_TOL = 2e-2    # bf16 gradients against the fp32 plain version: ||g 
 # K4 at one tensor-parallel rank's heads of the 7B (Hq / M, Hk / M) for M = 2 and 4,
 # on the packed rows of K4_CASES' timed case
 K4_TP_HEADS = ((2, 14, 2), (4, 7, 1))
-# and the one-segment yardstick's long form: the forward alone at the eval and
-# train_cli rows' bucket
+# and the one-segment yardstick's long form: forward and backward at the eval
+# and train_cli rows' bucket
 K4_LONG_S = 32768
 # eval: VideoMME items at the 720p budget (EVAL_FRAMES frames of a 720x1280
 # source at 2 fps, served at the budget's 560x1008: 32 groups of g = 2880,
@@ -959,8 +959,9 @@ def phase_k4(results, check, times, yardsticks, randn):
     """K4 forward and backward against the plain version at the training
     shape: packed rows of 4096 (bf16, strided q), 1000 (fp32) and 8192
     (bf16, timed, with the bound and the library call on the same inputs);
-    then the one-segment yardstick against SDPA's causal kernel (fwd and
-    fwd+bwd at 8192, the forward at ``K4_LONG_S``).
+    then the one-segment yardstick against SDPA's causal kernel and the
+    blocked plain versions (fwd, bwd and fwd+bwd at 8192; fwd and bwd alone
+    at ``K4_LONG_S``).
 
     o and lse, and fp32 gradients, are held to the plain version on the
     same inputs in the same dtype, which rounds p and ds as the kernels do,
@@ -1128,7 +1129,8 @@ def phase_k4(results, check, times, yardsticks, randn):
             r["max_abs_err"] = max(r["max_abs_err"], err)
     del ro, rlse, fault
     torch.cuda.empty_cache()
-    both = fwd + cuda_ms(lambda: train_attention_bwd(qs, k, v, seg, o, lse, do))
+    bwd = cuda_ms(lambda: train_attention_bwd(qs, k, v, seg, o, lse, do))
+    both = fwd + bwd
     qt, kt, vt, dot = (x.transpose(1, 2) for x in (qs, k, v, do))
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=1.0,
                                                              enable_gqa=True))
@@ -1139,19 +1141,30 @@ def phase_k4(results, check, times, yardsticks, randn):
         torch.autograd.grad(out, leaves, dot)
 
     lib = cuda_ms(lib_both)
+    lib_bwd = cuda_ms(sdpa_eval(qs, k, v, True, do))
+    plain = (cuda_ms(lambda: kernel_check.train_attention_fwd_blocked(qs, k, v, seg), iters=3,
+                     warmup=1),
+             cuda_ms(lambda: kernel_check.train_attention_bwd_blocked(qs, k, v, seg, o, lse, do),
+                     iters=3, warmup=1))
     flops = 4 * (s * (s + 1) // 2) * d * hq
-    log(f"  {'train_attention':20s} one segment S={s}: K4 fwd {fwd:.3f} ms, fwd+bwd {both:.3f} ms; "
-        f"SDPA causal fwd {lib_fwd:.3f} ms, fwd+bwd {lib:.3f} ms; bound fwd "
-        f"{flops / PEAK_FLOPS * 1e3:.4f} ms, fwd+bwd {3.5 * flops / PEAK_FLOPS * 1e3:.4f} ms")
-    results["train_attention_fwd"]["one_segment"] = {"ms": fwd, "library_ms": lib_fwd}
-    results["train_attention_bwd"]["one_segment"] = {"fwd_bwd_ms": both, "library_fwd_bwd_ms": lib}
+    log(f"  {'train_attention':20s} one segment S={s}: K4 fwd {fwd:.3f} ms, bwd {bwd:.3f} ms, "
+        f"fwd+bwd {both:.3f} ms; SDPA causal fwd {lib_fwd:.3f} ms, bwd {lib_bwd:.3f} ms, fwd+bwd "
+        f"{lib:.3f} ms; blocked plain fwd {plain[0]:.3f} ms, bwd {plain[1]:.3f} ms; bound fwd "
+        f"{flops / PEAK_FLOPS * 1e3:.4f} ms, bwd {2.5 * flops / PEAK_FLOPS * 1e3:.4f} ms, "
+        f"fwd+bwd {3.5 * flops / PEAK_FLOPS * 1e3:.4f} ms")
+    results["train_attention_fwd"]["one_segment"] = {"ms": fwd, "library_ms": lib_fwd,
+                                                     "plain_ms": plain[0]}
+    results["train_attention_bwd"]["one_segment"] = {"ms": bwd, "library_ms": lib_bwd,
+                                                     "plain_ms": plain[1], "fwd_bwd_ms": both,
+                                                     "library_fwd_bwd_ms": lib}
     del qs, k, v, do, o, lse, qt, kt, vt, dot, leaves
     torch.cuda.empty_cache()
 
-    # and the forward alone at one segment of 32768 (the eval and train_cli
-    # rows' bucket; held at those rows by phase_eval and phase_train_cli)
+    # and forward and backward alone at one segment of 32768 (the eval and
+    # train_cli rows' bucket; held at those rows by phase_eval and
+    # phase_train_cli)
     s = K4_LONG_S
-    qs, k, v, _ = inputs(s, torch.bfloat16, False)
+    qs, k, v, do = inputs(s, torch.bfloat16, False)
     seg = segment_ids(s, (s,), dev)
     qt, kt, vt = (x.transpose(1, 2) for x in (qs, k, v))
 
@@ -1160,14 +1173,36 @@ def phase_k4(results, check, times, yardsticks, randn):
 
     r = {"ms": cuda_ms(fwd_fn), "graph_ms": graph_ms(fwd_fn),
          "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-             qt, kt, vt, is_causal=True, scale=1.0, enable_gqa=True))}
+             qt, kt, vt, is_causal=True, scale=1.0, enable_gqa=True)),
+         "plain_ms": cuda_ms(lambda: kernel_check.train_attention_fwd_blocked(qs, k, v, seg),
+                             iters=3, warmup=1)}
     flops = 4 * (s * (s + 1) // 2) * d * hq
-    r["bound_ms"], r["bound_by"] = bound(flops, 2 * (2 * s * hq * d + 2 * s * hk * d))
+    io = 2 * (2 * s * hq * d + 2 * s * hk * d)              # q, o, k, v in bf16
+    r["bound_ms"], r["bound_by"] = bound(flops, io)
     log(f"  {'train_attention_fwd':20s} one segment S={s}: K4 one call {r['ms']:.3f} ms, device "
-        f"{r['graph_ms']:.3f} ms; SDPA causal {r['library_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']}; {flops / 1e12:.3f} TFLOP)")
+        f"{r['graph_ms']:.3f} ms; SDPA causal {r['library_ms']:.3f} ms; blocked plain "
+        f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+        f"{flops / 1e12:.3f} TFLOP)")
     results["train_attention_fwd"]["one_segment_long"] = r
-    del qs, k, v, qt, kt, vt, fwd_fn
+    o, lse = fwd_fn()
+    del qt, kt, vt, fwd_fn
+    torch.cuda.empty_cache()
+
+    def bwd_fn():
+        return train_attention_bwd(qs, k, v, seg, o, lse, do)
+
+    r = {"ms": cuda_ms(bwd_fn), "graph_ms": graph_ms(bwd_fn),
+         "library_ms": cuda_ms(sdpa_eval(qs, k, v, True, do)),
+         "plain_ms": cuda_ms(lambda: kernel_check.train_attention_bwd_blocked(
+             qs, k, v, seg, o, lse, do), iters=3, warmup=1)}
+    r["bound_ms"], r["bound_by"] = bound(2.5 * flops, io + 2 * s * hq * d + 3 * (2 * s * hk * d)
+                                         + 4 * s * hq + 4 * s)
+    log(f"  {'train_attention_bwd':20s} one segment S={s}: K4 one call {r['ms']:.3f} ms, device "
+        f"{r['graph_ms']:.3f} ms; SDPA causal backward {r['library_ms']:.3f} ms; blocked plain "
+        f"{r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+        f"{2.5 * flops / 1e12:.3f} TFLOP)")
+    results["train_attention_bwd"]["one_segment_long"] = r
+    del qs, k, v, do, o, lse, bwd_fn
     torch.cuda.empty_cache()
 
 
@@ -4022,7 +4057,8 @@ def phase_train() -> dict:
     for rec in records:
         log(f"  step {rec['step']}: wall {rec['wall_s'] * 1e3:9.2f} ms  loss {rec['loss']:.4f}  "
             f"tokens {rec['tokens']} ({rec['supervised']} supervised)  "
-            f"{rec['tokens_per_s']:.0f} tokens/s  model {rec['model_tflops']:.1f} TFLOP/s")
+            f"{rec['tokens_per_s']:.0f} tokens/s  model {rec['model_tflops']:.1f} TFLOP/s  "
+            f"step peak {rec['peak_gib']:.2f} GiB")
     log(f"  peak memory {peak:.2f} GiB; launches {counts}")
     if len(records) != 3 or not all(torch.isfinite(torch.tensor(r["loss"])) for r in records):
         raise AssertionError(f"train: expected 3 finite losses, got {records}")
@@ -4467,8 +4503,8 @@ def phase_mesh(run: dict) -> dict:
         where = ("in the forward / backward" if by_backward >= rec["peak_gib"] * 2**30
                  else "after the backwards (the update)")
         log(f"  step {rec['step']}: bf16 .grad bytes alive after each backward "
-            f"{[p['grad_bytes'] for p in step]} (the parent: {step[0]['trainable_bytes']} each, "
-            f"every trainable parameter's); allocated {[gib(p['allocated']) for p in step]} GiB, "
+            f"{[p['grad_bytes'] for p in step]} (every trainable parameter's: "
+            f"{step[0]['trainable_bytes']}); allocated {[gib(p['allocated']) for p in step]} GiB, "
             f"peak so far {[gib(p['peak']) for p in step]} GiB; the step's peak "
             f"{rec['peak_gib']:.2f} GiB, {where}")
     left = [p["grad_bytes"] for p in probes if p["grad_bytes"]]
@@ -4937,14 +4973,14 @@ def train_cli_kernels(k4_rows: dict, vit_shapes) -> None:
     Times, at the largest S: one call (``cuda_ms``) of kernel, blocked
     plain and SDPA (K4: ``is_causal`` over the real tokens; its backward:
     the gradients of a forward made outside the timing), K4's forward and
-    K3 also in device time."""
+    backward and K3 also in device time (``graph_ms``)."""
     import torch
 
     from livecc_tpu_torch.ops.attention import prescaled
     from livecc_tpu_torch.ops.train_attention import train_attention_bwd, train_attention_fwd
     from livecc_tpu_torch.ops.vit_attention import vit_group_attention
     from livecc_tpu_torch.tools import kernel_check
-    from livecc_tpu_torch.tools.kernel_timing import cuda_ms
+    from livecc_tpu_torch.tools.kernel_timing import cuda_ms, graph_ms
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -5020,13 +5056,15 @@ def train_cli_kernels(k4_rows: dict, vit_shapes) -> None:
             torch.cuda.empty_cache()
         if timed:
             ms = cuda_ms(lambda: train_attention_bwd(qs, k, v, seg, o, lse, do))
+            dev_ms = graph_ms(lambda: train_attention_bwd(qs, k, v, seg, o, lse, do))
             plain_ms = cuda_ms(lambda: kernel_check.train_attention_bwd_blocked(
                 qs, k, v, seg, o, lse, do), iters=3, warmup=1)
             lib_ms = cuda_ms(sdpa_eval(qs[:, :n_real], k[:, :n_real], v[:, :n_real], True,
                                        do[:, :n_real]))
             b_ms, b_by = bound(10 * pairs * d * hq,
                                io + 2 * s * hq * d + 3 * (2 * s * hk * d) + 4 * s * hq + 4 * s)
-            log(f"  {'train_attention_bwd':20s} {shape}: one call: kernel {ms:.4f}  blocked plain "
+            log(f"  {'train_attention_bwd':20s} {shape}: one call: kernel {ms:.4f} (device "
+                f"{dev_ms:.4f})  blocked plain "
                 f"{plain_ms:.4f}  SDPA is_causal backward over the {n_real} real tokens "
                 f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}; "
                 f"{10 * pairs * d * hq / 1e12:.4f} TFLOP); causal pairs {pairs}")

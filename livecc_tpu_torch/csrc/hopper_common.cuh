@@ -1,9 +1,9 @@
 // Hopper's asynchronous primitives (PTX ISA 8.0, sm_90a), shared by the
 // warp-specialised kernels: K5's large form (w8a16_gemm.cu) and K4's forward
-// (train_wgmma_attention.cuh).
+// and backward (train_wgmma_attention.cuh, train_wgmma_attention_bwd.cuh).
 //
 //   * mbarriers: init, arrive (here or on a cluster peer), expect_tx, wait
-//     on a phase's parity; the cluster barrier and rank;
+//     on a phase's parity; the cluster barrier and rank; named barriers;
 //   * TMA: tile loads of 2 and 4 dimensions into shared memory (and one
 //     multicast to the blocks of a cluster) that complete on an mbarrier,
 //     and the host's tensor maps (cuTensorMapEncodeTiled, reached once
@@ -74,6 +74,15 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// a named barrier (ids 1-15; 0 is __syncthreads') of `threads` threads, a
+// multiple of 32: sync waits until that many have synced or arrived,
+// arrive counts this warp without waiting
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 // a warpgroup's registers: lowered to / raised to N a thread (all four warps)
 template <int N> __device__ __forceinline__ void regs_dec() {

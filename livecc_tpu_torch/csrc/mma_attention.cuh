@@ -43,10 +43,9 @@
 //
 // The fragment and copy primitives and the tile's steps (Q fragments,
 // S = Q K^T, the online softmax's rescale, the epilogue) are
-// mma_common.cuh's, shared with K1-int8 (quant_mma_attention.cuh); the
-// primitives also with K4 (train_mma_attention.cuh). mma.sync with cp.async is this version's
-// design; wgmma fed by TMA, with a producer warp and a deeper ring, is the
-// later redesign of this header.
+// mma_common.cuh's, shared with K1-int8 (quant_mma_attention.cuh).
+// mma.sync with cp.async is this version's design; wgmma fed by TMA, with a
+// producer warp and a deeper ring, is the later redesign of this header.
 
 #pragma once
 

@@ -1,8 +1,8 @@
 // Fragment and copy primitives of the bf16 tensor-core attention kernels,
-// shared by mma_attention.cuh (K1, K3), quant_mma_attention.cuh (K1-int8)
-// and train_mma_attention.cuh (K4), and of the W8A16 GEMM w8a16_gemm.cu
-// (K5): 16-byte cp.async copies into padded shared rows, ldmatrix,
-// mma.sync.aligned.m16n8k16 with bf16 operands and an fp32 accumulator,
+// shared by mma_attention.cuh (K1, K3) and quant_mma_attention.cuh
+// (K1-int8), and of the W8A16 GEMM w8a16_gemm.cu (K5); K4's wgmma kernels
+// (train_wgmma_attention*.cuh) take smem_addr and pack_bf16: 16-byte
+// cp.async copies into padded shared rows, ldmatrix, mma.sync.aligned.m16n8k16 with bf16 operands and an fp32 accumulator,
 // the exact widening of int8 codes to bf16; and the steps of a 64-query x
 // 64-key online-softmax tile that K1, K3 and K1-int8 take alike (Q
 // fragments, S = Q K^T, the running max and the rescale, the normalising

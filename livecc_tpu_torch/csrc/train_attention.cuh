@@ -35,8 +35,8 @@
 // These kernels serve fp32 operands (the tiny test model, and the CPU-vs-GPU
 // loss check), on the fp32 FMA pipes; they are instantiated for float only.
 // bf16 operands, the model's, run on the tensor cores in
-// train_wgmma_attention.cuh (the forward) and train_mma_attention.cuh (the
-// backward), which keep this contract.
+// train_wgmma_attention.cuh (the forward) and train_wgmma_attention_bwd.cuh
+// (the backward), which keep this contract.
 
 #pragma once
 

@@ -7,11 +7,11 @@
 // FullMask form (:109-112), which no training caller asks for.
 //
 // Two launches on one stream, counted as one call by the wrapper:
-//   * dK/dV — one block per (64-key tile, KV head, row) walks the G = 7 q
+//   * dK/dV — one block per (128-key tile, KV head, row) walks the G = 7 q
 //     heads of its group and the query tiles from its diagonal on, so every
 //     dK/dV row is summed inside one block: no atomics, and K/V are never
 //     repeated per q head;
-//   * dQ — one block per (64-query tile, q head, row) walks its key tiles.
+//   * dQ — one block per (128-query tile, q head, row) walks its key tiles.
 // The TPU fuses dq into the dK/dV kernel, where the grid runs in order and
 // a dq scratch carries across it; blocks on the H100 run in parallel, so a
 // fused dq would need atomics (two launches would then differ in their
@@ -20,13 +20,13 @@
 //
 // What bounds it on the H100: ~2.5x the forward's FLOPs (s, dp, dv, dk, dq),
 // compute-bound at the training shape. The dispatch is by dtype: bf16 (the
-// model's) runs on the tensor cores (train_mma_attention.cuh: transposed
-// dK/dV products with P^T and dS^T kept in registers as bf16 A fragments,
-// a cp.async ring over the live tiles), fp32 (the tiny test model) on the
-// FMA pipes (train_attention.cuh).
+// model's) runs on wgmma fed by TMA from a producer warp
+// (train_wgmma_attention_bwd.cuh: transposed dK/dV products with P^T and
+// dS^T kept in registers as bf16 A operands, a ring over the live tiles),
+// fp32 (the tiny test model) on the FMA pipes (train_attention.cuh).
 
 #include "train_attention.cuh"
-#include "train_mma_attention.cuh"
+#include "train_wgmma_attention_bwd.cuh"
 
 extern "C" int livecc_train_attention_bwd(int dtype, const void* q, const void* k, const void* v,
                                           const int* seg, const void* dout, const float* lse,
@@ -50,8 +50,8 @@ extern "C" int livecc_train_attention_bwd(int dtype, const void* q, const void* 
   if (dtype == livecc::kBFloat16)
     return livecc::with_head_dim(d, [&](auto dim) {
       constexpr int D = decltype(dim)::value;
-      return causal ? livecc::launch_train_bwd_mma<D, true>(p, batch, st)
-                    : livecc::launch_train_bwd_mma<D, false>(p, batch, st);
+      return causal ? livecc::launch_train_bwd_wgmma<D, true>(p, batch, st)
+                    : livecc::launch_train_bwd_wgmma<D, false>(p, batch, st);
     });
   if (dtype != livecc::kFloat32) return (int)cudaErrorInvalidValue;
   const int tiles = (s + livecc::kTrainTile - 1) / livecc::kTrainTile;

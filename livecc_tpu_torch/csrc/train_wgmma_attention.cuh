@@ -1,10 +1,10 @@
 // K4's forward for bf16 operands on Hopper: warpgroup products (wgmma) fed
 // by TMA from a producer warp, keeping splash's fp32 p. The contract and
 // numerics are train_attention.cuh's (see there), which the backward
-// kernels of train_mma_attention.cuh keep too and which read this kernel's
-// o and lse: query i attends key j iff seg[i] == seg[j] and, in the causal
-// form (kCausal), j <= i; masked scores at kSplashMask with p = 0; o = (sum
-// p v) / l in bf16, lse = m + log l in fp32.
+// kernels of train_wgmma_attention_bwd.cuh keep too and which read this
+// kernel's o and lse: query i attends key j iff seg[i] == seg[j] and, in
+// the causal form (kCausal), j <= i; masked scores at kSplashMask with p =
+// 0; o = (sum p v) / l in bf16, lse = m + log l in fp32.
 //
 // Replaces, for bf16: the forward of livecc_tpu/ops/attention.py:
 // _train_splash (JAX's Pallas splash MQA kernel, built at :99; :126) and of
@@ -61,7 +61,7 @@
 //
 // As before, work the data makes zero is never loaded or computed: each
 // block first reads the segment ids of its 128 rows and compacts the key
-// tiles that hold one of them (train_mma_attention.cuh: live_tiles) up to
+// tiles that hold one of them (live_tiles, which the backward shares) up to
 // its causal frontier (all of them in the non-causal form) into a list in
 // shared memory, which the producer walks; a skipped tile's p would be 0
 // everywhere, so skipping changes no bit. The masks (past S, the diagonal,
@@ -78,7 +78,6 @@
 
 #include "hopper_common.cuh"
 #include "train_attention.cuh"
-#include "train_mma_attention.cuh"
 
 namespace livecc {
 
@@ -89,23 +88,25 @@ constexpr int kPTerms = 3;             // bf16 parts of the forward's fp32 p: al
 constexpr int kTrainFwdMaxStages = 6;
 constexpr int kTrainFwdSmemLimit = 232448;   // 227 KB a block
 
-// The shared memory of head dim D: the Q tile, then kStages stages of a K
-// tile and a V tile, each in 64-column chunks of 128-byte rows (1024-byte
-// aligned, 128-byte swizzled); then ints: the stages' key segment ids, the
-// block's row ids, live_tiles' scratch, the list of live key tiles and
-// their one ids.
-template <int D>
+// The shared memory of head dim D: kResident tiles of the block's rows (the
+// forward's Q; the backward's dQ kernel keeps Q and dO), then kStages
+// stages of a K tile and a V tile, each in 64-column chunks of 128-byte
+// rows (1024-byte aligned, 128-byte swizzled); then ints: the stages' key
+// segment ids, the block's row ids, live_tiles' scratch, the list of live
+// key tiles and their one ids.
+template <int D, int kResident = 1>
 struct TrainFwdTile {
   static constexpr int kDp = D <= 64 ? 64 : 128;   // the products' head dim
   static constexpr int kChunks = kDp / 64;
   static constexpr int kQBytes = kChunks * kTrainFwdRows * 128;
+  static constexpr int kRingAt = kResident * kQBytes;
   static constexpr int kKVBytes = kChunks * kTrainFwdKeys * 128;
   static constexpr int kStageBytes = 2 * kKVBytes;
-  static constexpr int kFree = kTrainFwdSmemLimit - 1024 - kQBytes - 8192;   // 8 KB for the ints
+  static constexpr int kFree = kTrainFwdSmemLimit - 1024 - kRingAt - 8192;   // 8 KB for the ints
   static constexpr int kStages = kFree / (kStageBytes + 4 * kTrainFwdKeys) < kTrainFwdMaxStages
                                      ? kFree / (kStageBytes + 4 * kTrainFwdKeys)
                                      : kTrainFwdMaxStages;
-  static constexpr int kIntsAt = kQBytes + kStages * kStageBytes;
+  static constexpr int kIntsAt = kRingAt + kStages * kStageBytes;
   static constexpr int kScratch = 8;
   static_assert(kStages >= 2, "a ring of two stages at least");
   // bytes of dynamic shared memory for `key_tiles` key tiles (the list and
@@ -118,23 +119,94 @@ struct TrainFwdTile {
 
 namespace {
 
+// Which tiles a block walks: its own ROWS rows' segment ids (rows [r0, r0 +
+// ROWS) below s) into ids[ROWS] (`pad` past s), then the KT-row tiles t in
+// [t0, t1) that hold one of those ids, compacted in order into list[] (t1 -
+// t0 ints), by the block's THREADS threads; scratch holds ROWS / 32 + 1
+// ints. Exact when the block's rows hold at most two ids; otherwise a tile
+// is kept when it holds any id in their range (a superset: the masks
+// decide). Beside it, uni[] (t1 - t0 ints): each listed tile's one id
+// where all its KT rows lie below s and hold that id, else INT_MIN.
+// Returns the number of live tiles, the same in every thread.
+template <int ROWS, int KT, int THREADS>
+__device__ int live_tiles(int* ids, int* list, int* scratch, const int* segb, int s, int r0,
+                          int pad, int t0, int t1, int* uni) {
+  constexpr int kWarps = ROWS / 32;         // warps w < kWarps hold rows 32 w .. 32 w + 31
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const bool in = tid < ROWS && r0 + tid < s;
+  const int id = in ? segb[r0 + tid] : 0;
+  if (tid < ROWS) ids[tid] = in ? id : pad;
+  int lo = in ? id : INT_MAX, hi = in ? id : INT_MIN;
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (warp < kWarps && lane == 0) scratch[warp] = lo;
+  __syncthreads();
+  lo = scratch[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) lo = min(lo, scratch[w]);
+  __syncthreads();
+  if (warp < kWarps && lane == 0) scratch[warp] = hi;
+  __syncthreads();
+  hi = scratch[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) hi = max(hi, scratch[w]);
+  const bool three = __syncthreads_or(in && id != lo && id != hi);   // 3+ distinct ids
+
+  const int n = t1 - t0;
+  for (int i = tid; i < n; i += THREADS) {
+    const int a = (t0 + i) * KT, e = min(a + KT, s);
+    const int first = segb[a];
+    bool hit = false, same = e - a == KT;
+#pragma unroll 16
+    for (int r = a; r < e; ++r) {
+      const int x = segb[r];
+      hit |= three ? (x >= lo && x <= hi) : (x == lo || x == hi);
+      same &= x == first;
+    }
+    list[i] = hit;
+    uni[i] = same ? first : INT_MIN;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < n; base += 32) {
+      const bool f = base + lane < n && list[base + lane];
+      const int u = f ? uni[base + lane] : 0;
+      const unsigned m = __ballot_sync(0xffffffffu, f);
+      const int at = count + __popc(m & ((1u << lane) - 1u));
+      if (f) list[at] = t0 + base + lane;
+      if (f) uni[at] = u;
+      count += __popc(m);
+      __syncwarp();
+    }
+    if (lane == 0) scratch[kWarps] = count;
+  }
+  __syncthreads();
+  return scratch[kWarps];
+}
+
 template <int DP>
 __device__ __forceinline__ void wgmma_pv(float (&d)[DP / 2], const uint32_t (&a)[4], uint64_t b) {
   if constexpr (DP == 128) wgmma_rs_n128_tb(d, a, b);
   else wgmma_rs_n64_tb(d, a, b);
 }
 
-// S = Q K^T of a warpgroup's 64 rows (sQ) and a stage's KT = 64 keys,
-// issued as DP / 16 k16 steps, each 32 bytes further along the rows of a
-// 64-column chunk
-template <int KT, int DP>
-__device__ __forceinline__ void qk_scores(float (&sc)[KT / 2], const unsigned char* sQ,
-                                          const unsigned char* stage) {
-  static_assert(KT == 64, "S is one m64n64 accumulator");
+// d = A B^T over the head dim DP for 64 rows of A (at `a`) and 64 rows of B
+// (at `b`), both K-major in 64-column chunks of 128-byte rows that lie
+// AROWS * 128 and BROWS * 128 bytes apart (the rows of the tiles they are
+// part of), issued as DP / 16 k16 steps, each 32 bytes further along the
+// rows of a chunk: S = Q K^T here, S^T = K Q^T, dP^T = V dO^T, S and dP in
+// the backward (train_wgmma_attention_bwd.cuh)
+template <int DP, int AROWS, int BROWS>
+__device__ __forceinline__ void ss_scores(float (&d)[32], const unsigned char* a,
+                                          const unsigned char* b) {
 #pragma unroll
   for (int kk = 0; kk < DP / 16; ++kk)
-    wgmma_ss_n64(sc, sw128_desc(sQ + (kk / 4) * kTrainFwdRows * 128 + (kk % 4) * 32),
-                 sw128_desc(stage + (kk / 4) * KT * 128 + (kk % 4) * 32), kk > 0);
+    wgmma_ss_n64(d, sw128_desc(a + (kk / 4) * AROWS * 128 + (kk % 4) * 32),
+                 sw128_desc(b + (kk / 4) * BROWS * 128 + (kk % 4) * 32), kk > 0);
 }
 
 // O += P V over a stage's KT keys: V's k16 step kk is 16 rows (2048 bytes)
@@ -218,6 +290,37 @@ __device__ __forceinline__ void split_p(const float (&sc)[KT / 2],
   }
 }
 
+// The producer warp's walk over the n_live listed key tiles (list[i] x KT
+// keys): lane 0 copies each tile's K and V rows by TMA into the next stage
+// of the ring at `ring` (STAGES stages of a K tile and a V tile, CHUNKS
+// 64-column chunks each), all 32 lanes its key ids into seg_k[stage][KT]
+// with 4-byte loads (a row's ids need not start 16-byte aligned, as a TMA
+// copy's would; 0 past s). full[stage] takes the lanes' arrivals, lane 0's
+// expect_tx and the copies' bytes; empty[stage] the consumers' release.
+template <int KT, int STAGES, int CHUNKS>
+__device__ __forceinline__ void produce_kv_tiles(unsigned char* ring, int* seg_k, uint64_t* full,
+                                                 uint64_t* empty, const int* list, int n_live,
+                                                 const CUtensorMap* kmap, const CUtensorMap* vmap,
+                                                 int kvh, int b, const int* segb, int s) {
+  constexpr int kKVBytes = CHUNKS * KT * 128;
+  const int lane = threadIdx.x % 32;
+  for (int i = 0; i < n_live; ++i) {
+    const int st = i % STAGES;
+    unsigned char* const stage = ring + st * 2 * kKVBytes;
+    const int k0 = list[i] * KT;
+    mbar_wait(&empty[st], ((i / STAGES) & 1) ^ 1);
+    if (lane == 0) {
+      mbar_expect_tx(&full[st], 2 * kKVBytes);
+      for (int c = 0; c < CHUNKS; ++c) {
+        tma_load_4d(stage + c * KT * 128, kmap, 64 * c, k0, kvh, b, &full[st]);
+        tma_load_4d(stage + kKVBytes + c * KT * 128, vmap, 64 * c, k0, kvh, b, &full[st]);
+      }
+    }
+    for (int j = lane; j < KT; j += 32) seg_k[st * KT + j] = k0 + j < s ? segb[k0 + j] : 0;
+    mbar_arrive(&full[st]);
+  }
+}
+
 // Block (q head, row, 128-query tile from the last down). Threads 0-255:
 // the consumer warpgroups (rows 0-63, 64-127 of the tile); 256-383: the
 // producer, whose first warp fills the ring.
@@ -262,27 +365,10 @@ __global__ void __launch_bounds__(kTrainFwdThreads, 1)
 
   if (threadIdx.x >= 256) {                 // the producer
     regs_dec<40>();
-    if (threadIdx.x < 288) {                // its first warp: lane 0 the copies, all the key ids
-      const int lane = threadIdx.x % 32;
-      const int* segb = p.seg + (long long)b * s;
-      for (int i = 0; i < n_live; ++i) {
-        const int st = i % S;
-        unsigned char* const stage = tiles + Tile::kQBytes + st * Tile::kStageBytes;
-        const int k0 = sList[i] * KT;
-        mbar_wait(&empty[st], ((i / S) & 1) ^ 1);
-        if (lane == 0) {
-          mbar_expect_tx(&full[st], Tile::kStageBytes);
-          for (int c = 0; c < Tile::kChunks; ++c) {
-            tma_load_4d(stage + c * KT * 128, &kmap, 64 * c, k0, kvh, b, &full[st]);
-            tma_load_4d(stage + Tile::kKVBytes + c * KT * 128, &vmap, 64 * c, k0, kvh, b,
-                        &full[st]);
-          }
-        }
-        // (4-byte loads: a row's ids need not start 16-byte aligned, as a TMA copy's would)
-        for (int j = lane; j < KT; j += 32) sSegK[st * KT + j] = k0 + j < s ? segb[k0 + j] : 0;
-        mbar_arrive(&full[st]);
-      }
-    }
+    if (threadIdx.x < 288)                  // its first warp
+      produce_kv_tiles<KT, S, Tile::kChunks>(tiles + Tile::kRingAt, sSegK, full, empty, sList,
+                                             n_live, &kmap, &vmap, kvh, b,
+                                             p.seg + (long long)b * s, s);
     return;
   }
 
@@ -300,7 +386,7 @@ __global__ void __launch_bounds__(kTrainFwdThreads, 1)
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float alpha[2];                           // the latest tile's rescale of O
-  auto stage_at = [&](int i) { return tiles + Tile::kQBytes + (i % S) * Tile::kStageBytes; };
+  auto stage_at = [&](int i) { return tiles + Tile::kRingAt + (i % S) * Tile::kStageBytes; };
   auto tile_p = [&](int i) {                // tile i's scores into p, in sc
     const int k0 = sList[i] * KT, one = sUni[i];
     // no mask can apply: the tile lies below both rows' diagonal and holds their id alone
@@ -317,7 +403,7 @@ __global__ void __launch_bounds__(kTrainFwdThreads, 1)
   mbar_wait(&full[0], 0);
   fence_acc(sc);
   wgmma_fence();
-  qk_scores<KT, DP>(sc, sQ, stage_at(0));
+  ss_scores<DP, R, KT>(sc, sQ, stage_at(0));
   wgmma_commit();
   wgmma_wait<0>();
   fence_acc(sc);
@@ -328,7 +414,7 @@ __global__ void __launch_bounds__(kTrainFwdThreads, 1)
     fence_acc(sc);
     fence_acc(acc);
     wgmma_fence();
-    qk_scores<KT, DP>(sc, sQ, stage_at(i));
+    ss_scores<DP, R, KT>(sc, sQ, stage_at(i));
     wgmma_commit();
     pv<KT, DP>(acc, pa, stage_at(i - 1));
     wgmma_commit();

@@ -195,8 +195,8 @@ def check_operands(name: str, *tensors: torch.Tensor) -> None:
 
 def check_bf16_rows(name: str, *tensors: torch.Tensor) -> None:
     """What the bf16 tensor-core kernels (``csrc/mma_attention.cuh``: K1,
-    K3; ``csrc/train_wgmma_attention.cuh`` and ``train_mma_attention.cuh``:
-    K4) take besides ``check_operands``: a head dim that is a multiple of
+    K3; ``csrc/train_wgmma_attention.cuh`` and
+    ``train_wgmma_attention_bwd.cuh``: K4) take besides ``check_operands``: a head dim that is a multiple of
     16, and rows whose 16-byte copies are aligned (base and every stride but
     the head dim's a multiple of 16 bytes). No-op for other dtypes."""
     if tensors[0].dtype != torch.bfloat16:

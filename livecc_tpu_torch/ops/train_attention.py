@@ -21,7 +21,7 @@ operands' dtypes. CUDA tensors go to ``csrc/train_attention_fwd.cu`` and
 ``train_attention_bwd``), CPU tensors to the plain versions below; any
 other device raises. On the card, bf16 operands run on the tensor cores
 (the forward on ``csrc/train_wgmma_attention.cuh``, the backward on
-``csrc/train_mma_attention.cuh``: a head dim that is a multiple of 16 and
+``csrc/train_wgmma_attention_bwd.cuh``: a head dim that is a multiple of 16 and
 16-byte aligned rows, ``build.check_bf16_rows``), fp32 operands on the FMA
 pipes (``csrc/train_attention.cuh``). The plain versions keep splash's
 numerics: fp32 scores, masked scores at ``-0.7 * finfo(float32).max``, p

@@ -27,8 +27,8 @@ give; a check that passes them could not see a lost block:
     ``kQuantTileQ`` / ``kQuantTileK``);
   * ``dropped_tile(...)`` (K4): the plain forward and backward outputs (o,
     lse, dq, dk, dv) without one 64 x 64 tile pair of one q head (``TILE``,
-    ``kTrainMmaTileQ`` / ``kTrainMmaTileK`` of ``train_mma_attention.cuh``,
-    the backward's; half of the forward's 128 x 64 block pair);
+    ``kTrainBwdTile`` of ``train_wgmma_attention_bwd.cuh``, the backward's
+    streamed tiles; half of each kernel's 128 x 64 block pair);
     ``dropped_fwd_tile(...)`` the forward's two alone; ``causal_walk(...)``
     (K4's non-causal form): the five outputs as the kernels would give them
     had they kept the causal form's walk and mask under ``causal=False``
@@ -93,8 +93,9 @@ from livecc_tpu_torch.ops.flash_attention import _masked_softmax_pv, _scores
 TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
 TILE = 64       # queries and keys per tile: kMmaTileQ, kMmaTileK of csrc/mma_attention.cuh,
                 # kQuantTileQ, kQuantTileK of csrc/quant_mma_attention.cuh,
-                # kTrainMmaTileQ, kTrainMmaTileK of csrc/train_mma_attention.cuh
-                # (K4's backward; its forward's blocks are 128 x 64)
+                # kTrainBwdTile of csrc/train_wgmma_attention_bwd.cuh (K4's
+                # backward streams 64-row tiles past 128-row blocks, as its
+                # forward does)
 FLIP_LIMIT = 1e-2   # rounding_flips: one output in a hundred off the fp32 result's rounding
 GRAD_SPREAD = 2.0   # grad_close: twice the bf16 reference's worst stray from fp32 in the row
 GRAD_FLOOR = 1e-3   # grad_close: and a thousandth of the gradient's rms

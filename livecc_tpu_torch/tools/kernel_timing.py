@@ -18,11 +18,11 @@ Run as a script, by path, with the checkout to time first on
 ``PYTHONPATH``, it times that checkout's ``flash_decode`` (K2 and K2-int8),
 ``vit_group_attention`` (K3), ``flash_prefill`` (K1 and, with scales,
 K1-int8), ``train_attention_fwd`` / ``train_attention_bwd`` (K4, causal and,
-where the checkout has it, non-causal; and the forward at the other shapes
-of its paths, ``TRAIN_FWD_SHAPES``) and
-``w8a16_gemm`` (K5) both
-ways at ``chip_smoke.py``'s timed shapes and prints one JSON line, so two
-versions of the kernels compare on one card in one call:
+where the checkout has it, non-causal; and the forward and the backward
+at the other shapes of their paths, ``TRAIN_FWD_SHAPES`` and
+``TRAIN_BWD_SHAPES``) and ``w8a16_gemm`` (K5) both ways at
+``chip_smoke.py``'s timed shapes and prints one JSON line, so two versions
+of the kernels compare on one card in one call:
 
     PYTHONPATH=. python3 livecc_tpu_torch/tools/kernel_timing.py
     PYTHONPATH=<another checkout> python3 livecc_tpu_torch/tools/kernel_timing.py
@@ -257,6 +257,16 @@ TRAIN_FWD_SHAPES = (
     ("TP rank M=2", 1, TRAIN_S, 14, 2, TRAIN_LENGTHS),
     ("TP rank M=4", 1, TRAIN_S, 7, 1, TRAIN_LENGTHS),
 )
+# and its backward, bf16, on the forward's o and lse: train_cli's 120 s row,
+# one causal segment of 8192 and of 32768, and the packed row at one
+# tensor-parallel rank's heads (M = 2, 4)
+TRAIN_BWD_SHAPES = (
+    ("train_cli's 120 s row", 1, 32768, 28, 4, (29422,)),
+    ("one segment", 1, 8192, 28, 4, (8192,)),
+    ("one segment", 1, 32768, 28, 4, (32768,)),
+    ("TP rank M=2", 1, TRAIN_S, 14, 2, TRAIN_LENGTHS),
+    ("TP rank M=4", 1, TRAIN_S, 7, 1, TRAIN_LENGTHS),
+)
 
 
 def train_operands(b: int, s: int, hq: int, hk: int, lengths, gen: torch.Generator):
@@ -279,7 +289,8 @@ def train_operands(b: int, s: int, hq: int, hk: int, lengths, gen: torch.Generat
 def train_cases():
     """(label, call) of K4's forward and backward at the timed shape, fp32
     and bf16, then of its non-causal form (``causal=False``, bf16) where
-    the checkout has one, then of its bf16 forward at ``TRAIN_FWD_SHAPES``."""
+    the checkout has one, then of its bf16 forward at ``TRAIN_FWD_SHAPES``
+    and its bf16 backward at ``TRAIN_BWD_SHAPES``."""
     import inspect
 
     from livecc_tpu_torch.ops.train_attention import train_attention_bwd, train_attention_fwd
@@ -311,6 +322,13 @@ def train_cases():
                f"D={d} bfloat16",
                lambda a=(qs, k, v, seg): train_attention_fwd(*a))
         del qs, k, v, seg
+    for name, b, s, hq, hk, lengths in TRAIN_BWD_SHAPES:
+        qs, k, v, do, seg = train_operands(b, s, hq, hk, lengths, gen)
+        o, lse = train_attention_fwd(qs, k, v, seg)
+        yield (f"K4 bwd {name} B={b} S={s} segments {list(lengths)} + pad Hq={hq} Hk={hk} "
+               f"D={d} bfloat16",
+               lambda a=(qs, k, v, seg, o, lse, do): train_attention_bwd(*a))
+        del qs, k, v, do, seg, o, lse
 
 
 # K5's shapes at the 7B: projection -> (N, K, fp32 output); decode rows M = 1

@@ -51,7 +51,7 @@ UNPROFILED_SESSIONS = 3
 def _group(name: str) -> str:
     if re.search(r"train_fwd(_mma|_wgmma)?_kernel", name):    # fp32 and bf16 K4
         return "K4 train_attention_fwd"
-    if re.search(r"train_(dkv|dq)(_mma)?_kernel", name):
+    if re.search(r"train_(dkv|dq)(_mma|_wgmma)?_kernel", name):
         return "K4 train_attention_bwd"
     if re.search(r"w8_(small|merge|large|wgmma|fma)_kernel", name):   # K5
         return "K5 w8a16_gemm"

@@ -3,6 +3,12 @@
     python3 -m livecc_tpu_torch.tools.train_session            # 3 steps, walls and rates
     python3 -m livecc_tpu_torch.tools.train_session --profile  # + one step under the profiler
 
+Run by path with another checkout first on ``PYTHONPATH``, it drives that
+checkout's ``Trainer`` and train step with this session, so two checkouts'
+step walls and step peaks compare in one call:
+
+    PYTHONPATH=<checkout> python3 livecc_tpu_torch/tools/train_session.py
+
 The port's counterpart of ``bench.py:bench_train`` and
 ``tools/train_e2e_tpu.py``: processed samples are built from seeded
 synthetic frames through the port's own ``device_patchify``, chat template,
@@ -177,8 +183,10 @@ def window_flops(cfg: ModelConfig, batch) -> tuple[int, int]:
 
 def run_steps(trainer: Trainer) -> list[dict]:
     """Run the trainer to its end; one record per step: synchronized wall,
-    loss, supervised and real tokens, tokens/s, model TFLOP/s and the (NG, g)
-    of the step's K3 calls (None without a uniform vision grid)."""
+    loss, supervised and real tokens, tokens/s, model TFLOP/s, the step's
+    peak device memory (the Trainer resets the peak after each logged step,
+    and this trainer logs every step) and the (NG, g) of the step's K3 calls
+    (None without a uniform vision grid)."""
     records = []
     torch.cuda.synchronize()
     last = [time.perf_counter()]
@@ -191,6 +199,7 @@ def run_steps(trainer: Trainer) -> list[dict]:
         records.append({"step": step, "wall_s": wall, "loss": float(metrics["loss"]),
                         "supervised": int(metrics["tokens"]), "tokens": tokens,
                         "tokens_per_s": tokens / wall, "model_tflops": flops / wall / 1e12,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                         "vit_shape": None if batch.vision_group is None else (
                             batch.vision_patches.shape[-2] // batch.vision_group,
                             batch.vision_group)})

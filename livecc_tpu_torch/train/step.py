@@ -307,8 +307,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, optimizer: AdamW):
 
     The model's trainable parameters are updated in place. Accumulates over
     the leading ``A`` axis of the Batch, normalizing by the total supervised
-    token count of the window (HF Trainer semantics). ``metrics`` holds
+    token count of the window (HF Trainer semantics). Each parameter's
+    ``.grad`` is added into its fp32 accumulator and freed as autograd
+    completes it (a post-accumulate-grad hook, removed after the step), so
+    a backward never holds every ``.grad`` at once; JAX's ``value_and_grad``
+    returns the whole tree, and the sums are the same. ``metrics`` holds
     device tensors (``loss``, ``tokens``, ``ce_dropped``): reading them syncs."""
+
+    def take(acc: torch.Tensor):
+        @torch.no_grad()
+        def hook(p: torch.Tensor) -> None:
+            if p.grad is not None:          # one parameter under two names: taken once
+                acc.add_(p.grad)
+                p.grad = None
+        return hook
 
     def step(model: Qwen2VL, opt_state: dict, batch: Batch):
         trainable, _ = split_frozen(model, tcfg.freeze_modules)
@@ -317,18 +329,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, optimizer: AdamW):
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         count_sum = torch.zeros((), dtype=torch.int64, device=dev)
         drop_sum = torch.zeros((), dtype=torch.int64, device=dev)
-        for i in range(batch.accum):
-            for p in trainable.values():
-                p.grad = None
-            loss, (count, dropped) = loss_fn(model, cfg, tcfg, batch.micro(i))
-            loss.backward()
-            for n, p in trainable.items():
-                if p.grad is not None:
-                    acc[n].add_(p.grad)
-                    p.grad = None
-            loss_sum += loss.detach()
-            count_sum += count
-            drop_sum += dropped
+        for p in trainable.values():
+            p.grad = None
+        hooks = [p.register_post_accumulate_grad_hook(take(acc[n]))
+                 for n, p in trainable.items()]
+        try:
+            for i in range(batch.accum):
+                loss, (count, dropped) = loss_fn(model, cfg, tcfg, batch.micro(i))
+                loss.backward()
+                loss_sum += loss.detach()
+                count_sum += count
+                drop_sum += dropped
+        finally:
+            for h in hooks:
+                h.remove()
         denom = torch.clamp(count_sum, min=1).float()
         for g in acc.values():
             g.div_(denom)

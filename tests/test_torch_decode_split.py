@@ -166,14 +166,20 @@ def test_close_and_drop_split_edges():
      "K3 vit_group_attention"),
     ("void livecc::(anonymous namespace)::tile_attention_kernel<float, true, false>(...)",
      "K1 flash_prefill"),
-    # K4: the tensor-core kernels (bf16: the wgmma forward, the mma.sync
-    # forward of older checkouts, the backward) and the FMA ones (fp32;
-    # templated on the dtype in older checkouts)
+    # K4: the tensor-core kernels (bf16: the wgmma forward and backward, the
+    # mma.sync forward and backward of older checkouts) and the FMA ones
+    # (fp32; templated on the dtype in older checkouts)
     ("void livecc::(anonymous namespace)::train_fwd_wgmma_kernel<128, true>(CUtensorMap_st, "
      "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, livecc::TrainAttnParams)",
      "K4 train_attention_fwd"),
     ("void livecc::(anonymous namespace)::train_fwd_mma_kernel<128>(livecc::TrainAttnParams)",
      "K4 train_attention_fwd"),
+    ("void livecc::(anonymous namespace)::train_dkv_wgmma_kernel<128, true>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, livecc::TrainAttnParams)",
+     "K4 train_attention_bwd"),
+    ("void livecc::(anonymous namespace)::train_dq_wgmma_kernel<64, false>(CUtensorMap_st, "
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, livecc::TrainAttnParams)",
+     "K4 train_attention_bwd"),
     ("void livecc::(anonymous namespace)::train_dkv_mma_kernel<128>(livecc::TrainAttnParams)",
      "K4 train_attention_bwd"),
     ("void livecc::(anonymous namespace)::train_dq_mma_kernel<128>(livecc::TrainAttnParams)",

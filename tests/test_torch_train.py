@@ -475,6 +475,78 @@ def test_first_update_has_learning_rate_zero(jax_params):
     assert torch.equal(model.visual.patch_embed.weight, before["visual.patch_embed.weight"])
 
 
+@pytest.mark.parametrize("kind", ["bool", "packed"])
+def test_train_step_frees_each_grad_during_the_backward(jax_params, monkeypatch, kind):
+    """``make_train_step`` takes each trainable parameter's ``.grad`` into
+    its fp32 accumulator as autograd completes it: right after every
+    micro-step's backward no parameter holds a ``.grad`` (where the
+    accumulation after ``backward()``, written out below, leaves them all);
+    two steps give that accumulation's losses and parameters bit for bit;
+    and no hook is left on a parameter after a step."""
+    cfg = tiny_config()
+    xs = samples(6, [30, 44, 26, 36])
+    if kind == "bool":
+        batch = pdata.collate(xs[:2], cfg, device="cpu")
+    else:
+        batch = pdata.collate_packed_rows(jdata.pack_samples(xs, 80)[0], cfg, accum=2,
+                                          device="cpu")
+    assert batch.accum == 2
+    tcfg = pstep.TrainConfig(learning_rate=1e-3, total_steps=10, ce_chunk_size=16)
+    opt = pstep.make_optimizer(tcfg)
+
+    def after_backward_step(model, opt_state, batch):
+        trainable, _ = pstep.split_frozen(model, tcfg.freeze_modules)
+        acc = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in trainable.items()}
+        loss_sum, count_sum = torch.zeros(()), torch.zeros((), dtype=torch.int64)
+        for i in range(batch.accum):
+            for p in trainable.values():
+                p.grad = None
+            loss, (count, _) = pstep.loss_fn(model, cfg, tcfg, batch.micro(i))
+            loss.backward()
+            for n, p in trainable.items():
+                if p.grad is not None:
+                    acc[n].add_(p.grad)
+                    p.grad = None
+            loss_sum += loss.detach()
+            count_sum += count
+        denom = torch.clamp(count_sum, min=1).float()
+        for g in acc.values():
+            g.div_(denom)
+        return model, opt.update(acc, opt_state, trainable), {"loss": loss_sum / denom}
+
+    held, real_backward = [], torch.Tensor.backward
+    watched = []
+
+    def backward(self, *args, **kwargs):
+        real_backward(self, *args, **kwargs)
+        held.append(sum(p.grad is not None for p in watched[-1].parameters()))
+
+    monkeypatch.setattr(torch.Tensor, "backward", backward)
+    runs = {}
+    for name, step in (("hooked", pstep.make_train_step(cfg, tcfg, opt)),
+                       ("after_backward", after_backward_step)):
+        model = port_model(jax_params)
+        watched.append(model)
+        state = opt.init(pstep.split_frozen(model, tcfg.freeze_modules)[0])
+        held.clear()
+        losses = []
+        for _ in range(2):
+            model, state, metrics = step(model, state, batch)
+            losses.append(metrics["loss"])
+            assert not any(getattr(p, "_post_accumulate_grad_hooks", None)
+                           for p in model.parameters())
+        runs[name] = (model, losses, list(held))
+    hooked, ref = runs["hooked"], runs["after_backward"]
+    assert hooked[2] == [0] * 4
+    assert len(ref[2]) == 4 and min(ref[2]) > 0      # the count sees a .grad left alive
+    assert all(torch.equal(a, b) for a, b in zip(hooked[1], ref[1]))
+    ref_params = dict(ref[0].named_parameters())
+    for n, p in hooked[0].named_parameters():
+        assert torch.equal(p, ref_params[n]), n
+    assert not torch.equal(hooked[0].text.embed.weight,       # step 2 moved the weights
+                           port_model(jax_params).text.embed.weight)
+
+
 # ---------------------------------------------------------------------------
 # the Trainer
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """K4's bf16 tensor-core kernels, their tile-wise arithmetic emulated in
 PyTorch on the CPU: the forward (``csrc/train_wgmma_attention.cuh``) and the
-backward (``csrc/train_mma_attention.cuh``).
+backward (``csrc/train_wgmma_attention_bwd.cuh``).
 
 The kernels run only on the card; what they compute is written out here
 tile by tile and held to the references in bf16 by ``kernel_check.close``:
@@ -9,10 +9,13 @@ tile by tile and held to the references in bf16 by ``kernel_check.close``:
     max, masked scores at splash's mask value giving p = 0, and P·V as
     three bf16 products of p split into hi = bf16(p), mid = bf16(p - hi),
     lo = bf16(p - hi - mid) (``kPTerms``) into one fp32 accumulator;
-  * the backward's dK/dV kernel works in the transposed form, P^T and
+  * the backward's dK/dV kernel works in the transposed form: blocks of
+    128 keys (64 a warpgroup, each summing its own keys' rows: no partial
+    sums to merge) walk the group's q heads and, per head, their live
+    64-query tiles in order, each tile in one pass of 64 queries, P^T and
     dS^T rounded to bf16 as the A operands of dV += P^T dO and dK += dS^T
-    Q, walking the group's q heads and the 64-query tiles; the dQ kernel
-    rounds dS to bf16 for dQ += dS K over 64-key tiles;
+    Q; the dQ kernel's blocks of 128 queries walk 64-key tiles and round
+    dS to bf16 for dQ += dS K;
   * every kernel walks only its live tiles (``live_tiles``: the tiles that
     hold one of the block's ids), the forward's and dQ's up to the
     diagonal and dK/dV's from it on in the causal form, all of them in the
@@ -44,11 +47,13 @@ from livecc_tpu_torch.ops.train_attention import (
 from livecc_tpu_torch.tools import kernel_check
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-TILE = kernel_check.TILE        # the backward's query and key tiles
+TILE = kernel_check.TILE        # the tiles the kernels stream: 64 keys or queries
 BF16 = torch.bfloat16
 CSRC = Path(livecc_tpu_torch.__file__).parent / "csrc"
-FWD_HEADER, BWD_HEADER = CSRC / "train_wgmma_attention.cuh", CSRC / "train_mma_attention.cuh"
+FWD_HEADER = CSRC / "train_wgmma_attention.cuh"
+BWD_HEADER = CSRC / "train_wgmma_attention_bwd.cuh"
 FWD_ROWS, FWD_KEYS = 128, 64    # the forward's query block and key tile (FWD_HEADER)
+BWD_KEYS, BWD_ROWS = 128, 128    # dK/dV's key block, dQ's query block (BWD_HEADER)
 P_TERMS = 3         # bf16 parts of the forward's p: kPTerms of FWD_HEADER
 # the card's shape cut to S = 1000 (not a multiple of 64): the 7B's group of
 # 7 q heads on one KV head at D = 128, three packed segments and a pad tail
@@ -106,20 +111,22 @@ def live_tiles(seg, r0, t0, t1, rows=TILE, keys=TILE):
     return out
 
 
-def walked(seg, causal, by_keys=False, rows=TILE, keys=TILE):
+def walked(seg, causal, by_keys=False, rows=BWD_ROWS, keys=TILE):
     """bool [1, 1, S, S] (queries, keys): the tile pairs the kernels walk.
     The forward (blocks of ``rows`` queries over tiles of ``keys`` keys:
-    ``FWD_ROWS``, ``FWD_KEYS``) and dQ (64 x 64): each query block's live
-    key tiles up to its diagonal (all of them when not ``causal``); dK/dV
-    (``by_keys``, 64 x 64): each key tile's live query tiles from its
-    diagonal on (all when not ``causal``)."""
+    ``FWD_ROWS``, ``FWD_KEYS``) and dQ (``BWD_ROWS`` x ``TILE``): each
+    query block's live key tiles up to its diagonal (all of them when not
+    ``causal``); dK/dV (``by_keys``: blocks of ``rows`` keys, ``BWD_KEYS``,
+    over tiles of ``keys`` queries): each key block's live query tiles from
+    its diagonal on (all when not ``causal``)."""
     s = seg.shape[1]
     mask = torch.zeros((s, s), dtype=torch.bool)
     if by_keys:
-        n = -(-s // TILE)
-        for own in range(n):
-            for other in live_tiles(seg, own * TILE, own if causal else 0, n):
-                mask[other * TILE:(other + 1) * TILE, own * TILE:(own + 1) * TILE] = True
+        n = -(-s // keys)
+        for own in range(-(-s // rows)):
+            k0 = own * rows
+            for other in live_tiles(seg, k0, k0 // keys if causal else 0, n, rows, keys):
+                mask[other * keys:(other + 1) * keys, k0:k0 + rows] = True
         return mask[None, None]
     n_keys = -(-s // keys)
     for own in range(-(-s // rows)):
@@ -160,17 +167,18 @@ def fwd_tiles(qs, k, v, seg, terms=P_TERMS, causal=True):
 
 def bwd_tiles(qs, k, v, seg, o, lse, do, causal=True):
     """The backward kernels' arithmetic: (dq for qs, dk, dv) in bf16. dK/dV
-    in the transposed form, walking the group's q heads and the query
-    tiles in the kernel's order; dQ over the key tiles; each over the tile
-    pairs its kernel walks."""
+    in the transposed form, walking the group's q heads and the 64-query
+    tiles in the kernel's order (each tile one pass); dQ over the 64-key
+    tiles; each over the tile pairs its kernel walks (``BWD_KEYS``-key
+    and ``BWD_ROWS``-query blocks)."""
     b, s, hq, d = qs.shape
     hk = k.shape[2]
     g = hq // hk
     q, dot = heads(qs, 1), heads(do, 1)                    # [B, Hq, S, D]
     kk, vv = heads(k, 1), heads(v, 1)                      # [B, Hk, S, D]
     di = (o.float() * do.float()).sum(-1).transpose(1, 2)  # [B, Hq, S]
-    allowed_t = (_allowed(seg, causal)
-                 & walked(seg, causal, by_keys=True)).transpose(-1, -2)   # [B, 1, keys, queries]
+    allowed_t = (_allowed(seg, causal) & walked(seg, causal, by_keys=True, rows=BWD_KEYS)
+                 ).transpose(-1, -2)                 # [B, 1, keys, queries]
     dk, dv = torch.zeros_like(kk), torch.zeros_like(vv)
     for gi in range(g):
         heads_g = [kvh * g + gi for kvh in range(hk)]
@@ -329,10 +337,12 @@ def test_gradient_check_holds_the_tiles_and_fails_a_dropped_tile(tiles, qt, kt, 
 
 
 def test_train_tiles_are_the_kernels_constants():
-    """``kernel_check.TILE`` is the K4 backward kernels' query and key tile;
-    ``FWD_ROWS`` and ``FWD_KEYS`` the forward's query block and key tile,
-    and ``P_TERMS`` its number of bf16 parts of p."""
-    for header, constants in ((BWD_HEADER, (("kTrainMmaTileQ", TILE), ("kTrainMmaTileK", TILE))),
+    """``kernel_check.TILE`` is the K4 backward kernels' streamed tile (64
+    queries for dK/dV, 64 keys for dQ), ``BWD_KEYS`` and ``BWD_ROWS`` their
+    key and query blocks; ``FWD_ROWS`` and ``FWD_KEYS`` the forward's query
+    block and key tile, and ``P_TERMS`` its number of bf16 parts of p."""
+    for header, constants in ((BWD_HEADER, (("kTrainBwdTile", TILE), ("kTrainBwdKeys", BWD_KEYS),
+                                            ("kTrainBwdRows", BWD_ROWS))),
                               (FWD_HEADER, (("kTrainFwdRows", FWD_ROWS),
                                             ("kTrainFwdKeys", FWD_KEYS), ("kPTerms", P_TERMS)))):
         text = header.read_text()
@@ -394,6 +404,50 @@ def test_forward_tiles_on_other_layouts(name):
     assert kernel_check.close(lse, rlse, torch.float32) <= 1.0
 
 
+@pytest.mark.parametrize("name", list(WALK_LAYOUTS))
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_walks_cover_what_the_masks_allow(name, causal):
+    """The backward's walks, dK/dV's (128-key blocks over 64-query tiles,
+    from the block's diagonal on) and dQ's (128-query blocks over 64-key
+    tiles, up to it), reach every pair the mask allows on layouts where a
+    block holds one, two or three and more ids, and skip tiles whose ids
+    cannot meet the block's; in the causal form dK/dV's walk starts at the
+    query tile of the block's first key, and no dQ walk passes the
+    block's diagonal."""
+    seg = layout(name)
+    by_keys = walked(seg, causal, by_keys=True, rows=BWD_KEYS)
+    by_rows = walked(seg, causal, rows=BWD_ROWS)
+    for walk in (by_keys, by_rows):
+        assert not (_allowed(seg, causal) & ~walk).any()
+        if name != "recurring":
+            assert (~_allowed(seg, causal) & ~walk).any()
+    if causal:
+        q = torch.arange(S)
+        before = (q[:, None] // TILE) < (q[None, :] // BWD_KEYS * BWD_KEYS) // TILE
+        assert not (by_keys[0, 0] & before).any()
+        beyond = (q[None, :] // TILE) > (q[:, None] // BWD_ROWS * BWD_ROWS + BWD_ROWS - 1) // TILE
+        assert not (by_rows[0, 0] & beyond).any()
+
+
+@pytest.mark.parametrize("name", ["short", "recurring"])
+def test_backward_tiles_on_other_layouts(name):
+    """The backward's arithmetic on the other segment layouts (three and
+    more ids a block; recurring ids), fed the emulated forward's o and lse:
+    dq, dk and dv within ``kernel_check.grad_close`` of the fp32 plain
+    version, the bf16 plain backward on the same o and lse setting the
+    rounding allowed."""
+    _, qs, k, v, do, _ = case(3)
+    seg = layout(name)
+    o32, lse = fwd_tiles(qs, k, v, seg)
+    o = o32.to(BF16)
+    ref = train_attention_bwd_plain(qs, k, v, seg, o, lse, do)
+    f32 = [x.float() for x in (qs, k, v)]
+    ref32 = train_attention_bwd_plain(*f32, seg, *train_attention_fwd_plain(*f32, seg),
+                                      do.float())
+    for out, r, r32 in zip(bwd_tiles(qs, k, v, seg, o, lse, do), ref, ref32):
+        assert kernel_check.grad_close(out, r, r32) <= 1.0
+
+
 @pytest.fixture(scope="module")
 def full_tiles():
     """The emulated kernels' five outputs on ``case()`` in the non-causal
@@ -411,8 +465,9 @@ def test_walks_cover_the_live_tiles():
     seg = case()[5]
     full = _allowed(seg, False)
     assert not (full & ~walked(seg, False)).any()
-    assert not (full & ~walked(seg, False, by_keys=True)).any()
+    assert not (full & ~walked(seg, False, by_keys=True, rows=BWD_KEYS)).any()
     assert not (_allowed(seg) & ~walked(seg, True)).any()
+    assert not (_allowed(seg) & ~walked(seg, True, by_keys=True, rows=BWD_KEYS)).any()
     assert (full & ~walked(seg, True)).any()
     assert walked(seg, False).sum() < S * S           # segments that cannot meet are skipped
 
