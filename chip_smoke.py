@@ -525,6 +525,35 @@ def phase_device():
     return card
 
 
+# bf16 K1's and K3's kernels (csrc/wgmma_attention.cuh): the build fails
+# where ptxas spills in one or serializes its wgmma's (C7515 / C7518)
+WGMMA_KERNELS = re.compile(r"wgmma_attention_kernel|prefill_merge_kernel")
+
+
+def ptxas_report(text: str) -> tuple[list[str], list[str]]:
+    """(lines to log, faults) of a build log: each kernel's name, registers,
+    spills and any "Performance Loss" line; a fault where a kernel of
+    ``WGMMA_KERNELS`` spills or has its wgmma's serialized (C7515 / C7518;
+    a warning is the entry function's being compiled)."""
+    lines, faults, entry, name = [], [], "", ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line
+        if "Function properties for" in line:     # the kernel the next two lines describe
+            name = line.split("for ")[-1]
+            m = re.search(r"\d+([a-z_]*kernel)(I\w*?)?E+[vN]", name)   # template or not
+            lines.append(f"  ptxas: {m.group(1) + (m.group(2) or '') if m else name}")
+        elif "Used" in line or "spill" in line or "Performance Loss" in line:
+            lines.append(f"  ptxas: {line.strip()}")
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if spills and WGMMA_KERNELS.search(name) and spills.groups() != ("0", "0"):
+                faults.append(f"{name}: {line.strip()}")
+            if ("Performance Loss" in line or re.search(r"C751[58]", line)) and (
+                    WGMMA_KERNELS.search(line) or WGMMA_KERNELS.search(entry)):
+                faults.append(line.strip())
+    return lines, faults
+
+
 def phase_build():
     from livecc_tpu_torch.ops import build
 
@@ -532,13 +561,12 @@ def phase_build():
     lib = build.build_library()
     build.load_library()
     log(f"build: {lib} in {time.perf_counter() - t0:.1f} s")
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "Function properties for" in line:     # the kernel the next two lines describe
-            name = line.split("for ")[-1]
-            m = re.search(r"\d+([a-z_]*kernel)(I\w*?)?E+[vN]", name)   # template or not
-            log(f"  ptxas: {m.group(1) + (m.group(2) or '') if m else name}")
-        elif "Used" in line or "spill" in line or "Performance Loss" in line:
-            log(f"  ptxas: {line.strip()}")
+    lines, faults = ptxas_report((lib.parent / "build.log").read_text())
+    for line in lines:
+        log(line)
+    if faults:
+        raise AssertionError("build: bf16 K1 / K3 spill or serialize their wgmma's:\n" +
+                             "\n".join(faults))
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -772,9 +800,13 @@ def phase_kernels() -> dict:
             ref = flash_prefill_plain(q, k5[li], v5[li], off_t, lim_t)
             row = max(range(b), key=lambda i: lim[i])       # the longest row, its last query tile
             qt = (sq - 1) // 64
-            kt = min(lim[row], off[row] + 64 * qt + 1) // 64 // 2
+            kt, split, live = kernel_check.split_key_tile(hq, hk, sq, off[row], lim[row], smax,
+                                                          qt, b)
             fault = kernel_check.drop_key_tile(ref, q, k5[li], v5[li], off_t, lim_t, qt, kt,
                                                head=5, row=row)
+            launched, walking = kernel_check.prefill_blocks(b, hq, hk, sq, off, lim, smax)
+            log(f"  {'flash_prefill':20s} {label:48s} grid: {launched} blocks, {walking} walk "
+                f"keys; the dropped key tile {kt} is in split {split + 1} of {live}")
             same_dtype("flash_prefill", label, out, ref, fault,
                        (lambda: flash_prefill(q, k5, v5, off_t, lim_t, layer_index=li))
                        if timed else None)
@@ -1588,12 +1620,13 @@ def phase_kernels_tp(results) -> None:
                            lambda: F.scaled_dot_product_attention(q, kq, vq, attn_mask=mask,
                                                                   enable_gqa=True))
                     qt = (sq - 1) // 64
+                    kt, split, live = kernel_check.split_key_tile(hq, hk, sq, off, lim, smax, qt)
                     fault = kernel_check.drop_key_tile(fns[1](), q, k[li], v[li], off_t, lim_t,
-                                                       qt, (off + 64 * qt + 1) // 64 // 2,
-                                                       head=hq - 1)
+                                                       qt, kt, head=hq - 1)
                     pairs = sum(off + i + 1 for i in range(sq))
-                    case("flash_prefill", m, f"B=1 Sq={sq} offset={off} {heads} bf16", fns,
-                         fault, 4 * pairs * d * hq, 2 * q.numel() * 2 + 2 * hk * lim * d * 2)
+                    case("flash_prefill", m, f"B=1 Sq={sq} offset={off} {heads} bf16 (the "
+                         f"fault in split {split + 1} of {live})", fns, fault,
+                         4 * pairs * d * hq, 2 * q.numel() * 2 + 2 * hk * lim * d * 2)
             lims = [777] if b == 1 else kernel_timing.POOL_LIMITS
             q = randn((b, 1, hq, d)).transpose(1, 2)
             lim_t = torch.tensor(lims, dtype=torch.int32, device=dev)

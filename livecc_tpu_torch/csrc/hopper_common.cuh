@@ -1,13 +1,16 @@
 // Hopper's asynchronous primitives (PTX ISA 8.0, sm_90a), shared by the
-// warp-specialised kernels: K5's large form (w8a16_gemm.cu) and K4's forward
-// and backward (train_wgmma_attention.cuh, train_wgmma_attention_bwd.cuh).
+// warp-specialised kernels: K5's large form (w8a16_gemm.cu), K4's forward
+// and backward (train_wgmma_attention.cuh, train_wgmma_attention_bwd.cuh)
+// and bf16 K1 and K3 (wgmma_attention.cuh).
 //
 //   * mbarriers: init, arrive (here or on a cluster peer), expect_tx, wait
 //     on a phase's parity; the cluster barrier and rank; named barriers;
-//   * TMA: tile loads of 2 and 4 dimensions into shared memory (and one
+//   * TMA: tile loads of 2, 4 and 5 dimensions into shared memory (and one
 //     multicast to the blocks of a cluster) that complete on an mbarrier,
 //     and the host's tensor maps (cuTensorMapEncodeTiled, reached once
 //     through cudaGetDriverEntryPointByVersion, so nothing links libcuda);
+//   * the proxy fence that orders a thread's plain shared-memory writes
+//     before the wgmma's and TMA's (async proxy) accesses that follow;
 //   * wgmma: fence, commit, wait, the shared-memory matrix descriptor, and
 //     the m64nNk16 bf16 products at the widths the kernels use, A from
 //     registers (RS) or from shared memory (SS), B K-major or transposed.
@@ -110,6 +113,14 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
                   "r"(c2), "r"(c3), "r"(smem_addr(bar))
                : "memory");
 }
+__device__ __forceinline__ void tma_load_5d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, int c4, uint64_t* bar) {
+  asm volatile("cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n"
+               :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+                  "r"(c2), "r"(c3), "r"(c4), "r"(smem_addr(bar))
+               : "memory");
+}
 // the 2-d load into `dst` of every block of the cluster in `mask`,
 // completing on the barrier at `bar`'s place in each
 __device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map, int c0,
@@ -119,6 +130,11 @@ __device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap*
                :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
                   "r"(smem_addr(bar)), "h"(mask)
                : "memory");
+}
+
+// this thread's plain writes to shared memory, seen by later wgmma / TMA
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -150,6 +166,13 @@ __device__ __forceinline__ uint64_t wgmma_desc(const void* tile, uint32_t lbo, u
 // the K-major tile with 128-byte rows in the 128-byte swizzle
 __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   return wgmma_desc(tile, 16, 1024);
+}
+// the same fields in the 32-byte swizzle (layout 3): rows of 32 bytes, 8-row
+// groups 256 bytes apart (256-byte aligned). K-major, a k16 step is the
+// whole row: (16, 256); MN-major (16 columns of the transposed B), the
+// stride is again the distance between 8-row groups along K
+__device__ __forceinline__ uint64_t sw32_desc(const void* tile, uint32_t lbo, uint32_t sbo) {
+  return (wgmma_desc(tile, lbo, sbo) & ~(3ull << 62)) | (3ull << 62);
 }
 
 #define HOPPER_ACC8(b) "+f"(d[b + 0]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), \
@@ -236,6 +259,41 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t 
       : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
         HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[8] += A (64 x 16, bf16 fragments a) * B (16 x 16, MN-major shared: the
+// transposed B, descriptor b)
+__device__ __forceinline__ void wgmma_rs_n16_tb(float (&d)[8], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : HOPPER_ACC8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// O += P V at the head dim DP (64 or 128) with V the transposed B
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DP / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (DP == 128) wgmma_rs_n128_tb(d, a, b);
+  else wgmma_rs_n64_tb(d, a, b);
+}
+
+// d = A B^T over the head dim DP for 64 rows of A (at `a`) and 64 rows of B
+// (at `b`), both K-major in 64-column chunks of 128-byte rows that lie
+// AROWS * 128 and BROWS * 128 bytes apart (the rows of the tiles they are
+// part of), issued as DP / 16 k16 steps, each 32 bytes further along the
+// rows of a chunk: S = Q K^T in K4's forward (train_wgmma_attention.cuh)
+// and in K1 / K3 (wgmma_attention.cuh), S^T = K Q^T, dP^T = V dO^T, S and
+// dP in K4's backward (train_wgmma_attention_bwd.cuh)
+template <int DP, int AROWS, int BROWS>
+__device__ __forceinline__ void ss_scores(float (&d)[32], const unsigned char* a,
+                                          const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss_n64(d, sw128_desc(a + (kk / 4) * AROWS * 128 + (kk % 4) * 32),
+                 sw128_desc(b + (kk / 4) * BROWS * 128 + (kk % 4) * 32), kk > 0);
 }
 
 // cuTensorMapEncodeTiled from the CUDA driver API, looked up once through

@@ -1,12 +1,12 @@
-// Fragment and copy primitives of the bf16 tensor-core attention kernels,
-// shared by mma_attention.cuh (K1, K3) and quant_mma_attention.cuh
-// (K1-int8), and of the W8A16 GEMM w8a16_gemm.cu (K5); K4's wgmma kernels
-// (train_wgmma_attention*.cuh) take smem_addr and pack_bf16: 16-byte
-// cp.async copies into padded shared rows, ldmatrix, mma.sync.aligned.m16n8k16 with bf16 operands and an fp32 accumulator,
-// the exact widening of int8 codes to bf16; and the steps of a 64-query x
-// 64-key online-softmax tile that K1, K3 and K1-int8 take alike (Q
-// fragments, S = Q K^T, the running max and the rescale, the normalising
-// epilogue).
+// Fragment and copy primitives of the mma.sync attention kernel of bf16
+// K1-int8 (quant_mma_attention.cuh) and of the W8A16 GEMM w8a16_gemm.cu
+// (K5); the wgmma kernels (K4's train_wgmma_attention*.cuh, bf16 K1's and
+// K3's wgmma_attention.cuh) take smem_addr, pack_bf16, softmax_max and
+// with_head_dim: 16-byte cp.async copies into padded shared rows, ldmatrix,
+// mma.sync.aligned.m16n8k16 with bf16 operands and an fp32 accumulator, the
+// exact widening of int8 codes to bf16; and the steps of K1-int8's 64-query
+// x 64-key online-softmax tile (Q fragments, S = Q K^T, the running max and
+// the rescale, the normalising epilogue).
 //
 // Fragment layout of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"),
 // for lane = 4 * gid + tig: the accumulator c[0..1] holds row gid, columns
@@ -100,7 +100,7 @@ __device__ __forceinline__ void cp_tile(__nv_bfloat16* dst, const __nv_bfloat16*
 }
 
 
-// The online-softmax tile of K1, K3 and K1-int8: a warp owns 16 query rows
+// The online-softmax tile of K1-int8: a warp owns 16 query rows
 // of a 64-query block, and a thread the two rows gid and gid + 8 of them
 // (kAttnNt n8 score tiles over a 64-key tile, D / 8 output tiles).
 constexpr int kAttnNt = 8;

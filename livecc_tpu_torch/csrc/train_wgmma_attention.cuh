@@ -188,27 +188,6 @@ __device__ int live_tiles(int* ids, int* list, int* scratch, const int* segb, in
   return scratch[kWarps];
 }
 
-template <int DP>
-__device__ __forceinline__ void wgmma_pv(float (&d)[DP / 2], const uint32_t (&a)[4], uint64_t b) {
-  if constexpr (DP == 128) wgmma_rs_n128_tb(d, a, b);
-  else wgmma_rs_n64_tb(d, a, b);
-}
-
-// d = A B^T over the head dim DP for 64 rows of A (at `a`) and 64 rows of B
-// (at `b`), both K-major in 64-column chunks of 128-byte rows that lie
-// AROWS * 128 and BROWS * 128 bytes apart (the rows of the tiles they are
-// part of), issued as DP / 16 k16 steps, each 32 bytes further along the
-// rows of a chunk: S = Q K^T here, S^T = K Q^T, dP^T = V dO^T, S and dP in
-// the backward (train_wgmma_attention_bwd.cuh)
-template <int DP, int AROWS, int BROWS>
-__device__ __forceinline__ void ss_scores(float (&d)[32], const unsigned char* a,
-                                          const unsigned char* b) {
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk)
-    wgmma_ss_n64(d, sw128_desc(a + (kk / 4) * AROWS * 128 + (kk % 4) * 32),
-                 sw128_desc(b + (kk / 4) * BROWS * 128 + (kk % 4) * 32), kk > 0);
-}
-
 // O += P V over a stage's KT keys: V's k16 step kk is 16 rows (2048 bytes)
 // further, its 64-column chunks KT * 128 bytes apart, its 8-row groups 1024;
 // each step takes p's kPTerms parts

@@ -114,8 +114,11 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
+    # bf16 K1 also takes (kv_maps, layer, workspace, nsplit) before the stream
     lib.livecc_flash_prefill.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
-                                         i32, i32, i32, i32, i32, i32, strides, f32, ptr]
+                                         i32, i32, i32, i32, i32, i32, strides, f32,
+                                         ptr, i32, ptr, i32, ptr]
+    lib.livecc_prefill_kv_map.argtypes = [ptr, i32, i32, i32, i32, i32, strides, ptr]
     # the decode entry points end in (workspace, nsplit, stream)
     lib.livecc_flash_decode.argtypes = [i32, ptr, ptr, ptr, ptr, ptr,
                                         i32, i32, i32, i32, i32, strides, f32, ptr, i32, ptr]
@@ -124,7 +127,7 @@ def load_library() -> ctypes.CDLL:
     lib.livecc_flash_decode_int8.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                              i32, i32, i32, i32, i32, strides, f32, ptr, i32, ptr]
     lib.livecc_vit_attention.argtypes = [i32, ptr, ptr, ptr, ptr, ptr,
-                                         i32, i32, i32, i32, strides, f32, ptr]
+                                         i32, i32, i32, i32, i32, strides, f32, ptr]
     # the training entry points end in (..., d, causal, strides, stream)
     lib.livecc_train_attention_fwd.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr,
                                                i32, i32, i32, i32, i32, i32, strides, ptr]
@@ -132,8 +135,9 @@ def load_library() -> ctypes.CDLL:
                                                ptr, i32, i32, i32, i32, i32, i32, strides, ptr]
     lib.livecc_w8a16_gemm.argtypes = [i32, i32, ptr, ctypes.c_longlong, ptr, ptr, ptr, ptr,
                                       i32, i32, i32, i32, i32, i32, ptr]
-    for fn in (lib.livecc_flash_prefill, lib.livecc_flash_decode, lib.livecc_flash_prefill_int8,
-               lib.livecc_flash_decode_int8, lib.livecc_vit_attention,
+    for fn in (lib.livecc_flash_prefill, lib.livecc_prefill_kv_map, lib.livecc_flash_decode,
+               lib.livecc_flash_prefill_int8, lib.livecc_flash_decode_int8,
+               lib.livecc_vit_attention,
                lib.livecc_train_attention_fwd, lib.livecc_train_attention_bwd,
                lib.livecc_w8a16_gemm):
         fn.restype = i32
@@ -194,11 +198,12 @@ def check_operands(name: str, *tensors: torch.Tensor) -> None:
 
 
 def check_bf16_rows(name: str, *tensors: torch.Tensor) -> None:
-    """What the bf16 tensor-core kernels (``csrc/mma_attention.cuh``: K1,
+    """What the bf16 tensor-core kernels (``csrc/wgmma_attention.cuh``: K1,
     K3; ``csrc/train_wgmma_attention.cuh`` and
-    ``train_wgmma_attention_bwd.cuh``: K4) take besides ``check_operands``: a head dim that is a multiple of
-    16, and rows whose 16-byte copies are aligned (base and every stride but
-    the head dim's a multiple of 16 bytes). No-op for other dtypes."""
+    ``train_wgmma_attention_bwd.cuh``: K4) take besides ``check_operands``: a
+    head dim that is a multiple of 16, and rows that TMA can read (base and
+    every stride but the head dim's a multiple of 16 bytes). No-op for other
+    dtypes."""
     if tensors[0].dtype != torch.bfloat16:
         return
     d = tensors[0].shape[-1]

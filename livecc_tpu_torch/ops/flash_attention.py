@@ -17,11 +17,16 @@ Each wrapper runs its CUDA kernel for CUDA tensors (``csrc/flash_prefill.cu``,
 ``csrc/flash_decode.cu``; with scales ``csrc/flash_prefill_int8.cu``,
 ``csrc/flash_decode_int8.cu``) and its plain PyTorch version for CPU
 tensors; any other device raises. bf16 K1 and bf16 K1-int8 run on the
-tensor cores (``csrc/mma_attention.cuh``, ``csrc/quant_mma_attention.cuh``:
+tensor cores (``csrc/wgmma_attention.cuh``, ``csrc/quant_mma_attention.cuh``:
 head dim a multiple of 16, 16-byte aligned rows, checked here), fp32 K1 and
 fp32 K1-int8 on the FMA pipes. The plain
 versions below reproduce the kernels' semantics, including a zero output
 for a row with no valid key.
+bf16 K1 packs the G query heads of a KV head into a tile's rows and splits
+a tile's keys across blocks (``prefill_plan``, ``prefill_span``); where a
+tile has more than one live split, the partials go to a workspace
+allocated here and a merge kernel combines them, from the same C call. Its
+K / V tensor maps are encoded once per cache (``_cache_maps``).
 The decode kernels split each row's keys into blocks of ``DECODE_SPLIT``
 and merge the partials in a second kernel; ``flash_decode_split_plain`` and
 ``flash_decode_merge_plain`` mirror those two steps for the tests.
@@ -36,6 +41,9 @@ of ``p``), normalisation after p·v.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -135,7 +143,10 @@ def _check_cuda_operands(name: str, q, k, v, k_scale, v_scale) -> None:
 # ---------------------------------------------------------------------------
 
 def flash_prefill_plain(q, k, v, offset, kv_limit, k_scale=None, v_scale=None) -> torch.Tensor:
-    """Plain version of K1 (int8 with scales) on a one-layer cache ``[B, Hk, Smax, D]``."""
+    """Plain version of K1 (int8 with scales) on a one-layer cache ``[B, Hk,
+    Smax, D]``. V's rows at or past a row's ``kv_limit`` are read as zeros,
+    as the kernels read them, so whatever the cache holds there (a NaN
+    never meets p = 0) leaves the output as it is."""
     b, _, sq, _ = q.shape
     smax = k.shape[2]
     _check_scales("flash_prefill", k, v, k_scale, v_scale)
@@ -144,9 +155,66 @@ def flash_prefill_plain(q, k, v, offset, kv_limit, k_scale=None, v_scale=None) -
     s = _scores(q, k, k_scale)
     qpos = offset[:, None] + torch.arange(sq, device=q.device)[None, :]     # [B, Sq]
     kpos = torch.arange(smax, device=q.device)
+    v = v.masked_fill((kpos[None, :] >= kv_limit[:, None])[:, None, :, None], 0)
     allowed = (kpos[None, None, :] <= qpos[:, :, None]) & (
         kpos[None, None, :] < kv_limit[:, None, None])                      # [B, Sq, Smax]
     return _masked_softmax_pv(s, allowed[:, None], v, q.dtype, v_scale)
+
+
+# bf16 K1's grid (csrc/wgmma_attention.cuh): query rows a block (kWgRows),
+# keys a tile (kWgKeys), the key splits a query tile at most, and the SMs
+# the split fills (the H100 SXM's 132; a fixed number, so the split and the
+# output's bits do not depend on the card)
+PREFILL_ROWS = 128
+PREFILL_KEYS = 64
+PREFILL_MAX_SPLIT = 16
+PREFILL_SMS = 132
+
+
+@functools.lru_cache(maxsize=256)
+def prefill_plan(batch: int, hq: int, hk: int, sq: int) -> tuple[int, int, int]:
+    """bf16 K1's grid from its shape alone: (queries a tile, query tiles,
+    key splits a tile). A tile packs the G = Hq / Hk query heads of one KV
+    head into its 128 rows, ``128 // G`` whole queries (18 at G = 7); the
+    keys of each tile are split across as many blocks as fill 132 SMs, at
+    most ``PREFILL_MAX_SPLIT``. Offsets and limits stay on the device:
+    ``prefill_span`` says how many of the splits a tile uses. The split
+    follows the shape, so the same row at the same depth may round apart
+    at another Sq or batch size."""
+    qt = PREFILL_ROWS // (hq // hk)
+    tiles = -(-sq // qt)
+    return qt, tiles, max(1, min(PREFILL_MAX_SPLIT, PREFILL_SMS // (tiles * hk * batch)))
+
+
+def prefill_span(kv_end: int, nsplit: int) -> tuple[int, int, int]:
+    """(key tiles, key tiles a split, live splits) of a query tile whose keys
+    end at ``kv_end`` = min(kv_limit, Smax, offset + the tile's last query
+    + 1): ``prefill_span`` of csrc/wgmma_attention.cuh. Split s walks the
+    key tiles [s * per, min(n, (s + 1) * per)); a tile with no valid key
+    has no live split, and its first block writes zeros."""
+    n = -(-kv_end // PREFILL_KEYS) if kv_end > 0 else 0
+    per = max(1, -(-n // nsplit))
+    return n, per, -(-n // per)
+
+
+@functools.lru_cache(maxsize=64)
+def _cache_maps(k_ptr: int, v_ptr: int, shape: tuple, k_stride: tuple,
+                v_stride: tuple) -> ctypes.Array:
+    """bf16 K1's tensor maps of a cache's K and V (two CUtensorMap, 256
+    bytes) over ``[L, B, Hk, Smax, D]`` (a one-layer cache as L = 1), the
+    layer a coordinate (``livecc_prefill_kv_map``): encoded once per
+    address, shape and strides, which are all a map holds."""
+    if len(shape) == 4:
+        shape, k_stride, v_stride = (1, *shape), (0, *k_stride), (0, *v_stride)
+    lib = build.load_library()
+    maps = ctypes.create_string_buffer(256)
+    for i, (ptr, stride) in enumerate(((k_ptr, k_stride), (v_ptr, v_stride))):
+        err = lib.livecc_prefill_kv_map(ptr, *shape, (ctypes.c_longlong * 4)(*stride[:4]),
+                                        ctypes.addressof(maps) + 128 * i)
+        if err != 0:
+            raise RuntimeError(f"flash_prefill: the driver refused a tensor map of the cache "
+                               f"{shape} strides {stride} (cudaError_t {err})")
+    return maps
 
 
 def flash_prefill(
@@ -160,6 +228,7 @@ def flash_prefill(
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Chunk queries appended at ``offset`` attend causally over the cache."""
+    cache_k, cache_v = k, v
     k, v = _layer(k, v, layer_index)
     if k_scale is not None:
         k_scale, v_scale = _layer(k_scale, v_scale, layer_index)
@@ -186,11 +255,21 @@ def flash_prefill(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if k_scale is None:
+            maps, layer, workspace, nsplit = None, 0, None, 1
+            if q.dtype == torch.bfloat16:
+                maps = _cache_maps(cache_k.data_ptr(), cache_v.data_ptr(), tuple(cache_k.shape),
+                                   cache_k.stride(), cache_v.stride())
+                layer = 0 if cache_k.ndim == 4 else int(layer_index)
+                _, tiles, nsplit = prefill_plan(b, hq, hk, sq)
+                if nsplit > 1:
+                    workspace = torch.empty(b * hk * tiles * nsplit * PREFILL_ROWS * (d + 2),
+                                            dtype=torch.float32, device=q.device)
             build.launch(
                 "flash_prefill", lib.livecc_flash_prefill,
                 build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), offset.data_ptr(), kv_limit.data_ptr(),
-                b, hq, hk, sq, smax, d, build.stride_array(*strides), d ** -0.5, stream,
+                b, hq, hk, sq, smax, d, build.stride_array(*strides), d ** -0.5, maps, layer,
+                None if workspace is None else workspace.data_ptr(), nsplit, stream,
             )
         else:
             build.launch(

@@ -11,8 +11,9 @@ one kernel (``csrc/vit_attention.cu``), which takes segment bounds:
     ``segment_bounds`` turns its segment ids into bounds.
 
 CUDA tensors go to the kernel, CPU tensors to the plain versions below; any
-other device raises. bf16 runs on the tensor cores (head dim a multiple of
-16, rows 16-byte aligned), fp32 on the FMA pipes. There is no ``MAX_GROUP``:
+other device raises. bf16 runs on Hopper's warpgroup products
+(``csrc/wgmma_attention.cuh``: head dim a multiple of 16, rows 16-byte
+aligned), fp32 on the FMA pipes. There is no ``MAX_GROUP``:
 the kernel streams key tiles. ``build.launch_counts["vit_group_attention"]``
 counts every K3 launch, of either form.
 
@@ -93,7 +94,7 @@ def _launch(q, k, v, out, cu: torch.Tensor, nseg: int, max_len: int) -> None:
         build.launch(
             "vit_group_attention", lib.livecc_vit_attention,
             build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), cu.data_ptr(), nseg, max_len, q.shape[1], d,
+            out.data_ptr(), cu.data_ptr(), nseg, max_len, q.shape[0], q.shape[1], d,
             build.stride_array((q, (0, 1)), (k, (0, 1)), (v, (0, 1)), (out, (0, 1))),
             d ** -0.5, build.current_stream(q.device),
         )

@@ -23,8 +23,11 @@ give; a check that passes them could not see a lost block:
     2 * split)`` of the longest row removed for one KV head's query heads;
   * ``drop_key_tile(...)`` (K1, K1-int8) and ``vit_drop_key_tile(...)`` (K3): the
     plain output with one 64-query tile of one head recomputed without one
-    64-key tile (``TILE``, the kernels' ``kMmaTileQ`` / ``kMmaTileK``,
-    ``kQuantTileQ`` / ``kQuantTileK``);
+    64-key tile (``TILE``: the key tile of every kernel, ``kWgKeys`` of
+    ``wgmma_attention.cuh``, ``kQuantTileK``; K1-int8's query tile
+    ``kQuantTileQ``); for bf16 K1, whose blocks split a tile's keys,
+    ``split_key_tile(...)`` picks a key tile of the last live split, so the
+    fault is one a lost split other than the first would make;
   * ``dropped_tile(...)`` (K4): the plain forward and backward outputs (o,
     lse, dq, dk, dv) without one 64 x 64 tile pair of one q head (``TILE``,
     ``kTrainBwdTile`` of ``train_wgmma_attention_bwd.cuh``, the backward's
@@ -88,11 +91,13 @@ import torch
 
 from livecc_tpu_torch.ops import build
 from livecc_tpu_torch.ops.attention import NEG_INF
-from livecc_tpu_torch.ops.flash_attention import _masked_softmax_pv, _scores
+from livecc_tpu_torch.ops.flash_attention import (_masked_softmax_pv, _scores, prefill_plan,
+                                                  prefill_span)
 
 TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-4, 1e-4)}
-TILE = 64       # queries and keys per tile: kMmaTileQ, kMmaTileK of csrc/mma_attention.cuh,
-                # kQuantTileQ, kQuantTileK of csrc/quant_mma_attention.cuh,
+TILE = 64       # keys per tile: kWgKeys of csrc/wgmma_attention.cuh (bf16 K1, K3);
+                # queries and keys per tile: kQuantTileQ, kQuantTileK of
+                # csrc/quant_mma_attention.cuh,
                 # kTrainBwdTile of csrc/train_wgmma_attention_bwd.cuh (K4's
                 # backward streams 64-row tiles past 128-row blocks, as its
                 # forward does)
@@ -214,6 +219,33 @@ def drop_key_tile(ref, q, k, v, offset, kv_limit, q_tile: int, k_tile: int, head
     out[row, head, rows] = _masked_softmax_pv(_scores(qs, ks, kss), allowed[None, None], vs,
                                               ref.dtype, vss)[0, 0]
     return out
+
+
+def prefill_blocks(b: int, hq: int, hk: int, sq: int, offsets, limits,
+                   smax: int) -> tuple[int, int]:
+    """bf16 K1's grid on these inputs (``ops/flash_attention.py``'s
+    ``prefill_plan`` and ``prefill_span``): (blocks launched, blocks that
+    walk keys); the rest exit at once. Where the plan splits (nsplit > 1),
+    a merge grid of (query tiles, Hk, B) follows."""
+    qt, tiles, nsplit = prefill_plan(b, hq, hk, sq)
+    walking = sum(max(prefill_span(min(min(lim, smax), off + min(sq, (t + 1) * qt)), nsplit)[2], 1)
+                  for off, lim in zip(offsets, limits) for t in range(tiles))
+    return tiles * hk * b * nsplit, walking * hk
+
+
+def split_key_tile(hq: int, hk: int, sq: int, offset: int, kv_limit: int, smax: int,
+                   q_tile: int, b: int = 1) -> tuple[int, int, int]:
+    """(key tile, its split, live splits): the first 64-key tile of the last
+    live split of bf16 K1's query tile that holds the last query of the
+    64-query tile ``q_tile`` (of a row at ``offset`` / ``kv_limit`` in a
+    batch of ``b``). Where that tile has two or more live splits,
+    ``drop_key_tile`` at this key tile is the fault of a split that is not
+    the first."""
+    qt, _, nsplit = prefill_plan(b, hq, hk, sq)
+    t = (min(sq, (q_tile + 1) * TILE) - 1) // qt
+    _, per, live = prefill_span(min(kv_limit, smax, offset + min(sq, (t + 1) * qt)), nsplit)
+    split = max(live - 1, 0)
+    return split * per, split, live
 
 
 def vit_drop_key_tile(ref, q, k, v, cu_seqlens, seg: int, q_tile: int, k_tile: int,

@@ -31,10 +31,12 @@ Each case's line carries ``sha256``, a digest of its outputs' bytes
 (``digest``): the inputs are drawn from seeded generators on the card, so
 two checkouts whose kernels give the same bits print the same digests.
 
-Arguments, if any, name the kinds to time (``decode``, ``vit``, ``prefill``,
-``prefill_int8``, ``train``, ``w8``: K5 at ``W8_SHAPES``, ``w8_large``: K5
-at its large form's shapes, ``W8_LARGE_SHAPES``); by default all but
-``w8_large``, which ``w8`` covers.
+Arguments, if any, name the kinds to time (``decode``, ``vit``,
+``vit_paths``: K3 at the eval, train_cli and produce paths' shapes,
+``prefill``, ``prefill_tp``: K1 at a TP rank's heads, ``prefill_int8``,
+``train``, ``w8``: K5 at ``W8_SHAPES``, ``w8_large``: K5 at its large
+form's shapes, ``W8_LARGE_SHAPES``); by default all but ``w8_large``, which
+``w8`` covers.
 
 It uses only the six wrappers' public signatures,
 ``models.qwen2_vl.text.quantize_kv`` and ``ops.quant.quantize_weight``.
@@ -171,6 +173,49 @@ def vit_cases():
                    for _ in range(3))
         yield (f"K3 NG={ng} g={g} H={VIT_HEADS} D={VIT_DIM} bf16",
                lambda q=q, k=k, v=v: vit_group_attention(q, k, v))
+
+
+# K3 at the other paths' shapes (NG, g, where): the 720p MCQ item (eval),
+# train_cli's 60 s and 120 s samples, lmm4asd's batch (produce)
+VIT_PATH_SHAPES = ((32, 2880, "MCQ item"), (60, 1196, "train_cli 60 s"),
+                   (120, 760, "train_cli 120 s"), (512, 264, "produce batch"))
+# K1 at a tensor-parallel rank's heads of the 7B (Hq, Hk: M = 2, 4), a
+# steady chunk and a verify window at offset 1500 (chip_smoke's kernels_tp)
+PREFILL_TP_HEADS = ((14, 2), (7, 1))
+
+
+def vit_path_cases():
+    """(label, call) of K3 at each of ``VIT_PATH_SHAPES``, bf16."""
+    from livecc_tpu_torch.ops.vit_attention import vit_group_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for ng, g, where in VIT_PATH_SHAPES:
+        q, k, v = (torch.randn((ng, g, VIT_HEADS, VIT_DIM), generator=gen, device=dev).bfloat16()
+                   for _ in range(3))
+        yield (f"K3 {where} NG={ng} g={g} H={VIT_HEADS} D={VIT_DIM} bf16",
+               lambda q=q, k=k, v=v: vit_group_attention(q, k, v))
+        del q, k, v
+
+
+def prefill_tp_cases():
+    """(label, call) of K1 at ``PREFILL_TP_HEADS``: Sq = 256 and 9 at offset
+    1500, kv_limit offset + Sq, B = 1, bf16, q strided."""
+    from livecc_tpu_torch.ops.flash_attention import flash_prefill
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for hq, hk in PREFILL_TP_HEADS:
+        k, v = (torch.randn((L, 1, hk, SMAX, D), generator=gen, device=dev).bfloat16()
+                for _ in range(2))
+        for sq in (256, WINDOW_SQ):
+            q = torch.randn((1, sq, hq, D), generator=gen, device=dev).bfloat16().transpose(1, 2)
+            off_t, lim_t = (torch.tensor([x], dtype=torch.int32, device=dev)
+                            for x in (1500, 1500 + sq))
+            yield (f"K1 TP rank Hq={hq} Hk={hk} Sq={sq} offset=1500 bf16",
+                   lambda q=q, o=off_t, lm=lim_t, k=k, v=v: flash_prefill(q, k, v, o, lm,
+                                                                          layer_index=LAYER))
+        del k, v
 
 
 def prefill_cases():
@@ -398,7 +443,8 @@ def main(argv: list[str]) -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout
     result = {"package": livecc_tpu_torch.__path__[0], "card": card.strip(),
               "torch": torch.__version__}
-    kinds = {"decode": decode_cases, "vit": vit_cases, "prefill": prefill_cases,
+    kinds = {"decode": decode_cases, "vit": vit_cases, "vit_paths": vit_path_cases,
+             "prefill": prefill_cases, "prefill_tp": prefill_tp_cases,
              "prefill_int8": prefill_int8_cases, "train": train_cases, "w8": w8_cases,
              "w8_large": lambda: w8_cases(W8_LARGE_SHAPES)}
     unknown = set(argv) - set(kinds)

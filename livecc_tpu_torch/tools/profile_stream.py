@@ -57,7 +57,12 @@ def _group(name: str) -> str:
         return "K5 w8a16_gemm"
     if "quant_mma_attention_kernel" in name:                     # bf16 K1-int8
         return "K1-int8 flash_prefill_int8"
-    m = re.search(r"mma_attention_kernel<(true|false)", name)     # bf16 K1 / K3
+    m = re.search(r"wgmma_attention_kernel<\d+, *(?:true|false), *(true|false)>", name)
+    if m:                                                         # bf16 K1 / K3 (wgmma)
+        return "K1 flash_prefill" if m.group(1) == "true" else "K3 vit_group_attention"
+    if "prefill_merge_kernel" in name:                            # bf16 K1's split merge
+        return "K1 flash_prefill"
+    m = re.search(r"mma_attention_kernel<(true|false)", name)     # bf16 K1 / K3, older checkouts
     if m:
         return "K1 flash_prefill" if m.group(1) == "true" else "K3 vit_group_attention"
     m = re.search(r"(tile_attention_kernel|decode_kernel|decode_split_kernel|decode_merge_kernel)"

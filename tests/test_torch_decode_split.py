@@ -157,7 +157,16 @@ def test_close_and_drop_split_edges():
      "K1-int8 flash_prefill_int8"),
     ("void livecc::(anonymous namespace)::tile_attention_kernel<__nv_bfloat16, true, true>(...)",
      "K1-int8 flash_prefill_int8"),
-    # the tensor-core K1 and K3 (bf16), and the FMA kernel's fp32 instances
+    # the tensor-core K1 (and its split merge) and K3 (bf16: wgmma, and the
+    # mma.sync kernel of older checkouts), and the FMA kernel's fp32 instances
+    ("void livecc::(anonymous namespace)::wgmma_attention_kernel<128, false, true>"
+     "(livecc::WgMaps, livecc::WgAttnParams)", "K1 flash_prefill"),
+    ("void livecc::(anonymous namespace)::prefill_merge_kernel<128>(livecc::WgAttnParams)",
+     "K1 flash_prefill"),
+    ("void livecc::(anonymous namespace)::wgmma_attention_kernel<80, true, false>"
+     "(livecc::WgMaps, livecc::WgAttnParams)", "K3 vit_group_attention"),
+    ("void livecc::(anonymous namespace)::wgmma_attention_kernel<80, false, false>"
+     "(livecc::WgMaps, livecc::WgAttnParams)", "K3 vit_group_attention"),
     ("void livecc::(anonymous namespace)::mma_attention_kernel<true, 128>(livecc::MmaParams)",
      "K1 flash_prefill"),
     ("void livecc::(anonymous namespace)::mma_attention_kernel<false, 80>(livecc::MmaParams)",

@@ -168,6 +168,35 @@ def test_flash_prefill(cuda, dtype, b, hq, hk, d, sq, offsets, limits):
     assert torch.equal(out, flash_prefill(q, k5, v5, off, lim, layer_index=2))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,offsets,limits", [
+    (9, (1500, 37, 0), (1509, 46, 0)),      # verify windows: 16 splits, limits mid-tile, no key
+    (256, (690, 0), (946, 200)),            # a chunk; a limit below the chunk's last query
+])
+def test_flash_prefill_ignores_the_cache_past_kv_limit(cuda, dtype, sq, offsets, limits):
+    """Every K and V row at or past a row's limit holds NaN or Inf: the
+    kernel's output is finite and within ``kernel_check.close`` (fp32: the
+    fp32 limit) of the plain version on the same cache, which reads V there
+    as zeros; the 7B's G = 7 at B = 3 and 2."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    b, hq, hk, d, L, smax = len(offsets), 28, 4, 128, 2, 2048
+    k5, v5 = (randn(gen, (L, b, hk, smax, d), dtype, cuda) for _ in range(2))
+    q = randn(gen, (b, sq, hq, d), dtype, cuda).transpose(1, 2)
+    off = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    lim = torch.tensor(limits, dtype=torch.int32, device=cuda)
+    pos = torch.arange(smax, device=cuda)
+    past = (pos[None, :] >= lim[:, None])[None, :, None, :, None]          # [1, B, 1, Smax, 1]
+    k5 = k5.masked_fill(past, float("nan"))
+    v5 = torch.where(past, torch.where(pos[:, None] % 2 == 1, float("inf"), float("nan")).to(dtype),
+                     v5)
+    out = flash_prefill(q, k5, v5, off, lim, layer_index=1)
+    ref = flash_prefill_plain(q, k5[1], v5[1], off, lim)
+    assert bool(torch.isfinite(out.float()).all()) and bool(torch.isfinite(ref.float()).all())
+    if 0 in limits:
+        assert not out[limits.index(0)].any()
+    assert kernel_check.close(out, ref, dtype) <= 1.0
+
+
 def test_bf16_tile_kernels_reject_what_they_do_not_take(cuda):
     """bf16 K1 and K3 run on the tensor cores: a head dim that is not a
     multiple of 16, or rows that 16-byte copies cannot take, raise."""

@@ -9,10 +9,12 @@ call on two clips of different grids is held to JAX ``vision_forward``
 (group None, fp32, 1e-5).
 
 ``kernel_check.close`` must pass what the bf16 tensor-core kernels compute
-(an online softmax over 64-key tiles, p rounded to bf16 at the running max;
-``online_tiles`` below emulates it) and fail a dropped key tile
-(``kernel_check.drop_key_tile``, ``vit_drop_key_tile``) at the shapes the
-card is checked and timed at.
+(``csrc/wgmma_attention.cuh``: an online softmax over 64-key tiles, p
+rounded to bf16 at the running max; K1's packed rows, split keys and merge,
+K3's 128-row tiles and D = 80 tail, which ``tests/torch_wgmma_tiles.py``
+emulates) and fail a dropped key tile (``kernel_check.drop_key_tile`` in
+K1's last split, ``vit_drop_key_tile``) at the shapes the card is checked
+and timed at.
 """
 
 import re
@@ -31,7 +33,7 @@ from livecc_tpu.vision_io.patchify import device_patchify as jax_device_patchify
 
 from livecc_tpu_torch.core.config import tiny_config
 from livecc_tpu_torch.models import qwen2_vl as pm
-from livecc_tpu_torch.ops.flash_attention import flash_prefill_plain
+from livecc_tpu_torch.ops.flash_attention import PREFILL_KEYS, PREFILL_ROWS, flash_prefill_plain
 from livecc_tpu_torch.ops.rope import vision_rotary_cos_sin
 from livecc_tpu_torch.ops.vit_attention import (
     segment_bounds, vit_group_attention, vit_group_attention_plain, vit_segment_attention,
@@ -39,6 +41,7 @@ from livecc_tpu_torch.ops.vit_attention import (
 from livecc_tpu_torch.tools import kernel_check, kernel_timing
 from livecc_tpu_torch.vision_io.patchify import device_patchify, grid_for_frames
 from torch_threads import one_torch_thread  # noqa: F401 (autouse)
+from torch_wgmma_tiles import prefill_tiles, vit_tiles
 
 T = torch.from_numpy
 
@@ -138,47 +141,22 @@ def test_vision_tower_mixed_grids_matches_jax(shapes):
 # the tile checks: close passes the kernels' arithmetic, fails a dropped tile
 # ---------------------------------------------------------------------------
 
-def online_tiles(q, k, v, allowed):
-    """What the tensor-core kernels compute, in PyTorch: q ``[B, H, Sq, D]``
-    against k, v ``[B, H, Skv, D]`` (heads already matched) under the bool
-    mask ``[B, 1 or H, Sq, Skv]``, walking 64-key tiles with a running max;
-    p = exp(s - m_running) summed in fp32 and rounded to v's dtype for p·v;
-    normalised at the end, 0 for a row with no key."""
-    tile = kernel_check.TILE
-    s_all = torch.matmul(q.float(), k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
-    m = torch.full(s_all.shape[:-1] + (1,), float(torch.finfo(torch.float32).min))
-    l = torch.zeros_like(m)
-    acc = torch.zeros(q.shape[:-1] + (v.shape[-1],))
-    for k0 in range(0, k.shape[2], tile):
-        ok = allowed[..., k0:k0 + tile]
-        s = torch.where(ok, s_all[..., k0:k0 + tile], torch.full_like(s_all[..., :1], -3e38))
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.where(ok, torch.exp(s - m_new), torch.zeros(()))
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), v[:, :, k0:k0 + tile].float())
-        m = m_new
-    return (acc / torch.where(l > 0, l, torch.ones_like(l))).to(q.dtype)
-
-
 def prefill_case(sq, off, lim, seed):
     """K1 at one of the card's timed shapes (B = 1, Hq 28, Hk 4, D 128, a
     one-layer cache of 2048 > kv_limit), bf16, with the kernel's emulation,
-    the plain version and the planted fault."""
+    the plain version and the planted fault: one key tile of the last live
+    split of the last query tile's block dropped."""
     gen = torch.Generator().manual_seed(seed)
     hq, hk, d = 28, 4, 128
     q = torch.randn((1, hq, sq, d), generator=gen).bfloat16()
     k, v = (torch.randn((1, hk, 2048, d), generator=gen).bfloat16() for _ in range(2))
     off_t, lim_t = torch.tensor([off], dtype=torch.int32), torch.tensor([lim], dtype=torch.int32)
     ref = flash_prefill_plain(q, k, v, off_t, lim_t)
-    qpos = off + torch.arange(sq)[:, None]
-    kpos = torch.arange(2048)[None, :]
-    allowed = ((kpos <= qpos) & (kpos < lim))[None, None]
-    rep = [x.repeat_interleave(hq // hk, dim=1) for x in (k, v)]
     qt = (sq - 1) // 64
-    kt = min(lim, off + 64 * qt + 1) // 64 // 2
+    kt, split, live = kernel_check.split_key_tile(hq, hk, sq, off, lim, 2048, qt)
+    assert live == 1 or split >= 1
     fault = kernel_check.drop_key_tile(ref, q, k, v, off_t, lim_t, qt, kt, head=5)
-    return online_tiles(q, *rep, allowed), ref, fault
+    return prefill_tiles(q, k, v, [off], [lim]), ref, fault
 
 
 def vit_case(ng, g, seed):
@@ -187,10 +165,9 @@ def vit_case(ng, g, seed):
     q, k, v = (torch.randn((ng * g, 16, 80), generator=gen).bfloat16() for _ in range(3))
     cu = list(range(0, (ng + 1) * g, g))
     ref = vit_segment_attention_plain(q, k, v, cu)
-    bhsd = [x.view(ng, g, 16, 80).transpose(1, 2) for x in (q, k, v)]
-    out = online_tiles(*bhsd, torch.ones((1, 1, g, g), dtype=torch.bool))
-    fault = kernel_check.vit_drop_key_tile(ref, q, k, v, cu, ng - 1, (g - 1) // 64, g // 128, head=3)
-    return out.transpose(1, 2).reshape(ng * g, 16, 80), ref, fault
+    fault = kernel_check.vit_drop_key_tile(ref, q, k, v, cu, ng - 1, (g - 1) // 64, g // 128,
+                                           head=3)
+    return vit_tiles(q, k, v, cu), ref, fault
 
 
 @pytest.mark.parametrize("kind,shape", [("K1", s) for s in kernel_timing.PREFILL_SHAPES]
@@ -217,10 +194,12 @@ def test_drop_key_tile_edges():
 
 
 def test_tiles_are_the_kernels_constants():
-    """``kernel_check.TILE`` is the tensor-core kernels' query and key tile."""
+    """``kernel_check.TILE`` is bf16 K1's and K3's key tile, and the grid's
+    rows and keys (``ops/flash_attention.py``) are the header's."""
     import livecc_tpu_torch
 
-    header = Path(livecc_tpu_torch.__file__).parent / "csrc" / "mma_attention.cuh"
+    header = Path(livecc_tpu_torch.__file__).parent / "csrc" / "wgmma_attention.cuh"
     text = header.read_text()
-    for name in ("kMmaTileQ", "kMmaTileK"):
-        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [str(kernel_check.TILE)]
+    for name, want in (("kWgKeys", kernel_check.TILE), ("kWgKeys", PREFILL_KEYS),
+                       ("kWgRows", PREFILL_ROWS)):
+        assert re.findall(rf"constexpr int {name} = (\d+);", text) == [str(want)]
