@@ -24,7 +24,13 @@ Phases (any failure raises and the script exits non-zero):
                  also check that two launches are bit-equal. fp32 cases are
                  held to <= 1e-4 max abs. K3 also runs
                  mixed segment sizes through its bounds form, and K2 a query
-                 group of G * D = 4096 (two launches). K1 and K1-int8 are
+                 group of G * D = 4096 (two launches). K2 and K2-int8 are
+                 also captured in a CUDA graph at the pool's shape and
+                 replayed twice after new kv_limit values are written in
+                 place: each replay must give an eager launch's bits, stay
+                 within ``close`` of the plain version and leave the
+                 kernel's arrival counters at zero
+                 (``decode_replay``). K1 and K1-int8 are
                  also held, faulted and timed at a verify window of
                  speculative decoding (Sq = ``kernel_timing.WINDOW_SQ`` = 9;
                  K1 at offset 1500, K1-int8 at ``INT8_STEADY_OFFSETS``; their
@@ -413,6 +419,9 @@ MAIN_W8_KERNELS = MAIN_KERNELS + ("w8a16_gemm",)
 POOL_W8_KERNELS = POOL_KERNELS + ("w8a16_gemm",)
 MAIN_W8_SPEC_KERNELS = MAIN_SPEC_KERNELS + ("w8a16_gemm",)
 BF16_TOL = 2e-2     # the JAX package's own bf16 bound (tests/test_vit_attention.py:22)
+# kv_limit values written into a captured decode graph's buffer at the
+# pool's B = 8 (``decode_replay``): split edges, a row of none, the cache's end
+REPLAY_LIMITS = [2, 800, 8000, 4100, 0, 65, 513, 3000]
 # lookahead against plain decoding on the card: where a stream parts, the
 # lookahead's token within TIE_ULPS bf16 steps of the plain run's best logit,
 # among its TOP_K (``near_ties``)
@@ -528,13 +537,17 @@ def phase_device():
 # bf16 K1's and K3's kernels (csrc/wgmma_attention.cuh): the build fails
 # where ptxas spills in one or serializes its wgmma's (C7515 / C7518)
 WGMMA_KERNELS = re.compile(r"wgmma_attention_kernel|prefill_merge_kernel")
+# K2 / K2-int8's kernel (csrc/decode_attention.cuh): the build fails where
+# ptxas spills in one of its instances
+DECODE_KERNELS = re.compile(r"decode_ring_kernel")
 
 
 def ptxas_report(text: str) -> tuple[list[str], list[str]]:
     """(lines to log, faults) of a build log: each kernel's name, registers,
     spills and any "Performance Loss" line; a fault where a kernel of
-    ``WGMMA_KERNELS`` spills or has its wgmma's serialized (C7515 / C7518;
-    a warning is the entry function's being compiled)."""
+    ``WGMMA_KERNELS`` or ``DECODE_KERNELS`` spills, or one of
+    ``WGMMA_KERNELS`` has its wgmma's serialized (C7515 / C7518; a warning
+    is the entry function's being compiled)."""
     lines, faults, entry, name = [], [], "", ""
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -546,7 +559,8 @@ def ptxas_report(text: str) -> tuple[list[str], list[str]]:
         elif "Used" in line or "spill" in line or "Performance Loss" in line:
             lines.append(f"  ptxas: {line.strip()}")
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            if spills and WGMMA_KERNELS.search(name) and spills.groups() != ("0", "0"):
+            if (spills and (WGMMA_KERNELS.search(name) or DECODE_KERNELS.search(name))
+                    and spills.groups() != ("0", "0")):
                 faults.append(f"{name}: {line.strip()}")
             if ("Performance Loss" in line or re.search(r"C751[58]", line)) and (
                     WGMMA_KERNELS.search(line) or WGMMA_KERNELS.search(entry)):
@@ -565,8 +579,8 @@ def phase_build():
     for line in lines:
         log(line)
     if faults:
-        raise AssertionError("build: bf16 K1 / K3 spill or serialize their wgmma's:\n" +
-                             "\n".join(faults))
+        raise AssertionError("build: K2 / K2-int8 spill, or bf16 K1 / K3 spill or serialize "
+                             "their wgmma's:\n" + "\n".join(faults))
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -668,6 +682,48 @@ def phase_kernels() -> dict:
             if not torch.equal(out, flash_decode(*args[:4], None, *args[4:])):
                 raise AssertionError(f"{name} {label}: two launches differ")
             log(f"  {name:20s} {label:48s} two launches bit-equal")
+
+    def decode_replay(label, q, k, v, lim_t, kw, one):
+        """K2, or K2-int8 where ``kw`` holds the scales, captured in a CUDA
+        graph on layer ``li`` of the stacked cache ``k`` / ``v`` (after an
+        eager launch, as the decode graphs do); new kv_limit values are
+        written in place (``REPLAY_LIMITS``, then ``lim_t``'s), each
+        followed by two replays, which must give an eager launch's bits,
+        stay within ``close`` of the plain version on ``one`` (q's layer:
+        k, v and the scales or None) and leave the arrival counters zero."""
+        from livecc_tpu_torch.ops import flash_attention
+
+        name = "flash_decode_int8" if kw else "flash_decode"
+        lim = lim_t.clone()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            flash_decode(q, k, v, lim, layer_index=li, **kw)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = flash_decode(q, k, v, lim, layer_index=li, **kw)
+        worst = 0.0
+        for limits in (REPLAY_LIMITS, lim_t.tolist()):
+            lim.copy_(torch.tensor(limits, dtype=torch.int32))
+            replays = []
+            for _ in range(2):
+                graph.replay()
+                replays.append(out.clone())
+            eager = flash_decode(q, k, v, lim, layer_index=li, **kw)
+            torch.cuda.synchronize()
+            if not all(torch.equal(r, eager) for r in replays):
+                raise AssertionError(f"{name} {label}: a graph replay at {limits} differs from "
+                                     f"an eager launch")
+            worst = max(worst, kernel_check.close(
+                eager, flash_decode_plain(q, *one[:2], lim, *one[2:]), bf16))
+            if flash_attention._arrival_counters(dev, 1).any():
+                raise AssertionError(f"{name} {label}: the arrival counters are not zero")
+        if not worst <= 1.0:
+            raise AssertionError(f"{name} {label}: a replay {worst:.3f}x the limit")
+        log(f"  {name:20s} {label:48s} graph replays (limits written in place, twice each) "
+            f"bit-equal to eager launches, worst {worst:.3f} of the limit, counters zero")
+        del graph, out
 
     def times(name, label, kernel_fn, plain_fn):
         """The timed case's kernel and plain-version times (``cuda_ms``)."""
@@ -938,6 +994,19 @@ def phase_kernels() -> dict:
     label = f"B=8 kv_limit={lim_d.tolist()} bf16"
     check_decode(label, (q, *layer[:2], lim_d, *layer[2:]),
                  flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8), True)
+    decode_replay(label, q, k8, v8, lim_d, dict(k_scale=ks8, v_scale=vs8), layer)
+    # p * v_scale kept fp32 (three bf16 parts): the fp32 plain version's roundings
+    ref32 = flash_decode_plain(q.float(), *layer[:2], lim_d, *layer[2:])
+    flips = kernel_check.rounding_flips(
+        flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8), ref32)
+    one_part = kernel_check.rounding_flips(kernel_check.one_part_pv(
+        q, *layer[:2], lim_d - 1, lim_d, *layer[2:]).to(bf16), ref32)
+    log(f"  {'flash_decode_int8':20s} {label:48s} {flips:.2e} of the outputs round off the fp32 "
+        f"plain version's bf16 (limit {kernel_check.FLIP_LIMIT:g}); one bf16 part: {one_part:.3f}")
+    if not flips <= kernel_check.FLIP_LIMIT < one_part:
+        raise AssertionError(f"flash_decode_int8 {label}: rounding flips {flips}, one part "
+                             f"{one_part}, limit {kernel_check.FLIP_LIMIT}")
+    del ref32
     fns = (lambda: flash_decode(q, k8, v8, lim_d, layer_index=li, k_scale=ks8, v_scale=vs8),
            lambda: flash_decode_plain(q, *layer[:2], lim_d, *layer[2:]))
     times("flash_decode_int8", label, *fns)
@@ -950,6 +1019,8 @@ def phase_kernels() -> dict:
     k5, v5 = (randn((L, b, hk, smax, d), bf16) for _ in range(2))
     check_decode(f"B=8 kv_limit={lim_d.tolist()} bf16", (q, k5[li], v5[li], lim_d, None, None),
                  flash_decode(q, k5, v5, lim_d, layer_index=li), True)
+    decode_replay(f"B=8 kv_limit={lim_d.tolist()} bf16", q, k5, v5, lim_d, {},
+                  (k5[li], v5[li], None, None))
     valid = (torch.arange(smax, device=dev)[None, :] < lim_d[:, None])[:, None, None]
     fns = (lambda: flash_decode(q, k5, v5, lim_d, layer_index=li),
            lambda: flash_decode_plain(q, k5[li], v5[li], lim_d),

@@ -1,10 +1,14 @@
 // Hopper's asynchronous primitives (PTX ISA 8.0, sm_90a), shared by the
 // warp-specialised kernels: K5's large form (w8a16_gemm.cu), K4's forward
 // and backward (train_wgmma_attention.cuh, train_wgmma_attention_bwd.cuh)
-// and bf16 K1 and K3 (wgmma_attention.cuh).
+// bf16 K1 and K3 (wgmma_attention.cuh), and K2 / K2-int8's decode ring
+// (decode_attention.cuh).
 //
 //   * mbarriers: init, arrive (here or on a cluster peer), expect_tx, wait
 //     on a phase's parity; the cluster barrier and rank; named barriers;
+//   * 1-D bulk copies that complete on an mbarrier, and the arrival on an
+//     mbarrier once a thread's cp.async copies have landed (the decode
+//     ring's producer);
 //   * TMA: tile loads of 2, 4 and 5 dimensions into shared memory (and one
 //     multicast to the blocks of a cluster) that complete on an mbarrier,
 //     and the host's tensor maps (cuTensorMapEncodeTiled, reached once
@@ -93,6 +97,20 @@ template <int N> __device__ __forceinline__ void regs_dec() {
 }
 template <int N> __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, as one 1-D bulk copy completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+               "[%0], [%1], %2, [%3];\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar)) : "memory");
+}
+// an arrival on `bar` once this thread's earlier cp.async copies have
+// landed (.noinc: the barrier's initial count includes it)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+               :: "r"(smem_addr(bar)) : "memory");
 }
 
 // TMA loads of the box at coordinates (c0 innermost, ...) into `dst`,

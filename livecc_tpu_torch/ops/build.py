@@ -119,13 +119,16 @@ def load_library() -> ctypes.CDLL:
                                          i32, i32, i32, i32, i32, i32, strides, f32,
                                          ptr, i32, ptr, i32, ptr]
     lib.livecc_prefill_kv_map.argtypes = [ptr, i32, i32, i32, i32, i32, strides, ptr]
-    # the decode entry points end in (workspace, nsplit, stream)
+    # the decode entry points end in (workspace, counters, nsplit, kv_maps, layer, stream)
     lib.livecc_flash_decode.argtypes = [i32, ptr, ptr, ptr, ptr, ptr,
-                                        i32, i32, i32, i32, i32, strides, f32, ptr, i32, ptr]
+                                        i32, i32, i32, i32, i32, strides, f32, ptr, ptr, i32,
+                                        ptr, i32, ptr]
+    lib.livecc_decode_kv_map.argtypes = [ptr, i32, i32, i32, i32, i32, strides, i32, ptr]
     lib.livecc_flash_prefill_int8.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                                               i32, i32, i32, i32, i32, i32, strides, f32, ptr]
     lib.livecc_flash_decode_int8.argtypes = [i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-                                             i32, i32, i32, i32, i32, strides, f32, ptr, i32, ptr]
+                                             i32, i32, i32, i32, i32, strides, f32, ptr, ptr,
+                                             i32, ptr, i32, ptr]
     lib.livecc_vit_attention.argtypes = [i32, ptr, ptr, ptr, ptr, ptr,
                                          i32, i32, i32, i32, i32, strides, f32, ptr]
     # the training entry points end in (..., d, causal, strides, stream)
@@ -136,6 +139,7 @@ def load_library() -> ctypes.CDLL:
     lib.livecc_w8a16_gemm.argtypes = [i32, i32, ptr, ctypes.c_longlong, ptr, ptr, ptr, ptr,
                                       i32, i32, i32, i32, i32, i32, ptr]
     for fn in (lib.livecc_flash_prefill, lib.livecc_prefill_kv_map, lib.livecc_flash_decode,
+               lib.livecc_decode_kv_map,
                lib.livecc_flash_prefill_int8, lib.livecc_flash_decode_int8,
                lib.livecc_vit_attention,
                lib.livecc_train_attention_fwd, lib.livecc_train_attention_bwd,

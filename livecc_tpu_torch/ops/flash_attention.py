@@ -27,9 +27,10 @@ a tile's keys across blocks (``prefill_plan``, ``prefill_span``); where a
 tile has more than one live split, the partials go to a workspace
 allocated here and a merge kernel combines them, from the same C call. Its
 K / V tensor maps are encoded once per cache (``_cache_maps``).
-The decode kernels split each row's keys into blocks of ``DECODE_SPLIT``
-and merge the partials in a second kernel; ``flash_decode_split_plain`` and
-``flash_decode_merge_plain`` mirror those two steps for the tests.
+The decode kernel splits each row's keys into blocks of ``DECODE_SPLIT``,
+and the last block of a row to finish merges the row's partials, in split
+order, in the same launch (``_arrival_counters``); ``flash_decode_split_plain``
+and ``flash_decode_merge_plain`` mirror those two steps for the tests.
 The output is ``[B, Hq, Sq, D]``; on the GPU it is a transposed view of a
 ``[B, Sq, Hq, D]`` buffer, so the caller's swap back is free.
 
@@ -288,14 +289,27 @@ def flash_prefill(
 # K2: decode
 # ---------------------------------------------------------------------------
 
+def _past_limit_zeroed(v, v_scale, valid):
+    """V ``[B, Hk, Smax, D]`` and an int8 cache's v_scale ``[B, Hk, 1, Smax]``
+    with the positions past each row's limit (``valid`` [B, Smax] false)
+    read as zeros, as the decode kernel never reads them: whatever the cache
+    holds there (a NaN never meets p = 0) leaves the output as it is."""
+    v = v.masked_fill(~valid[:, None, :, None], 0)
+    if v_scale is not None:
+        v_scale = v_scale.masked_fill(~valid[:, None, None, :], 0)
+    return v, v_scale
+
+
 def flash_decode_plain(q, k, v, kv_limit, k_scale=None, v_scale=None) -> torch.Tensor:
-    """Plain version of K2 (int8 with scales) on a one-layer cache ``[B, Hk, Smax, D]``."""
+    """Plain version of K2 (int8 with scales) on a one-layer cache ``[B, Hk,
+    Smax, D]``; V (and v_scale) past a row's ``kv_limit`` read as zeros."""
     b = q.shape[0]
     smax = k.shape[2]
     _check_scales("flash_decode", k, v, k_scale, v_scale)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
     s = _scores(q, k, k_scale)                                               # [B, Hq, 1, Smax]
     allowed = torch.arange(smax, device=q.device)[None, :] < kv_limit[:, None]   # [B, Smax]
+    v, v_scale = _past_limit_zeroed(v, v_scale, allowed)
     return _masked_softmax_pv(s, allowed[:, None, None, :], v, q.dtype, v_scale)
 
 
@@ -304,14 +318,17 @@ def flash_decode_split_plain(q, k, v, kv_limit, split: int, k_scale=None, v_scal
     split of ``split`` keys, ``m`` (max score) and ``l`` (sum of p) ``[B, Hq,
     nsplit]`` and ``acc`` (p·v) ``[B, Hq, nsplit, D]``, fp32, with p = exp(s -
     m) within the split, ``l`` taken before any rounding or value scale, p
-    rounded to v's dtype for p·v (an int8 cache: scaled per key, fp32). A
-    split with no valid key: m = -inf, l = 0, acc = 0. Tests only: the CPU
-    route of ``flash_decode`` is ``flash_decode_plain``."""
+    rounded to v's dtype for p·v (an int8 cache: scaled per key, fp32); V
+    and v_scale past a row's limit read as zeros. A split with no valid key:
+    m = -inf, l = 0, acc = 0. Tests only: the CPU route of ``flash_decode``
+    is ``flash_decode_plain``."""
     b, hq = q.shape[:2]
     hk, smax, d = k.shape[1:]
     g = hq // hk
     _check_scales("flash_decode", k, v, k_scale, v_scale)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
+    v, v_scale = _past_limit_zeroed(
+        v, v_scale, torch.arange(smax, device=q.device)[None, :] < kv_limit[:, None])
     nsplit = -(-smax // split)
     pad = nsplit * split - smax
     s = torch.matmul(q.float().reshape(b, hk, g, d), k.float().transpose(-1, -2)) * d ** -0.5
@@ -349,9 +366,9 @@ def flash_decode_merge_plain(m, l, acc, out_dtype) -> torch.Tensor:
     return o[:, :, None].to(out_dtype)
 
 
-# keys per split block of the K2 / K2-int8 kernels: ``kDecSplit`` of
+# keys per split block of the K2 / K2-int8 kernel: ``kDecSplit`` of
 # csrc/decode_attention.cuh, which refuses a workspace sized for another split
-DECODE_SPLIT = 64
+DECODE_SPLIT = 256
 # query heads x head dim one decode block takes: ``kDecMaxOut`` of the same header
 DECODE_MAX_GD = 2048
 
@@ -390,13 +407,15 @@ def flash_decode(
     v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One query token per row over the cache; q heads grouped per KV head.
-    On the GPU the split kernel writes its partials into a workspace
-    allocated here, on the caller's stream, and the merge kernel writes the
-    output; both launch from one C call. A group wider than one decode block
+    On the GPU one kernel launch on the caller's stream: its split blocks
+    write their partials into a workspace allocated here, and the last of a
+    row's split blocks merges them into the output (``_arrival_counters``).
+    A group wider than one decode block
     (G·D > 2048, e.g. Hq = 32 over one KV head at D = 128) runs as
     ``decode_subgroups``: one such call per sub-group, each counted as a
     launch, with the sub-group's q copied to a contiguous buffer and its
     output copied back into place."""
+    cache_k, cache_v = k, v
     k, v = _layer(k, v, layer_index)
     if k_scale is not None:
         k_scale, v_scale = _layer(k_scale, v_scale, layer_index)
@@ -414,20 +433,91 @@ def flash_decode(
     _check_scales("flash_decode", k, v, k_scale, v_scale)
     _check_cuda_operands("flash_decode", q, k, v, k_scale, v_scale)
     kv_limit = build.row_scalars(kv_limit, b, q.device)
+    maps, layer = None, 0
+    if _decode_tma(q, cache_k, cache_v, k_scale, v_scale):
+        maps = _decode_maps(cache_k.data_ptr(), cache_v.data_ptr(), tuple(cache_k.shape),
+                            cache_k.stride(), cache_v.stride(), cache_k.element_size())
+        layer = 0 if cache_k.ndim == 4 else int(layer_index)
     groups = decode_subgroups(hq // hk, d)
     if len(groups) == 1:
-        return _decode_launch(q, k, v, kv_limit, k_scale, v_scale)
-    return by_subgroups(q, hk, groups,
-                        lambda qs: _decode_launch(qs, k, v, kv_limit, k_scale, v_scale))
+        return _decode_launch(q, k, v, kv_limit, k_scale, v_scale, maps, layer)
+    return by_subgroups(q, hk, groups, lambda qs: _decode_launch(qs, k, v, kv_limit, k_scale,
+                                                                 v_scale, maps, layer))
 
 
-def _decode_launch(q, k, v, kv_limit, k_scale, v_scale) -> torch.Tensor:
-    """One launch of the decode kernels (G·D <= 2048) into a new output."""
+# the decode kernel's arrival counters, one int32 per (row, KV head), by
+# device: every buffer ever made (a captured graph keeps the address it saw)
+_COUNTERS: dict[torch.device, list[torch.Tensor]] = {}
+_COUNTERS_MIN = 4096
+
+
+def _arrival_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's decode arrival counters, at least ``n``: made zeroed on
+    the current stream at the first launch that needs them, before the
+    launch (the decode graphs run an eager step before they capture, so
+    the buffer exists by then), and left zero by every launch. A larger
+    batch makes a larger buffer; the old one is kept, since a captured
+    graph may still use it."""
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    kept = _COUNTERS.setdefault(device, [])
+    if not kept or kept[-1].numel() < n:
+        kept.append(torch.zeros(max(n, _COUNTERS_MIN, 2 * kept[-1].numel() if kept else 0),
+                                dtype=torch.int32, device=device))
+    return kept[-1]
+
+
+def _aligned16(t: torch.Tensor) -> bool:
+    """Base and the byte stride of every dim of more than one entry but the
+    last a multiple of 16 (what TMA and 16-byte copies need)."""
+    return t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0
+                                          for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1)
+
+
+def _decode_tma(q, cache_k, cache_v, k_scale, v_scale) -> bool:
+    """Whether the decode kernel's ring is filled by TMA: bf16 q over a bf16
+    cache of D = 64 or 128, or an int8 cache of D = 128 (one or two
+    128-byte boxes a row), 16-byte aligned rows and, for int8, scale rows
+    (Smax a multiple of 8); else it takes cp.async pieces."""
+    row_bytes = cache_k.shape[-1] * cache_k.element_size()
+    ok = (q.dtype == torch.bfloat16 and row_bytes in (128, 256) and cache_k.stride(-1) == 1
+          and cache_v.stride(-1) == 1 and _aligned16(cache_k) and _aligned16(cache_v))
+    if ok and k_scale is not None:
+        ok = cache_k.shape[-2] % 8 == 0 and _aligned16(k_scale) and _aligned16(v_scale)
+    return ok
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_maps(k_ptr: int, v_ptr: int, shape: tuple, k_stride: tuple, v_stride: tuple,
+                 elem_bytes: int) -> ctypes.Array:
+    """The decode kernel's tensor maps of a cache's K and V (two CUtensorMap,
+    256 bytes) over ``[L, B, Hk, Smax, D]`` (a one-layer cache as L = 1),
+    the layer a coordinate (``livecc_decode_kv_map``): encoded once per
+    address, shape and strides, all a map holds. A CUDA graph captured
+    around the kernel keeps them by value (ROADMAP hazards)."""
+    if len(shape) == 4:
+        shape, k_stride, v_stride = (1, *shape), (0, *k_stride), (0, *v_stride)
+    lib = build.load_library()
+    maps = ctypes.create_string_buffer(256)
+    for i, (ptr, stride) in enumerate(((k_ptr, k_stride), (v_ptr, v_stride))):
+        stride = [0 if n == 1 else s for s, n in zip(stride[:4], shape[:4])]
+        err = lib.livecc_decode_kv_map(ptr, *shape, (ctypes.c_longlong * 4)(*stride),
+                                       elem_bytes, ctypes.addressof(maps) + 128 * i)
+        if err != 0:
+            raise RuntimeError(f"flash_decode: the driver refused a tensor map of the cache "
+                               f"{shape} strides {stride} (cudaError_t {err})")
+    return maps
+
+
+def _decode_launch(q, k, v, kv_limit, k_scale, v_scale, maps, layer) -> torch.Tensor:
+    """One launch of the decode kernel (G·D <= 2048) into a new output; with
+    ``maps`` (``_decode_maps``) its ring is filled by TMA from ``layer``."""
     b, hq, _, d = q.shape
     hk, smax = k.shape[1], k.shape[2]
     out = torch.empty((b, 1, hq, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     nsplit = -(-smax // DECODE_SPLIT)
     workspace = torch.empty((2 + d) * b * hq * nsplit, dtype=torch.float32, device=q.device)
+    counters = _arrival_counters(q.device, b * hk)
     lib = build.load_library()
     strides = [(q, (0, 1)), (k, (0, 1, 2)), (v, (0, 1, 2)), (out, (0, 1))]
     with build.on_device(q.device):
@@ -437,7 +527,8 @@ def _decode_launch(q, k, v, kv_limit, k_scale, v_scale) -> torch.Tensor:
                 "flash_decode", lib.livecc_flash_decode,
                 build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 out.data_ptr(), kv_limit.data_ptr(), b, hq, hk, smax, d,
-                build.stride_array(*strides), d ** -0.5, workspace.data_ptr(), nsplit, stream,
+                build.stride_array(*strides), d ** -0.5, workspace.data_ptr(),
+                counters.data_ptr(), nsplit, maps, layer, stream,
             )
         else:
             build.launch(
@@ -446,6 +537,7 @@ def _decode_launch(q, k, v, kv_limit, k_scale, v_scale) -> torch.Tensor:
                 k_scale.data_ptr(), v_scale.data_ptr(),
                 out.data_ptr(), kv_limit.data_ptr(), b, hq, hk, smax, d,
                 build.stride_array(*strides, (k_scale, (0, 1)), (v_scale, (0, 1))),
-                d ** -0.5, workspace.data_ptr(), nsplit, stream,
+                d ** -0.5, workspace.data_ptr(), counters.data_ptr(), nsplit, maps, layer,
+                stream,
             )
     return out

@@ -31,7 +31,8 @@ Each case's line carries ``sha256``, a digest of its outputs' bytes
 (``digest``): the inputs are drawn from seeded generators on the card, so
 two checkouts whose kernels give the same bits print the same digests.
 
-Arguments, if any, name the kinds to time (``decode``, ``vit``,
+Arguments, if any, name the kinds to time (``decode``, ``decode_tp``: K2
+and K2-int8 at a TP rank's heads, ``vit``,
 ``vit_paths``: K3 at the eval, train_cli and produce paths' shapes,
 ``prefill``, ``prefill_tp``: K1 at a TP rank's heads, ``prefill_int8``,
 ``train``, ``w8``: K5 at ``W8_SHAPES``, ``w8_large``: K5 at its large
@@ -144,6 +145,36 @@ def decode_cases():
     ks, vs = (s.transpose(-1, -2).contiguous() for s in (ks, vs))
     yield f"K2-int8 B=8 kv_limit={POOL_LIMITS} int8 cache", lambda: flash_decode(
         q, k, v, lim, layer_index=LAYER, k_scale=ks, v_scale=vs)
+
+
+def decode_tp_cases():
+    """(label, call) of K2 at B = 1 (kv 777) and B = 8, and K2-int8 at B = 8
+    (``POOL_LIMITS``), at each of ``PREFILL_TP_HEADS``: one tensor-parallel
+    rank's heads of the 7B (chip_smoke's kernels_tp)."""
+    from livecc_tpu_torch.models.qwen2_vl.text import quantize_kv
+    from livecc_tpu_torch.ops.flash_attention import flash_decode
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
+    for hq, hk in PREFILL_TP_HEADS:
+        for lims in ([777], POOL_LIMITS):
+            b = len(lims)
+            k, v = (randn((L, b, hk, SMAX, D)) for _ in range(2))
+            q = randn((b, 1, hq, D)).transpose(1, 2)
+            lim = torch.tensor(lims, dtype=torch.int32, device=dev)
+            yield (f"K2 TP rank Hq={hq} Hk={hk} B={b} kv_limit={lims} bf16",
+                   lambda q=q, k=k, v=v, lim=lim: flash_decode(q, k, v, lim, layer_index=LAYER))
+            del k, v
+        (k, ks), (v, vs) = (quantize_kv(randn((L, 8, hk, SMAX, D))) for _ in range(2))
+        ks, vs = (s.transpose(-1, -2).contiguous() for s in (ks, vs))
+        yield (f"K2-int8 TP rank Hq={hq} Hk={hk} B=8 kv_limit={POOL_LIMITS} int8 cache",
+               lambda q=q, k=k, v=v, ks=ks, vs=vs, lim=lim: flash_decode(
+                   q, k, v, lim, layer_index=LAYER, k_scale=ks, v_scale=vs))
+        del k, v, ks, vs
 
 
 # chip_smoke.py's timed K3 shapes (NG, g) at the 7B ViT's H = 16, D = 80: the
@@ -443,7 +474,8 @@ def main(argv: list[str]) -> int:
                           capture_output=True, text=True, timeout=60, check=True).stdout
     result = {"package": livecc_tpu_torch.__path__[0], "card": card.strip(),
               "torch": torch.__version__}
-    kinds = {"decode": decode_cases, "vit": vit_cases, "vit_paths": vit_path_cases,
+    kinds = {"decode": decode_cases, "decode_tp": decode_tp_cases, "vit": vit_cases,
+             "vit_paths": vit_path_cases,
              "prefill": prefill_cases, "prefill_tp": prefill_tp_cases,
              "prefill_int8": prefill_int8_cases, "train": train_cases, "w8": w8_cases,
              "w8_large": lambda: w8_cases(W8_LARGE_SHAPES)}

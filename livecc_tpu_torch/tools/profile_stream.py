@@ -65,11 +65,11 @@ def _group(name: str) -> str:
     m = re.search(r"mma_attention_kernel<(true|false)", name)     # bf16 K1 / K3, older checkouts
     if m:
         return "K1 flash_prefill" if m.group(1) == "true" else "K3 vit_group_attention"
-    m = re.search(r"(tile_attention_kernel|decode_kernel|decode_split_kernel|decode_merge_kernel)"
-                  r"<[^,>]+, *(true|false)(?:, *(true|false|\d+))?", name)
+    m = re.search(r"(tile_attention_kernel|decode_ring_kernel|decode_kernel|decode_split_kernel"
+                  r"|decode_merge_kernel)<[^,>]+, *(true|false)(?:, *(true|false|\d+))?", name)
     if m:
         kernel, flag, quant = m.groups()
-        if kernel != "tile_attention_kernel":       # K2's split and merge kernels
+        if kernel != "tile_attention_kernel":       # K2's kernel (split and merge in older checkouts)
             return "K2-int8 flash_decode_int8" if flag == "true" else "K2 flash_decode"
         if flag == "false":
             return "K3 vit_group_attention"

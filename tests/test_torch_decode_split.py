@@ -143,6 +143,14 @@ def test_close_and_drop_split_edges():
 
 
 @pytest.mark.parametrize("name,group", [
+    # the one-launch ring kernel: bf16 (bulk copies), int8 (cp.async of 8 bytes), fp32
+    ("void livecc::(anonymous namespace)::decode_ring_kernel<__nv_bfloat16, false, 0>"
+     "(livecc::(anonymous namespace)::DecodeParams)", "K2 flash_decode"),
+    ("void livecc::(anonymous namespace)::decode_ring_kernel<__nv_bfloat16, true, 8>"
+     "(livecc::(anonymous namespace)::DecodeParams)", "K2-int8 flash_decode_int8"),
+    ("void livecc::(anonymous namespace)::decode_ring_kernel<float, false, 16>(...)",
+     "K2 flash_decode"),
+    # the split and merge kernels of older checkouts
     ("void livecc::(anonymous namespace)::decode_split_kernel<__nv_bfloat16, false, 16>"
      "(livecc::(anonymous namespace)::DecodeParams)", "K2 flash_decode"),
     ("void livecc::(anonymous namespace)::decode_merge_kernel<float, true>"

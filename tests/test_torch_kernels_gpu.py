@@ -306,20 +306,111 @@ def test_flash_decode_wide_group(cuda, dtype, b, hq, hk, d, limits):
 
 def test_decode_entry_refuses_a_workspace_for_another_split(cuda):
     """The C entry point takes nsplit = ceil(Smax / kDecSplit) only, so a
-    wrapper that sized the workspace for another split raises."""
+    wrapper that sized the workspace for another split raises; it also
+    refuses to run without its arrival counters."""
     lib = build.load_library()
+    smax = 2 * DECODE_SPLIT
     q = torch.zeros(1, 4, 1, 16, device=cuda)
-    k = torch.zeros(1, 2, 256, 16, device=cuda)
+    k = torch.zeros(1, 2, smax, 16, device=cuda)
     out = torch.empty_like(q)
-    lim = torch.tensor([256], dtype=torch.int32, device=cuda)
+    lim = torch.tensor([smax], dtype=torch.int32, device=cuda)
+    counters = torch.zeros(2, dtype=torch.int32, device=cuda)
     strides = build.stride_array((q, (0, 1)), (k, (0, 1, 2)), (k, (0, 1, 2)), (out, (0, 1)))
-    for nsplit in (256 // DECODE_SPLIT, 256 // DECODE_SPLIT * 2):
+    for nsplit, cnt in ((2, counters), (4, counters), (2, None)):
         ws = torch.empty((2 + 16) * 4 * nsplit, device=cuda)
         err = lib.livecc_flash_decode(0, q.data_ptr(), k.data_ptr(), k.data_ptr(), out.data_ptr(),
-                                      lim.data_ptr(), 1, 4, 2, 256, 16, strides, 0.25,
-                                      ws.data_ptr(), nsplit, build.current_stream(cuda))
-        assert (err == 0) == (nsplit == 256 // DECODE_SPLIT), (nsplit, err)
+                                      lim.data_ptr(), 1, 4, 2, smax, 16, strides, 0.25,
+                                      ws.data_ptr(), None if cnt is None else cnt.data_ptr(),
+                                      nsplit, None, 0, build.current_stream(cuda))
+        assert (err == 0) == (nsplit == 2 and cnt is not None), (nsplit, err)
     torch.cuda.synchronize()
+    assert not counters.any()                   # the launch left its counters at zero
+
+
+def poisoned(x, limits, fill):
+    """A copy of cache ``x`` (K / V [B, Hk, S, D] or lane-major scales
+    [B, Hk, 1, S]) whose positions at or past each batch row's limit hold
+    ``fill``."""
+    y = x.clone()
+    for i, lim in enumerate(limits):
+        if x.shape[-2] == 1:
+            y[i, ..., max(lim, 0):] = fill
+        else:
+            y[i, :, max(lim, 0):] = fill
+    return y
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_ignores_nan_past_kv_limit(cuda, quant):
+    """NaN and Inf in the cache past each row's kv_limit, and past Smax in
+    the buffer the cache is a view of (Smax = 4000 leaves the last tile
+    64-key tile 32 rows short of it), leave the output bit for bit as it is:
+    the kernel reads no row past a limit, and masks what stale rows its last
+    tile holds."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    b, hq, hk, d, smax, rows = 6, 28, 4, 128, 4000, 4096
+    limits = [1, 777, smax, DECODE_SPLIT + 1, 0, 64]
+    lim = torch.tensor(limits, dtype=torch.int32, device=cuda)
+    q = randn(gen, (b, 1, hq, d), torch.bfloat16, cuda).transpose(1, 2)
+    if quant:
+        (k, ks), (v, vs) = (quantized_cache(gen, (b, hk, rows, d), cuda) for _ in range(2))
+        clean = (k, v, ks, vs)
+        bad = (poisoned(k, limits, 127), poisoned(v, limits, -128),
+               poisoned(ks, limits, float("nan")), poisoned(vs, limits, float("inf")))
+    else:
+        clean = tuple(randn(gen, (b, hk, rows, d), torch.bfloat16, cuda) for _ in range(2))
+        bad = (poisoned(clean[0], limits, float("nan")), poisoned(clean[1], limits, float("inf")))
+    view = lambda t: t[..., :smax] if t.shape[-2] == 1 else t[:, :, :smax]   # noqa: E731
+    clean, bad = tuple(map(view, clean)), tuple(map(view, bad))
+
+    def call(kv):
+        return flash_decode(q, kv[0], kv[1], lim, k_scale=kv[2] if quant else None,
+                            v_scale=kv[3] if quant else None)
+
+    out = call(clean)
+    assert torch.equal(out, call(bad))
+    assert_decode_close(out, flash_decode_plain(q, *clean[:2], lim, *clean[2:]), torch.bfloat16)
+    assert not out[limits.index(0)].any()
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_flash_decode_graph_replay_is_bit_equal(cuda, quant):
+    """``flash_decode`` captured in a CUDA graph at the pool's shape, with
+    new kv_limit values written in place before each pair of replays: both
+    replays give an eager launch's bits and stay within ``close`` of the
+    plain version, and the arrival counters are zero after each."""
+    from livecc_tpu_torch.ops import flash_attention
+
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    b, hq, hk, d, smax = 8, 28, 4, 128, 8192
+    q = randn(gen, (b, 1, hq, d), torch.bfloat16, cuda).transpose(1, 2)
+    if quant:
+        (k, ks), (v, vs) = (quantized_cache(gen, (b, hk, smax, d), cuda) for _ in range(2))
+        kw = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (randn(gen, (b, hk, smax, d), torch.bfloat16, cuda) for _ in range(2))
+        kw = {}
+    lim = torch.tensor(kernel_timing.POOL_LIMITS, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        flash_decode(q, k, v, lim, **kw)         # the eager step before the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = flash_decode(q, k, v, lim, **kw)
+    for limits in ([2, 800, 8000, 4100, 0, 65, 513, 3000], [8192] * 8, kernel_timing.POOL_LIMITS):
+        lim.copy_(torch.tensor(limits, dtype=torch.int32))
+        replays = []
+        for _ in range(2):
+            graph.replay()
+            replays.append(out.clone())
+        eager = flash_decode(q, k, v, lim, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(replays[0], eager) and torch.equal(replays[1], eager), limits
+        ref = flash_decode_plain(q, k, v, lim, kw.get("k_scale"), kw.get("v_scale"))
+        assert_decode_close(eager, ref, torch.bfloat16)
+        assert not flash_attention._arrival_counters(cuda, b * hk).any()
 
 
 def test_current_stream_is_the_public_handle(cuda):
@@ -445,7 +536,14 @@ def test_flash_decode_int8(cuda, dtype, b, hq, hk, d, limits):
     if 0 in limits:
         assert not out[limits.index(0)].any()
     if dtype == torch.bfloat16:       # and against the plain version in fp32
-        assert_close(out, flash_decode_plain(q.float(), k5[1], v5[1], lim, ks[1], vs[1]), dtype)
+        ref32 = flash_decode_plain(q.float(), k5[1], v5[1], lim, ks[1], vs[1])
+        assert_close(out, ref32, dtype)
+        # p * v_scale kept fp32 (three bf16 parts): the fp32 result's
+        # roundings, which p * v_scale as one bf16 part misses (decode's keys
+        # are a prefill query's at offset kv_limit - 1)
+        assert kernel_check.rounding_flips(out, ref32) <= kernel_check.FLIP_LIMIT
+        one_part = kernel_check.one_part_pv(q, k5[1], v5[1], lim - 1, lim, ks[1], vs[1])
+        assert kernel_check.rounding_flips(one_part.to(dtype), ref32) > kernel_check.FLIP_LIMIT
 
 
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(cuda):
